@@ -1,0 +1,213 @@
+"""UNet weights: from JAX parameters, and the exported checkpoint layout.
+
+A JAX checkpoint reaches the port through the JAX package's exporter,
+
+    python -m masked_diffusion_tpu.io.export_torch <checkpoint-epoch-N> <out>
+
+which writes checkpoint-epoch-N/{unet,unet_ema}/, each folder holding
+config.json and diffusion_pytorch_model.safetensors under diffusers
+UNet2DModel tensor names — the names of the port's UNet2D parameters.
+
+- state_dict_from_flax: a JAX UNet2D parameter tree (numpy leaves) -> the
+  port's state dict. The same mapping as export_torch.state_dict_from_params
+  (copied: that module sits behind io/__init__.py, which imports orbax):
+  HWIO conv kernel -> (O, I, kh, kw), (in, out) dense kernel -> (out, in),
+  norm scale/bias -> weight/bias.
+- read_safetensors / write_safetensors: the format by hand with numpy, so
+  that loading needs no safetensors package: an 8-byte little-endian header
+  length, a JSON header, then the raw little-endian tensor bytes.
+- load_checkpoint / save_checkpoint: the export layout.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import struct
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+WEIGHTS_NAME = "diffusion_pytorch_model.safetensors"
+
+_DTYPES = {
+    "F64": np.float64, "F32": np.float32, "F16": np.float16,
+    "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
+    "U8": np.uint8, "BOOL": np.bool_,
+}
+_CODES = {np.dtype(v): k for k, v in _DTYPES.items()}
+
+
+def state_dict_from_flax(params_np: Dict[str, Any], ucfg) -> Dict[str, torch.Tensor]:
+    """JAX UNet2D variables (numpy leaves; with or without the 'params' top
+    level) -> the port's UNet2D state dict. ucfg: a UNetConfig of either
+    package (block_out_channels, layers_per_block, attn_down, attn_up)."""
+    p = params_np["params"] if "params" in params_np else params_np
+    sd: Dict[str, np.ndarray] = {}
+
+    def arr(x):
+        a = np.asarray(x)
+        return a if a.dtype in (np.float16, np.float32, np.float64) else a.astype(np.float32)
+
+    def conv(name, leaf):
+        sd[f"{name}.weight"] = np.ascontiguousarray(arr(leaf["kernel"]).transpose(3, 2, 0, 1))
+        sd[f"{name}.bias"] = arr(leaf["bias"])
+
+    def dense(name, leaf):
+        sd[f"{name}.weight"] = np.ascontiguousarray(arr(leaf["kernel"]).T)
+        sd[f"{name}.bias"] = arr(leaf["bias"])
+
+    def norm(name, leaf):
+        sd[f"{name}.weight"] = arr(leaf["scale"])
+        sd[f"{name}.bias"] = arr(leaf["bias"])
+
+    def resnet(name, leaf):
+        norm(f"{name}.norm1", leaf["norm1"])
+        conv(f"{name}.conv1", leaf["conv1"])
+        dense(f"{name}.time_emb_proj", leaf["time_emb_proj"])
+        norm(f"{name}.norm2", leaf["norm2"])
+        conv(f"{name}.conv2", leaf["conv2"])
+        if "conv_shortcut" in leaf:
+            conv(f"{name}.conv_shortcut", leaf["conv_shortcut"])
+
+    def attn(name, leaf):
+        norm(f"{name}.group_norm", leaf["group_norm"])
+        for proj in ("to_q", "to_k", "to_v"):
+            dense(f"{name}.{proj}", leaf[proj])
+        dense(f"{name}.to_out.0", leaf["to_out"])
+
+    dense("time_embedding.linear_1", p["time_dense1"])
+    dense("time_embedding.linear_2", p["time_dense2"])
+    conv("conv_in", p["conv_in"])
+    n = len(ucfg.block_out_channels)
+    for i in range(n):
+        for j in range(ucfg.layers_per_block):
+            resnet(f"down_blocks.{i}.resnets.{j}", p[f"down_{i}_res_{j}"])
+            if ucfg.attn_down[i]:
+                attn(f"down_blocks.{i}.attentions.{j}", p[f"down_{i}_attn_{j}"])
+        if i != n - 1:
+            conv(f"down_blocks.{i}.downsamplers.0.conv", p[f"down_{i}_downsample"]["conv"])
+    resnet("mid_block.resnets.0", p["mid_res_1"])
+    attn("mid_block.attentions.0", p["mid_attn"])
+    resnet("mid_block.resnets.1", p["mid_res_2"])
+    for i in range(n):
+        for j in range(ucfg.layers_per_block + 1):
+            resnet(f"up_blocks.{i}.resnets.{j}", p[f"up_{i}_res_{j}"])
+            if ucfg.attn_up[i]:
+                attn(f"up_blocks.{i}.attentions.{j}", p[f"up_{i}_attn_{j}"])
+        if i != n - 1:
+            conv(f"up_blocks.{i}.upsamplers.0.conv", p[f"up_{i}_upsample"]["conv"])
+    norm("conv_norm_out", p["norm_out"])
+    conv("conv_out", p["conv_out"])
+    return {k: torch.from_numpy(v) for k, v in sd.items()}
+
+
+def diffusers_config_from_unet(ucfg) -> dict:
+    """The config.json UNet2DModel.save_pretrained writes for this topology
+    (as masked_diffusion_tpu/io/export_torch.py writes it)."""
+    return {
+        "_class_name": "UNet2DModel",
+        "sample_size": ucfg.sample_size,
+        "in_channels": ucfg.in_channels,
+        "out_channels": ucfg.out_channels,
+        "layers_per_block": ucfg.layers_per_block,
+        "block_out_channels": list(ucfg.block_out_channels),
+        "down_block_types": ["AttnDownBlock2D" if a else "DownBlock2D" for a in ucfg.attn_down],
+        "up_block_types": ["AttnUpBlock2D" if a else "UpBlock2D" for a in ucfg.attn_up],
+        "attention_head_dim": ucfg.attention_head_dim,
+        "norm_num_groups": ucfg.norm_groups,
+        "norm_eps": ucfg.norm_eps,
+        "flip_sin_to_cos": ucfg.flip_sin_to_cos,
+        "freq_shift": ucfg.freq_shift,
+    }
+
+
+# ------------------------------------------------------------------ safetensors
+
+
+def write_safetensors(path: str, tensors: Dict[str, Any]) -> None:
+    """Write numpy arrays or CPU tensors in the safetensors format."""
+    header: Dict[str, Any] = {}
+    blobs = []
+    offset = 0
+    for name in sorted(tensors):
+        t = tensors[name]
+        a = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+        a = np.ascontiguousarray(a)
+        if a.dtype not in _CODES:
+            raise TypeError(f"{name}: dtype {a.dtype} has no safetensors code here")
+        raw = a.astype(a.dtype.newbyteorder("<"), copy=False).tobytes()
+        header[name] = {"dtype": _CODES[a.dtype], "shape": list(a.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)  # the spec pads the header to 8 bytes
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+
+
+def read_safetensors(path: str) -> Dict[str, np.ndarray]:
+    """Read a safetensors file into numpy arrays. BF16 widens to float32
+    (value-exact)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    (n,) = struct.unpack("<Q", data[:8])
+    header = json.loads(data[8 : 8 + n])
+    body = memoryview(data)[8 + n :]
+    out: Dict[str, np.ndarray] = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        begin, end = info["data_offsets"]
+        shape = tuple(info["shape"])
+        if info["dtype"] == "BF16":
+            u16 = np.frombuffer(body[begin:end], dtype="<u2").astype(np.uint32)
+            out[name] = (u16 << 16).view(np.float32).reshape(shape)
+            continue
+        if info["dtype"] not in _DTYPES:
+            raise TypeError(f"{name}: unsupported safetensors dtype {info['dtype']}")
+        dt = np.dtype(_DTYPES[info["dtype"]]).newbyteorder("<")
+        a = np.frombuffer(body[begin:end], dtype=dt).reshape(shape)
+        out[name] = a.astype(a.dtype.newbyteorder("="))
+    return out
+
+
+# ------------------------------------------------------------------ checkpoints
+
+
+def save_checkpoint(dirname: str, unet_sd: Dict[str, Any], config: dict) -> str:
+    """Write the export layout's unet/ folder under dirname."""
+    folder = os.path.join(dirname, "unet")
+    os.makedirs(folder, exist_ok=True)
+    with open(os.path.join(folder, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    write_safetensors(os.path.join(folder, WEIGHTS_NAME), unet_sd)
+    return dirname
+
+
+def load_checkpoint(
+    dirname: str,
+) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, torch.Tensor]], dict]:
+    """Read the export layout. Returns (unet state dict, unet_ema state dict
+    or None, unet/config.json)."""
+
+    def folder(sub):
+        path = os.path.join(dirname, sub, WEIGHTS_NAME)
+        if not os.path.exists(path):
+            return None
+        return {k: torch.from_numpy(np.array(v)) for k, v in read_safetensors(path).items()}
+
+    unet = folder("unet")
+    if unet is None:
+        raise FileNotFoundError(
+            f"{dirname}: no unet/{WEIGHTS_NAME} (write one with "
+            "python -m masked_diffusion_tpu.io.export_torch)"
+        )
+    with open(os.path.join(dirname, "unet", "config.json")) as f:
+        config = json.load(f)
+    return unet, folder("unet_ema"), config

@@ -1,0 +1,110 @@
+"""Build and load the package's CUDA kernels.
+
+At first use, every csrc/*.cu compiles with nvcc into one shared library
+with a plain C interface, which ctypes loads. The library lands in
+build/kernels/ at the root of the checkout, named by a hash of the sources
+and the flags, so an edited source rebuilds and an unchanged one loads from
+the cache. No PyTorch header is included, so a build takes seconds.
+
+A failed build raises: nothing falls back to a plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
+KERNEL_DIR = os.path.join(BUILD_DIR, "kernels")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib = None
+build_log = ""  # nvcc's output of the build that produced the loaded library
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _sources():
+    srcs = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    return srcs
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(KERNEL_DIR, f"libmdt_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i32, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
+    fn = lib.mdt_fused_degrade
+    fn.argtypes = [
+        vp, vp, vp, vp, vp,      # xt, x0, amount_t, amount_next, bits (nullable)
+        u64, u64,                # philox seed, offset
+        vp, vp,                  # out, mask_next
+        i32, i32, i32,           # batch, channels, hw
+        i32, i32, ctypes.c_float, i32,  # select, mean_mode, mean_value, rule
+        vp,                      # cudaStream_t
+    ]
+    fn.restype = i32
+    lib.mdt_error_string.argtypes = [i32]
+    lib.mdt_error_string.restype = ctypes.c_char_p
+
+
+def load_library() -> ctypes.CDLL:
+    """Compile csrc/*.cu (once per source hash) and load the library."""
+    global _lib, build_log
+    with _lock:
+        if _lib is not None:
+            return _lib
+        path = library_path()
+        if not os.path.exists(path):
+            os.makedirs(KERNEL_DIR, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            build_log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}"
+                )
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(path)
+        _declare(lib)
+        _lib = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if code != 0:
+        msg = lib.mdt_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def triton_cache_env() -> None:
+    """Keep Triton's compile cache inside the checkout's build/ directory."""
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(BUILD_DIR, "triton"))
