@@ -19,6 +19,30 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
   5. serving through the CLI: a seeded random flagship checkpoint, two
      requests of 16 images at 64x64 in bf16, linear+thresholding (100
      steps) and log+indexing (200 steps); kernel launch counts checked
+  6. exact-k mask kernel vs its plain version, explicit bits (64x64 at
+     batch 64 with k = 0, HW-1, HW and tied top bits; 128x128 at batch 8):
+     masks bitwise equal; then its Philox path's exact counts and per-pixel
+     frequency, and its time
+  7. GroupNorm(+SiLU) as training runs it, at the training batch (64): the
+     forward with grad through the autograd Function and its backward
+     kernel vs the plain forward and autograd through the plain version, at
+     every (C, H, W) the flagship UNet normalises, fp32 and bf16, SiLU on
+     and off; forward and backward times beside F.group_norm + F.silu
+  8. train-step parity: the step with every kernel on CUDA vs the plain
+     versions on the CPU, same weights and draws, 3 AdamW steps, fp32 with
+     TF32 off, both schedule modes
+  9. the flagship train step (batch 64, bf16), both modes: one step through
+     the kernels vs one through their plain versions on the card (loss and
+     gradient), then throughput; kernel launches per step checked
+ 10. training through the CLI (--method mean_shift, log+indexing, 2 epochs),
+     then serving the checkpoint it wrote; kernel launch counts checked
+
+Phases 5 and 10, the main-path runs, come last, in one work directory. The
+kernels' `launches` are counted over those two runs, with every count set
+to 0 just before each. `bound_ms` is the least time
+the card could take for the same work: the larger of the bytes moved over
+3.35 TB/s and the operations over 67 TFLOP/s (fp32 outside the tensor
+cores; integer operations counted at the same rate), from each run's shapes.
 
 Its last two lines are one JSON object of kernel results and
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints neither.
@@ -42,6 +66,33 @@ FUSED_TOL = 1e-6  # kernel and plain differ only in the masked sums' order
 GN_TOL = {"float32": (1e-5, 1e-5),  # (atol, rtol): fp32 sums in another order
           "bfloat16": (8e-2, 2e-2)}  # plain rounds each op to bf16, the kernel once
 SLICE_TOL = 2e-3  # atol = rtol: cuDNN vs CPU conv sums over a 113.7M-param UNet, 10 steps
+# GroupNorm backward, (atol, rtol). dx: fp32 sums in another order; bf16 x
+# and g against the fp32 plain backward on the same (bf16-exact) values: one
+# rounding of dx to bf16 (2^-8 relative). dscale/dbias are fp32 sums over
+# B*H*W terms in either dtype; their atol grows with the term count.
+GN_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
+GN_BWD_SUM_TOL = (1e-6, 1e-4)  # (atol per summed term, rtol)
+TRAIN_LOSS_RTOL = 2e-3  # losses, CUDA kernels vs CPU plain, fp32 with TF32 off
+# parameter (and EMA) updates after 3 AdamW steps, relative L2 over the model:
+# Adam divides each coordinate by its own gradient scale, so cuDNN's and the
+# CPU's sums in another order move coordinates with near-zero gradients
+TRAIN_UPDATE_RTOL = 1e-2
+# one bf16 step at batch 64, kernels vs plain versions on the card, both under
+# autocast: the plain GroupNorm rounds each elementwise op to bf16, the kernel
+# once, so the two differ by bf16 rounding through 113.7M parameters. On an
+# H100 the two steps differ by 0.003 relative L2 in the clipped gradient and
+# 0.25 in the first AdamW update (the plain bf16 step differs from the plain
+# fp32 one by 0.005 and 0.25); a backward kernel with a term of dx dropped
+# gave 0.40 and 1.18, one with SiLU's derivative cut to g*sigmoid(y) 0.13 and
+# 0.99. The tolerances sit between.
+BF16_LOSS_RTOL = 1e-2
+BF16_GRAD_RTOL = 3e-2  # relative L2 over every parameter's clipped gradient
+BF16_UPDATE_RTOL = 0.5  # relative L2 over every parameter's first update
+TRAIN_STEPS_TIMED = 20
+KMASK_Z = 5.0  # per-pixel |z| bound over 4096 pixels: a 4-sigma bound fails by
+# chance at some pixel with probability ~0.25; 5 sigma keeps that under 0.3%
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 
 
 def log(msg: str) -> None:
@@ -84,6 +135,13 @@ def cuda_ms(fn, reps: int = 20, iters: int = 10):
     return device, _event_ms(fn, reps * iters)
 
 
+def bound(nbytes: float, ops: float):
+    """(least ms for the work, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_env():
     import torch
 
@@ -98,7 +156,7 @@ def phase_env():
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
     build.load_library()
-    log(f"[1] fused_degrade.cu built and loaded in {time.perf_counter() - t0:.2f} s "
+    log(f"[1] csrc/*.cu built and loaded in {time.perf_counter() - t0:.2f} s "
         f"-> {os.path.relpath(build.library_path(), ROOT)}")
     for line in build.build_log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -187,18 +245,25 @@ def phase_fused():
         times[select] = (k_dev, p_dev)
         log(f"[2] time {select} {b}x{SIZE}x{SIZE}x{c}: kernel {k_dev:.4f} ms device "
             f"({k_eager:.4f} eager), plain {p_dev:.4f} ms device ({p_eager:.4f} eager)")
-    return worst, times
+    # indexing with Philox bits: x_t, x0 read, out and the mask written, two
+    # amounts; two Philox draws (~120 operations each) and two 32-pass scans
+    # per pixel, ~6 operations per element for the means, fills and update
+    nbytes = 4 * (3 * b * c * hw + b * hw + 2 * b)
+    ops = b * hw * (2 * 120 + 2 * 32 * 2) + 6 * b * c * hw
+    bnd = bound(nbytes, ops)
+    log(f"[2] bound indexing {b}x{SIZE}x{SIZE}x{c}: {bnd[0]:.5f} ms by {bnd[1]} "
+        f"({nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} M operations)")
+    return worst, times, bnd
 
 
-def phase_groupnorm():
+def norm_shapes(batch: int):
+    """{((C, H, W), groups, silu): norms per forward} of the flagship UNet."""
     import torch
 
     from masked_diffusion_tpu_torch.models.factory import build_unet
     from masked_diffusion_tpu_torch.models.unet import GroupNormAct
-    from masked_diffusion_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
 
     dev = torch.device("cuda")
-    batch = 16  # the serving batch of phase 5
     model = build_unet().to(dev, torch.bfloat16).eval()
     calls = {}
 
@@ -216,17 +281,33 @@ def phase_groupnorm():
         f"{time.perf_counter() - t0:.2f} s; {sum(calls.values())} norms, {len(calls)} shapes")
     for h in hooks:
         h.remove()
-    del model
+    return calls
 
+
+def _gn_inputs(gen, batch, c, h, w):
+    import torch
+
+    dev = torch.device("cuda")
+    x = torch.randn((batch, c, h, w), generator=gen, device=dev) * 1.7 + 0.3
+    scale = torch.randn((c,), generator=gen, device=dev) * 0.1 + 1.0
+    bias = torch.randn((c,), generator=gen, device=dev) * 0.1
+    return x, scale, bias
+
+
+def phase_groupnorm(calls, batch: int):
+    import torch
+    import torch.nn.functional as F
+
+    from masked_diffusion_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
+
+    dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    k_total = p_total = 0.0
+    k_total = p_total = lib_total = bnd_total = 0.0
     with torch.inference_mode():
         for (chw, groups, silu), count in sorted(calls.items()):
             c, h, w = chw
-            x = torch.randn((batch, c, h, w), generator=gen, device=dev) * 1.7 + 0.3
-            scale = torch.randn((c,), generator=gen, device=dev) * 0.1 + 1.0
-            bias = torch.randn((c,), generator=gen, device=dev) * 0.1
+            x, scale, bias = _gn_inputs(gen, batch, c, h, w)
             line = []
             for dtype in (torch.float32, torch.bfloat16):
                 xd, sd, bd = x.to(dtype), scale.to(dtype), bias.to(dtype)
@@ -240,20 +321,239 @@ def phase_groupnorm():
                         f"group_norm_silu {name} {(batch, c, h, w)} G={groups} silu={silu}: "
                         f"max err {diff.max().item()} beyond atol {atol} rtol {rtol}")
                 worst[name] = max(worst[name], diff.max().item())
+
+                def library():
+                    y = F.group_norm(xd, groups, sd, bd, 1e-5)
+                    return F.silu(y) if silu else y
+
                 kms, keager = cuda_ms(lambda: group_norm_silu(xd, sd, bd, groups, 1e-5, silu))
                 pms, peager = cuda_ms(
                     lambda: group_norm_silu_plain(xd, sd, bd, groups, 1e-5, silu))
+                lms, _ = cuda_ms(library)
                 line.append(f"{name} kernel {kms:.4f} ({keager:.4f} eager) "
-                            f"plain {pms:.4f} ({peager:.4f} eager) ms")
+                            f"plain {pms:.4f} ({peager:.4f} eager) library {lms:.4f} ms")
                 if dtype == torch.bfloat16:
+                    n = batch * c * h * w
                     k_total += count * kms
                     p_total += count * pms
+                    lib_total += count * lms
+                    # x read, y written (bf16), scale, bias; ~12 operations per element
+                    bnd_total += count * bound(2 * 2 * n + 4 * 2 * c, 12 * n)[0]
             log(f"[3] GN {batch}x{c}x{h}x{w} G={groups} silu={int(silu)} (x{count} per forward): "
                 + "; ".join(line))
     log(f"[3] group_norm_silu: all shapes within tolerance; max err fp32 {worst['float32']:.3g}, "
         f"bf16 {worst['bfloat16']:.3g}; device time per bf16 forward at batch {batch}: "
-        f"kernel {k_total:.4f} ms, plain {p_total:.4f} ms")
-    return worst["float32"], k_total, p_total
+        f"kernel {k_total:.4f} ms, plain {p_total:.4f} ms, F.group_norm+F.silu "
+        f"{lib_total:.4f} ms, bound {bnd_total:.5f} ms (bytes)")
+    return worst["float32"], k_total, p_total, lib_total, (bnd_total, "bytes")
+
+
+def phase_kmask():
+    import numpy as np
+    import torch
+
+    from masked_diffusion_tpu_torch.ops.kmask import exact_count_masks, exact_count_masks_plain
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(6)
+    worst = 0.0
+    for b, size in ((B_KERNEL, SIZE), (8, 128)):
+        hw = size * size
+        bits_np = rng.integers(0, 2**32, size=(b, hw), dtype=np.uint64).astype(np.int64)
+        bits_np[2:6] &= 0xE0000000  # 8 values of top bits: heavy ties
+        counts_np = rng.integers(0, hw + 1, size=(b,)).astype(np.int32)
+        counts_np[:4] = (0, hw, hw - 1, 1)
+        bits = torch.from_numpy(bits_np).to(dev)
+        counts = torch.from_numpy(counts_np).to(dev)
+        mask = exact_count_masks(b, size, size, counts, bits=bits)
+        ref = exact_count_masks_plain(bits, counts).reshape(b, 1, size, size)
+        torch.cuda.synchronize()
+        worst = max(worst, (mask - ref).abs().max().item())
+        if not torch.equal(mask, ref):
+            raise AssertionError(f"kmask {b}x{size}x{size}: masks differ from the plain version")
+        zeros = (1.0 - mask).reshape(b, hw).sum(1).long().cpu().numpy()
+        if not np.array_equal(zeros, counts_np):
+            raise AssertionError(f"kmask {b}x{size}x{size}: zero counts != counts")
+    log(f"[6] kmask: explicit bits at {B_KERNEL}x{SIZE}x{SIZE} and 8x128x128 "
+        f"(k = 0, 1, HW-1, HW, random; tied top bits): masks bitwise equal "
+        f"(max |mask - plain| {worst}), exact counts")
+
+    # Philox path: exact k, determinism, and per-pixel frequency
+    b, hw = B_KERNEL, SIZE * SIZE
+    counts = torch.from_numpy(rng.integers(0, hw + 1, size=(b,)).astype(np.int32)).to(dev)
+    m1 = exact_count_masks(b, SIZE, SIZE, counts, generator=torch.Generator().manual_seed(3))
+    m2 = exact_count_masks(b, SIZE, SIZE, counts, generator=torch.Generator().manual_seed(3))
+    m3 = exact_count_masks(b, SIZE, SIZE, counts, generator=torch.Generator().manual_seed(4))
+    if not torch.equal((1.0 - m1).reshape(b, hw).sum(1).long(), counts.long()):
+        raise AssertionError("kmask Philox: zero counts != counts")
+    if not torch.equal(m1, m2) or torch.equal(m1, m3):
+        raise AssertionError("kmask Philox: not deterministic per seed")
+    k = hw // 4
+    quarter = torch.full((b,), k, dtype=torch.int32, device=dev)
+    gen = torch.Generator().manual_seed(5)
+    draws = 8
+    freq = sum((1.0 - exact_count_masks(b, SIZE, SIZE, quarter, generator=gen)).sum(0)
+               for _ in range(draws)).reshape(hw) / (b * draws)
+    p = k / hw
+    z = (freq - p) / (p * (1 - p) / (b * draws)) ** 0.5
+    zmax, zsq = z.abs().max().item(), z.square().mean().item()
+    if zmax > KMASK_Z or not 0.9 <= zsq <= 1.1:
+        raise AssertionError(f"kmask Philox: per-pixel frequency max |z| {zmax}, mean z^2 {zsq}")
+    log(f"[6] Philox: exact k in all {b} images, deterministic per seed; degraded "
+        f"frequency at k = HW/4 over {b} images x {draws} draws: max |z| {zmax:.3f} "
+        f"(bound {KMASK_Z}) over {hw} pixels, mean z^2 {zsq:.4f} (1 expected)")
+
+    kgen = torch.Generator().manual_seed(7)
+    kms, keager = cuda_ms(lambda: exact_count_masks(b, SIZE, SIZE, counts, generator=kgen))
+
+    def plain():
+        bb = torch.randint(0, 2**32, (b, hw), device=dev, dtype=torch.int64)
+        exact_count_masks_plain(bb, counts)
+
+    pms, peager = cuda_ms(plain)
+    # mask written, counts read; per pixel one Philox draw (~120 operations),
+    # 32 passes of a compare and an add, the key and the store (~8)
+    bnd = bound(4 * b * hw + 4 * b, b * hw * (120 + 32 * 2 + 8))
+    log(f"[6] time {b}x{SIZE}x{SIZE}: kernel {kms:.4f} ms device ({keager:.4f} eager), "
+        f"plain {pms:.4f} ms device ({peager:.4f} eager), bound {bnd[0]:.5f} ms by {bnd[1]}")
+    return worst, kms, pms, bnd
+
+
+def phase_groupnorm_train(calls, batch: int):
+    """GroupNorm(+SiLU) as a train step runs it, at the training batch: the
+    forward with grad through the autograd Function (forward kernel, fp32
+    statistics saved), then its backward kernel, against the plain forward
+    and autograd through the plain version. Returns the backward's (max
+    fp32 |dx| err, kernel ms, plain ms, library ms, bound) and the bf16
+    forward's (kernel ms, plain ms, library ms, bound) per train step."""
+    import torch
+    import torch.nn.functional as F
+
+    from masked_diffusion_tpu_torch.ops.groupnorm import (
+        group_norm_silu,
+        group_norm_silu_backward,
+        group_norm_silu_forward,
+        group_norm_silu_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    bwd = dict(kernel=0.0, plain=0.0, library=0.0, bound=0.0)
+    fwd_t = dict(kernel=0.0, plain=0.0, library=0.0, bound=0.0)
+    shapes = sorted({(chw, groups) for chw, groups, _ in calls})
+    for chw, groups in shapes:
+        c, h, w = chw
+        x, scale, bias = _gn_inputs(gen, batch, c, h, w)
+        g = torch.randn(x.shape, generator=gen, device=dev)
+        line = []
+        for silu in (True, False):
+            count = calls.get((chw, groups, silu), 0)
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype).split(".")[1]
+                xd, gd = x.to(dtype), g.to(dtype)
+                # the training path: fp32 scale and bias (parameters under
+                # autocast), x and the incoming gradient in the step's dtype
+                xg = xd.detach().requires_grad_(True)
+                sg = scale.detach().requires_grad_(True)
+                bg = bias.detach().requires_grad_(True)
+                launched = group_norm_silu.launches, group_norm_silu_backward.launches
+                y = group_norm_silu(xg, sg, bg, groups, 1e-5, silu)
+                dx, ds, db = torch.autograd.grad(y, (xg, sg, bg), gd)
+                launched = (group_norm_silu.launches - launched[0],
+                            group_norm_silu_backward.launches - launched[1])
+                if launched != (1, 1):
+                    raise AssertionError(f"group_norm_silu with grad launched (forward, "
+                                         f"backward) {launched} kernels, expected (1, 1)")
+                with torch.no_grad():
+                    ref_y = group_norm_silu_plain(xd, scale, bias, groups, 1e-5, silu)
+                fa, fr = GN_TOL[name]
+                fdiff = (y.detach().float() - ref_y.float()).abs()
+                if y.dtype != dtype or not bool((fdiff <= fa + fr * ref_y.float().abs()).all()):
+                    raise AssertionError(
+                        f"group_norm_silu forward with grad {name} {(batch, c, h, w)} "
+                        f"G={groups} silu={silu}: max err {fdiff.max().item()} beyond "
+                        f"atol {fa} rtol {fr}")
+                # the plain backward in fp32 on the same values
+                xr = xd.float().requires_grad_(True)
+                sr = scale.clone().requires_grad_(True)
+                br = bias.clone().requires_grad_(True)
+                yr = group_norm_silu_plain(xr, sr, br, groups, 1e-5, silu)
+                rx, rs, rb = torch.autograd.grad(yr, (xr, sr, br), gd.float())
+                atol, rtol = GN_BWD_TOL[name]
+                sum_atol = GN_BWD_SUM_TOL[0] * batch * h * w
+                errs = []
+                for what, got, ref, a, r in (("dx", dx, rx, atol, rtol),
+                                             ("dscale", ds, rs, sum_atol, GN_BWD_SUM_TOL[1]),
+                                             ("dbias", db, rb, sum_atol, GN_BWD_SUM_TOL[1])):
+                    diff = (got.float() - ref).abs()
+                    if not bool((diff <= a + r * ref.abs()).all()):
+                        raise AssertionError(
+                            f"group_norm_silu backward {name} {what} {(batch, c, h, w)} "
+                            f"G={groups} silu={silu}: max err {diff.max().item()} beyond "
+                            f"atol {a} rtol {r}")
+                    errs.append(diff.max().item())
+                if dx.dtype != dtype:
+                    raise AssertionError(f"dx dtype {dx.dtype} != {dtype}")
+                worst[name] = max(worst[name], errs[0])
+                if count == 0 or dtype != torch.bfloat16:
+                    continue
+                _, mean, rstd = group_norm_silu_forward(xd, scale, bias, groups, 1e-5, silu)
+
+                def kernel():
+                    group_norm_silu_backward(xd, scale, bias, gd, mean, rstd, groups, silu)
+
+                def fwd_bwd(fn):
+                    xg = xd.detach().requires_grad_(True)
+                    sg = scale.detach().requires_grad_(True)
+                    bg = bias.detach().requires_grad_(True)
+                    torch.autograd.grad(fn(xg, sg, bg), (xg, sg, bg), gd)
+
+                def fwd(fn):
+                    with torch.no_grad():
+                        fn(xd, scale, bias)
+
+                def plain_fn(xx, ss, bb):
+                    return group_norm_silu_plain(xx, ss, bb, groups, 1e-5, silu)
+
+                def lib_fn(xx, ss, bb):
+                    y = F.group_norm(xx, groups, ss.to(xx.dtype), bb.to(xx.dtype), 1e-5)
+                    return F.silu(y) if silu else y
+
+                kms, _ = cuda_ms(kernel)
+                kfwd, _ = cuda_ms(lambda: group_norm_silu_forward(xd, scale, bias, groups,
+                                                                  1e-5, silu))
+                pfwd = cuda_ms(lambda: fwd(plain_fn))[0]
+                lfwd = cuda_ms(lambda: fwd(lib_fn))[0]
+                pms = cuda_ms(lambda: fwd_bwd(plain_fn))[0] - pfwd
+                lms = cuda_ms(lambda: fwd_bwd(lib_fn))[0] - lfwd
+                n = batch * c * h * w
+                for acc, k, p, lib in ((bwd, kms, pms, lms), (fwd_t, kfwd, pfwd, lfwd)):
+                    acc["kernel"] += count * k
+                    acc["plain"] += count * p
+                    acc["library"] += count * lib
+                # backward: x and g read, dx written (bf16), fp32 partials; ~40
+                # operations per element over the two passes. forward: x read,
+                # y written (bf16), fp32 scale, bias and statistics; ~12
+                bwd["bound"] += count * bound(3 * 2 * n + 2 * 4 * batch * c, 40 * n)[0]
+                fwd_t["bound"] += count * bound(2 * 2 * n + 2 * 4 * c + 2 * 4 * batch * groups,
+                                                12 * n)[0]
+                line.append(f"silu={int(silu)} x{count}: backward kernel {kms:.4f} plain "
+                            f"{pms:.4f} library {lms:.4f} ms, forward kernel {kfwd:.4f} plain "
+                            f"{pfwd:.4f} library {lfwd:.4f} ms")
+        log(f"[7] GN train {batch}x{c}x{h}x{w} G={groups}: forward with grad and backward "
+            f"within tolerance" + ("; bf16 " + "; ".join(line) if line else ""))
+    log(f"[7] group_norm_silu with grad at batch {batch}: all shapes within tolerance, one "
+        f"forward and one backward launch each; max |dx| err fp32 {worst['float32']:.3g}, "
+        f"bf16 {worst['bfloat16']:.3g}")
+    for what, acc in (("backward", bwd), ("forward", fwd_t)):
+        log(f"[7] device time per bf16 train step, GN {what} at batch {batch}: kernel "
+            f"{acc['kernel']:.4f} ms, plain {acc['plain']:.4f} ms, F.group_norm+F.silu "
+            f"{acc['library']:.4f} ms, bound {acc['bound']:.5f} ms (bytes)"
+            + (" (backward = forward+backward minus forward)" if what == "backward" else ""))
+    return ((worst["float32"], bwd["kernel"], bwd["plain"], bwd["library"],
+             (bwd["bound"], "bytes")),
+            (fwd_t["kernel"], fwd_t["plain"], fwd_t["library"], (fwd_t["bound"], "bytes")))
 
 
 def _flagship_weights(seed: int):
@@ -304,7 +604,8 @@ def phase_slice():
             for _ in used
         ]
         cuda_draws = [StepDraws(bits=d.bits.cuda(), uniform=d.uniform.cuda()) for d in cpu_draws]
-        latent = latent_initial(torch.Generator().manual_seed(3), batch, 3, SIZE, "uniform")
+        latent = latent_initial(torch.Generator().manual_seed(3), batch, 3, SIZE, "uniform",
+                                device="cpu")
         outs = {}
         for dev, draws in (("cuda", cuda_draws), ("cpu", cpu_draws)):
             model = build_unet()
@@ -340,14 +641,12 @@ def phase_serve(workdir: str):
 
     from masked_diffusion_tpu_torch.cli.main_train_masked import main
     from masked_diffusion_tpu_torch.io.weights import diffusers_config_from_unet, save_checkpoint
-    from masked_diffusion_tpu_torch.ops.fused_degrade import fused_degrade_update
-    from masked_diffusion_tpu_torch.ops.groupnorm import group_norm_silu
 
     model = _flagship_weights(4)
     ckpt = save_checkpoint(os.path.join(workdir, "checkpoint-epoch-0"),
                            model.state_dict(), diffusers_config_from_unet(model.config))
     del model
-    launches = {"fused_degrade_update": 0, "group_norm_silu": 0}
+    launches = {}
     runs = []
     for sched, select, steps in (("linear", "thresholding", 100), ("log", "indexing", 200)):
         argv = [
@@ -362,11 +661,11 @@ def phase_serve(workdir: str):
             "--dir_work", os.path.join(workdir, sched), "--device", "cuda",
         ]
         buf = io.StringIO()
-        fused_degrade_update.launches = 0
-        group_norm_silu.launches = 0
+        reset_counts()
         with contextlib.redirect_stdout(buf):
             rc = main(argv)
-        n_fused, n_gn = fused_degrade_update.launches, group_norm_silu.launches
+        counts = read_counts()
+        n_fused, n_gn = counts["fused_degrade_update"], counts["group_norm_silu"]
         sys.stdout.write(buf.getvalue())
         stats = json.loads(
             next(ln for ln in buf.getvalue().splitlines() if ln.startswith("sample_stats "))
@@ -383,14 +682,388 @@ def phase_serve(workdir: str):
             raise AssertionError(f"serve {sched}: launches fused {n_fused}, "
                                  f"groupnorm {n_gn}, steps x batches "
                                  f"{stats['steps'] * stats['batches']}")
-        launches["fused_degrade_update"] += n_fused
-        launches["group_norm_silu"] += n_gn
+        if counts["group_norm_silu_backward"] or counts["exact_count_masks"]:
+            raise AssertionError(f"serve {sched}: training kernels launched: {counts}")
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
         runs.append(stats)
         log(f"[5] serve {sched}+{select}: {stats['images']} images, {stats['steps']} steps x "
             f"{stats['batches']} batches, {stats['images_per_sec']:.3f} images/s, "
             f"{stats['ms_per_step']:.3f} ms/step on {stats['device']}; launches: fused "
             f"{n_fused}, groupnorm {n_gn}; {len(pngs)} PNGs")
     return launches, runs
+
+
+def _train_cfg(sched: str, select: str, steps: int, *extra):
+    from masked_diffusion_tpu_torch.cli.main_train_masked import parse
+
+    cfg, _ = parse([
+        "--method", "mean_shift", "--data_size", str(SIZE), "--ddpm_schedule", sched,
+        "--ddpm_num_steps", str(steps), "--select_degrade_pixel", select,
+        "--degrade_channel", "1-channel", "--mean_option", "degraded_area",
+        "--mean_area", "image-wise", "--shift_type", "1-d_constant", "--optim", "adamw",
+        "--lr_scheduler", "cosine", "--lr", "1e-4", "--lr_warmup_steps", "0",
+        "--use_ema", "True", *extra,
+    ])
+    return cfg
+
+
+MODES = (("linear", "thresholding", 1000), ("log", "indexing", 4096))
+
+
+def phase_train_parity():
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from masked_diffusion_tpu_torch.models.factory import build_unet
+    from masked_diffusion_tpu_torch.ops.schedule import build_schedule
+    from masked_diffusion_tpu_torch.train.optim import build_lr_schedule, build_optimizer
+    from masked_diffusion_tpu_torch.train.step import (
+        TrainDraws,
+        create_train_state,
+        make_train_step,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch, steps, hw = 2, 3, SIZE * SIZE
+    ref_model = _flagship_weights(8)
+    init = {k: v.clone() for k, v in ref_model.state_dict().items()}
+    for sched, select, t_steps in MODES:
+        cfg = _train_cfg(sched, select, t_steps, "--mixed_precision", "no")
+        schedule = build_schedule(sched, t_steps, SIZE, select)
+        used = schedule.timesteps_for_epoch(0, 10, 1)
+        rng = np.random.default_rng(9)
+        data = [dict(
+            img=torch.from_numpy(rng.uniform(-1, 1, (batch, SIZE, SIZE, 3)).astype(np.float32)),
+            draws=TrainDraws(
+                timeindex=torch.from_numpy(rng.integers(0, len(used), batch)),
+                bits=torch.from_numpy(rng.integers(0, 2**32, (batch, hw), dtype=np.uint64)
+                                      .astype(np.int64)),
+                mask_uniform=torch.from_numpy(
+                    rng.uniform(0, 1, (batch, 1, SIZE, SIZE)).astype(np.float32)),
+                uniform=torch.from_numpy(rng.uniform(-1, 1, batch).astype(np.float32)),
+            )) for _ in range(steps)]
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            model = build_unet()
+            model.load_state_dict(ref_model.state_dict())
+            model.to(dev)
+            lr = build_lr_schedule("cosine", 1e-4, 0, 100)
+            opt = build_optimizer("adamw", model.parameters(), lr, 1.0, 1)
+            state = create_train_state(model, opt, use_ema=True)
+            step = make_train_step(model, schedule, cfg, opt, used, lr, device=dev)
+            on_dev = [(d["img"].to(dev), TrainDraws(**{
+                k: None if v is None else v.to(dev) for k, v in vars(d["draws"]).items()}))
+                for d in data]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # the first step compiles the Triton kernels and builds the
+            # optimizer's state; the later ones must not make the host wait
+            # on the card
+            losses = [step(state, *on_dev[0][:1], draws=on_dev[0][1])["train_loss"]]
+            torch.cuda.synchronize()
+            if dev == "cuda":
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    for img, draws in on_dev[1:]:
+                        losses.append(step(state, img, draws=draws)["train_loss"])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            synced = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+            if synced:
+                raise AssertionError(f"train step on CUDA synchronised the host "
+                                     f"{len(synced)} times: {synced[:2]}")
+            runs[dev] = (torch.stack(losses).cpu(),
+                         {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                         {k: v.detach().cpu() for k, v in state.ema_model.state_dict().items()})
+            log(f"[8] {sched}+{select} on {dev}: {steps} steps in "
+                f"{time.perf_counter() - t0:.2f} s"
+                + (" with no host sync in steps 2-3" if dev == "cuda" else ""))
+        lc, lp = runs["cuda"][0], runs["cpu"][0]
+        if not torch.isfinite(lc).all() or not torch.allclose(lc, lp, rtol=TRAIN_LOSS_RTOL,
+                                                                atol=0):
+            raise AssertionError(f"train parity {sched}: losses CUDA {lc} vs CPU {lp}")
+        errs = []
+        for which in (1, 2):
+            diff2 = upd2 = 0.0
+            for k, ref in runs["cpu"][which].items():
+                diff2 += float((runs["cuda"][which][k] - ref).square().sum())
+                upd2 += float((ref - init[k]).square().sum())
+            errs.append((diff2 / upd2) ** 0.5)
+        if not max(errs) <= TRAIN_UPDATE_RTOL:
+            raise AssertionError(f"train parity {sched}: update norms differ by {errs}")
+        log(f"[8] train parity {sched}+{select}: losses {[round(float(v), 6) for v in lp]} "
+            f"max rel diff {float(((lc - lp) / lp).abs().max()):.3g} (rtol {TRAIN_LOSS_RTOL}); "
+            f"update rel L2 diff params {errs[0]:.3g}, EMA {errs[1]:.3g} "
+            f"(tol {TRAIN_UPDATE_RTOL})")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route the UNet's GroupNorms and the indexing masks through their
+    plain versions, on whatever device the tensors lie: for comparing a
+    train step with and without the kernels, never on the main path."""
+    import masked_diffusion_tpu_torch.models.unet as unet_mod
+    import masked_diffusion_tpu_torch.ops.degrade as degrade_mod
+    from masked_diffusion_tpu_torch.ops.groupnorm import group_norm_silu_plain
+    from masked_diffusion_tpu_torch.ops.kmask import exact_count_masks_plain
+
+    def masks(batch, height, width, counts, *, generator=None, bits=None):
+        return exact_count_masks_plain(bits, counts).reshape(batch, 1, height, width)
+
+    saved = unet_mod.group_norm_silu, degrade_mod.exact_count_masks
+    unet_mod.group_norm_silu, degrade_mod.exact_count_masks = group_norm_silu_plain, masks
+    try:
+        yield
+    finally:
+        unet_mod.group_norm_silu, degrade_mod.exact_count_masks = saved
+
+
+def phase_train_bf16_parity():
+    """One bf16 train step at the flagship shape (batch 64, AdamW + cosine,
+    EMA on), through the kernels and through their plain versions on the
+    card, from the same weights and the same injected draws: the loss, the
+    clipped gradient and the parameter update, each to its tolerance. A
+    first AdamW update is lr * g/|g| per coordinate, so bf16 noise flips
+    the coordinates whose gradient lies near zero and the update's
+    tolerance is the looser. The plain step in fp32 (TF32 off) is printed
+    as the yardstick of bf16 rounding."""
+    import numpy as np
+    import torch
+
+    from masked_diffusion_tpu_torch.models.factory import build_unet
+    from masked_diffusion_tpu_torch.models.unet import GroupNormAct
+    from masked_diffusion_tpu_torch.ops.schedule import build_schedule
+    from masked_diffusion_tpu_torch.train.optim import build_lr_schedule, build_optimizer
+    from masked_diffusion_tpu_torch.train.step import (
+        TrainDraws,
+        create_train_state,
+        make_train_step,
+    )
+
+    batch, hw = B_KERNEL, SIZE * SIZE
+    ref_model = _flagship_weights(10)
+    norms = sum(isinstance(m, GroupNormAct) for m in ref_model.modules())
+    init = [p.detach().cuda() for p in ref_model.parameters()]
+    for sched, select, t_steps in MODES:
+        schedule = build_schedule(sched, t_steps, SIZE, select)
+        used = schedule.timesteps_for_epoch(0, 10, 1)
+        rng = np.random.default_rng(11)
+        img = torch.from_numpy(rng.uniform(-1, 1, (batch, SIZE, SIZE, 3)).astype(np.float32)).cuda()
+        draws = TrainDraws(
+            timeindex=torch.from_numpy(rng.integers(0, len(used), batch)).cuda(),
+            bits=torch.from_numpy(rng.integers(0, 2**32, (batch, hw), dtype=np.uint64)
+                                  .astype(np.int64)).cuda(),
+            mask_uniform=torch.from_numpy(
+                rng.uniform(0, 1, (batch, 1, SIZE, SIZE)).astype(np.float32)).cuda(),
+            uniform=torch.from_numpy(rng.uniform(-1, 1, batch).astype(np.float32)).cuda(),
+        )
+        runs = {}
+        for route, precision in (("kernels", "bf16"), ("plain", "bf16"), ("plain", "no")):
+            fp32 = precision == "no"
+            torch.backends.cudnn.allow_tf32 = not fp32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            cfg = _train_cfg(sched, select, t_steps, "--mixed_precision", precision)
+            model = build_unet()
+            model.load_state_dict(ref_model.state_dict())
+            model.cuda()
+            lr = build_lr_schedule("cosine", 1e-4, 0, 1000)
+            opt = build_optimizer("adamw", model.parameters(), lr, 1.0, 1)
+            state = create_train_state(model, opt, use_ema=True)
+            step = make_train_step(model, schedule, cfg, opt, used, lr, device="cuda")
+            reset_counts()
+            with plain_versions() if route == "plain" else contextlib.nullcontext():
+                loss = step(state, img, draws=draws)["train_loss"].item()
+            counts = read_counts()
+            want = dict.fromkeys(counts, 0)
+            if route == "kernels":
+                want.update(group_norm_silu=norms, group_norm_silu_backward=norms,
+                            exact_count_masks=int(select == "indexing"))
+            if counts != want:
+                raise AssertionError(f"bf16 parity {sched} {route}: launches {counts}, "
+                                     f"expected {want}")
+            runs[(route, precision)] = (
+                loss, [p.grad.detach().float() for p in model.parameters()],
+                [p.detach() - p0 for p, p0 in zip(model.parameters(), init)])
+            del state, opt, step
+        torch.backends.cudnn.allow_tf32 = True
+
+        def rel_l2(a, b):
+            num = sum(float((x - y).square().sum()) for x, y in zip(a, b))
+            return (num / sum(float(y.square().sum()) for y in b)) ** 0.5
+
+        k, p, f = runs[("kernels", "bf16")], runs[("plain", "bf16")], runs[("plain", "no")]
+        loss_diff = abs(k[0] - p[0]) / abs(p[0])
+        grad_diff, upd_diff = rel_l2(k[1], p[1]), rel_l2(k[2], p[2])
+        yard = (abs(p[0] - f[0]) / abs(f[0]), rel_l2(p[1], f[1]), rel_l2(p[2], f[2]))
+        log(f"[9] bf16 step parity {sched}+{select} batch {batch}: kernels vs plain on the "
+            f"card, loss {k[0]:.6f} vs {p[0]:.6f} (rel diff {loss_diff:.3g}, tol "
+            f"{BF16_LOSS_RTOL}), gradient rel L2 diff {grad_diff:.3g} (tol {BF16_GRAD_RTOL}), "
+            f"update rel L2 diff {upd_diff:.3g} (tol {BF16_UPDATE_RTOL}); yardstick plain "
+            f"bf16 vs plain fp32: loss {yard[0]:.3g}, gradient {yard[1]:.3g}, update "
+            f"{yard[2]:.3g}")
+        if not (np.isfinite(k[0]) and loss_diff <= BF16_LOSS_RTOL
+                and grad_diff <= BF16_GRAD_RTOL and upd_diff <= BF16_UPDATE_RTOL):
+            raise AssertionError(f"bf16 parity {sched}+{select}: loss rel diff {loss_diff}, "
+                                 f"gradient rel L2 diff {grad_diff}, update {upd_diff}")
+        del runs
+
+
+def phase_train_throughput(smi: str):
+    import numpy as np
+    import torch
+
+    from masked_diffusion_tpu_torch.models.factory import build_unet
+    from masked_diffusion_tpu_torch.models.unet import GroupNormAct
+    from masked_diffusion_tpu_torch.ops.schedule import build_schedule
+    from masked_diffusion_tpu_torch.train.optim import build_lr_schedule, build_optimizer
+    from masked_diffusion_tpu_torch.train.step import create_train_state, make_train_step
+
+    batch = B_KERNEL
+    out = {}
+    for sched, select, t_steps in MODES:
+        cfg = _train_cfg(sched, select, t_steps, "--mixed_precision", "bf16")
+        schedule = build_schedule(sched, t_steps, SIZE, select)
+        used = schedule.timesteps_for_epoch(0, 10, 1)
+        torch.cuda.reset_peak_memory_stats()
+        torch.manual_seed(0)
+        model = build_unet().cuda()
+        norms = sum(isinstance(m, GroupNormAct) for m in model.modules())
+        lr = build_lr_schedule("cosine", 1e-4, 0, 1000)  # bench.py:381-382
+        opt = build_optimizer("adamw", model.parameters(), lr, 1.0, 1)
+        state = create_train_state(model, opt, use_ema=True)
+        step = make_train_step(model, schedule, cfg, opt, used, lr, device="cuda")
+        rng = np.random.default_rng(0)
+        data = torch.from_numpy(rng.uniform(-1, 1, (batch, SIZE, SIZE, 3)).astype(np.float32)).cuda()
+        gen = torch.Generator().manual_seed(1)
+        for _ in range(3):
+            step(state, data, gen)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS_TIMED):
+            metrics = step(state, data, gen)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        per = {k: v / TRAIN_STEPS_TIMED for k, v in counts.items()}
+        want = {"exact_count_masks": 1 if select == "indexing" else 0,
+                "group_norm_silu": norms, "group_norm_silu_backward": norms,
+                "fused_degrade_update": 0}
+        if per != want:
+            raise AssertionError(f"train {sched}: launches per step {per}, expected {want}")
+        if not bool(torch.isfinite(metrics["train_loss"])):
+            raise AssertionError(f"train {sched}: non-finite loss")
+        ms = 1e3 * seconds / TRAIN_STEPS_TIMED
+        out[select] = (ms, batch * TRAIN_STEPS_TIMED / seconds)
+        log(f"[9] train {sched}+{select} bf16 batch {batch} at {SIZE}x{SIZE} ({smi}): "
+            f"{ms:.3f} ms/step, {out[select][1]:.2f} images/s over {TRAIN_STEPS_TIMED} steps "
+            f"after 3 warm-up; launches per step {per}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del model, state, opt, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_cli(workdir: str):
+    import numpy as np
+
+    from masked_diffusion_tpu_torch.cli.main_train_masked import main
+
+    common = [
+        "--data_name", "synthetic", "--data_size", str(SIZE), "--data_subset", "True",
+        "--data_subset_num", "256", "--batch_size", "64", "--sample_num", "16",
+        "--mixed_precision", "bf16", "--ddpm_schedule", "log", "--ddpm_num_steps", "200",
+        "--select_degrade_pixel", "indexing", "--degrade_channel", "1-channel",
+        "--mean_option", "degraded_area", "--mean_area", "image-wise",
+        "--shift_type", "1-d_constant", "--momentum_adaptive", "base_momentum",
+        "--sampling_mask_dependency", "independent", "--use_wandb", "False",
+        "--device", "cuda",
+    ]
+    argv = ["--method", "mean_shift", "--num_epochs", "2", "--save_images_epochs", "2",
+            "--sampling", "momentum", "--optim", "adamw", "--lr", "1e-4",
+            "--lr_scheduler", "cosine", "--lr_warmup_steps", "0",
+            "--dir_work", os.path.join(workdir, "train"), *common]
+    buf = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    train_counts = read_counts()
+    sys.stdout.write(buf.getvalue())
+    line = next(ln for ln in buf.getvalue().splitlines() if ln.startswith("train_stats "))
+    stats = json.loads(line.split(" ", 1)[1])
+    if rc != 0 or stats["epochs"] != 2 or stats["global_step"] != 8:
+        raise AssertionError(f"train CLI: rc {rc}, stats {stats}")
+    (ckpt,) = stats["checkpoints"]
+    run = os.path.dirname(os.path.dirname(ckpt))
+    with open(os.path.join(run, "log", "metrics.jsonl")) as f:
+        rows = [json.loads(ln) for ln in f]
+    if [r["epoch"] for r in rows] != [0, 1] or not all(np.isfinite(r["train_loss"]) for r in rows):
+        raise AssertionError(f"train CLI: metrics.jsonl {rows}")
+    for sub in ("unet", "unet_ema"):
+        for name in ("config.json", "diffusion_pytorch_model.safetensors"):
+            if not os.path.exists(os.path.join(ckpt, sub, name)):
+                raise AssertionError(f"train CLI: {ckpt}/{sub}/{name} missing")
+    with open(os.path.join(ckpt, "meta.json")) as f:
+        meta = json.load(f)
+    grids = os.listdir(os.path.join(run, "train", "image", "ema_sample_img"))
+    if meta["global_step"] != 8 or "ema_sample_00001_global.png" not in grids:
+        raise AssertionError(f"train CLI: meta {meta}, grids {grids}")
+    if train_counts["exact_count_masks"] != 8 or not all(train_counts.values()):
+        raise AssertionError(f"train CLI: launches {train_counts}")
+    log(f"[10] train CLI mean_shift log+indexing: 2 epochs x 4 steps, losses "
+        f"{[round(v, 5) for v in stats['loss_mean_epoch']]}, {stats['ms_per_step']:.3f} "
+        f"ms/step and {stats['images_per_sec']:.2f} images/s (epoch 1) on {stats['device']}; "
+        f"checkpoint {os.path.basename(ckpt)} with unet/, unet_ema/, meta.json; EMA grids "
+        f"{sorted(grids)}; launches {train_counts}")
+
+    buf = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = main(["--method", "sample", "--test_model_path", ckpt,
+                   "--dir_work", os.path.join(workdir, "serve"), *common])
+    serve_counts = read_counts()
+    sys.stdout.write(buf.getvalue())
+    line = next(ln for ln in buf.getvalue().splitlines() if ln.startswith("sample_stats "))
+    served = json.loads(line.split(" ", 1)[1])
+    if rc != 0 or not (served["finite"] and served["ema"] and served["images"] == 16):
+        raise AssertionError(f"serve the trained checkpoint: rc {rc}, {served}")
+    if not (serve_counts["fused_degrade_update"] and serve_counts["group_norm_silu"]):
+        raise AssertionError(f"serve the trained checkpoint: launches {serve_counts}")
+    log(f"[10] served the trained checkpoint (EMA weights): {served['images']} images, "
+        f"{served['steps']} steps, {served['ms_per_step']:.3f} ms/step; launches {serve_counts}")
+    return {k: train_counts[k] + serve_counts[k] for k in train_counts}
+
+
+def _counted():
+    """The launch-counted wrappers of every kernel, by name."""
+    from masked_diffusion_tpu_torch.ops.fused_degrade import fused_degrade_update
+    from masked_diffusion_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_backward
+    from masked_diffusion_tpu_torch.ops.kmask import exact_count_masks
+
+    return {f.__name__: f for f in (fused_degrade_update, group_norm_silu,
+                                    group_norm_silu_backward, exact_count_masks)}
+
+
+def reset_counts() -> None:
+    for fn in _counted().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counted().items()}
+
+
+def kernel_entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
+    return {"name": name, "route": route, "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
 
 
 def main() -> int:
@@ -402,27 +1075,44 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     smi = phase_env()
-    fused_err, fused_times = phase_fused()
-    gn_err, gn_ms, gn_plain_ms = phase_groupnorm()
+    fused_err, fused_times, fused_bound = phase_fused()
+    calls = norm_shapes(16)
+    gn = phase_groupnorm(calls, 16)
     phase_slice()
+    kmask = phase_kmask()
+    gn_bwd, _ = phase_groupnorm_train(calls, B_KERNEL)
+    phase_train_parity()
+    phase_train_bf16_parity()
+    phase_train_throughput(smi)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
-        launches, _ = phase_serve(workdir)
-    for mod in ("jax", "flax"):
-        if mod in sys.modules:
+        serve_launches, _ = phase_serve(workdir)
+        train_launches = phase_train_cli(workdir)
+    for mod in sorted(sys.modules):
+        if mod.split(".")[0] in ("jax", "flax", "masked_diffusion_tpu"):
             raise AssertionError(f"{mod} was imported")
+
+    def launches(name):
+        return serve_launches.get(name, 0) + train_launches.get(name, 0)
+
     log(smi)
     print(json.dumps({"kernels": [
-        {"name": "fused_degrade_update", "route": "cuda",
-         "source": "masked_diffusion_tpu_torch/csrc/fused_degrade.cu",
-         "replaces": "masked_diffusion_tpu/ops/pallas/fused_degrade.py:209",
-         "launches": launches["fused_degrade_update"], "max_abs_err": fused_err,
-         "ms": fused_times["indexing"][0], "plain_ms": fused_times["indexing"][1]},
-        {"name": "group_norm_silu", "route": "triton",
-         "source": "masked_diffusion_tpu_torch/ops/groupnorm.py",
-         "replaces": "masked_diffusion_tpu/ops/pallas/groupnorm.py:158",
-         "launches": launches["group_norm_silu"], "max_abs_err": gn_err,
-         "ms": gn_ms, "plain_ms": gn_plain_ms},
+        kernel_entry("fused_degrade_update", "cuda",
+                     "masked_diffusion_tpu_torch/csrc/fused_degrade.cu",
+                     "masked_diffusion_tpu/ops/pallas/fused_degrade.py:209",
+                     launches("fused_degrade_update"), fused_err, fused_times["indexing"][0],
+                     fused_times["indexing"][1], fused_bound, None),
+        kernel_entry("group_norm_silu", "triton", "masked_diffusion_tpu_torch/ops/groupnorm.py",
+                     "masked_diffusion_tpu/ops/pallas/groupnorm.py:158",
+                     launches("group_norm_silu"), gn[0], gn[1], gn[2], gn[4], gn[3]),
+        kernel_entry("group_norm_silu_backward", "triton",
+                     "masked_diffusion_tpu_torch/ops/groupnorm.py",
+                     "masked_diffusion_tpu/ops/pallas/groupnorm.py:169",
+                     launches("group_norm_silu_backward"), gn_bwd[0], gn_bwd[1], gn_bwd[2],
+                     gn_bwd[4], gn_bwd[3]),
+        kernel_entry("exact_count_masks", "cuda", "masked_diffusion_tpu_torch/csrc/kmask.cu",
+                     "masked_diffusion_tpu/ops/pallas/kmask.py:84",
+                     launches("exact_count_masks"), kmask[0], kmask[1], kmask[2], kmask[3], None),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,74 +1,273 @@
 """CLI entry point of the port — the JAX package's flags plus --device.
 
+    python -m masked_diffusion_tpu_torch.cli.main_train_masked --method mean_shift \
+        --data_name synthetic --data_size 64 --mixed_precision bf16 ...
     python -m masked_diffusion_tpu_torch.cli.main_train_masked --method sample \
         --test_model_path <checkpoint-epoch-N> --data_name synthetic ...
 
-The parser is masked_diffusion_tpu/cli/main_train_masked.py:build_parser
-(jax-free). Only `--method sample` is ported: it loads --test_model_path in
-the layout masked_diffusion_tpu.io.export_torch writes (unet/, unet_ema/)
-and generates --sample_num images. --device cuda (the default) without CUDA
-raises; nothing carries on on the CPU unless --device cpu asks for it.
+str2bool, build_parser and config_from_args are copies of
+masked_diffusion_tpu/cli/main_train_masked.py:23-208 (the port imports
+nothing of the JAX package; tests/test_torch_port_host.py holds them equal).
+The method dispatch mirrors that file's main (:232-327) without a mesh:
+
+  base | mean_shift  train (train/trainer.py) and write checkpoints in the
+                     export layout, checkpoint-epoch-N/{unet,unet_ema}/ with
+                     meta.json; prints a `train_stats {json}` line
+  sample             load --test_model_path in that layout (written by the
+                     port's trainer or by masked_diffusion_tpu.io.export_torch)
+                     and generate --sample_num images; prints `sample_stats`
+
+--device cuda (the default) without CUDA raises; nothing carries on on the
+CPU unless --device cpu asks for it. --method test is not ported yet.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import sys
 
 import numpy as np
 import torch
 
-from masked_diffusion_tpu.cli.main_train_masked import build_parser, config_from_args
+from masked_diffusion_tpu_torch.config import Config
+
+
+def str2bool(v) -> bool:
+    # the reference uses type=eval for booleans (main_train_masked.py:351)
+    if isinstance(v, bool):
+        return v
+    return str(v).lower() in ("true", "1", "yes")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser()
+    # ---- dirutils inputs (main_train_masked.py:347-367)
+    p.add_argument("--use_wandb", type=str2bool, default=True)
+    p.add_argument("--use_mlflow", type=str2bool, default=True)
+    p.add_argument("--task", type=str, choices=["train", "sample", "dataset"], default="train")
+    p.add_argument("--content", type=str, default="test_code")
+    p.add_argument("--dir_work", type=str, default="./")
+    p.add_argument("--dir_dataset", type=str, default="/nas2/dataset")
+    p.add_argument("--data_name", type=str, default="mnist")
+    p.add_argument("--data_set", type=str, default="train")
+    p.add_argument("--data_size", type=int, default=64)
+    p.add_argument("--data_subset", type=str2bool, default=False)
+    p.add_argument("--data_subset_num", type=int, default=1000)
+    # single-class filter for mnist/cifar10 (utils/datasetutils.py:223-243)
+    p.add_argument("--data_subset_label", type=int, default=None)
+    p.add_argument("--date", type=str, default="")
+    p.add_argument("--time", type=str, default="")
+    p.add_argument("--wandb_name", type=str, default="diffusion")
+    p.add_argument("--method", type=str, default="base")
+    p.add_argument("--test_method", type=str, default="base")
+    p.add_argument("--title", type=str, default="")
+    # ---- model / optim (:369-381)
+    p.add_argument("--model", type=str, default="default")
+    p.add_argument("--batch_size", type=int, default=128)
+    p.add_argument("--in_channel", type=int, default=3)
+    p.add_argument("--out_channel", type=int, default=3)
+    p.add_argument("--num_attention", type=int, default=1)
+    p.add_argument("--num_epochs", type=int, default=1000)
+    p.add_argument("--optim", type=str, choices=["adam", "adamw", "sgd"], default="adamw")
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--lr_scheduler", type=str, default="linear")
+    p.add_argument("--lr_warmup_steps", type=int, default=500)
+    p.add_argument("--lr_cycle", type=float, default=0.5)
+    p.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    p.add_argument("--mixed_precision", type=str, default="no", choices=["no", "fp16", "bf16"])
+    # ---- ema / process (:383-401)
+    p.add_argument("--use_ema", type=str2bool, default=True)
+    p.add_argument("--ema_inv_gamma", type=float, default=1.0)
+    p.add_argument("--ema_power", type=float, default=3 / 4)
+    p.add_argument("--ema_max_decay", type=float, default=0.9999)
+    p.add_argument("--loss_weight_use", type=str2bool, default=False)
+    p.add_argument("--loss_weight_power_base", type=float, default=10.0)
+    p.add_argument("--loss_space", type=str, default="x_0")
+    p.add_argument("--ddpm_num_steps", type=int, default=1000)
+    p.add_argument("--updated_ddpm_num_steps", type=int, default=1000)
+    p.add_argument("--ddpm_schedule", type=str, default="linear")
+    p.add_argument("--ddpm_schedule_base", type=float, default=10.0)
+    p.add_argument("--scheduler_num_scale_timesteps", type=int, default=1)
+    p.add_argument("--select_degrade_pixel", default="indexing")
+    p.add_argument("--degrade_channel", type=str, default="1-channel")
+    p.add_argument("--mean_option", default=0)
+    p.add_argument("--mean_area", default="image-wise", choices=["channel-wise", "image-wise"])
+    p.add_argument("--mean_value_accumulate", type=str2bool, default=False)
+    p.add_argument(
+        "--shift_type", type=str, default="noise_with_perturbation",
+        choices=[
+            "1-d_constant", "3-d_constant", "noise_reduction",
+            "noise_std_reduction", "noise_with_perturbation", "non_shift",
+        ],
+    )
+    p.add_argument("--noise_mean", type=float, default=0)
+    # ---- sampling (:403-415)
+    p.add_argument(
+        "--sample_latent_shape", type=str, default="data",
+        choices=["data", "zero", "normal", "uniform", "grid"],
+    )
+    p.add_argument("--sampling", type=str, default="base")
+    p.add_argument(
+        "--momentum_adaptive", type=str, default="base_momentum",
+        choices=["base_momentum", "base_sampling", "momentum", "boosting"],
+    )
+    p.add_argument("--adaptive_decay_rate", type=float, default=0.999)
+    p.add_argument("--adaptive_momentum_rate", type=float, default=0.9)
+    p.add_argument(
+        "--sampling_mask_dependency", type=str, default="independent",
+        choices=["dependent_prev", "independent", "dependent_t"],
+    )
+    p.add_argument("--sample_num", type=int, default=100)
+    p.add_argument("--sample_epoch_ratio", type=float, default=0.2)
+    p.add_argument("--resume_from_checkpoint", default="False")
+    p.add_argument("--num_workers", type=int, default=32)
+    p.add_argument("--checkpointing_steps", type=int, default=500)
+    p.add_argument("--save_images_epochs", type=int, default=10)
+    p.add_argument("--output_dir", type=str, default=None)
+    # ---- test (:417)
+    p.add_argument("--test_model_path", type=str, default=None)
+    # ---- TPU-native extensions
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--mesh_data", type=int, default=-1)
+    p.add_argument("--mesh_model", type=int, default=1)
+    p.add_argument(
+        "--tp_min_features", type=int, default=256,
+        help="narrowest output-feature width that channel-shards over the "
+        "'model' axis when --mesh_model > 1 (parallel/tp.py)",
+    )
+    p.add_argument(
+        "--mesh_spatial", type=str2bool, default=False,
+        help="shard activations along image height over the 'model' axis "
+        "(parallel/sp.py spatial partitioning, for images too large for one "
+        "chip's HBM) instead of channel-sharding params; needs "
+        "--mesh_model > 1",
+    )
+    p.add_argument("--multihost", type=str2bool, default=False)
+    p.add_argument("--capture_trajectory", type=str2bool, default=False)
+    p.add_argument(
+        "--interpolation_shift", type=float, default=None,
+        help="enable interpolation sampling on the save cadence "
+        "(Sampler.sample's third argument, sampler.py:102-106,264-366)",
+    )
+    p.add_argument(
+        "--block_out_channels", type=str, default=None,
+        help="comma-separated UNet level widths, e.g. 64,64,128 (default: "
+        "the reference's 128,128,256,256,512,512)",
+    )
+    p.add_argument("--layers_per_block", type=int, default=2)
+    p.add_argument(
+        "--remat", type=str2bool, default=False,
+        help="rematerialize UNet blocks on backward (flax nn.remat): ~11% "
+        "slower steps for a large activation-memory cut — for memory-bound "
+        "configs (docs/PERFORMANCE.md)",
+    )
+    p.add_argument(
+        "--attention_chunk", type=int, default=None,
+        help="exact chunked attention: lax.map over query blocks of this "
+        "size bounds live scores to (B, heads, chunk, S) — escape hatch for "
+        "placements whose full (S, S) scores don't fit HBM (0/unset = "
+        "materialized-scores einsum, the measured-faster path at S <= 1024)",
+    )
+    p.add_argument(
+        "--tinyhead_attention", type=str2bool, default=None,
+        help="head-major Pallas flash attention for the family's 8-wide "
+        "heads: VMEM-resident scores, zero lane padding; exact, falls back "
+        "to the einsum at S < 128 (ops/pallas/tinyhead_attention.py). "
+        "Unset = AUTO: on for single-device TPU (measured 2.4-2.5x vs the "
+        "einsum at S=256/1024); true/false forces",
+    )
+    p.add_argument(
+        "--epoch_scan", type=str2bool, default=None,
+        help="train each epoch as ONE compiled lax.scan over its batches "
+        "(device-resident data required; removes the per-step host dispatch "
+        "between roofline-saturated device steps). Unset = AUTO (on for TPU "
+        "when device data is in use); true/false forces. Single-host SIGTERM "
+        "preemption coarsens to epoch granularity while on",
+    )
+    p.add_argument(
+        "--encoder_reuse", type=int, default=0,
+        help="sampling-only: run the UNet encoder every K-th reverse step "
+        "and replay its cached activations between (Faster Diffusion, "
+        "arXiv:2312.09608) — an approximation trading sample fidelity for "
+        "per-step cost; 0/1 = exact sampling (default)",
+    )
+    p.add_argument("--profile_dir", type=str, default=None)
+    p.add_argument(
+        "--keep_last_checkpoints", type=int, default=0,
+        help="keep only the N newest checkpoint-epoch-* dirs (0 = keep all, "
+        "the reference behavior)",
+    )
+    p.add_argument(
+        "--async_checkpoints", type=str2bool, default=False,
+        help="commit cadence checkpoint writes in background threads instead "
+        "of stalling the train loop (orbax async save; preemption and "
+        "post-mortem saves stay synchronous)",
+    )
+    return p
+
+
+def config_from_args(args) -> Config:
+    fields = {f.name for f in dataclasses.fields(Config)}
+    kw = {k: v for k, v in vars(args).items() if k in fields}
+    if kw.get("block_out_channels"):
+        kw["block_out_channels"] = tuple(
+            int(c) for c in str(kw["block_out_channels"]).split(",")
+        )
+    return Config(**kw)
 
 
 def parse(argv=None):
-    """Flags -> (the JAX package's Config, torch.device of --device)."""
+    """Flags -> (Config, torch.device of --device)."""
     p = build_parser()
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device to sample on (cuda, cuda:N or cpu)")
+                   help="torch device to run on (cuda, cuda:N or cpu)")
     args = p.parse_args(argv)
+    if args.multihost:
+        raise NotImplementedError("not yet ported: --multihost (multi-GPU)")
     return config_from_args(args), torch.device(args.device)
 
 
-def main(argv=None) -> int:
-    cfg, device = parse(argv)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {device}: CUDA is not available")
-    if cfg.method.lower() != "sample":
-        raise SystemExit(f"--method {cfg.method}: not yet ported (only --method sample)")
-    if not cfg.test_model_path:
-        raise SystemExit("--method sample needs --test_model_path "
-                         "(a checkpoint written by masked_diffusion_tpu.io.export_torch)")
+def _device_name(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
-    from masked_diffusion_tpu.data.datasets import get_dataset
-    from masked_diffusion_tpu.data.histogram import compute_mean_histogram, empty_histogram
-    from masked_diffusion_tpu.utils.dirs import Dir
+
+def _train(cfg: Config, device: torch.device, dirs, dataset, dataset_hist, visualizer) -> None:
+    from masked_diffusion_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg, dataset, dataset_hist, visualizer=visualizer, device=device)
+    print(
+        f"***** Running {cfg.method} *****\n"
+        f"  Num examples = {len(dataset)}\n"
+        f"  Num epochs = {cfg.num_epochs}\n"
+        f"  Batch size per step = {cfg.batch_size}\n"
+        f"  Gradient accumulation = {cfg.gradient_accumulation_steps}\n"
+        f"  Device = {_device_name(device)}",
+        flush=True,
+    )
+    result = trainer.train(dirs=dirs, visualizer=visualizer)
+    print("train_stats " + json.dumps({
+        "epochs": len(result["loss_mean_epoch"]),
+        "loss_mean_epoch": result["loss_mean_epoch"],
+        "global_step": trainer.global_step,
+        "ms_per_step": result["ms_per_step"],
+        "images_per_sec": result["images_per_sec"],
+        "device": _device_name(device),
+        "checkpoints": result["checkpoints"],
+    }), flush=True)
+
+
+def _sample(cfg: Config, device: torch.device, dirs, dataset_hist) -> None:
     from masked_diffusion_tpu_torch.io.weights import load_checkpoint
     from masked_diffusion_tpu_torch.models.factory import build_model_from_config
     from masked_diffusion_tpu_torch.ops.schedule import build_schedule
     from masked_diffusion_tpu_torch.sample.generate import generate_images
 
-    dirs = Dir(
-        task=cfg.task, content=cfg.content, dir_work=cfg.dir_work,
-        dir_dataset=cfg.dir_dataset, data_name=cfg.data_name, data_set=cfg.data_set,
-        data_size=cfg.data_size, date=cfg.date, time=cfg.time,
-        method=cfg.method, title=cfg.title,
-    )
-    np.random.seed(cfg.seed)
-    torch.manual_seed(cfg.seed)
-    if "option" in dirs.list_dir:
-        cfg.save_option(dirs.list_dir["option"])
-
-    if cfg.sample_latent_shape.lower() == "data":
-        dataset = get_dataset(
-            cfg.dir_dataset, cfg.data_name, cfg.data_size, cfg.data_set,
-            cfg.data_subset, cfg.data_subset_num, seed=cfg.seed,
-            label_filter=cfg.data_subset_label if cfg.data_subset else None,
-        )
-        dataset_hist = compute_mean_histogram(dataset.data, cfg.sample_num, cfg.mean_area)
-    else:
-        dataset_hist = empty_histogram()
-
+    if not cfg.test_model_path:
+        raise SystemExit("--method sample needs --test_model_path (a checkpoint-epoch-N "
+                         "folder written by the port's trainer or by "
+                         "masked_diffusion_tpu.io.export_torch)")
     unet_sd, ema_sd, _ = load_checkpoint(cfg.test_model_path)
     model = build_model_from_config(cfg)
     use_ema = cfg.use_ema and ema_sd is not None
@@ -82,7 +281,7 @@ def main(argv=None) -> int:
     out_dir = dirs.list_dir.get("sample") or dirs.list_dir["test_sample_img"]
     stats = generate_images(cfg, model, schedule, dataset_hist, device=device,
                             out_dir=out_dir)
-    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    name = _device_name(device)
     print(
         f"sampled {len(stats['images'])} images in {stats['batches']} batch(es) "
         f"of {stats['steps']} steps -> {out_dir} ({stats['images_per_sec']:.2f} "
@@ -96,6 +295,57 @@ def main(argv=None) -> int:
         "ema": use_ema, "out_dir": out_dir,
         "finite": bool(np.isfinite(stats["images"]).all()),
     }), flush=True)
+
+
+def main(argv=None) -> int:
+    cfg, device = parse(argv)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {device}: CUDA is not available")
+    method = cfg.method.lower()
+    if method not in ("base", "mean_shift", "sample"):
+        raise SystemExit(f"--method {cfg.method}: not yet ported "
+                         "(ported: base, mean_shift, sample)")
+
+    from masked_diffusion_tpu_torch.data.datasets import get_dataset
+    from masked_diffusion_tpu_torch.data.histogram import compute_mean_histogram, empty_histogram
+    from masked_diffusion_tpu_torch.utils.dirs import Dir
+    from masked_diffusion_tpu_torch.utils.visualizer import Visualizer
+
+    dirs = Dir(
+        task=cfg.task, content=cfg.content, dir_work=cfg.dir_work,
+        dir_dataset=cfg.dir_dataset, data_name=cfg.data_name, data_set=cfg.data_set,
+        data_size=cfg.data_size, date=cfg.date, time=cfg.time,
+        method=cfg.method, title=cfg.title,
+    )
+    np.random.seed(cfg.seed)  # host-side seeding (main_train_masked.py:441-445)
+    torch.manual_seed(cfg.seed)
+    # the sample-task tree (utils/dirs.py:100-113) has no option/log dirs
+    if "option" in dirs.list_dir:
+        cfg.save_option(dirs.list_dir["option"])
+
+    # the dataset is needed to train, or for the 'data' latent's histogram
+    dataset = None
+    if method != "sample" or cfg.sample_latent_shape.lower() == "data":
+        dataset = get_dataset(
+            cfg.dir_dataset, cfg.data_name, cfg.data_size, cfg.data_set,
+            cfg.data_subset, cfg.data_subset_num, seed=cfg.seed,
+            label_filter=cfg.data_subset_label if cfg.data_subset else None,
+        )
+    if cfg.sample_latent_shape.lower() == "data":
+        dataset_hist = compute_mean_histogram(dataset.data, cfg.sample_num, cfg.mean_area)
+    else:
+        dataset_hist = empty_histogram()
+
+    if method == "sample":
+        _sample(cfg, device, dirs, dataset_hist)
+        return 0
+    # always-on JSONL metrics sink (log/metrics.jsonl); wandb only if enabled
+    visualizer = Visualizer(cfg, dirs.list_dir["log"]) if "log" in dirs.list_dir else None
+    try:
+        _train(cfg, device, dirs, dataset, dataset_hist, visualizer)
+    finally:
+        if visualizer is not None:
+            visualizer.finish()
     return 0
 
 

@@ -37,57 +37,17 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "exact_k.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxPerThread = 16;
-constexpr int kMaxHW = kThreads * kMaxPerThread;  // 128 * 128
+using mdt::kMaxHW;
+using mdt::kThreads;
+using mdt::kWarps;
 
 enum Select { kThresholding = 0, kIndexing = 1 };
 enum MeanMode { kConst = 0, kDegradedArea = 1 };
 enum Rule { kBaseMomentum = 0, kBaseSampling = 1 };
-
-__device__ __forceinline__ uint32_t philox4x32_10_first(
-    uint32_t c0, uint32_t c1, uint32_t c2, uint32_t c3, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
-    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return c0;
-}
-
-// Sum N values over the block; every thread gets the same totals, summed in
-// the same order (so every thread takes the same branch on them).
-template <typename T, int N>
-__device__ __forceinline__ void block_sum(T (&v)[N], T* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) scratch[i * kWarps + warp] = v[i];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    T s = 0;
-    for (int w = 0; w < kWarps; ++w) s += scratch[i * kWarps + w];
-    v[i] = s;
-  }
-  __syncthreads();  // scratch may be reused by the next call
-}
 
 __device__ __forceinline__ bool keep_threshold(uint32_t bits, float ratio) {
   // top 24 bits, exact in f32: u uniform on [0, 1) at 2^-24 resolution
@@ -112,16 +72,14 @@ __global__ void __launch_bounds__(kThreads) fused_degrade_kernel(
   const float an = amount_n[img];
   const bool indexing = select == kIndexing;
 
-  int lane_bits = hw > 1 ? 32 - __clz(hw - 1) : 0;
-  if (lane_bits < 1) lane_bits = 1;
-  const uint32_t hi_mask = 0xFFFFFFFFu << lane_bits;
+  const uint32_t hi_mask = mdt::key_high_mask(hw);
   const uint32_t k0 = static_cast<uint32_t>(seed);
   const uint32_t k1 = static_cast<uint32_t>(seed >> 32);
   const uint32_t off_lo = static_cast<uint32_t>(offset);
   const uint32_t off_hi = static_cast<uint32_t>(offset >> 32);
 
-  // ---- draws -> keys (registers)
-  uint32_t key_t[J], key_n[J];
+  // ---- draws -> keys (registers); keys[0] for t, keys[1] for t-1
+  uint32_t keys[2][J];
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     const int p = tid + j * kThreads;
@@ -131,39 +89,27 @@ __global__ void __launch_bounds__(kThreads) fused_degrade_kernel(
         bt = bits[static_cast<size_t>(img) * hw + p];
         bn = bits[(static_cast<size_t>(batch) + img) * hw + p];
       } else {
-        bt = philox4x32_10_first(p, img, off_hi << 1, off_lo, k0, k1);
-        bn = philox4x32_10_first(p, img, (off_hi << 1) | 1u, off_lo, k0, k1);
+        bt = mdt::philox4x32_10_first(p, img, off_hi << 1, off_lo, k0, k1);
+        bn = mdt::philox4x32_10_first(p, img, (off_hi << 1) | 1u, off_lo, k0, k1);
       }
       if (indexing) {
         bt = (bt & hi_mask) | static_cast<uint32_t>(p);
         bn = (bn & hi_mask) | static_cast<uint32_t>(p);
       }
     }
-    key_t[j] = bt;
-    key_n[j] = bn;
+    keys[0][j] = bt;
+    keys[1][j] = bn;
   }
 
   // ---- exact-k thresholds: max T with count(key < T) <= k, MSB first
-  uint32_t thr_t = 0, thr_n = 0;
+  uint32_t thr[2] = {0, 0};
   const int kt = static_cast<int>(at);
   const int kn = static_cast<int>(an);
   if (indexing) {
-    for (int b = 31; b >= 0; --b) {
-      const uint32_t ct = thr_t | (1u << b);
-      const uint32_t cn = thr_n | (1u << b);
-      int cnt[2] = {0, 0};
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        if (tid + j * kThreads < hw) {
-          cnt[0] += key_t[j] < ct;
-          cnt[1] += key_n[j] < cn;
-        }
-      }
-      block_sum<int, 2>(cnt, iscratch);
-      if (cnt[0] <= kt) thr_t = ct;
-      if (cnt[1] <= kn) thr_n = cn;
-    }
+    const int ks[2] = {kt, kn};
+    mdt::exact_k_thresholds<J, 2>(keys, ks, hw, thr, iscratch);
   }
+  const uint32_t thr_t = thr[0], thr_n = thr[1];
 
   // ---- keep bits
   uint32_t keep_t = 0, keep_n = 0;
@@ -173,11 +119,11 @@ __global__ void __launch_bounds__(kThreads) fused_degrade_kernel(
     if (tid + j * kThreads < hw) {
       bool kt_keep, kn_keep;
       if (indexing) {
-        kt_keep = !(key_t[j] < thr_t || kt >= hw);
-        kn_keep = !(key_n[j] < thr_n || kn >= hw);
+        kt_keep = !(keys[0][j] < thr_t || kt >= hw);
+        kn_keep = !(keys[1][j] < thr_n || kn >= hw);
       } else {
-        kt_keep = keep_threshold(key_t[j], at);
-        kn_keep = keep_threshold(key_n[j], an);
+        kt_keep = keep_threshold(keys[0][j], at);
+        kn_keep = keep_threshold(keys[1][j], an);
       }
       keep_t |= static_cast<uint32_t>(kt_keep) << j;
       keep_n |= static_cast<uint32_t>(kn_keep) << j;
@@ -203,7 +149,7 @@ __global__ void __launch_bounds__(kThreads) fused_degrade_kernel(
         }
       }
     }
-    block_sum<float, 4>(v, fscratch);
+    mdt::block_sum<float, 4>(v, fscratch);
     // counts are exact integers in f32: degraded pixels x channels
     const float cnt_t = v[2] * static_cast<float>(channels);
     const float cnt_n = v[3] * static_cast<float>(channels);

@@ -16,7 +16,10 @@ UNet2DModel tensor names — the names of the port's UNet2D parameters.
 - read_safetensors / write_safetensors: the format by hand with numpy, so
   that loading needs no safetensors package: an 8-byte little-endian header
   length, a JSON header, then the raw little-endian tensor bytes.
-- load_checkpoint / save_checkpoint: the export layout.
+- load_checkpoint / save_checkpoint: the export layout,
+  checkpoint-epoch-N/{unet,unet_ema}/ (config.json and the safetensors
+  file each) plus meta.json, which the port's trainer writes and its
+  `--method sample` reads.
 """
 
 from __future__ import annotations
@@ -180,13 +183,28 @@ def read_safetensors(path: str) -> Dict[str, np.ndarray]:
 # ------------------------------------------------------------------ checkpoints
 
 
-def save_checkpoint(dirname: str, unet_sd: Dict[str, Any], config: dict) -> str:
-    """Write the export layout's unet/ folder under dirname."""
-    folder = os.path.join(dirname, "unet")
-    os.makedirs(folder, exist_ok=True)
-    with open(os.path.join(folder, "config.json"), "w") as f:
-        json.dump(config, f, indent=2)
-    write_safetensors(os.path.join(folder, WEIGHTS_NAME), unet_sd)
+def save_checkpoint(
+    dirname: str,
+    unet_sd: Dict[str, Any],
+    config: dict,
+    ema_sd: Optional[Dict[str, Any]] = None,
+    ema_config: Optional[dict] = None,
+    meta: Optional[dict] = None,
+) -> str:
+    """Write the export layout under dirname: unet/, unet_ema/ when ema_sd
+    is given (with ema_config, else config), and meta.json when given."""
+    folders = [("unet", unet_sd, config)]
+    if ema_sd is not None:
+        folders.append(("unet_ema", ema_sd, ema_config or config))
+    for sub, sd, cfg in folders:
+        folder = os.path.join(dirname, sub)
+        os.makedirs(folder, exist_ok=True)
+        with open(os.path.join(folder, "config.json"), "w") as f:
+            json.dump(cfg, f, indent=2)
+        write_safetensors(os.path.join(folder, WEIGHTS_NAME), sd)
+    if meta is not None:
+        with open(os.path.join(dirname, "meta.json"), "w") as f:
+            json.dump(meta, f, indent=2)
     return dirname
 
 

@@ -1,10 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-At first use, every csrc/*.cu compiles with nvcc into one shared library
-with a plain C interface, which ctypes loads. The library lands in
-build/kernels/ at the root of the checkout, named by a hash of the sources
-and the flags, so an edited source rebuilds and an unchanged one loads from
-the cache. No PyTorch header is included, so a build takes seconds.
+At first use, every csrc/*.cu compiles with nvcc, one process per source,
+all started together, and the objects link into one shared library with a
+plain C interface, which ctypes loads. The library lands in build/kernels/
+at the root of the checkout, named by a hash of the sources, the headers
+(csrc/*.cuh) and the flags, so an edited source rebuilds and an unchanged
+one loads from the cache. No PyTorch header is included, so a build takes
+seconds.
 
 A failed build raises: nothing falls back to a plain version.
 """
@@ -25,7 +27,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 KERNEL_DIR = os.path.join(BUILD_DIR, "kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -52,7 +54,8 @@ def _sources():
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for src in _sources() + headers:
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
     return os.path.join(KERNEL_DIR, f"libmdt_kernels_{h.hexdigest()[:16]}.so")
@@ -70,8 +73,54 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp,                      # cudaStream_t
     ]
     fn.restype = i32
+    fn = lib.mdt_kmask
+    fn.argtypes = [
+        vp, vp,                  # counts (int32), bits (nullable)
+        u64, u64,                # philox seed, offset
+        vp,                      # out
+        i32, i32,                # batch, hw
+        vp,                      # cudaStream_t
+    ]
+    fn.restype = i32
     lib.mdt_error_string.argtypes = [i32]
     lib.mdt_error_string.restype = ctypes.c_char_p
+
+
+def _compile_and_link(path: str) -> str:
+    """nvcc -c for every source at once, then one link; returns nvcc's
+    output. Raises on any failure."""
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs, procs = [], []
+    for src in _sources():
+        obj = os.path.join(KERNEL_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        objs.append(obj)
+    log, failed = [], []
+    for cmd, proc in procs:  # wait for every compile, then report
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    tmp = f"{path}.{tag}"
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{log[-1]}")
+        os.replace(tmp, path)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return "".join(log)
 
 
 def load_library() -> ctypes.CDLL:
@@ -83,15 +132,7 @@ def load_library() -> ctypes.CDLL:
         path = library_path()
         if not os.path.exists(path):
             os.makedirs(KERNEL_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}"
-                )
-            os.replace(tmp, path)
+            build_log = _compile_and_link(path)
         lib = ctypes.CDLL(path)
         _declare(lib)
         _lib = lib

@@ -2,9 +2,10 @@
 
 A copy of masked_diffusion_tpu/ops/schedule.py, whose module imports
 jax.numpy: the four numpy table builders, build_schedule with its
-schedule/selection coupling errors, and MaskSchedule. The tables stay numpy
-(host-side, deduplicated, so T is data-dependent); the views used inside the
-sampling loop are tensors on a device the caller names.
+schedule/selection coupling errors, and MaskSchedule with its loss-weight
+table. The tables stay numpy (host-side, deduplicated, so T is
+data-dependent); the views used inside the sampling loop and the train step
+are tensors on a device the caller names.
 
 Reference semantics (scheduler.py of hytae1993/masked-diffusion-model):
   linear      :103-109  np.linspace(1e-3, 1, T) float ratios
@@ -123,6 +124,20 @@ class MaskSchedule:
             used = [T]
         used[-1] = T
         return np.asarray(used, dtype=np.int32)
+
+    # ------------------------------------------------------------- loss weights
+    def loss_weight_table(self, power_base: float, device="cpu") -> torch.Tensor:
+        """power_base ** linspace(1, 0, T) in fp32 (scheduler.py:780-794)."""
+        alpha = torch.linspace(1.0, 0.0, self.num_steps, dtype=torch.float32, device=device)
+        base = torch.full((), float(power_base), dtype=torch.float32, device=device)
+        return torch.pow(base, alpha)
+
+    def loss_weights(self, timeindex: torch.Tensor, power_base: float) -> torch.Tensor:
+        """Weights indexed by *timeindex* — the draw position within the
+        epoch's used-timestep list, exactly as the reference trainers pass it
+        (trainer_masked.py:136-138, trainer_masked_mean_shift.py:148)."""
+        table = self.loss_weight_table(power_base, timeindex.device)
+        return table[timeindex.long()]
 
 
 def build_schedule(

@@ -15,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from masked_diffusion_tpu.utils.grids import normalize01, save_image_grid, save_png
+from masked_diffusion_tpu_torch.utils.grids import normalize01, save_image_grid, save_png
 from masked_diffusion_tpu_torch.ops.schedule import MaskSchedule
 from masked_diffusion_tpu_torch.sample.latent import latent_initial
 from masked_diffusion_tpu_torch.sample.loop import make_sample_fn

@@ -23,9 +23,10 @@ def latent_initial(
     sample_latent_shape: str = "data",
     mean_area: str = "image-wise",
     dataset_hist: Optional[tuple] = None,
-    device="cpu",
+    device="cuda",
 ) -> torch.Tensor:
-    """Constant-image latents (N, H, W, C) float32 on `device`."""
+    """Constant-image latents (N, H, W, C) float32 on `device` (the card
+    unless the caller names another device)."""
     mode = sample_latent_shape.lower()
     dim_sample = 1 if mean_area == "image-wise" else out_channel
 

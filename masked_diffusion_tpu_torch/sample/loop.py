@@ -33,7 +33,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from masked_diffusion_tpu.config import parse_mean_option, validate_sampling_modes
+from masked_diffusion_tpu_torch.config import parse_mean_option, validate_sampling_modes
 from masked_diffusion_tpu_torch.ops import shift as shift_ops
 from masked_diffusion_tpu_torch.ops.fused_degrade import fused_degrade_update
 from masked_diffusion_tpu_torch.ops.schedule import MaskSchedule

@@ -1,0 +1,155 @@
+"""One torch.profiler window of the flagship train step on the card.
+
+    python -m masked_diffusion_tpu_torch.tools.profile_train [--steps 5] [--out FILE]
+
+Builds the flagship UNet (113.7M parameters, 64x64x3) and the port's train
+step in bf16 at batch 64 (AdamW + cosine at lr 1e-4, EMA on, mean_shift with
+a 1-d_constant shift), for linear+thresholding (T=1000) and log+indexing
+(T=4096). Per mode: the wall time per step over 20 steps without the
+profiler, then a profiled window of --steps steps after a warm-up. From the
+window: wall and device-busy ms per step, the device's idle share, the
+kernels run per step, the top kernels by device time, with the shares of
+the GroupNorm forward and backward kernels and the exact-k mask kernel, and
+the host operators with the most self CPU time.
+Prints one JSON object per mode and writes them all to --out (default
+build/profile_train.json). Needs CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+# kernel name fragments of the port's own kernels
+OWN = {"gn_fwd": "gn_silu_kernel", "gn_bwd": "gn_silu_bwd_kernel", "kmask": "kmask_kernel"}
+
+
+def _device_rows(prof):
+    """[(name, device ms total, calls)] of the window's kernels and copies."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        # a user annotation's device range (e.g. Optimizer.step#AdamW.step)
+        # covers kernels that are listed on their own
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False) \
+                or "#" in e.key:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        rows.append((e.key, t / 1e3, e.count))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def _host_rows(prof, steps: int, top: int = 12):
+    """The host operators with the most self CPU time per step: where the
+    host's share of the wall time goes."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.key, e.self_cpu_time_total / 1e3 / steps, e.count / steps)
+            for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    rows.sort(key=lambda r: -r[1])
+    return [{"name": n[:120], "self_cpu_ms_per_step": t, "calls_per_step": c}
+            for n, t, c in rows[:top]]
+
+
+def profile_mode(sched: str, select: str, t_steps: int, steps: int, batch: int = 64) -> dict:
+    import numpy as np
+    import torch
+
+    from masked_diffusion_tpu_torch.cli.main_train_masked import parse
+    from masked_diffusion_tpu_torch.models.factory import build_unet
+    from masked_diffusion_tpu_torch.ops.schedule import build_schedule
+    from masked_diffusion_tpu_torch.train.optim import build_lr_schedule, build_optimizer
+    from masked_diffusion_tpu_torch.train.step import create_train_state, make_train_step
+
+    cfg, _ = parse([
+        "--method", "mean_shift", "--data_size", "64", "--ddpm_schedule", sched,
+        "--ddpm_num_steps", str(t_steps), "--select_degrade_pixel", select,
+        "--mean_option", "degraded_area", "--shift_type", "1-d_constant",
+        "--mixed_precision", "bf16", "--optim", "adamw", "--lr_scheduler", "cosine",
+        "--lr", "1e-4", "--lr_warmup_steps", "0",
+    ])
+    schedule = build_schedule(sched, t_steps, 64, select)
+    used = schedule.timesteps_for_epoch(0, 10, 1)
+    torch.manual_seed(0)
+    model = build_unet()
+    lr = build_lr_schedule("cosine", 1e-4, 0, 1000)
+    opt = build_optimizer("adamw", model.parameters(), lr, 1.0, 1)
+    state = create_train_state(model, opt, use_ema=True)
+    step = make_train_step(model, schedule, cfg, opt, used, lr, device="cuda")
+    data = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, (batch, 64, 64, 3)).astype(np.float32)).cuda()
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(5):
+        step(state, data, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step(state, data, gen)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / 20
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(state, data, gen)
+        torch.cuda.synchronize()
+        window_ms = 1e3 * (time.perf_counter() - t0) / steps
+    rows = _device_rows(prof)
+    busy = sum(r[1] for r in rows) / steps
+    own = {k: sum(r[1] for r in rows if frag in r[0] and not (k == "gn_fwd" and "bwd" in r[0]))
+           / steps for k, frag in OWN.items()}
+    return {
+        "mode": f"{sched}+{select}", "batch": batch, "steps_profiled": steps,
+        "wall_ms_per_step": wall_ms, "profiled_wall_ms_per_step": window_ms,
+        "device_busy_ms_per_step": busy,
+        # against the profiled window's wall, and against the wall without
+        # the profiler (whose host overhead lengthens the window)
+        "idle_share": max(0.0, 1.0 - busy / window_ms),
+        "idle_share_unprofiled": max(0.0, 1.0 - busy / wall_ms),
+        "kernels_per_step": sum(r[2] for r in rows) / steps,
+        "own_kernels_ms_per_step": own,
+        "own_kernels_share": {k: v / busy for k, v in own.items()},
+        "top": [{"name": n[:120], "ms_per_step": t / steps, "share": t / steps / busy,
+                 "calls_per_step": c / steps} for n, t, c in rows[:15]],
+        "host_top": _host_rows(prof, steps),
+    }
+
+
+def main(argv=None) -> int:
+    import torch
+
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--steps", type=int, default=5)
+    p.add_argument("--out", default=os.path.join("build", "profile_train.json"))
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_train: CUDA is not available", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    results = []
+    for sched, select, t_steps in (("linear", "thresholding", 1000), ("log", "indexing", 4096)):
+        r = profile_mode(sched, select, t_steps, args.steps)
+        r["card"] = card
+        results.append(r)
+        print(json.dumps(r), flush=True)
+        torch.cuda.empty_cache()
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(results, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,8 +1,15 @@
-"""The PyTorch port imports neither jax nor flax, and importing its kernel
-modules needs neither triton nor nvcc (only a kernel launch needs them).
+"""The PyTorch port imports nothing of the JAX package (masked_diffusion_tpu
+and its submodules), nor jax or flax, and importing its kernel modules needs
+neither triton nor nvcc (only a kernel launch needs them).
 
-Runs in a subprocess: conftest.py imports jax into this process."""
+Two checks: a subprocess (conftest.py imports jax into this process) that
+imports every module of the port and runs the CLI's main for --method
+mean_shift and --method sample on the CPU at toy size, then inspects
+sys.modules; and an AST scan of every .py of the port and of chip_smoke.py
+for an import of masked_diffusion_tpu."""
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -25,7 +32,27 @@ for name in names:
     importlib.import_module(name)
 from masked_diffusion_tpu_torch.ops import build
 assert build._lib is None, "a kernel library was loaded at import"
-bad = sorted(m for m in ("jax", "flax", "triton") if m in sys.modules)
+
+import contextlib, io, json, tempfile
+from masked_diffusion_tpu_torch.cli.main_train_masked import main
+with tempfile.TemporaryDirectory() as work:
+    args = ["--data_name", "synthetic", "--data_size", "16", "--data_subset", "True",
+            "--data_subset_num", "8", "--batch_size", "4", "--num_epochs", "1",
+            "--sample_num", "2", "--ddpm_schedule", "log", "--ddpm_num_steps", "6",
+            "--mean_option", "degraded_area", "--sampling", "momentum", "--use_wandb", "False",
+            "--block_out_channels", "32,64", "--layers_per_block", "1", "--device", "cpu",
+            "--dir_work", work]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(["--method", "mean_shift"] + args)
+    line = [l for l in buf.getvalue().splitlines() if l.startswith("train_stats ")][-1]
+    ckpt = json.loads(line.split(" ", 1)[1])["checkpoints"][-1]
+    with contextlib.redirect_stdout(buf):
+        main(["--method", "sample", "--test_model_path", ckpt] + args)
+    assert "sample_stats " in buf.getvalue()
+
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "flax", "triton", "masked_diffusion_tpu"))
 assert not bad, bad
 print("IMPORTED", len(names))
 """
@@ -53,3 +80,22 @@ def test_chip_smoke_refuses_without_cuda():
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+
+
+def test_no_source_of_the_port_imports_the_jax_package():
+    files = glob.glob(os.path.join(ROOT, "masked_diffusion_tpu_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(ROOT, "chip_smoke.py")]
+    assert len(files) > 20
+    bad = [(os.path.relpath(f, ROOT), name) for f in files for name in _imported_roots(f)
+           if name.split(".")[0] in ("masked_diffusion_tpu", "jax", "flax")]
+    assert not bad, bad

@@ -183,4 +183,4 @@ def test_cli_never_carries_on_without_cuda(unets, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_cli.main(_cli_args(ckpt, tmp_path / "run", "cuda"))
     with pytest.raises(SystemExit, match="not yet ported"):
-        port_cli.main(_cli_args(ckpt, tmp_path / "run", "cpu")[2:] + ["--method", "mean_shift"])
+        port_cli.main(_cli_args(ckpt, tmp_path / "run", "cpu")[2:] + ["--method", "test"])
