@@ -36,13 +36,36 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      gradient), then throughput; kernel launches per step checked
  10. training through the CLI (--method mean_shift, log+indexing, 2 epochs),
      then serving the checkpoint it wrote; kernel launch counts checked
+ 11. tiny-head attention kernel vs its plain version, fp32 (TF32 off) and
+     bf16, where the main paths run it (S = 256, 1024, 4096) and at ragged
+     shapes (S = 200, 384; D = 4), with its time beside the plain
+     version's, SDPA's and the bound; the autograd Function's gradients vs
+     autograd through the plain version
+ 12. kernels 1 and 3 above 128x128 (keys in device memory) at 256x256 and
+     160x160, batch 8: bitwise masks with explicit bits, the Philox route's
+     exact k, determinism and per-pixel frequency; times at 256x256
+ 13. GroupNorm(+SiLU) forward with grad and backward at unet6@256x256's
+     norm shapes, batch 8
+ 14. slice parity on the CelebA-HQ topology (--num_attention 5): every
+     kernel on CUDA vs the plain versions on the CPU, 4 reverse steps
+ 15. every zoo name at 128x128: one bf16 forward at batch 2, finite, with
+     the tiny-head launches the topology implies
+ 16. the CelebA-HQ launch config through the CLI (--num_attention 5, 64x64,
+     batch 32, log+indexing at T=16, bf16): 2 epochs, then served; 10
+     tiny-head launches per UNet forward
+ 17. unet6 at 256x256 through the CLI (batch 8, bf16, log+indexing): 2
+     epochs of 2 train steps, then served; 5 tiny-head launches per UNet
+     forward
 
-Phases 5 and 10, the main-path runs, come last, in one work directory. The
-kernels' `launches` are counted over those two runs, with every count set
-to 0 just before each. `bound_ms` is the least time
-the card could take for the same work: the larger of the bytes moved over
-3.35 TB/s and the operations over 67 TFLOP/s (fp32 outside the tensor
-cores; integer operations counted at the same rate), from each run's shapes.
+Phases 11 and 12 run first (the newest kernels fail fast); phases 5, 10, 16
+and 17, the main-path runs, come last, in one work directory. The kernels'
+`launches` are counted over those four runs, with every count set to 0
+just before each. `bound_ms` is the least time the card could take for the
+same work: the larger of the bytes moved over 3.35 TB/s and the operations
+over 67 TFLOP/s (fp32 outside the tensor cores; integer operations counted
+at the same rate), from each run's shapes; for the tiny-head kernel the
+two products count at the dense bf16 tensor-core rate of 989 TFLOP/s and
+the softmax's ~5 operations per score at 67 TFLOP/s.
 
 Its last two lines are one JSON object of kernel results and
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints neither.
@@ -91,8 +114,32 @@ BF16_UPDATE_RTOL = 0.5  # relative L2 over every parameter's first update
 TRAIN_STEPS_TIMED = 20
 KMASK_Z = 5.0  # per-pixel |z| bound over 4096 pixels: a 4-sigma bound fails by
 # chance at some pixel with probability ~0.25; 5 sigma keeps that under 0.3%
+# the same chance of a false alarm (~0.25%) over the 65536 pixels of a 256x256
+# image: 65536 * P(|z| > 5.5) = 0.0025
+KMASK_Z_LARGE = 5.5
+LARGE_SIZES = (256, 160)  # above 128x128: keys in device memory; 160x160 is no power of 2
+# tinyhead kernel vs its plain version in fp32 on the same inputs (bf16 ones
+# widened exactly), (atol, rtol). fp32: the kernel's online base-2 softmax and
+# its sums over S keys in another order, a few fp32 ulps. bf16: the kernel
+# widens its inputs and computes as its fp32 instance, then rounds the output
+# once to bf16, so it lies within half a bf16 ulp (at most 2^-8 |ref|) of the
+# fp32 result, plus the fp32 term. Readings are reported as the worst ratio
+# of the error to this limit
+TINYHEAD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-5, 2**-8 + 1e-4)}
+# the autograd Function's backward and autograd through the plain version run
+# the same operations on the same inputs in either dtype: equal up to the
+# order of sums
+TINYHEAD_GRAD_TOL = (1e-5, 1e-4)
+TINYHEAD_SHAPES = (  # (B, heads, S, D) where the main paths run the kernel
+    (32, 16, 1024, 8),  # the CelebA-HQ config: level 1 (32x32, 128 ch), 5 per forward
+    (32, 32, 256, 8),   # the CelebA-HQ config: level 2 (16x16, 256 ch), 5 per forward
+    (8, 64, 256, 8),    # unet6 at 256x256, batch 8: level 4 (16x16, 512 ch), 5 per forward
+    (4, 16, 4096, 8),   # unet1 at 128x128, batch 4: level 1 (64x64, 128 ch), 5 per forward
+)
+TINYHEAD_RAGGED = ((2, 4, 200, 8), (2, 4, 384, 8), (2, 4, 256, 4), (2, 4, 200, 4))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 
 
 def log(msg: str) -> None:
@@ -140,6 +187,40 @@ def bound(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_terms(b: int, h: int, s: int, d: int, bf16: bool) -> dict:
+    """ms of each lower bound of one tiny-head attention: q, k, v read and
+    out written once; the two products (4*B*H*S^2*D operations) on the
+    tensor cores in bf16, on the CUDA cores in fp32; the softmax (~5*B*H*S^2
+    fp32 operations)."""
+    return {
+        "bytes": 4 * b * h * s * d * (2 if bf16 else 4) / HBM_BYTES_PER_S * 1e3,
+        "products": 4 * b * h * s * s * d / (BF16_TC_OPS_PER_S if bf16 else FP32_OPS_PER_S) * 1e3,
+        "softmax": 5 * b * h * s * s / FP32_OPS_PER_S * 1e3,
+    }
+
+
+def terms_bound(terms: dict):
+    """(least ms, "bytes" or "operations", the term that sets it)."""
+    term = max(terms, key=terms.get)
+    return terms[term], "bytes" if term == "bytes" else "operations", term
+
+
+def tinyhead_per_forward(cfg) -> int:
+    """Attention blocks of one UNet forward at the shapes the tiny-head
+    kernel takes (S >= 128, head_dim <= 8), counted from the topology:
+    level i attends at (size / 2^i)^2 tokens with block_out_channels[i]."""
+    n = len(cfg.block_out_channels)
+
+    def at(level: int, blocks: int) -> int:
+        res, ch = cfg.sample_size >> level, cfg.block_out_channels[level]
+        heads = max(1, ch // cfg.attention_head_dim)
+        return blocks if res * res >= 128 and ch // heads <= 8 else 0
+
+    down = sum(at(i, cfg.layers_per_block) for i in range(n) if cfg.attn_down[i])
+    up = sum(at(n - 1 - i, cfg.layers_per_block + 1) for i in range(n) if cfg.attn_up[i])
+    return down + up + at(n - 1, 1)  # and the mid block, at the deepest level
 
 
 def phase_env():
@@ -256,15 +337,19 @@ def phase_fused():
     return worst, times, bnd
 
 
-def norm_shapes(batch: int):
-    """{((C, H, W), groups, silu): norms per forward} of the flagship UNet."""
+def norm_shapes(batch: int, name: str = "default", size: int = SIZE, tag: str = "[3]"):
+    """{((C, H, W), groups, silu): norms per forward} of a UNet: the flagship
+    by default, or a zoo name at `size`."""
     import torch
 
     from masked_diffusion_tpu_torch.models.factory import build_unet
     from masked_diffusion_tpu_torch.models.unet import GroupNormAct
+    from masked_diffusion_tpu_torch.models.zoo import Model
 
     dev = torch.device("cuda")
-    model = build_unet().to(dev, torch.bfloat16).eval()
+    with dev:
+        model = build_unet(3, size, size) if name == "default" else Model(name, 3, size, size)
+        model = model.to(torch.bfloat16).eval()
     calls = {}
 
     def hook(mod, inputs, _out):
@@ -274,11 +359,12 @@ def norm_shapes(batch: int):
     hooks = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, GroupNormAct)]
     t0 = time.perf_counter()
     with torch.inference_mode():
-        model(torch.randn(batch, 3, SIZE, SIZE, device=dev, dtype=torch.bfloat16),
+        model(torch.randn(batch, 3, size, size, device=dev, dtype=torch.bfloat16),
               torch.full((batch,), 10.0, device=dev))
     torch.cuda.synchronize()
-    log(f"[3] flagship forward with the Triton GroupNorm (first launch compiles): "
-        f"{time.perf_counter() - t0:.2f} s; {sum(calls.values())} norms, {len(calls)} shapes")
+    log(f"{tag} {name} forward at {size}x{size} with the Triton GroupNorm (first launch "
+        f"compiles): {time.perf_counter() - t0:.2f} s; {sum(calls.values())} norms, "
+        f"{len(calls)} shapes")
     for h in hooks:
         h.remove()
     return calls
@@ -419,13 +505,14 @@ def phase_kmask():
     return worst, kms, pms, bnd
 
 
-def phase_groupnorm_train(calls, batch: int):
+def phase_groupnorm_train(calls, batch: int, tag: str = "[7]", timed: bool = True):
     """GroupNorm(+SiLU) as a train step runs it, at the training batch: the
     forward with grad through the autograd Function (forward kernel, fp32
     statistics saved), then its backward kernel, against the plain forward
     and autograd through the plain version. Returns the backward's (max
     fp32 |dx| err, kernel ms, plain ms, library ms, bound) and the bf16
-    forward's (kernel ms, plain ms, library ms, bound) per train step."""
+    forward's (kernel ms, plain ms, library ms, bound) per train step
+    (zeros when not `timed`)."""
     import torch
     import torch.nn.functional as F
 
@@ -496,7 +583,7 @@ def phase_groupnorm_train(calls, batch: int):
                 if dx.dtype != dtype:
                     raise AssertionError(f"dx dtype {dx.dtype} != {dtype}")
                 worst[name] = max(worst[name], errs[0])
-                if count == 0 or dtype != torch.bfloat16:
+                if not timed or count == 0 or dtype != torch.bfloat16:
                     continue
                 _, mean, rstd = group_norm_silu_forward(xd, scale, bias, groups, 1e-5, silu)
 
@@ -541,13 +628,15 @@ def phase_groupnorm_train(calls, batch: int):
                 line.append(f"silu={int(silu)} x{count}: backward kernel {kms:.4f} plain "
                             f"{pms:.4f} library {lms:.4f} ms, forward kernel {kfwd:.4f} plain "
                             f"{pfwd:.4f} library {lfwd:.4f} ms")
-        log(f"[7] GN train {batch}x{c}x{h}x{w} G={groups}: forward with grad and backward "
+        log(f"{tag} GN train {batch}x{c}x{h}x{w} G={groups}: forward with grad and backward "
             f"within tolerance" + ("; bf16 " + "; ".join(line) if line else ""))
-    log(f"[7] group_norm_silu with grad at batch {batch}: all shapes within tolerance, one "
+    log(f"{tag} group_norm_silu with grad at batch {batch}: all shapes within tolerance, one "
         f"forward and one backward launch each; max |dx| err fp32 {worst['float32']:.3g}, "
         f"bf16 {worst['bfloat16']:.3g}")
     for what, acc in (("backward", bwd), ("forward", fwd_t)):
-        log(f"[7] device time per bf16 train step, GN {what} at batch {batch}: kernel "
+        if not timed:
+            break
+        log(f"{tag} device time per bf16 train step, GN {what} at batch {batch}: kernel "
             f"{acc['kernel']:.4f} ms, plain {acc['plain']:.4f} ms, F.group_norm+F.silu "
             f"{acc['library']:.4f} ms, bound {acc['bound']:.5f} ms (bytes)"
             + (" (backward = forward+backward minus forward)" if what == "backward" else ""))
@@ -556,18 +645,22 @@ def phase_groupnorm_train(calls, batch: int):
             (fwd_t["kernel"], fwd_t["plain"], fwd_t["library"], (fwd_t["bound"], "bytes")))
 
 
-def _flagship_weights(seed: int):
+def _flagship_weights(seed: int, num_attention: int = 1):
     import torch
 
     from masked_diffusion_tpu_torch.models.factory import build_unet
 
     torch.manual_seed(seed)
-    model = build_unet()
+    model = build_unet(num_attention=num_attention)
     model.conv_out.reset_parameters()  # random, not zero: the output must depend on it
     return model
 
 
-def phase_slice():
+def phase_slice(tag: str = "[4]", num_attention: int = 1,
+                modes=(("linear", "thresholding", 10, 10), ("log", "indexing", 10, 10))):
+    """The sampler with every kernel on CUDA vs the plain versions on the
+    CPU: same weights and draws, fp32 with TF32 off. modes: (schedule,
+    selection, T, reverse steps run, the last of the used timesteps)."""
     import numpy as np
     import torch
 
@@ -575,24 +668,25 @@ def phase_slice():
     from masked_diffusion_tpu_torch.models.factory import build_unet
     from masked_diffusion_tpu_torch.ops.schedule import build_schedule
     from masked_diffusion_tpu_torch.ops.shift import draw_shapes
+    from masked_diffusion_tpu_torch.ops.tinyhead_attention import tinyhead_attention
     from masked_diffusion_tpu_torch.sample.latent import latent_initial
     from masked_diffusion_tpu_torch.sample.loop import StepDraws, make_sample_fn
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    batch, steps = 2, 10
-    ref_model = _flagship_weights(1)
-    for sched, select in (("linear", "thresholding"), ("log", "indexing")):
+    batch = 2
+    ref_model = _flagship_weights(1, num_attention)
+    for sched, select, t_steps, steps in modes:
         cfg, _ = parse([
             "--method", "sample", "--data_size", str(SIZE), "--ddpm_schedule", sched,
-            "--ddpm_num_steps", str(steps), "--select_degrade_pixel", select,
+            "--ddpm_num_steps", str(t_steps), "--select_degrade_pixel", select,
             "--degrade_channel", "1-channel", "--mean_option", "degraded_area",
             "--mean_area", "image-wise", "--shift_type", "1-d_constant",
             "--momentum_adaptive", "base_momentum", "--sampling_mask_dependency",
             "independent", "--mixed_precision", "no", "--sample_latent_shape", "uniform",
         ])
-        schedule = build_schedule(sched, steps, SIZE, select)
-        used = schedule.timesteps_for_epoch(1, 10, 1)
+        schedule = build_schedule(sched, t_steps, SIZE, select)
+        used = schedule.timesteps_for_epoch(1, 10, 1)[-steps:]
         rng = np.random.default_rng(2)
         u_shape, _ = draw_shapes(cfg.shift_type, (batch, 3, SIZE, SIZE))
         cpu_draws = [
@@ -608,10 +702,11 @@ def phase_slice():
                                 device="cpu")
         outs = {}
         for dev, draws in (("cuda", cuda_draws), ("cpu", cpu_draws)):
-            model = build_unet()
+            model = build_unet(num_attention=num_attention)
             model.load_state_dict(ref_model.state_dict())
             fn = make_sample_fn(model, schedule, cfg, used, device=dev)
             lat = latent.to(dev)
+            launched = tinyhead_attention.launches
             t0 = time.perf_counter()
             if dev == "cuda":
                 # the loop must not make the host wait on the card: any
@@ -622,17 +717,24 @@ def phase_slice():
             finally:
                 torch.cuda.set_sync_debug_mode("default")
             outs[dev] = out.cpu()
-            log(f"[4] {sched}+{select} on {dev}: {len(used)} steps in "
+            launched = tinyhead_attention.launches - launched
+            want = len(used) * tinyhead_per_forward(model.config) if dev == "cuda" else 0
+            if launched != want:
+                raise AssertionError(f"slice {sched} on {dev}: {launched} tinyhead launches, "
+                                     f"expected {want}")
+            log(f"{tag} {sched}+{select} on {dev}: {len(used)} steps in "
                 f"{time.perf_counter() - t0:.2f} s"
-                + (" with no host sync inside the loop" if dev == "cuda" else ""))
+                + (f" with no host sync inside the loop, {launched} tinyhead launches"
+                   if dev == "cuda" else ""))
         a, r = outs["cuda"], outs["cpu"]
         if not (torch.isfinite(a).all() and a.shape == (batch, SIZE, SIZE, 3)):
             raise AssertionError(f"slice {sched}: non-finite or misshapen output {tuple(a.shape)}")
         err = (a - r).abs().max().item()
         if not torch.allclose(a, r, atol=SLICE_TOL, rtol=SLICE_TOL):
             raise AssertionError(f"slice {sched}+{select}: CUDA vs CPU max err {err}")
-        log(f"[4] slice parity {sched}+{select}: CUDA kernels vs CPU plain, max |diff| "
-            f"{err:.3g} (atol = rtol = {SLICE_TOL}); output std {r.std().item():.4f}")
+        log(f"{tag} slice parity num_attention={num_attention} {sched}+{select}: CUDA kernels "
+            f"vs CPU plain, max |diff| {err:.3g} (atol = rtol = {SLICE_TOL}); output std "
+            f"{r.std().item():.4f}")
     torch.backends.cudnn.allow_tf32 = True
 
 
@@ -955,7 +1057,7 @@ def phase_train_throughput(smi: str):
         per = {k: v / TRAIN_STEPS_TIMED for k, v in counts.items()}
         want = {"exact_count_masks": 1 if select == "indexing" else 0,
                 "group_norm_silu": norms, "group_norm_silu_backward": norms,
-                "fused_degrade_update": 0}
+                "fused_degrade_update": 0, "tinyhead_attention": 0}
         if per != want:
             raise AssertionError(f"train {sched}: launches per step {per}, expected {want}")
         if not bool(torch.isfinite(metrics["train_loss"])):
@@ -1015,7 +1117,8 @@ def phase_train_cli(workdir: str):
     grids = os.listdir(os.path.join(run, "train", "image", "ema_sample_img"))
     if meta["global_step"] != 8 or "ema_sample_00001_global.png" not in grids:
         raise AssertionError(f"train CLI: meta {meta}, grids {grids}")
-    if train_counts["exact_count_masks"] != 8 or not all(train_counts.values()):
+    if (train_counts["exact_count_masks"] != 8 or train_counts["tinyhead_attention"]
+            or not all(n for k, n in train_counts.items() if k != "tinyhead_attention")):
         raise AssertionError(f"train CLI: launches {train_counts}")
     log(f"[10] train CLI mean_shift log+indexing: 2 epochs x 4 steps, losses "
         f"{[round(v, 5) for v in stats['loss_mean_epoch']]}, {stats['ms_per_step']:.3f} "
@@ -1041,14 +1144,378 @@ def phase_train_cli(workdir: str):
     return {k: train_counts[k] + serve_counts[k] for k in train_counts}
 
 
+def phase_tinyhead():
+    """The tiny-head attention kernel against its plain version at the main
+    paths' shapes and at ragged ones, fp32 (TF32 off) and bf16; its times
+    beside the plain version's, SDPA's and the bound; and the autograd
+    Function's gradients against autograd through the plain version.
+    Returns (max fp32 err, {(shape, dtype): (ms, plain ms, SDPA ms, terms)})."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from masked_diffusion_tpu_torch.ops.tinyhead_attention import (
+        tinyhead_attention,
+        tinyhead_attention_plain,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst_ratio = {"float32": 0.0, "bfloat16": 0.0}
+    times = {}
+
+    def check(got, ref, name, what, tol):
+        atol, rtol = tol
+        diff = (got.float() - ref.float()).abs()
+        ratio = (diff / (atol + rtol * ref.float().abs())).max().item()
+        if got.shape != ref.shape or not ratio <= 1.0:
+            raise AssertionError(f"tinyhead {what} {name}: max err {diff.max().item()}, "
+                                 f"{ratio:.3g} times the limit atol {atol} + rtol {rtol} |ref|")
+        worst[name] = max(worst[name], diff.max().item())
+        worst_ratio[name] = max(worst_ratio[name], ratio)
+        return diff.max().item()
+
+    for shape in TINYHEAD_SHAPES + TINYHEAD_RAGGED:
+        b, h, s, d = shape
+        scale = 1.0 / math.sqrt(d)
+        qkv = [torch.randn(shape, generator=gen, device=dev) for _ in range(3)]
+        line = []
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            q, k, v = (t.to(dtype) for t in qkv)
+            with torch.inference_mode():
+                out = tinyhead_attention(q, k, v, scale)
+                ref = tinyhead_attention_plain(q.float(), k.float(), v.float(), scale)
+                torch.cuda.synchronize()
+                if out.dtype != dtype:
+                    raise AssertionError(f"tinyhead {shape}: output dtype {out.dtype}")
+                err = check(out, ref, name, shape, TINYHEAD_TOL[name])
+                if shape not in TINYHEAD_SHAPES:
+                    line.append(f"{name} max err {err:.3g}")
+                    continue
+                # the S=4096 plain version holds 4 GiB of scores per call
+                reps, iters = (3, 3) if b * h * s * s > 2**28 else (20, 10)
+                kms, _ = cuda_ms(lambda: tinyhead_attention(q, k, v, scale), reps, iters)
+                pms, _ = cuda_ms(lambda: tinyhead_attention_plain(q, k, v, scale), reps, iters)
+                lms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                                 reps, iters)
+            terms = attention_terms(b, h, s, d, dtype == torch.bfloat16)
+            bnd = terms_bound(terms)
+            times[(shape, name)] = (kms, pms, lms, terms)
+            line.append(f"{name} max err {err:.3g}, kernel {kms:.4f} ms, plain {pms:.4f}, "
+                        f"SDPA {lms:.4f}, bound {bnd[0]:.5f} ({bnd[2]}; bytes "
+                        f"{terms['bytes']:.5f}, products {terms['products']:.5f}, softmax "
+                        f"{terms['softmax']:.5f})")
+        log(f"[11] tinyhead {shape}: " + "; ".join(line))
+        del qkv, q, k, v, out, ref
+        torch.cuda.empty_cache()
+
+    # gradients: the Function's backward recomputes through the plain version
+    b, h, s, d = 2, 16, 1024, 8
+    scale = 1.0 / math.sqrt(d)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        q, k, v, g = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+                      for _ in range(4))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = tinyhead_attention.launches
+        got = torch.autograd.grad(tinyhead_attention(*leaves, scale), leaves, g)
+        launched = tinyhead_attention.launches - before
+        refs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(tinyhead_attention_plain(*refs, scale), refs, g)
+        if launched != 1:
+            raise AssertionError(f"tinyhead with grad launched {launched} kernels, expected 1")
+        errs = [check(a, w, name, f"d{x} {(b, h, s, d)}", TINYHEAD_GRAD_TOL)
+                for a, w, x in zip(got, want, "qkv")]
+        log(f"[11] tinyhead gradients {(b, h, s, d)} {name} through the autograd Function: "
+            f"max err dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g}; one forward launch")
+    log(f"[11] tinyhead_attention: all shapes within tolerance; max err fp32 "
+        f"{worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}; worst error over its limit "
+        f"fp32 {worst_ratio['float32']:.3g}, bf16 {worst_ratio['bfloat16']:.3g}")
+    return worst["float32"], times
+
+
+def phase_exact_k_large():
+    """Kernels 1 and 3 above 128x128 (keys in device memory): explicit bits
+    against the plain versions, bitwise masks; the Philox route's exact k,
+    determinism and, at 256x256, per-pixel frequency; times at 256x256."""
+    import numpy as np
+    import torch
+
+    from masked_diffusion_tpu_torch.ops.fused_degrade import fused_degrade_update, fused_rows
+    from masked_diffusion_tpu_torch.ops.kmask import exact_count_masks, exact_count_masks_plain
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    b, c = 8, 3
+    worst_fused = worst_kmask = 0.0
+    for size in LARGE_SIZES:
+        hw = size * size
+        bits_np = rng.integers(0, 2**32, size=(2, b, hw), dtype=np.uint64).astype(np.int64)
+        bits_np[:, 4:7] &= 0xE0000000  # 8 values of top bits: heavy ties
+        counts = rng.integers(0, hw + 1, size=(2, b))
+        counts[:, :4] = (0, 1, hw - 1, hw)
+        bits = torch.from_numpy(bits_np).to(dev)
+        cnt = torch.from_numpy(counts[0].astype(np.int32)).to(dev)
+        mask = exact_count_masks(b, size, size, cnt, bits=bits[0])
+        ref = exact_count_masks_plain(bits[0], cnt).reshape(b, 1, size, size)
+        torch.cuda.synchronize()
+        worst_kmask = max(worst_kmask, (mask - ref).abs().max().item())
+        if not torch.equal(mask, ref):
+            raise AssertionError(f"kmask {b}x{size}x{size}: masks differ from the plain version")
+        if not torch.equal((1.0 - mask).reshape(b, hw).sum(1).long(), cnt.long()):
+            raise AssertionError(f"kmask {b}x{size}x{size}: zero counts != counts")
+
+        xt = torch.from_numpy(rng.normal(size=(b, c, size, size)).astype(np.float32)).to(dev)
+        x0 = torch.from_numpy(rng.normal(size=(b, c, size, size)).astype(np.float32)).to(dev)
+        ratios = rng.uniform(0, 1, size=(2, b)).astype(np.float32)
+        ratios[:, 0], ratios[:, 1] = 0.0, 1.0
+        for select, amounts in (("thresholding", ratios), ("indexing", counts.astype(np.float32))):
+            amt = torch.from_numpy(amounts).to(dev)
+            for rule, mean_mode, mean_value in (("base_momentum", "degraded_area", 0.0),
+                                                ("base_sampling", "const", 0.25)):
+                kw = dict(select=select, mean_mode=mean_mode, mean_value=mean_value, rule=rule)
+                out, m = fused_degrade_update(xt, x0, amt[0], amt[1], bits=bits, **kw)
+                ref_out, ref_m = fused_rows(bits[0], bits[1], xt.reshape(b, -1),
+                                            x0.reshape(b, -1), amt[0][:, None], amt[1][:, None],
+                                            channels=c, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(m.reshape(b, hw), ref_m):
+                    raise AssertionError(f"fused_degrade {size}x{size} {kw}: masks differ")
+                err = (out.reshape(b, -1) - ref_out).abs().max().item()
+                worst_fused = max(worst_fused, err)
+                if not err <= FUSED_TOL:
+                    raise AssertionError(f"fused_degrade {size}x{size} {kw}: max |out - plain| "
+                                         f"{err} > {FUSED_TOL}")
+                if select == "indexing" and not torch.equal(
+                        (1.0 - m).reshape(b, hw).sum(1), amt[1]):
+                    raise AssertionError(f"fused_degrade {size}x{size}: degraded counts != k")
+
+        # Philox route: exact k and determinism, both kernels
+        kf = cnt.float()
+        kw = dict(select="indexing", mean_mode="degraded_area")
+        m1, m2, m3 = (exact_count_masks(b, size, size, cnt,
+                                        generator=torch.Generator().manual_seed(sd))
+                      for sd in (3, 3, 4))
+        f1, f2, f3 = (fused_degrade_update(xt, x0, kf, kf, seed=1234, offset=off, **kw)[1]
+                      for off in (7, 7, 8))
+        for what, a1, a2, a3 in (("kmask", m1, m2, m3), ("fused_degrade", f1, f2, f3)):
+            if not torch.equal((1.0 - a1).reshape(b, hw).sum(1).long(), cnt.long()):
+                raise AssertionError(f"{what} Philox {size}x{size}: degraded counts != k")
+            if not torch.equal(a1, a2) or torch.equal(a1, a3):
+                raise AssertionError(f"{what} Philox {size}x{size}: not deterministic per seed")
+        log(f"[12] {size}x{size}, batch {b}: kmask and fused_degrade (C={c}, 2 selections x 2 "
+            f"rules and means) with explicit bits (k = 0, 1, HW-1, HW, random; tied top "
+            f"bits): masks bitwise equal to the plain versions, exact counts, max |out - "
+            f"plain| {worst_fused:.3g} (tol {FUSED_TOL}); Philox: exact k in all {b} images, "
+            f"deterministic per seed")
+
+    # per-pixel degraded frequency at 256x256, k = HW/4, over b * draws masks
+    size = LARGE_SIZES[0]
+    hw, k, draws = size * size, size * size // 4, 64
+    quarter = torch.full((b,), k, dtype=torch.int32, device=dev)
+    gen = torch.Generator().manual_seed(5)
+    xt = torch.zeros((b, c, size, size), device=dev)
+    freqs = {
+        "kmask": sum((1.0 - exact_count_masks(b, size, size, quarter, generator=gen)).sum(0)
+                     for _ in range(draws)),
+        "fused_degrade": sum((1.0 - fused_degrade_update(
+            xt, xt, quarter.float(), quarter.float(), seed=77, offset=i, select="indexing",
+            mean_mode="degraded_area")[1]).sum(0) for i in range(draws)),
+    }
+    p = k / hw
+    for what, f in freqs.items():
+        z = (f.reshape(hw) / (b * draws) - p) / (p * (1 - p) / (b * draws)) ** 0.5
+        zmax, zsq = z.abs().max().item(), z.square().mean().item()
+        if zmax > KMASK_Z_LARGE or not 0.9 <= zsq <= 1.1:
+            raise AssertionError(f"{what} Philox {size}x{size}: per-pixel frequency max |z| "
+                                 f"{zmax}, mean z^2 {zsq}")
+        log(f"[12] {what} Philox {size}x{size}: degraded frequency at k = HW/4 over {b} "
+            f"images x {draws} draws: max |z| {zmax:.3f} (bound {KMASK_Z_LARGE}) over {hw} "
+            f"pixels, mean z^2 {zsq:.4f} (1 expected)")
+
+    # times at 256x256, batch 8, Philox bits (the main path's route)
+    x0 = torch.randn((b, c, size, size), device=dev)
+    counts_t = torch.randint(0, hw + 1, (b,), device=dev, dtype=torch.int32)
+    a = counts_t.float()
+    kgen = torch.Generator().manual_seed(7)
+    times = {}
+
+    def kmask_plain():
+        exact_count_masks_plain(torch.randint(0, 2**32, (b, hw), device=dev, dtype=torch.int64),
+                                counts_t)
+
+    def fused_plain():
+        bb = torch.randint(0, 2**32, (2, b, hw), device=dev, dtype=torch.int64)
+        fused_rows(bb[0], bb[1], x0.reshape(b, -1), x0.reshape(b, -1), a[:, None], a[:, None],
+                   channels=c, select="indexing", mean_mode="degraded_area", mean_value=0.0,
+                   rule="base_momentum")
+
+    for what, kernel, plain, bnd in (
+        ("kmask", lambda: exact_count_masks(b, size, size, counts_t, generator=kgen),
+         kmask_plain, bound(4 * b * hw + 4 * b, b * hw * (120 + 32 * 2 + 8))),
+        ("fused_degrade", lambda: fused_degrade_update(
+            x0, x0, a, a, seed=5, offset=1, select="indexing", mean_mode="degraded_area"),
+         fused_plain, bound(4 * (3 * b * c * hw + b * hw + 2 * b),
+                            b * hw * (2 * 120 + 2 * 32 * 2) + 6 * b * c * hw)),
+    ):
+        kms, _ = cuda_ms(kernel)
+        pms, _ = cuda_ms(plain, 5, 4)
+        times[what] = (kms, pms, bnd)
+        log(f"[12] time {what} {b}x{size}x{size}" + (f"x{c}" if what == "fused_degrade" else "")
+            + f" (Philox, indexing): kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{bnd[0]:.5f} ms by {bnd[1]}")
+    return worst_fused, worst_kmask, times
+
+
+def phase_zoo():
+    """Every zoo name at 128x128: one bf16 forward at batch 2 with random
+    weights; the output finite and the tiny-head launches as the topology
+    says."""
+    import torch
+
+    from masked_diffusion_tpu_torch.models.zoo import ZOO_NAMES, Model
+    from masked_diffusion_tpu_torch.ops.tinyhead_attention import tinyhead_attention
+
+    dev = torch.device("cuda")
+    size, batch = 128, 2
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn((batch, 3, size, size), generator=gen, device=dev).to(torch.bfloat16)
+    t = torch.full((batch,), 10.0, device=dev)
+    for name in ZOO_NAMES:
+        torch.manual_seed(0)
+        with dev:
+            model = Model(name, 3, size, size)
+        model.conv_out.reset_parameters()  # random, not zero: the output must depend on it
+        model = model.to(torch.bfloat16).eval()
+        want = tinyhead_per_forward(model.config)
+        before = tinyhead_attention.launches
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = model(x, t)
+        torch.cuda.synchronize()
+        launched = tinyhead_attention.launches - before
+        if out.shape != x.shape or not bool(torch.isfinite(out).all()) or launched != want:
+            raise AssertionError(f"zoo {name} at {size}x{size}: shape {tuple(out.shape)}, "
+                                 f"finite {bool(torch.isfinite(out).all())}, tinyhead "
+                                 f"launches {launched}, expected {want}")
+        params = sum(p.numel() for p in model.parameters())
+        log(f"[15] zoo {name} at {size}x{size}, bf16, batch {batch}: {params / 1e6:.1f}M "
+            f"params, block_out_channels {model.config.block_out_channels}, output finite, "
+            f"std {out.float().std().item():.4f}; tinyhead launches {launched} (expected "
+            f"{want}); {time.perf_counter() - t0:.2f} s")
+        del model, out
+        torch.cuda.empty_cache()
+
+
+def _run_cli(argv, tag: str):
+    """main(argv) with every launch count set to 0 just before; returns (rc,
+    the JSON of its `tag` line, launches)."""
+    from masked_diffusion_tpu_torch.cli.main_train_masked import main
+
+    buf = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    counts = read_counts()
+    sys.stdout.write(buf.getvalue())
+    line = next(ln for ln in buf.getvalue().splitlines() if ln.startswith(tag + " "))
+    return rc, json.loads(line.split(" ", 1)[1]), counts
+
+
+def phase_cli_pair(tag: str, what: str, common, train_extra, per_forward: int, epochs: int,
+                   steps_per_epoch: int):
+    """Train through the CLI (--method mean_shift), then serve the checkpoint
+    it wrote (--method sample, EMA weights). Checks the counts: one kmask
+    launch per indexing train step, one fused launch per reverse step, and
+    `per_forward` tinyhead launches per UNet forward (one per train step and
+    per reverse step). Returns the launches of both runs."""
+    import numpy as np
+
+    rc, stats, train = _run_cli(["--method", "mean_shift", "--num_epochs", str(epochs),
+                                 *train_extra, *common], "train_stats")
+    steps = epochs * steps_per_epoch
+    if rc != 0 or stats["global_step"] != steps or not np.isfinite(stats["loss_mean_epoch"]).all():
+        raise AssertionError(f"{what} train CLI: rc {rc}, stats {stats}")
+    (ckpt,) = stats["checkpoints"]
+    want = {"exact_count_masks": steps,
+            "tinyhead_attention": per_forward * (steps + train["fused_degrade_update"])}
+    if any(train[k] != n for k, n in want.items()) or not train["fused_degrade_update"]:
+        raise AssertionError(f"{what} train CLI: launches {train}, expected {want}")
+    log(f"{tag} {what} train CLI: {epochs} epochs x {steps_per_epoch} steps, losses "
+        f"{[round(v, 5) for v in stats['loss_mean_epoch']]}, {stats['ms_per_step']:.3f} ms/step "
+        f"and {stats['images_per_sec']:.2f} images/s (last epoch) on {stats['device']}; "
+        f"launches {train} ({per_forward} tinyhead per UNet forward)")
+
+    rc, served, serve = _run_cli(["--method", "sample", "--test_model_path", ckpt, *common],
+                                 "sample_stats")
+    n_steps = served["steps"] * served["batches"]
+    want = {"exact_count_masks": 0, "fused_degrade_update": n_steps,
+            "tinyhead_attention": per_forward * n_steps}
+    if rc != 0 or not (served["finite"] and served["ema"]) or any(
+            serve[k] != n for k, n in want.items()):
+        raise AssertionError(f"{what} serve CLI: rc {rc}, {served}, launches {serve}, "
+                             f"expected {want}")
+    log(f"{tag} {what} served the trained checkpoint (EMA weights): {served['images']} "
+        f"images, {served['steps']} steps x {served['batches']} batches, "
+        f"{served['ms_per_step']:.3f} ms/step; launches {serve}")
+    return {k: train[k] + serve[k] for k in train}
+
+
+def phase_celeba_cli(workdir: str):
+    """The CelebA-HQ launch config (scripts/train/celeba_hq/base/script_main.sh:
+    --num_attention 5 at 64x64, batch 32, mean_shift, log + indexing at
+    T=16, 1-d_constant, base_momentum, bf16) on synthetic data, 2 epochs of
+    2 steps, then served; 10 tinyhead launches per forward."""
+    common = [
+        "--data_name", "synthetic", "--data_size", "64", "--data_subset", "True",
+        "--data_subset_num", "64", "--batch_size", "32", "--num_attention", "5",
+        "--sample_num", "16", "--mixed_precision", "bf16", "--ddpm_schedule", "log",
+        "--ddpm_num_steps", "16", "--select_degrade_pixel", "indexing",
+        "--mean_option", "degraded_area", "--mean_area", "image-wise",
+        "--shift_type", "1-d_constant", "--sample_latent_shape", "data",
+        "--momentum_adaptive", "base_momentum", "--sampling_mask_dependency", "independent",
+        "--use_wandb", "False", "--device", "cuda", "--dir_work", os.path.join(workdir, "celeba"),
+    ]
+    train = ["--optim", "adamw", "--lr", "3e-5", "--lr_scheduler", "cosine",
+             "--lr_warmup_steps", "500", "--use_ema", "True", "--sampling", "momentum",
+             "--save_images_epochs", "1000"]
+    return phase_cli_pair("[16]", "CelebA-HQ config", common, train, 10, 2, 2)
+
+
+def phase_unet6_cli(workdir: str):
+    """unet6 at 256x256 (the reference's per-size table), batch 8, bf16, log +
+    indexing: 2 epochs of 2 train steps, then served; 5 tinyhead launches per
+    forward."""
+    common = [
+        "--model", "unet6", "--data_name", "synthetic", "--data_size", "256",
+        "--data_subset", "True", "--data_subset_num", "16", "--batch_size", "8",
+        "--sample_num", "8", "--mixed_precision", "bf16", "--ddpm_schedule", "log",
+        "--ddpm_num_steps", "8", "--select_degrade_pixel", "indexing",
+        "--mean_option", "degraded_area", "--mean_area", "image-wise",
+        "--shift_type", "1-d_constant", "--momentum_adaptive", "base_momentum",
+        "--sampling_mask_dependency", "independent", "--use_wandb", "False",
+        "--device", "cuda", "--dir_work", os.path.join(workdir, "unet6"),
+    ]
+    train = ["--optim", "adamw", "--lr", "1e-4", "--lr_scheduler", "cosine",
+             "--lr_warmup_steps", "0", "--use_ema", "True", "--sampling", "momentum",
+             "--save_images_epochs", "2"]
+    return phase_cli_pair("[17]", "unet6 256x256", common, train, 5, 2, 2)
+
+
 def _counted():
     """The launch-counted wrappers of every kernel, by name."""
     from masked_diffusion_tpu_torch.ops.fused_degrade import fused_degrade_update
     from masked_diffusion_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_backward
     from masked_diffusion_tpu_torch.ops.kmask import exact_count_masks
+    from masked_diffusion_tpu_torch.ops.tinyhead_attention import tinyhead_attention
 
     return {f.__name__: f for f in (fused_degrade_update, group_norm_silu,
-                                    group_norm_silu_backward, exact_count_masks)}
+                                    group_norm_silu_backward, exact_count_masks,
+                                    tinyhead_attention)}
 
 
 def reset_counts() -> None:
@@ -1075,26 +1542,42 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     smi = phase_env()
+    tinyhead_err, tinyhead_times = phase_tinyhead()
+    phase_exact_k_large()
     fused_err, fused_times, fused_bound = phase_fused()
     calls = norm_shapes(16)
     gn = phase_groupnorm(calls, 16)
     phase_slice()
+    phase_slice("[14]", 5, (("log", "indexing", 16, 4),))
     kmask = phase_kmask()
     gn_bwd, _ = phase_groupnorm_train(calls, B_KERNEL)
+    phase_groupnorm_train(norm_shapes(8, "unet6", 256, "[13]"), 8, "[13]", timed=False)
     phase_train_parity()
     phase_train_bf16_parity()
     phase_train_throughput(smi)
+    phase_zoo()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
-        serve_launches, _ = phase_serve(workdir)
-        train_launches = phase_train_cli(workdir)
+        main_runs = [phase_serve(workdir)[0], phase_train_cli(workdir),
+                     phase_celeba_cli(workdir), phase_unet6_cli(workdir)]
     for mod in sorted(sys.modules):
         if mod.split(".")[0] in ("jax", "flax", "masked_diffusion_tpu"):
             raise AssertionError(f"{mod} was imported")
 
     def launches(name):
-        return serve_launches.get(name, 0) + train_launches.get(name, 0)
+        return sum(run.get(name, 0) for run in main_runs)
 
+    # the tiny-head entry: per bf16 UNet forward of the CelebA-HQ config at
+    # batch 32, five launches at S=1024 and five at S=256
+    per_forward = [(shape, 5) for shape in TINYHEAD_SHAPES[:2]]
+    th = [sum(n * tinyhead_times[(shape, "bfloat16")][i] for shape, n in per_forward)
+          for i in range(3)]
+    th_bound = terms_bound({t: sum(n * tinyhead_times[(shape, "bfloat16")][3][t]
+                                   for shape, n in per_forward)
+                            for t in ("bytes", "products", "softmax")})
+    log(f"[11] tinyhead per bf16 UNet forward of the CelebA-HQ config, batch 32 (5 x S=1024, "
+        f"5 x S=256): kernel {th[0]:.4f} ms, plain {th[1]:.4f} ms, SDPA {th[2]:.4f} ms, bound "
+        f"{th_bound[0]:.5f} ms ({th_bound[2]})")
     log(smi)
     print(json.dumps({"kernels": [
         kernel_entry("fused_degrade_update", "cuda",
@@ -1113,6 +1596,11 @@ def main() -> int:
         kernel_entry("exact_count_masks", "cuda", "masked_diffusion_tpu_torch/csrc/kmask.cu",
                      "masked_diffusion_tpu/ops/pallas/kmask.py:84",
                      launches("exact_count_masks"), kmask[0], kmask[1], kmask[2], kmask[3], None),
+        kernel_entry("tinyhead_attention", "cuda",
+                     "masked_diffusion_tpu_torch/csrc/tinyhead_attention.cu",
+                     "masked_diffusion_tpu/ops/pallas/tinyhead_attention.py:99",
+                     launches("tinyhead_attention"), tinyhead_err, th[0], th[1], th_bound[:2],
+                     th[2]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,11 @@ The method dispatch mirrors that file's main (:232-327) without a mesh:
                      port's trainer or by masked_diffusion_tpu.io.export_torch)
                      and generate --sample_num images; prints `sample_stats`
 
+--model picks the default factory (--num_attention) or a zoo name
+(unet1..unet6, models/zoo.py). Attention takes the tiny-head kernel wherever
+it applies, which is what --tinyhead_attention unset or true asks for; false
+is refused.
+
 --device cuda (the default) without CUDA raises; nothing carries on on the
 CPU unless --device cpu asks for it. --method test is not ported yet.
 """
@@ -172,11 +177,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--tinyhead_attention", type=str2bool, default=None,
-        help="head-major Pallas flash attention for the family's 8-wide "
-        "heads: VMEM-resident scores, zero lane padding; exact, falls back "
-        "to the einsum at S < 128 (ops/pallas/tinyhead_attention.py). "
-        "Unset = AUTO: on for single-device TPU (measured 2.4-2.5x vs the "
-        "einsum at S=256/1024); true/false forces",
+        help="the tiny-head attention kernel for the family's 8-wide heads "
+        "(ops/tinyhead_attention.py, csrc/tinyhead_attention.cu): exact, the "
+        "scores never written to device memory; the plain version at S < 128. "
+        "The port takes it wherever it applies: unset or true; false is refused",
     )
     p.add_argument(
         "--epoch_scan", type=str2bool, default=None,

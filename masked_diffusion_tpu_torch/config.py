@@ -146,12 +146,11 @@ class Config:
     # pure-XLA escape hatch for placements whose full (S, S) scores don't fit
     # HBM (S=4096 needs 8.6 GB f32); None/0 = materialized-scores einsum
     attention_chunk: Optional[int] = None
-    # head-major tiny-head flash attention (UNetConfig.tinyhead_attention,
-    # ops/pallas/tinyhead_attention.py): VMEM-resident scores + zero lane
-    # padding for the family's 8-wide heads; exact, falls back to the einsum
-    # at S < 128. Measured 2.4-2.5x faster than the einsum at S=256/1024 on
-    # TPU (docs/PERFORMANCE.md "pallas verdicts" b2) — None = AUTO (on for
-    # single-device TPU; MDT_TINYHEAD=1/0 forces), True/False = explicit.
+    # the tiny-head attention kernel (ops/tinyhead_attention.py) for the
+    # family's 8-wide heads; exact, the plain version at S < 128. The port's
+    # attention takes it wherever it applies: None or True; False is refused
+    # (models/factory.py). The JAX package's MDT_TINYHEAD override has no
+    # counterpart.
     tinyhead_attention: Optional[bool] = None
     # whole-epoch lax.scan training (train/step.py:make_train_epoch): one
     # compiled program per epoch scans the step over the epoch's batch-index

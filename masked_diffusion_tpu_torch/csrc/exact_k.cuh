@@ -3,8 +3,12 @@
 // exactly k degraded pixels per image.
 //
 // Both kernels run one block of kThreads threads per image; thread i owns the
-// pixels i, i + kThreads, ... (at most kMaxPerThread of them, so an image holds
-// at most kMaxHW pixels) and keeps their keys in registers.
+// pixels i, i + kThreads, .... Up to kMaxHWRegs pixels (kMaxPerThread per
+// thread) the keys live in registers. Above that, up to kMaxHW, 64 keys a
+// thread fit neither in registers nor, at 256 KB an image, in a block's
+// shared memory: the keys live in device memory (a scratch row the kernel
+// fills, or the given bits, composed into keys as they are read) and each
+// pass of the scan reads them back, from L2.
 
 #pragma once
 
@@ -16,7 +20,8 @@ namespace mdt {
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxPerThread = 16;
-constexpr int kMaxHW = kThreads * kMaxPerThread;  // 128 * 128
+constexpr int kMaxHWRegs = kThreads * kMaxPerThread;  // 128 * 128: keys in registers
+constexpr int kMaxHW = 256 * 256;                     // keys in device memory above
 
 // First 32-bit word of Philox4x32-10 at counter (c0, c1, c2, c3), key (k0, k1).
 __device__ __forceinline__ uint32_t philox4x32_10_first(
@@ -92,6 +97,46 @@ __device__ __forceinline__ void exact_k_thresholds(
 #pragma unroll
         for (int i = 0; i < N; ++i) cnt[i] += keys[i][j] < cand[i];
       }
+    }
+    block_sum<int, N>(cnt, scratch);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (cnt[i] <= k[i]) thr[i] = cand[i];
+    }
+  }
+}
+
+// One image's keys in device memory (the path above kMaxHWRegs): a row the
+// kernel filled with keys, or a row of given draws whose low bits are
+// replaced by the pixel index as they are read (compose).
+struct KeyRow {
+  const uint32_t* src;
+  uint32_t hi_mask;
+  bool compose;
+  __device__ __forceinline__ uint32_t operator[](int p) const {
+    const uint32_t b = src[p];
+    return compose ? (b & hi_mask) | static_cast<uint32_t>(p) : b;
+  }
+};
+
+// exact_k_thresholds over keys in device memory: the same 32 passes, each
+// reading every key of the image once.
+template <int N>
+__device__ __forceinline__ void exact_k_thresholds_rows(
+    const KeyRow (&rows)[N], const int (&k)[N], int hw, uint32_t (&thr)[N], int* scratch) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) thr[i] = 0;
+  for (int b = 31; b >= 0; --b) {
+    uint32_t cand[N];
+    int cnt[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      cand[i] = thr[i] | (1u << b);
+      cnt[i] = 0;
+    }
+    for (int p = threadIdx.x; p < hw; p += kThreads) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) cnt[i] += rows[i][p] < cand[i];
     }
     block_sum<int, N>(cnt, scratch);
 #pragma unroll

@@ -23,16 +23,23 @@
 // the 1-channel mask is shared by all channels.
 //
 // Design. One block of 1024 threads per image; thread i owns pixels
-// i, i+1024, ... (at most 16, so HW <= 128*128 is the kernel's bound) and
-// keeps their keys and keep bits in registers. The bit-scan's 32 passes each
-// count candidates block-wide with a warp-shuffle reduction; the masked sums
-// take one more. The 8-image blocking and the VMEM gate of the TPU kernel do
-// not carry over.
+// i, i+1024, .... Up to 128*128 (16 pixels a thread) it keeps their keys and
+// keep bits in registers. The bit-scan's 32 passes each count candidates
+// block-wide with a warp-shuffle reduction; the masked sums take one more.
+// Above 128*128, up to the kernel's bound of 256*256, the keys of both masks
+// live in device memory instead (fused_degrade_kernel_l2): the Philox route
+// writes them to a (2, B, HW) scratch row once and each pass reads them back
+// from L2 (2 x 256 KB an image at 256*256); given bits are read directly.
+// Keep bits are recomputed from the keys where the means and fills need
+// them. The 8-image blocking and the VMEM gate of the TPU kernel do not
+// carry over.
 //
 // Bound: device-memory bytes. Per image per step it reads x_t and x0 once
 // (x0's second read, for the fills, comes from L1/L2) and writes out: about
 // 2 reads and 1 write of C*HW floats, plus HW floats of mask. At 64x64x3 and
-// batch 64 that is ~9.4 MB, ~3 us at 3.35 TB/s.
+// batch 64 that is ~9.4 MB, ~3 us at 3.35 TB/s. With one block an image, a
+// batch of B images fills B of the 132 SMs, and each waits on 32 block-wide
+// reductions (at 256*256, also on 32 reads of its keys from L2).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -42,6 +49,7 @@
 namespace {
 
 using mdt::kMaxHW;
+using mdt::kMaxHWRegs;
 using mdt::kThreads;
 using mdt::kWarps;
 
@@ -174,14 +182,115 @@ __global__ void __launch_bounds__(kThreads) fused_degrade_kernel(
   }
 }
 
+// The path above kMaxHWRegs: the same computation with the keys in device
+// memory (keys: a (2, batch, hw) scratch for the Philox route, unused when
+// bits are given).
+__global__ void __launch_bounds__(kThreads) fused_degrade_kernel_l2(
+    const float* __restrict__ xt, const float* __restrict__ x0,
+    const float* __restrict__ amount_t, const float* __restrict__ amount_n,
+    const uint32_t* __restrict__ bits, uint64_t seed, uint64_t offset,
+    float* __restrict__ out, float* __restrict__ mask_n, uint32_t* __restrict__ keys,
+    int batch, int channels, int hw, int select, int mean_mode,
+    float mean_value, int rule) {
+  __shared__ int iscratch[2 * kWarps];
+  __shared__ float fscratch[4 * kWarps];
+
+  const int img = blockIdx.x;
+  const int tid = threadIdx.x;
+  const float at = amount_t[img];
+  const float an = amount_n[img];
+  const bool indexing = select == kIndexing;
+  const uint32_t hi_mask = mdt::key_high_mask(hw);
+  const size_t row_t = static_cast<size_t>(img) * hw;
+  const size_t row_n = (static_cast<size_t>(batch) + img) * hw;
+
+  // ---- draws -> keys (device memory); rows[0] for t, rows[1] for t-1
+  mdt::KeyRow rows[2];
+  if (bits != nullptr) {
+    rows[0] = {bits + row_t, hi_mask, indexing};
+    rows[1] = {bits + row_n, hi_mask, indexing};
+  } else {
+    const uint32_t k0 = static_cast<uint32_t>(seed);
+    const uint32_t k1 = static_cast<uint32_t>(seed >> 32);
+    const uint32_t off_lo = static_cast<uint32_t>(offset);
+    const uint32_t off_hi = static_cast<uint32_t>(offset >> 32);
+    for (int p = tid; p < hw; p += kThreads) {
+      uint32_t bt = mdt::philox4x32_10_first(p, img, off_hi << 1, off_lo, k0, k1);
+      uint32_t bn = mdt::philox4x32_10_first(p, img, (off_hi << 1) | 1u, off_lo, k0, k1);
+      if (indexing) {
+        bt = (bt & hi_mask) | static_cast<uint32_t>(p);
+        bn = (bn & hi_mask) | static_cast<uint32_t>(p);
+      }
+      keys[row_t + p] = bt;
+      keys[row_n + p] = bn;
+    }
+    // each thread reads back only the keys it wrote
+    rows[0] = {keys + row_t, hi_mask, false};
+    rows[1] = {keys + row_n, hi_mask, false};
+  }
+
+  // ---- exact-k thresholds: max T with count(key < T) <= k, MSB first
+  uint32_t thr[2] = {0, 0};
+  const int kt = static_cast<int>(at);
+  const int kn = static_cast<int>(an);
+  if (indexing) {
+    const int ks[2] = {kt, kn};
+    mdt::exact_k_thresholds_rows<2>(rows, ks, hw, thr, iscratch);
+  }
+  auto keep_t = [&](int p) {
+    return indexing ? !(rows[0][p] < thr[0] || kt >= hw) : keep_threshold(rows[0][p], at);
+  };
+  auto keep_n = [&](int p) {
+    return indexing ? !(rows[1][p] < thr[1] || kn >= hw) : keep_threshold(rows[1][p], an);
+  };
+
+  const size_t base = static_cast<size_t>(img) * channels * hw;
+
+  // ---- fills' means over degraded pixels (image-wise, all channels)
+  float mu_t = mean_value, mu_n = mean_value;
+  if (mean_mode == kDegradedArea) {
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int p = tid; p < hw; p += kThreads) {
+      const bool kt_keep = keep_t(p), kn_keep = keep_n(p);
+      v[2] += kt_keep ? 0.f : 1.f;
+      v[3] += kn_keep ? 0.f : 1.f;
+      for (int c = 0; c < channels; ++c) {
+        const float x = x0[base + static_cast<size_t>(c) * hw + p];
+        if (!kt_keep) v[0] += x;
+        if (!kn_keep) v[1] += x;
+      }
+    }
+    mdt::block_sum<float, 4>(v, fscratch);
+    // counts are exact integers in f32: degraded pixels x channels
+    const float cnt_t = v[2] * static_cast<float>(channels);
+    const float cnt_n = v[3] * static_cast<float>(channels);
+    mu_t = cnt_t > 0.f ? v[0] / fmaxf(cnt_t, 1.f) : 0.f;
+    mu_n = cnt_n > 0.f ? v[1] / fmaxf(cnt_n, 1.f) : 0.f;
+  }
+
+  // ---- fills, update rule, next mask
+  for (int p = tid; p < hw; p += kThreads) {
+    const bool kt_keep = keep_t(p), kn_keep = keep_n(p);
+    for (int c = 0; c < channels; ++c) {
+      const size_t e = base + static_cast<size_t>(c) * hw + p;
+      const float x = x0[e];
+      const float d_t = kt_keep ? x : mu_t;
+      const float d_n = kn_keep ? x : mu_n;
+      out[e] = rule == kBaseMomentum ? (xt[e] - d_t) + d_n : d_n;
+    }
+    mask_n[row_t + p] = kn_keep ? 1.f : 0.f;
+  }
+}
+
 }  // namespace
 
 extern "C" int mdt_fused_degrade(
     const void* xt, const void* x0, const void* amount_t, const void* amount_n,
     const void* bits, uint64_t seed, uint64_t offset, void* out, void* mask_n,
-    int batch, int channels, int hw, int select, int mean_mode, float mean_value,
-    int rule, void* stream) {
-  if (batch <= 0 || channels <= 0 || hw <= 0 || hw > kMaxHW) {
+    void* keys, int batch, int channels, int hw, int select, int mean_mode,
+    float mean_value, int rule, void* stream) {
+  if (batch <= 0 || channels <= 0 || hw <= 0 || hw > kMaxHW ||
+      (hw > kMaxHWRegs && bits == nullptr && keys == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* a = static_cast<const float*>(xt);
@@ -192,6 +301,12 @@ extern "C" int mdt_fused_degrade(
   auto* o = static_cast<float*>(out);
   auto* m = static_cast<float*>(mask_n);
   auto s = static_cast<cudaStream_t>(stream);
+  if (hw > kMaxHWRegs) {
+    fused_degrade_kernel_l2<<<batch, kThreads, 0, s>>>(
+        a, b, amt, amn, bb, seed, offset, o, m, static_cast<uint32_t*>(keys), batch,
+        channels, hw, select, mean_mode, mean_value, rule);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int per = (hw + kThreads - 1) / kThreads;
 #define MDT_LAUNCH(J)                                                            \
   fused_degrade_kernel<J><<<batch, kThreads, 0, s>>>(                            \

@@ -9,10 +9,12 @@ config.json and diffusion_pytorch_model.safetensors under diffusers
 UNet2DModel tensor names — the names of the port's UNet2D parameters.
 
 - state_dict_from_flax: a JAX UNet2D parameter tree (numpy leaves) -> the
-  port's state dict. The same mapping as export_torch.state_dict_from_params
-  (copied: that module sits behind io/__init__.py, which imports orbax):
-  HWIO conv kernel -> (O, I, kh, kw), (in, out) dense kernel -> (out, in),
-  norm scale/bias -> weight/bias.
+  port's state dict, for the default factory and every zoo topology. The
+  same mapping as export_torch.state_dict_from_params (copied: that module
+  sits behind io/__init__.py, which imports orbax): HWIO conv kernel ->
+  (O, I, kh, kw), (in, out) dense kernel -> (out, in), norm scale/bias ->
+  weight/bias. flax_layout is its name table, which walks shape-only trees
+  too.
 - read_safetensors / write_safetensors: the format by hand with numpy, so
   that loading needs no safetensors package: an 8-byte little-endian header
   length, a JSON header, then the raw little-endian tensor bytes.
@@ -27,7 +29,7 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,68 +44,82 @@ _DTYPES = {
 _CODES = {np.dtype(v): k for k, v in _DTYPES.items()}
 
 
-def state_dict_from_flax(params_np: Dict[str, Any], ucfg) -> Dict[str, torch.Tensor]:
-    """JAX UNet2D variables (numpy leaves; with or without the 'params' top
-    level) -> the port's UNet2D state dict. ucfg: a UNetConfig of either
-    package (block_out_channels, layers_per_block, attn_down, attn_up)."""
-    p = params_np["params"] if "params" in params_np else params_np
-    sd: Dict[str, np.ndarray] = {}
+#: transposes from the JAX layout: HWIO conv kernel -> (O, I, kh, kw),
+#: (in, out) dense kernel -> (out, in); biases and norm scales as they are
+_CONV, _DENSE = (3, 2, 0, 1), (1, 0)
 
-    def arr(x):
-        a = np.asarray(x)
-        return a if a.dtype in (np.float16, np.float32, np.float64) else a.astype(np.float32)
+
+def flax_layout(p: Dict[str, Any], ucfg) -> Iterator[Tuple[str, Any, Optional[tuple]]]:
+    """(port parameter name, JAX leaf, transpose or None) for every parameter
+    of a JAX UNet2D parameter tree p (without the 'params' level). Leaves
+    are passed through untouched, so shape-only trees (jax.eval_shape) walk
+    too. ucfg: a UNetConfig of either package (block_out_channels,
+    layers_per_block, attn_down, attn_up); every zoo topology is one."""
 
     def conv(name, leaf):
-        sd[f"{name}.weight"] = np.ascontiguousarray(arr(leaf["kernel"]).transpose(3, 2, 0, 1))
-        sd[f"{name}.bias"] = arr(leaf["bias"])
+        yield f"{name}.weight", leaf["kernel"], _CONV
+        yield f"{name}.bias", leaf["bias"], None
 
     def dense(name, leaf):
-        sd[f"{name}.weight"] = np.ascontiguousarray(arr(leaf["kernel"]).T)
-        sd[f"{name}.bias"] = arr(leaf["bias"])
+        yield f"{name}.weight", leaf["kernel"], _DENSE
+        yield f"{name}.bias", leaf["bias"], None
 
     def norm(name, leaf):
-        sd[f"{name}.weight"] = arr(leaf["scale"])
-        sd[f"{name}.bias"] = arr(leaf["bias"])
+        yield f"{name}.weight", leaf["scale"], None
+        yield f"{name}.bias", leaf["bias"], None
 
     def resnet(name, leaf):
-        norm(f"{name}.norm1", leaf["norm1"])
-        conv(f"{name}.conv1", leaf["conv1"])
-        dense(f"{name}.time_emb_proj", leaf["time_emb_proj"])
-        norm(f"{name}.norm2", leaf["norm2"])
-        conv(f"{name}.conv2", leaf["conv2"])
+        yield from norm(f"{name}.norm1", leaf["norm1"])
+        yield from conv(f"{name}.conv1", leaf["conv1"])
+        yield from dense(f"{name}.time_emb_proj", leaf["time_emb_proj"])
+        yield from norm(f"{name}.norm2", leaf["norm2"])
+        yield from conv(f"{name}.conv2", leaf["conv2"])
         if "conv_shortcut" in leaf:
-            conv(f"{name}.conv_shortcut", leaf["conv_shortcut"])
+            yield from conv(f"{name}.conv_shortcut", leaf["conv_shortcut"])
 
     def attn(name, leaf):
-        norm(f"{name}.group_norm", leaf["group_norm"])
+        yield from norm(f"{name}.group_norm", leaf["group_norm"])
         for proj in ("to_q", "to_k", "to_v"):
-            dense(f"{name}.{proj}", leaf[proj])
-        dense(f"{name}.to_out.0", leaf["to_out"])
+            yield from dense(f"{name}.{proj}", leaf[proj])
+        yield from dense(f"{name}.to_out.0", leaf["to_out"])
 
-    dense("time_embedding.linear_1", p["time_dense1"])
-    dense("time_embedding.linear_2", p["time_dense2"])
-    conv("conv_in", p["conv_in"])
+    yield from dense("time_embedding.linear_1", p["time_dense1"])
+    yield from dense("time_embedding.linear_2", p["time_dense2"])
+    yield from conv("conv_in", p["conv_in"])
     n = len(ucfg.block_out_channels)
     for i in range(n):
         for j in range(ucfg.layers_per_block):
-            resnet(f"down_blocks.{i}.resnets.{j}", p[f"down_{i}_res_{j}"])
+            yield from resnet(f"down_blocks.{i}.resnets.{j}", p[f"down_{i}_res_{j}"])
             if ucfg.attn_down[i]:
-                attn(f"down_blocks.{i}.attentions.{j}", p[f"down_{i}_attn_{j}"])
+                yield from attn(f"down_blocks.{i}.attentions.{j}", p[f"down_{i}_attn_{j}"])
         if i != n - 1:
-            conv(f"down_blocks.{i}.downsamplers.0.conv", p[f"down_{i}_downsample"]["conv"])
-    resnet("mid_block.resnets.0", p["mid_res_1"])
-    attn("mid_block.attentions.0", p["mid_attn"])
-    resnet("mid_block.resnets.1", p["mid_res_2"])
+            yield from conv(f"down_blocks.{i}.downsamplers.0.conv",
+                            p[f"down_{i}_downsample"]["conv"])
+    yield from resnet("mid_block.resnets.0", p["mid_res_1"])
+    yield from attn("mid_block.attentions.0", p["mid_attn"])
+    yield from resnet("mid_block.resnets.1", p["mid_res_2"])
     for i in range(n):
         for j in range(ucfg.layers_per_block + 1):
-            resnet(f"up_blocks.{i}.resnets.{j}", p[f"up_{i}_res_{j}"])
+            yield from resnet(f"up_blocks.{i}.resnets.{j}", p[f"up_{i}_res_{j}"])
             if ucfg.attn_up[i]:
-                attn(f"up_blocks.{i}.attentions.{j}", p[f"up_{i}_attn_{j}"])
+                yield from attn(f"up_blocks.{i}.attentions.{j}", p[f"up_{i}_attn_{j}"])
         if i != n - 1:
-            conv(f"up_blocks.{i}.upsamplers.0.conv", p[f"up_{i}_upsample"]["conv"])
-    norm("conv_norm_out", p["norm_out"])
-    conv("conv_out", p["conv_out"])
-    return {k: torch.from_numpy(v) for k, v in sd.items()}
+            yield from conv(f"up_blocks.{i}.upsamplers.0.conv", p[f"up_{i}_upsample"]["conv"])
+    yield from norm("conv_norm_out", p["norm_out"])
+    yield from conv("conv_out", p["conv_out"])
+
+
+def state_dict_from_flax(params_np: Dict[str, Any], ucfg) -> Dict[str, torch.Tensor]:
+    """JAX UNet2D variables (numpy leaves; with or without the 'params' top
+    level) -> the port's UNet2D state dict, by flax_layout."""
+    p = params_np["params"] if "params" in params_np else params_np
+    sd: Dict[str, torch.Tensor] = {}
+    for name, leaf, perm in flax_layout(p, ucfg):
+        a = np.asarray(leaf)
+        if a.dtype not in (np.float16, np.float32, np.float64):
+            a = a.astype(np.float32)
+        sd[name] = torch.from_numpy(np.ascontiguousarray(a.transpose(perm)) if perm else a)
+    return sd
 
 
 def diffusers_config_from_unet(ucfg) -> dict:

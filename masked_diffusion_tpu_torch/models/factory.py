@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 from masked_diffusion_tpu_torch.models.unet import UNet2D, UNetConfig
+from masked_diffusion_tpu_torch.models.zoo import Model as zoo_model
 
 _PLACEMENTS = {
     # num_attention: (down flags, up flags) over 6 levels (utils/model.py:6-20)
@@ -67,10 +68,23 @@ def build_unet(
 
 
 def build_model_from_config(cfg) -> UNet2D:
-    """--model default: the diffusers-style factory (--num_attention). The
-    zoo architectures are not ported yet."""
+    """Model dispatch of the trainer and of --method sample
+    (masked_diffusion_tpu/train/trainer.py:47-74): the default diffusers-style
+    factory (--num_attention), or a named zoo architecture (--model
+    unet1..unet6, models/zoo.py).
+
+    --tinyhead_attention unset or true is what the port does: attention
+    takes the tiny-head kernel wherever it applies (models/unet.py). false,
+    the JAX package's einsum at those shapes, is refused."""
+    if cfg.tinyhead_attention is False:
+        raise NotImplementedError(
+            "not yet ported: --tinyhead_attention false (the port's attention takes the "
+            "tiny-head kernel wherever it applies)")
     if cfg.model != "default":
-        raise NotImplementedError(f"--model {cfg.model}: not yet ported")
+        return zoo_model(
+            cfg.model, cfg.in_channel, cfg.data_size, cfg.data_size, cfg.out_channel,
+            remat=cfg.remat, attention_chunk=cfg.attention_chunk,
+        )
     return build_unet(
         dim_channel=cfg.in_channel,
         dim_height=cfg.data_size,

@@ -12,9 +12,12 @@ exported checkpoint loads with strict=True.
 
 Every GroupNorm runs through the fused kernel wrapper
 (ops/groupnorm.py:group_norm_silu): norm1/norm2 and norm_out with SiLU, the
-attention group_norm without. Attention is the plain einsum -> fp32 softmax
--> einsum at every sequence length, as the JAX package computes it on this
-path.
+attention group_norm without. Attention routes by shape, as the JAX
+AttentionBlock does with tiny_flash on (models/unet.py:237-255): at the
+shapes the tiny-head kernel takes (head_dim <= 8, S >= 128) through its
+wrapper (ops/tinyhead_attention.py: the kernel on CUDA, its plain version
+on the CPU), elsewhere through the plain version (einsum -> fp32 softmax ->
+einsum).
 """
 
 from __future__ import annotations
@@ -28,6 +31,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from masked_diffusion_tpu_torch.ops.groupnorm import group_norm_silu
+from masked_diffusion_tpu_torch.ops.tinyhead_attention import (
+    tinyhead_attention,
+    tinyhead_attention_plain,
+    tinyhead_supported,
+)
 
 
 def _norm_groups(channels: int, preferred: int = 32) -> int:
@@ -62,8 +70,8 @@ def timestep_embedding(
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
-    """The topology fields of the JAX package's UNetConfig (the TPU kernel
-    switches have no counterpart here)."""
+    """The topology fields of the JAX package's UNetConfig; its kernel
+    switches have no counterpart here."""
 
     sample_size: int = 64
     in_channels: int = 3
@@ -144,10 +152,10 @@ class AttentionBlock(nn.Module):
         k = split_heads(self.to_k(hidden))
         v = split_heads(self.to_v(hidden))
         scale = 1.0 / math.sqrt(c // self.heads)
-        # scores accumulate in fp32 (preferred_element_type on the JAX side)
-        attn = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float())
-        attn = torch.softmax(attn * scale, dim=-1).to(v.dtype)
-        out = torch.einsum("bhst,bhtd->bhsd", attn, v)
+        if tinyhead_supported(h * w, c // self.heads):
+            out = tinyhead_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale)
+        else:
+            out = tinyhead_attention_plain(q, k, v, scale)
         out = out.transpose(1, 2).reshape(b, h * w, c)
         out = self.to_out[0](out)
         return x + out.transpose(1, 2).reshape(b, c, h, w)

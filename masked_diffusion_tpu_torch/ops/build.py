@@ -62,14 +62,15 @@ def library_path() -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    vp, i32, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
+    vp, i32, u64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_float
     fn = lib.mdt_fused_degrade
     fn.argtypes = [
         vp, vp, vp, vp, vp,      # xt, x0, amount_t, amount_next, bits (nullable)
         u64, u64,                # philox seed, offset
         vp, vp,                  # out, mask_next
+        vp,                      # key scratch above 128x128 (nullable)
         i32, i32, i32,           # batch, channels, hw
-        i32, i32, ctypes.c_float, i32,  # select, mean_mode, mean_value, rule
+        i32, i32, f32, i32,      # select, mean_mode, mean_value, rule
         vp,                      # cudaStream_t
     ]
     fn.restype = i32
@@ -78,7 +79,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp,                  # counts (int32), bits (nullable)
         u64, u64,                # philox seed, offset
         vp,                      # out
+        vp,                      # key scratch above 128x128 (nullable)
         i32, i32,                # batch, hw
+        vp,                      # cudaStream_t
+    ]
+    fn.restype = i32
+    fn = lib.mdt_tinyhead_attention
+    fn.argtypes = [
+        vp, vp, vp, vp,          # q, k, v, out
+        i32, i32, i32,           # batch * heads, sequence, head_dim
+        f32, i32,                # scale, dtype (0 fp32, 1 bf16)
         vp,                      # cudaStream_t
     ]
     fn.restype = i32

@@ -26,8 +26,12 @@ import torch
 
 from masked_diffusion_tpu_torch.ops import build
 
-#: Largest H*W the kernel takes (16 pixels for each of 1024 threads).
-MAX_HW = 128 * 128
+#: Largest H*W the kernel takes (256 * 256).
+MAX_HW = 256 * 256
+#: Above this H*W (16 pixels for each of 1024 threads) the kernel keeps its
+#: keys in device memory instead of registers: on the Philox route, in a
+#: (2, B, H*W) scratch the wrapper allocates.
+REGISTER_HW = 128 * 128
 
 _SELECT = {"thresholding": 0, "indexing": 1}
 _MEAN_MODE = {"const": 0, "degraded_area": 1}
@@ -210,12 +214,16 @@ def fused_degrade_update(
     bits32 = uint32_to_int32(bits).contiguous() if bits is not None else None
     out = torch.empty_like(xt)
     mask_n = torch.empty((b, 1, h, w), dtype=torch.float32, device=xt.device)
+    keys = None
+    if hw > REGISTER_HW and bits is None:
+        keys = torch.empty((2, b, hw), dtype=torch.int32, device=xt.device)
     with torch.cuda.device(xt.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.mdt_fused_degrade(
             xt.data_ptr(), x0.data_ptr(), amt.data_ptr(), amn.data_ptr(),
             bits32.data_ptr() if bits32 is not None else None,
             seed % 2**64, offset % 2**64, out.data_ptr(), mask_n.data_ptr(),
+            keys.data_ptr() if keys is not None else None,
             b, c, hw, _SELECT[select], _MEAN_MODE[mean_mode], float(mean_value),
             _RULE[rule], stream,
         )

@@ -20,10 +20,12 @@ from typing import Optional
 import torch
 
 from masked_diffusion_tpu_torch.ops import build
-from masked_diffusion_tpu_torch.ops.fused_degrade import exact_k_degrade, uint32_to_int32
-
-#: Largest H*W the kernel takes (16 pixels for each of 1024 threads).
-MAX_HW = 128 * 128
+from masked_diffusion_tpu_torch.ops.fused_degrade import (
+    MAX_HW,
+    REGISTER_HW,
+    exact_k_degrade,
+    uint32_to_int32,
+)
 
 
 def exact_count_masks_plain(bits: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
@@ -92,11 +94,15 @@ def exact_count_masks(
     cnt = counts.contiguous()
     bits32 = uint32_to_int32(bits).contiguous() if bits is not None else None
     out = torch.empty((batch, 1, height, width), dtype=torch.float32, device=cnt.device)
+    keys = None
+    if hw > REGISTER_HW and bits is None:
+        keys = torch.empty((batch, hw), dtype=torch.int32, device=cnt.device)
     with torch.cuda.device(cnt.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.mdt_kmask(
             cnt.data_ptr(), bits32.data_ptr() if bits32 is not None else None,
-            seed, offset, out.data_ptr(), batch, hw, stream,
+            seed, offset, out.data_ptr(), keys.data_ptr() if keys is not None else None,
+            batch, hw, stream,
         )
     build.check(lib, code, "exact_count_masks")
     exact_count_masks.launches += 1

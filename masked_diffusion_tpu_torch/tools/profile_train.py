@@ -1,18 +1,25 @@
-"""One torch.profiler window of the flagship train step on the card.
+"""One torch.profiler window of a train step on the card.
 
-    python -m masked_diffusion_tpu_torch.tools.profile_train [--steps 5] [--out FILE]
+    python -m masked_diffusion_tpu_torch.tools.profile_train [--config flagship]
+        [--steps 5] [--out FILE]
 
-Builds the flagship UNet (113.7M parameters, 64x64x3) and the port's train
-step in bf16 at batch 64 (AdamW + cosine at lr 1e-4, EMA on, mean_shift with
-a 1-d_constant shift), for linear+thresholding (T=1000) and log+indexing
-(T=4096). Per mode: the wall time per step over 20 steps without the
-profiler, then a profiled window of --steps steps after a warm-up. From the
-window: wall and device-busy ms per step, the device's idle share, the
-kernels run per step, the top kernels by device time, with the shares of
-the GroupNorm forward and backward kernels and the exact-k mask kernel, and
-the host operators with the most self CPU time.
+Builds a UNet and the port's train step in bf16 (AdamW + cosine at lr 1e-4,
+EMA on, mean_shift with a 1-d_constant shift). --config picks it:
+
+  flagship   the factory default (113.7M parameters) at 64x64x3, batch 64,
+             linear+thresholding (T=1000) and log+indexing (T=4096)
+  celeba_hq  --num_attention 5 at 64x64x3, batch 32, log+indexing at T=16
+             (scripts/train/celeba_hq/base/script_main.sh)
+  unet6_256  the zoo's unet6 at 256x256x3, batch 8, log+indexing at T=16
+
+Per mode: the wall time per step over 20 steps without the profiler, then
+a profiled window of --steps steps after a warm-up. From the window: wall
+and device-busy ms per step, the device's idle share, the kernels run per
+step, the top kernels by device time, with the shares of the port's own
+kernels (GroupNorm forward and backward, exact-k masks, tiny-head
+attention), and the host operators with the most self CPU time.
 Prints one JSON object per mode and writes them all to --out (default
-build/profile_train.json). Needs CUDA.
+build/profile_train_<config>.json). Needs CUDA.
 """
 
 from __future__ import annotations
@@ -25,7 +32,15 @@ import sys
 import time
 
 # kernel name fragments of the port's own kernels
-OWN = {"gn_fwd": "gn_silu_kernel", "gn_bwd": "gn_silu_bwd_kernel", "kmask": "kmask_kernel"}
+OWN = {"gn_fwd": "gn_silu_kernel", "gn_bwd": "gn_silu_bwd_kernel", "kmask": "kmask_kernel",
+       "tinyhead": "tinyhead_kernel"}
+# name: (zoo name, --num_attention, image size, batch, [(schedule, selection, T)])
+CONFIGS = {
+    "flagship": ("default", 1, 64, 64, (("linear", "thresholding", 1000),
+                                        ("log", "indexing", 4096))),
+    "celeba_hq": ("default", 5, 64, 32, (("log", "indexing", 16),)),
+    "unet6_256": ("unet6", 1, 256, 8, (("log", "indexing", 16),)),
+}
 
 
 def _device_rows(prof):
@@ -58,33 +73,36 @@ def _host_rows(prof, steps: int, top: int = 12):
             for n, t, c in rows[:top]]
 
 
-def profile_mode(sched: str, select: str, t_steps: int, steps: int, batch: int = 64) -> dict:
+def profile_mode(config: str, sched: str, select: str, t_steps: int, steps: int) -> dict:
     import numpy as np
     import torch
 
     from masked_diffusion_tpu_torch.cli.main_train_masked import parse
     from masked_diffusion_tpu_torch.models.factory import build_unet
+    from masked_diffusion_tpu_torch.models.zoo import Model
     from masked_diffusion_tpu_torch.ops.schedule import build_schedule
     from masked_diffusion_tpu_torch.train.optim import build_lr_schedule, build_optimizer
     from masked_diffusion_tpu_torch.train.step import create_train_state, make_train_step
 
+    name, num_attention, size, batch, _ = CONFIGS[config]
     cfg, _ = parse([
-        "--method", "mean_shift", "--data_size", "64", "--ddpm_schedule", sched,
+        "--method", "mean_shift", "--data_size", str(size), "--ddpm_schedule", sched,
         "--ddpm_num_steps", str(t_steps), "--select_degrade_pixel", select,
         "--mean_option", "degraded_area", "--shift_type", "1-d_constant",
         "--mixed_precision", "bf16", "--optim", "adamw", "--lr_scheduler", "cosine",
         "--lr", "1e-4", "--lr_warmup_steps", "0",
     ])
-    schedule = build_schedule(sched, t_steps, 64, select)
+    schedule = build_schedule(sched, t_steps, size, select)
     used = schedule.timesteps_for_epoch(0, 10, 1)
     torch.manual_seed(0)
-    model = build_unet()
+    model = (build_unet(3, size, size, num_attention) if name == "default"
+             else Model(name, 3, size, size))
     lr = build_lr_schedule("cosine", 1e-4, 0, 1000)
     opt = build_optimizer("adamw", model.parameters(), lr, 1.0, 1)
     state = create_train_state(model, opt, use_ema=True)
     step = make_train_step(model, schedule, cfg, opt, used, lr, device="cuda")
     data = torch.from_numpy(np.random.default_rng(0).uniform(
-        -1, 1, (batch, 64, 64, 3)).astype(np.float32)).cuda()
+        -1, 1, (batch, size, size, 3)).astype(np.float32)).cuda()
     gen = torch.Generator().manual_seed(0)
     for _ in range(5):
         step(state, data, gen)
@@ -108,7 +126,8 @@ def profile_mode(sched: str, select: str, t_steps: int, steps: int, batch: int =
     own = {k: sum(r[1] for r in rows if frag in r[0] and not (k == "gn_fwd" and "bwd" in r[0]))
            / steps for k, frag in OWN.items()}
     return {
-        "mode": f"{sched}+{select}", "batch": batch, "steps_profiled": steps,
+        "config": config, "mode": f"{sched}+{select}", "batch": batch, "size": size,
+        "steps_profiled": steps,
         "wall_ms_per_step": wall_ms, "profiled_wall_ms_per_step": window_ms,
         "device_busy_ms_per_step": busy,
         # against the profiled window's wall, and against the wall without
@@ -128,9 +147,11 @@ def main(argv=None) -> int:
     import torch
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--config", choices=sorted(CONFIGS), default="flagship")
     p.add_argument("--steps", type=int, default=5)
-    p.add_argument("--out", default=os.path.join("build", "profile_train.json"))
+    p.add_argument("--out", default=None)
     args = p.parse_args(argv)
+    out = args.out or os.path.join("build", f"profile_train_{args.config}.json")
     if not torch.cuda.is_available():
         print("profile_train: CUDA is not available", file=sys.stderr)
         return 2
@@ -139,14 +160,14 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     results = []
-    for sched, select, t_steps in (("linear", "thresholding", 1000), ("log", "indexing", 4096)):
-        r = profile_mode(sched, select, t_steps, args.steps)
+    for sched, select, t_steps in CONFIGS[args.config][4]:
+        r = profile_mode(args.config, sched, select, t_steps, args.steps)
         r["card"] = card
         results.append(r)
         print(json.dumps(r), flush=True)
         torch.cuda.empty_cache()
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    with open(args.out, "w") as f:
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    with open(out, "w") as f:
         json.dump(results, f, indent=1)
     return 0
 

@@ -14,13 +14,16 @@ port's `--method sample` serves.
               index rows cross in one transfer, so a step makes no host sync
   seeds       a CPU torch.Generator per epoch, seeded from (seed, epoch)
 
+The model comes from models/factory.build_model_from_config: the default
+factory or a zoo name (--model unet1..unet6). Its attention takes the
+tiny-head kernel wherever it applies; --tinyhead_attention false is refused.
+
 Not ported yet, and refused at construction when a flag asks for them:
 resume (--resume_from_checkpoint), --sampling base with EMA (its cadence
 captures trajectories), trajectory capture, interpolation sampling,
 multi-GPU meshes, profiling, checkpoint retention and async saves, and the
-JAX-only switches (--epoch_scan, --remat, --attention_chunk,
---tinyhead_attention). Not written: optimizer state on disk, the loss PNG
-and the train-visual grids.
+JAX-only switches (--epoch_scan, --remat, --attention_chunk). Not written:
+optimizer state on disk, the loss PNG and the train-visual grids.
 """
 
 from __future__ import annotations
@@ -67,7 +70,7 @@ def unported_options(cfg: Config) -> List[str]:
         asked.append("--keep_last_checkpoints")
     if cfg.async_checkpoints:
         asked.append("--async_checkpoints")
-    for flag in ("epoch_scan", "remat", "tinyhead_attention"):
+    for flag in ("epoch_scan", "remat"):
         if getattr(cfg, flag):
             asked.append(f"--{flag}")
     if cfg.attention_chunk:

@@ -143,3 +143,33 @@ def test_uint32_bits_reach_the_kernel_as_the_same_bit_patterns():
     np.testing.assert_array_equal(
         as32.numpy().view(np.uint32), bits.numpy().astype(np.uint32)
     )
+
+
+@pytest.mark.parametrize("select", ["thresholding", "indexing"])
+def test_plain_fused_rows_match_jax_at_256(select):
+    """At 256x256x3 (the zoo's largest size, above the kernel's register
+    path), B=2, with injected bits: masks bitwise equal, outputs within 1e-6."""
+    b, hw, c = 2, 256 * 256, 3
+    rng = np.random.default_rng(11)
+    bt, bn = (rng.integers(0, 2**32, size=(b, hw), dtype=np.uint64).astype(np.uint32)
+              for _ in range(2))
+    bt[1] &= np.uint32(0xE0000000)  # heavy ties
+    xt, x0 = (rng.normal(size=(b, c * hw)).astype(np.float32) for _ in range(2))
+    if select == "indexing":
+        at, an = np.array([[hw // 3], [hw - 1]], np.float32), np.array([[1], [hw // 2]], np.float32)
+    else:
+        at, an = np.array([[0.3], [0.9]], np.float32), np.array([[0.0], [0.55]], np.float32)
+    kw = dict(channels=c, select=select, mean_mode="degraded_area", mean_value=0.0,
+              rule="base_momentum")
+    j_out, j_mask = jfd.fused_rows(jnp.asarray(bt), jnp.asarray(bn), jnp.asarray(xt),
+                                   jnp.asarray(x0), jnp.asarray(at), jnp.asarray(an), **kw)
+    t_out, t_mask = tfd.fused_rows(
+        torch.from_numpy(bt.astype(np.int64)), torch.from_numpy(bn.astype(np.int64)),
+        torch.from_numpy(xt), torch.from_numpy(x0), torch.from_numpy(at), torch.from_numpy(an),
+        **kw,
+    )
+    np.testing.assert_array_equal(t_mask.numpy(), np.asarray(j_mask))
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), atol=1e-6, rtol=0)
+    if select == "indexing":
+        np.testing.assert_array_equal((1 - t_mask.numpy()).sum(1), an[:, 0])
+

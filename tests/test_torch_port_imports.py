@@ -4,9 +4,9 @@ neither triton nor nvcc (only a kernel launch needs them).
 
 Two checks: a subprocess (conftest.py imports jax into this process) that
 imports every module of the port and runs the CLI's main for --method
-mean_shift and --method sample on the CPU at toy size, then inspects
-sys.modules; and an AST scan of every .py of the port and of chip_smoke.py
-for an import of masked_diffusion_tpu."""
+mean_shift and --method sample on the CPU at toy size (the default model and
+the zoo's unet1), then inspects sys.modules; and an AST scan of every .py of
+the port and of chip_smoke.py for an import of masked_diffusion_tpu."""
 
 import ast
 import glob
@@ -50,6 +50,16 @@ with tempfile.TemporaryDirectory() as work:
     with contextlib.redirect_stdout(buf):
         main(["--method", "sample", "--test_model_path", ckpt] + args)
     assert "sample_stats " in buf.getvalue()
+    # a zoo model, through the tiny-head route's plain version
+    zoo = args + ["--model", "unet1", "--data_size", "32", "--tinyhead_attention", "true"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(["--method", "mean_shift"] + zoo)
+    line = [l for l in buf.getvalue().splitlines() if l.startswith("train_stats ")][-1]
+    ckpt = json.loads(line.split(" ", 1)[1])["checkpoints"][-1]
+    with contextlib.redirect_stdout(buf):
+        main(["--method", "sample", "--test_model_path", ckpt] + zoo)
+    assert "sample_stats " in buf.getvalue()
 
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "flax", "triton", "masked_diffusion_tpu"))
@@ -62,6 +72,7 @@ def test_port_imports_without_jax_triton_or_nvcc():
     env = dict(os.environ)
     env["PATH"] = os.path.dirname(sys.executable)  # no nvcc on PATH
     env["CUDA_HOME"] = os.path.join(ROOT, "no-such-cuda")
+    env["OMP_NUM_THREADS"] = "2"  # the suite's other workers share the cores
     env.pop("PYTHONPATH", None)
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE], cwd=ROOT, env=env,

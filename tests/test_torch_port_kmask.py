@@ -79,10 +79,26 @@ def test_cpu_wrapper_exact_counts_and_no_launch():
 def test_wrapper_raises_on_bad_input():
     counts = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="bound"):
-        kmask.exact_count_masks(2, 256, 256, counts)
+        kmask.exact_count_masks(2, 257, 256, counts)  # one row past 256x256
     with pytest.raises(TypeError, match="counts"):
         kmask.exact_count_masks(2, H, W, counts.float())
     with pytest.raises(TypeError, match="counts"):
         kmask.exact_count_masks(3, H, W, counts)
     with pytest.raises(TypeError, match="bits"):
         kmask.exact_count_masks(2, H, W, counts, bits=torch.zeros(2, HW, dtype=torch.int32))
+
+
+def test_plain_matches_masks_from_uniforms_at_256():
+    """256x256, B=2 (the zoo's largest size): the plain version's masks
+    equal masks_from_uniforms bitwise on distinct injected draws."""
+    hw = 256 * 256
+    lane_bits = (hw - 1).bit_length()
+    rng = np.random.default_rng(4)
+    perm = np.stack([rng.permutation(hw) for _ in range(2)])
+    u = (perm / hw).astype(np.float32)  # distinct, exact in fp32
+    bits = (perm.astype(np.uint64) << np.uint64(32 - lane_bits)).astype(np.int64)
+    counts = np.array([hw // 3, hw - 1], np.int32)
+    ref = np.asarray(masks_from_uniforms(jnp.asarray(u), jnp.asarray(counts)))
+    got = kmask.exact_count_masks_plain(torch.from_numpy(bits), torch.from_numpy(counts)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal((1.0 - got).sum(1), counts)

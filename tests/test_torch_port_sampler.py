@@ -29,7 +29,7 @@ from masked_diffusion_tpu.sample import make_sample_fn as jax_make_sample_fn
 from masked_diffusion_tpu_torch.cli import main_train_masked as port_cli
 from masked_diffusion_tpu_torch.ops.schedule import build_schedule
 from masked_diffusion_tpu_torch.sample.loop import StepDraws, make_sample_fn
-from tests.test_torch_port_unet import SIZE, jax_unet, port_unet
+from tests.test_torch_port_unet import SIZE, jax_unet, port_unet, two_torch_threads  # noqa: F401
 
 N, T, C = 2, 5, 3
 HW = SIZE * SIZE

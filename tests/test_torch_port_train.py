@@ -44,7 +44,7 @@ from masked_diffusion_tpu_torch.io import weights
 from masked_diffusion_tpu_torch.ops.schedule import build_schedule
 from masked_diffusion_tpu_torch.train.optim import build_lr_schedule, build_optimizer
 from masked_diffusion_tpu_torch.train.step import TrainDraws, create_train_state, make_train_step
-from tests.test_torch_port_unet import SIZE, jax_unet, port_unet
+from tests.test_torch_port_unet import SIZE, jax_unet, port_unet, two_torch_threads  # noqa: F401
 
 B, C, STEPS = 2, 3, 5
 HW = SIZE * SIZE
@@ -271,6 +271,7 @@ def test_cli_trains_on_cpu_then_serves_its_checkpoint(tmp_path, capsys):
     (["--resume_from_checkpoint", "latest"], "--resume_from_checkpoint latest"),
     (["--mesh_model", "2"], "multi-GPU"),
     (["--epoch_scan", "true"], "--epoch_scan"),
+    (["--tinyhead_attention", "false"], "--tinyhead_attention false"),
 ])
 def test_unported_flags_raise_at_construction(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):

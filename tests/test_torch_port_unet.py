@@ -27,6 +27,17 @@ from masked_diffusion_tpu_torch.models.unet import UNet2D, UNetConfig
 SIZE = 16
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_torch_threads():
+    """Two intra-op threads for the port's CPU tests (imported by the other
+    port test files that run UNets): the suite runs several workers on one
+    host, and every worker's torch taking all cores makes them 30x slower."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _numpy_tree(tree):
     if hasattr(tree, "items"):
         return {k: _numpy_tree(v) for k, v in tree.items()}
