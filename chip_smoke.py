@@ -9,7 +9,8 @@ holds each against its plain PyTorch version on the card, checks the
 sampling slice against the plain CPU path, and serves images through the
 port's CLI at the flagship width. Every phase raises on failure. Phases:
 
-  1. environment: card name and power limit, torch/CUDA versions, build time
+  1. environment: card name and power limit, torch/CUDA versions, SM count
+     and maximum SM clock (the exp2 rate of the bounds), build time
   2. fused degrade kernel vs its plain version, explicit bits (64x64x3,
      batch 64); then its Philox path's exact counts and kept share
   3. GroupNorm(+SiLU) kernel vs its plain version at every (C, H, W) the
@@ -36,11 +37,14 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      gradient), then throughput; kernel launches per step checked
  10. training through the CLI (--method mean_shift, log+indexing, 2 epochs),
      then serving the checkpoint it wrote; kernel launch counts checked
- 11. tiny-head attention kernel vs its plain version, fp32 (TF32 off) and
-     bf16, where the main paths run it (S = 256, 1024, 4096) and at ragged
-     shapes (S = 200, 384; D = 4), with its time beside the plain
-     version's, SDPA's and the bound; the autograd Function's gradients vs
-     autograd through the plain version
+ 11. tiny-head attention kernels, forward and backward, vs their plain
+     versions, fp32 (TF32 off) and bf16 (a per-element limit from the
+     rounding of P and dS, and a bias limit), where the main paths run them
+     (S = 256, 1024, 4096) and at ragged shapes (S = 200, 384; D = 4): out
+     and lse, then dq, dk, dv from the kernel's out and lse; the autograd
+     Function (one launch of each) vs autograd through the plain version;
+     times beside the plain versions', SDPA's forward and backward, the
+     plain recompute's and the bounds; the backward's peak extra memory
  12. kernels 1 and 3 above 128x128 (keys in device memory) at 256x256 and
      160x160, batch 8: bitwise masks with explicit bits, the Philox route's
      exact k, determinism and per-pixel frequency; times at 256x256
@@ -49,13 +53,14 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
  14. slice parity on the CelebA-HQ topology (--num_attention 5): every
      kernel on CUDA vs the plain versions on the CPU, 4 reverse steps
  15. every zoo name at 128x128: one bf16 forward at batch 2, finite, with
-     the tiny-head launches the topology implies
+     the tiny-head launches the topology implies; then one forward with grad
+     and its backward, as many tiny-head backward launches as forward ones
  16. the CelebA-HQ launch config through the CLI (--num_attention 5, 64x64,
      batch 32, log+indexing at T=16, bf16): 2 epochs, then served; 10
-     tiny-head launches per UNet forward
+     tiny-head launches per UNet forward, 10 backward launches per train step
  17. unet6 at 256x256 through the CLI (batch 8, bf16, log+indexing): 2
      epochs of 2 train steps, then served; 5 tiny-head launches per UNet
-     forward
+     forward, 5 backward launches per train step
 
 Phases 11 and 12 run first (the newest kernels fail fast); phases 5, 10, 16
 and 17, the main-path runs, come last, in one work directory. The kernels'
@@ -63,9 +68,13 @@ and 17, the main-path runs, come last, in one work directory. The kernels'
 just before each. `bound_ms` is the least time the card could take for the
 same work: the larger of the bytes moved over 3.35 TB/s and the operations
 over 67 TFLOP/s (fp32 outside the tensor cores; integer operations counted
-at the same rate), from each run's shapes; for the tiny-head kernel the
-two products count at the dense bf16 tensor-core rate of 989 TFLOP/s and
-the softmax's ~5 operations per score at 67 TFLOP/s.
+at the same rate), from each run's shapes. For the tiny-head kernels the
+products count at the dense bf16 tensor-core rate of 989 TFLOP/s (fp32: 67
+TFLOP/s), the softmax's other ~4 operations a score at 67 TFLOP/s, and one
+exp2 a score (forward; the least the backward needs) at 16 a clock per SM
+times the SM count times the card's maximum SM clock; the exponentials set
+the bound in bf16 at every shape the main paths give them (in fp32 the
+products on the CUDA cores do).
 
 Its last two lines are one JSON object of kernel results and
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints neither.
@@ -118,18 +127,30 @@ KMASK_Z = 5.0  # per-pixel |z| bound over 4096 pixels: a 4-sigma bound fails by
 # image: 65536 * P(|z| > 5.5) = 0.0025
 KMASK_Z_LARGE = 5.5
 LARGE_SIZES = (256, 160)  # above 128x128: keys in device memory; 160x160 is no power of 2
-# tinyhead kernel vs its plain version in fp32 on the same inputs (bf16 ones
-# widened exactly), (atol, rtol). fp32: the kernel's online base-2 softmax and
-# its sums over S keys in another order, a few fp32 ulps. bf16: the kernel
-# widens its inputs and computes as its fp32 instance, then rounds the output
-# once to bf16, so it lies within half a bf16 ulp (at most 2^-8 |ref|) of the
-# fp32 result, plus the fp32 term. Readings are reported as the worst ratio
-# of the error to this limit
-TINYHEAD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-5, 2**-8 + 1e-4)}
-# the autograd Function's backward and autograd through the plain version run
-# the same operations on the same inputs in either dtype: equal up to the
-# order of sums
-TINYHEAD_GRAD_TOL = (1e-5, 1e-4)
+# tinyhead forward and backward kernels vs their plain versions in fp32 on the
+# same inputs (bf16 ones widened exactly). fp32, (atol, rtol): the kernels'
+# online base-2 softmax and sums over S keys in another order, a few fp32 ulps.
+TINYHEAD_FP32_TOL = (1e-5, 1e-4)
+# bf16: the kernels round P (and the backward dS) to bf16 for the second
+# products, each value within BF16_U relative (bf16 keeps 8 significant bits;
+# rounding to nearest errs by at most half a unit in the 8th), and round the
+# result once. So per element, with P the fp32 softmax and M the sum of the
+# magnitudes of the terms the kernel sums (out: P|V| of the row; gradients:
+# see tinyhead_grad_mags), |kernel - plain| <= TH_ATOL + (BF16_U + TH_ETA) M +
+# BF16_U |plain|, where TH_ETA covers the fp32 sums over up to 4096 terms and
+# ex2.approx. A sound kernel's rounding errors have mean 0, so the signed mean
+# error over the tensor, relative to mean |ref|, stays under TH_BIAS; a
+# rounding that truncates shifts it by ~2^-8.5 while staying under the
+# per-element limit. Readings: the worst error over its limit, and that bias.
+BF16_U = 2.0**-8
+TH_ATOL = 1e-5
+TH_ETA = 1e-4
+TH_BIAS = 2.0**-12
+TH_LSE_TOL = (1e-5, 1e-5)  # lse, base 2: fp32 sums in another order, ex2.approx
+# the backward through the autograd Function vs autograd through the plain
+# version, both in bf16: each side rounds its own intermediates (the kernel P,
+# dS and, through the forward's bf16 out, D; autograd P and dP) and its result
+TH_AUTOGRAD_BF16 = (4 * BF16_U, 2 * BF16_U)  # (share of M, share of |ref|)
 TINYHEAD_SHAPES = (  # (B, heads, S, D) where the main paths run the kernel
     (32, 16, 1024, 8),  # the CelebA-HQ config: level 1 (32x32, 128 ch), 5 per forward
     (32, 32, 256, 8),   # the CelebA-HQ config: level 2 (16x16, 256 ch), 5 per forward
@@ -140,6 +161,11 @@ TINYHEAD_RAGGED = ((2, 4, 200, 8), (2, 4, 384, 8), (2, 4, 256, 4), (2, 4, 200, 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+# exp2 on the special-function units: 16 a clock per SM on compute capability
+# 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput); phase 1
+# sets it from the card's SM count and its maximum SM clock
+EXP_PER_CLOCK_PER_SM = 16
+EXP_PER_S = None
 
 
 def log(msg: str) -> None:
@@ -190,14 +216,28 @@ def bound(nbytes: float, ops: float):
 
 
 def attention_terms(b: int, h: int, s: int, d: int, bf16: bool) -> dict:
-    """ms of each lower bound of one tiny-head attention: q, k, v read and
-    out written once; the two products (4*B*H*S^2*D operations) on the
-    tensor cores in bf16, on the CUDA cores in fp32; the softmax (~5*B*H*S^2
-    fp32 operations)."""
+    """ms of each lower bound of one tiny-head attention forward: q, k, v
+    read and out written once; the two products (4*B*H*S^2*D operations) on
+    the tensor cores in bf16, on the CUDA cores in fp32; one exp2 a score on
+    the special-function units; the softmax's other ~4 fp32 operations a
+    score (scale and subtract, max, sum, cast)."""
     return {
         "bytes": 4 * b * h * s * d * (2 if bf16 else 4) / HBM_BYTES_PER_S * 1e3,
         "products": 4 * b * h * s * s * d / (BF16_TC_OPS_PER_S if bf16 else FP32_OPS_PER_S) * 1e3,
-        "softmax": 5 * b * h * s * s / FP32_OPS_PER_S * 1e3,
+        "softmax": 4 * b * h * s * s / FP32_OPS_PER_S * 1e3,
+        "exp": b * h * s * s / EXP_PER_S * 1e3,
+    }
+
+
+def attention_bwd_terms(b: int, h: int, s: int, d: int, bf16: bool) -> dict:
+    """ms of each lower bound of one tiny-head attention backward: q, k, v,
+    out, dO and lse read and dq, dk, dv written once; five products
+    (10*B*H*S^2*D operations); one exp2 a score, the least a backward needs
+    (P rebuilt once)."""
+    return {
+        "bytes": (8 * b * h * s * d * (2 if bf16 else 4) + 4 * b * h * s) / HBM_BYTES_PER_S * 1e3,
+        "products": 10 * b * h * s * s * d / (BF16_TC_OPS_PER_S if bf16 else FP32_OPS_PER_S) * 1e3,
+        "exp": b * h * s * s / EXP_PER_S * 1e3,
     }
 
 
@@ -235,6 +275,15 @@ def phase_env():
     log(smi)
     log(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
+    global EXP_PER_S
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    EXP_PER_S = EXP_PER_CLOCK_PER_SM * sms * float(clock.split()[0]) * 1e6
+    log(f"[1] {sms} SMs, max SM clock {clock}: {EXP_PER_S:.4g} exp2 a second "
+        f"({EXP_PER_CLOCK_PER_SM} a clock per SM)")
     t0 = time.perf_counter()
     build.load_library()
     log(f"[1] csrc/*.cu built and loaded in {time.perf_counter() - t0:.2f} s "
@@ -784,7 +833,8 @@ def phase_serve(workdir: str):
             raise AssertionError(f"serve {sched}: launches fused {n_fused}, "
                                  f"groupnorm {n_gn}, steps x batches "
                                  f"{stats['steps'] * stats['batches']}")
-        if counts["group_norm_silu_backward"] or counts["exact_count_masks"]:
+        if (counts["group_norm_silu_backward"] or counts["exact_count_masks"]
+                or counts["tinyhead_attention_backward"]):
             raise AssertionError(f"serve {sched}: training kernels launched: {counts}")
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
@@ -1057,7 +1107,8 @@ def phase_train_throughput(smi: str):
         per = {k: v / TRAIN_STEPS_TIMED for k, v in counts.items()}
         want = {"exact_count_masks": 1 if select == "indexing" else 0,
                 "group_norm_silu": norms, "group_norm_silu_backward": norms,
-                "fused_degrade_update": 0, "tinyhead_attention": 0}
+                "fused_degrade_update": 0, "tinyhead_attention": 0,
+                "tinyhead_attention_backward": 0}
         if per != want:
             raise AssertionError(f"train {sched}: launches per step {per}, expected {want}")
         if not bool(torch.isfinite(metrics["train_loss"])):
@@ -1117,8 +1168,9 @@ def phase_train_cli(workdir: str):
     grids = os.listdir(os.path.join(run, "train", "image", "ema_sample_img"))
     if meta["global_step"] != 8 or "ema_sample_00001_global.png" not in grids:
         raise AssertionError(f"train CLI: meta {meta}, grids {grids}")
-    if (train_counts["exact_count_masks"] != 8 or train_counts["tinyhead_attention"]
-            or not all(n for k, n in train_counts.items() if k != "tinyhead_attention")):
+    tiny = ("tinyhead_attention", "tinyhead_attention_backward")
+    if (train_counts["exact_count_masks"] != 8 or any(train_counts[k] for k in tiny)
+            or not all(n for k, n in train_counts.items() if k not in tiny)):
         raise AssertionError(f"train CLI: launches {train_counts}")
     log(f"[10] train CLI mean_shift log+indexing: 2 epochs x 4 steps, losses "
         f"{[round(v, 5) for v in stats['loss_mean_epoch']]}, {stats['ms_per_step']:.3f} "
@@ -1144,12 +1196,53 @@ def phase_train_cli(workdir: str):
     return {k: train_counts[k] + serve_counts[k] for k in train_counts}
 
 
+def tinyhead_out_mag(q, k, v, scale):
+    """P|V| per output element: the sum of the magnitudes of the terms of
+    out = P V, P the fp32 softmax."""
+    import torch
+
+    p = torch.softmax(torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", p, v.float().abs())
+
+
+def tinyhead_grad_mags(q, k, v, g, scale):
+    """(M_dq, M_dk, M_dv): per gradient element, the sum of the magnitudes
+    of the terms that make it, P the fp32 softmax: dS is bounded by
+    P (|dO| |V|^T + Dmag) with Dmag = |dO| . P|V| >= |D|, then M_dv = P^T
+    |dO|, M_dq = scale dS_mag |K|, M_dk = scale dS_mag^T |Q|."""
+    import torch
+
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    p = torch.softmax(torch.einsum("bhsd,bhtd->bhst", qf, kf) * scale, dim=-1)
+    m_dv = torch.einsum("bhst,bhsd->bhtd", p, gf.abs())
+    dmag = (gf.abs() * torch.einsum("bhst,bhtd->bhsd", p, vf.abs())).sum(-1, keepdim=True)
+    ds = torch.einsum("bhsd,bhtd->bhst", gf.abs(), vf.abs()).add_(dmag).mul_(p)
+    del p
+    m_dq = torch.einsum("bhst,bhtd->bhsd", ds, kf.abs()) * scale
+    m_dk = torch.einsum("bhst,bhsd->bhtd", ds, qf.abs()) * scale
+    return m_dq, m_dk, m_dv
+
+
+def _graph_grad_ms(forward, leaves, g, reps, iters):
+    """Device ms of forward(*leaves) and of torch.autograd.grad through it,
+    each captured in a CUDA graph (the forward inside, so that its backward
+    runs on the capture stream): (forward ms, forward + backward ms)."""
+    import torch
+
+    fwd, _ = cuda_ms(lambda: forward(*leaves), reps, iters)
+    both, _ = cuda_ms(lambda: torch.autograd.grad(forward(*leaves), leaves, g), reps, iters)
+    return fwd, both
+
+
 def phase_tinyhead():
-    """The tiny-head attention kernel against its plain version at the main
-    paths' shapes and at ragged ones, fp32 (TF32 off) and bf16; its times
-    beside the plain version's, SDPA's and the bound; and the autograd
-    Function's gradients against autograd through the plain version.
-    Returns (max fp32 err, {(shape, dtype): (ms, plain ms, SDPA ms, terms)})."""
+    """The tiny-head attention kernels, forward and backward, against their
+    plain versions at the main paths' shapes and at ragged ones, fp32 (TF32
+    off) and bf16; their times beside the plain versions', SDPA's and the
+    bounds; the backward's peak extra memory; the autograd Function against
+    autograd through the plain version. Returns (max fp32 err of the forward,
+    of the backward, {(shape, dtype): forward (ms, plain ms, SDPA ms,
+    terms)}, {(shape, dtype): backward (ms, plain ms, SDPA ms, terms,
+    recompute ms)})."""
     import math
 
     import torch
@@ -1157,85 +1250,181 @@ def phase_tinyhead():
 
     from masked_diffusion_tpu_torch.ops.tinyhead_attention import (
         tinyhead_attention,
+        tinyhead_attention_backward,
         tinyhead_attention_plain,
+        tinyhead_backward_plain,
+        tinyhead_forward,
+        tinyhead_forward_plain,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(12)
-    worst = {"float32": 0.0, "bfloat16": 0.0}
-    worst_ratio = {"float32": 0.0, "bfloat16": 0.0}
-    times = {}
+    worst = {}
+    fwd_times, bwd_times = {}, {}
 
-    def check(got, ref, name, what, tol):
-        atol, rtol = tol
+    def check(got, ref, limit, what):
+        """got within limit of ref element-wise; limit a tensor or (atol,
+        rtol). Returns the max abs error; keeps the worst ratio per `what`."""
         diff = (got.float() - ref.float()).abs()
-        ratio = (diff / (atol + rtol * ref.float().abs())).max().item()
+        if isinstance(limit, tuple):
+            limit = limit[0] + limit[1] * ref.float().abs()
+        ratio = (diff / limit).max().item()
         if got.shape != ref.shape or not ratio <= 1.0:
-            raise AssertionError(f"tinyhead {what} {name}: max err {diff.max().item()}, "
-                                 f"{ratio:.3g} times the limit atol {atol} + rtol {rtol} |ref|")
-        worst[name] = max(worst[name], diff.max().item())
-        worst_ratio[name] = max(worst_ratio[name], ratio)
-        return diff.max().item()
+            raise AssertionError(f"tinyhead {what}: max err {diff.max().item()}, "
+                                 f"{ratio:.3g} times its limit")
+        err = diff.max().item()
+        w = worst.setdefault(what.split(" (")[0], [0.0, 0.0])
+        w[0], w[1] = max(w[0], err), max(w[1], ratio)
+        return err, ratio
+
+    def bf16_limit(mag, ref, eta=BF16_U, rho=BF16_U):
+        return TH_ATOL + (eta + TH_ETA) * mag + rho * ref.float().abs()
+
+    def bias(got, ref):
+        ref = ref.float()
+        return ((got.float() - ref) * ref.sign()).sum().item() / ref.abs().sum().item()
 
     for shape in TINYHEAD_SHAPES + TINYHEAD_RAGGED:
         b, h, s, d = shape
         scale = 1.0 / math.sqrt(d)
-        qkv = [torch.randn(shape, generator=gen, device=dev) for _ in range(3)]
+        main = shape in TINYHEAD_SHAPES
+        qkvg = [torch.randn(shape, generator=gen, device=dev) for _ in range(4)]
         line = []
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
-            q, k, v = (t.to(dtype) for t in qkv)
+            bf16 = dtype == torch.bfloat16
+            q, k, v, g = (t.to(dtype) for t in qkvg)
+            wide = [t.float() for t in (q, k, v, g)]
             with torch.inference_mode():
+                # forward, as serving runs it (no lse), then with lse
                 out = tinyhead_attention(q, k, v, scale)
-                ref = tinyhead_attention_plain(q.float(), k.float(), v.float(), scale)
+                out2, lse = tinyhead_forward(q, k, v, scale)
+                ref, ref_lse = tinyhead_forward_plain(*wide[:3], scale)
                 torch.cuda.synchronize()
-                if out.dtype != dtype:
-                    raise AssertionError(f"tinyhead {shape}: output dtype {out.dtype}")
-                err = check(out, ref, name, shape, TINYHEAD_TOL[name])
-                if shape not in TINYHEAD_SHAPES:
-                    line.append(f"{name} max err {err:.3g}")
-                    continue
-                # the S=4096 plain version holds 4 GiB of scores per call
-                reps, iters = (3, 3) if b * h * s * s > 2**28 else (20, 10)
+                if out.dtype != dtype or not torch.equal(out, out2):
+                    raise AssertionError(f"tinyhead {shape} {name}: output dtype {out.dtype}, "
+                                         f"equal with lse {torch.equal(out, out2)}")
+                limit = (bf16_limit(tinyhead_out_mag(*wide[:3], scale), ref) if bf16
+                         else TINYHEAD_FP32_TOL)
+                err, ratio = check(out, ref, limit, f"out {name} ({shape})")
+                beta = bias(out, ref)
+                if bf16 and not abs(beta) <= TH_BIAS:
+                    raise AssertionError(f"tinyhead {shape} bf16: signed mean error {beta:.3g} "
+                                         f"of mean |ref|, limit {TH_BIAS:.3g}")
+                lse_err, _ = check(lse, ref_lse, TH_LSE_TOL, f"lse {name} ({shape})")
+                # backward kernel vs the plain backward in fp32 on the same
+                # inputs, out and lse
+                grads = tinyhead_attention_backward(q, k, v, out2, lse, g, scale)
+                plain = tinyhead_backward_plain(*wide[:3], out2.float(), lse, wide[3], scale)
+                mags = tinyhead_grad_mags(*wide, scale)
+                bwd = []
+                for x, a, w, mag in zip("qkv", grads, plain, mags):
+                    lim = (bf16_limit(mag, w) if bf16
+                           else TINYHEAD_FP32_TOL[0] + TINYHEAD_FP32_TOL[1] * mag)
+                    if a.dtype != dtype:
+                        raise AssertionError(f"tinyhead d{x} {shape}: dtype {a.dtype}")
+                    bwd.append(check(a, w, lim, f"d{x} {name} vs plain ({shape})"))
+                del grads, plain
+            # the autograd Function vs autograd through the plain version
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            before = (tinyhead_attention.launches, tinyhead_attention_backward.launches)
+            got = torch.autograd.grad(tinyhead_attention(*leaves, scale), leaves, g)
+            launched = (tinyhead_attention.launches - before[0],
+                        tinyhead_attention_backward.launches - before[1])
+            if launched != (1, 1):
+                raise AssertionError(f"tinyhead {shape} {name} with grad: launches (forward, "
+                                     f"backward) {launched}, expected (1, 1)")
+            refs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            want = torch.autograd.grad(tinyhead_attention_plain(*refs, scale), refs, g)
+            ag = []
+            for x, a, w, mag in zip("qkv", got, want, mags):
+                lim = (bf16_limit(mag, w, *TH_AUTOGRAD_BF16) if bf16
+                       else TINYHEAD_FP32_TOL[0] + TINYHEAD_FP32_TOL[1] * mag)
+                ag.append(check(a, w, lim, f"d{x} {name} vs autograd ({shape})"))
+            del got, want, leaves, refs, mags
+            summary = (f"{name}: out err {err:.3g} ({ratio:.3g} of limit"
+                       + (f", bias {beta:.3g}" if bf16 else "") + f"), lse err {lse_err:.3g}; "
+                       f"dq/dk/dv err vs plain {'/'.join(f'{e:.3g}' for e, _ in bwd)} "
+                       f"({max(r for _, r in bwd):.3g} of limit), vs autograd "
+                       f"{'/'.join(f'{e:.3g}' for e, _ in ag)} ({max(r for _, r in ag):.3g})")
+            if not main:
+                line.append(summary)
+                continue
+            # times: CUDA-graph device ms; the S=4096 plain versions hold
+            # 4 GiB per (S, S) tensor
+            reps, iters = (3, 3) if b * h * s * s > 2**28 else (20, 10)
+            with torch.inference_mode():
                 kms, _ = cuda_ms(lambda: tinyhead_attention(q, k, v, scale), reps, iters)
                 pms, _ = cuda_ms(lambda: tinyhead_attention_plain(q, k, v, scale), reps, iters)
                 lms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
                                  reps, iters)
-            terms = attention_terms(b, h, s, d, dtype == torch.bfloat16)
-            bnd = terms_bound(terms)
-            times[(shape, name)] = (kms, pms, lms, terms)
-            line.append(f"{name} max err {err:.3g}, kernel {kms:.4f} ms, plain {pms:.4f}, "
-                        f"SDPA {lms:.4f}, bound {bnd[0]:.5f} ({bnd[2]}; bytes "
-                        f"{terms['bytes']:.5f}, products {terms['products']:.5f}, softmax "
-                        f"{terms['softmax']:.5f})")
+                bkms, _ = cuda_ms(lambda: tinyhead_attention_backward(q, k, v, out2, lse, g,
+                                                                      scale), reps, iters)
+                bpms, _ = cuda_ms(lambda: tinyhead_backward_plain(q, k, v, out2, lse, g, scale),
+                                  reps, iters)
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            # the recompute through the plain version under autograd (as the JAX _bwd)
+            rec_f, rec_fb = _graph_grad_ms(lambda *a: tinyhead_attention_plain(*a, scale),
+                                           leaves, g, reps, iters)
+            sdpa_f, sdpa_fb = _graph_grad_ms(
+                lambda *a: F.scaled_dot_product_attention(*a, scale=scale), leaves, g, reps,
+                iters)
+            del leaves
+            terms = attention_terms(b, h, s, d, bf16)
+            bterms = attention_bwd_terms(b, h, s, d, bf16)
+            bnd, bbnd = terms_bound(terms), terms_bound(bterms)
+            fwd_times[(shape, name)] = (kms, pms, lms, terms)
+            bwd_times[(shape, name)] = (bkms, bpms, sdpa_fb - sdpa_f, bterms, rec_fb)
+            line.append(
+                f"{summary}; forward kernel {kms:.4f} ms, plain {pms:.4f}, SDPA {lms:.4f}, "
+                f"bound {bnd[0]:.5f} ({bnd[2]}; " + ", ".join(
+                    f"{t} {v:.5f}" for t, v in terms.items()) + f"); backward kernel "
+                f"{bkms:.4f} ms, plain {bpms:.4f}, recompute {rec_fb:.4f} (its forward "
+                f"{rec_f:.4f}), SDPA backward {sdpa_fb - sdpa_f:.4f} (forward + backward "
+                f"{sdpa_fb:.4f}), bound {bbnd[0]:.5f} ({bbnd[2]}; " + ", ".join(
+                    f"{t} {v:.5f}" for t, v in bterms.items()) + ")")
         log(f"[11] tinyhead {shape}: " + "; ".join(line))
-        del qkv, q, k, v, out, ref
+        del qkvg, q, k, v, g, wide, out, out2, lse, ref, ref_lse
         torch.cuda.empty_cache()
 
-    # gradients: the Function's backward recomputes through the plain version
-    b, h, s, d = 2, 16, 1024, 8
-    scale = 1.0 / math.sqrt(d)
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[1]
-        q, k, v, g = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
-                      for _ in range(4))
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        before = tinyhead_attention.launches
-        got = torch.autograd.grad(tinyhead_attention(*leaves, scale), leaves, g)
-        launched = tinyhead_attention.launches - before
-        refs = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        want = torch.autograd.grad(tinyhead_attention_plain(*refs, scale), refs, g)
-        if launched != 1:
-            raise AssertionError(f"tinyhead with grad launched {launched} kernels, expected 1")
-        errs = [check(a, w, name, f"d{x} {(b, h, s, d)}", TINYHEAD_GRAD_TOL)
-                for a, w, x in zip(got, want, "qkv")]
-        log(f"[11] tinyhead gradients {(b, h, s, d)} {name} through the autograd Function: "
-            f"max err dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g}; one forward launch")
-    log(f"[11] tinyhead_attention: all shapes within tolerance; max err fp32 "
-        f"{worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}; worst error over its limit "
-        f"fp32 {worst_ratio['float32']:.3g}, bf16 {worst_ratio['bfloat16']:.3g}")
-    return worst["float32"], times
+    # peak extra device memory of one backward at the CelebA-HQ shape, bf16
+    shape = TINYHEAD_SHAPES[0]
+    scale = 1.0 / math.sqrt(shape[-1])
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(4))
+    with torch.inference_mode():
+        out, lse = tinyhead_forward(q, k, v, scale)
+    inputs = sum(t.numel() * t.element_size() for t in (q, k, v, out, g))
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        torch.cuda.synchronize()
+        del res
+        return torch.cuda.max_memory_allocated() - base
+
+    def recompute():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        return torch.autograd.grad(tinyhead_attention_plain(*leaves, scale), leaves, g)
+
+    kpeak = peak(lambda: tinyhead_attention_backward(q, k, v, out, lse, g, scale))
+    rpeak = peak(recompute)
+    if not kpeak < 4 * inputs:
+        raise AssertionError(f"tinyhead backward {shape}: peak extra memory {kpeak} bytes, "
+                             f"limit 4 x {inputs}")
+    log(f"[11] tinyhead backward {shape} bf16: peak extra device memory {kpeak / 2**20:.2f} MiB "
+        f"(q, k, v, out, dO: {inputs / 2**20:.2f} MiB); the plain recompute "
+        f"{rpeak / 2**30:.3f} GiB")
+    del q, k, v, g, out, lse
+    torch.cuda.empty_cache()
+    log("[11] tinyhead_attention: all shapes within their limits; worst (max abs err, ratio "
+        "to limit): " + "; ".join(f"{w} {e:.3g} {r:.3g}" for w, (e, r) in sorted(worst.items())))
+    fp32_bwd = max(worst[f"d{x} float32 vs plain"][0] for x in "qkv")
+    return worst["out float32"][0], fp32_bwd, fwd_times, bwd_times, (kpeak, rpeak, inputs)
 
 
 def phase_exact_k_large():
@@ -1373,18 +1562,24 @@ def phase_exact_k_large():
 
 def phase_zoo():
     """Every zoo name at 128x128: one bf16 forward at batch 2 with random
-    weights; the output finite and the tiny-head launches as the topology
-    says."""
+    weights, the output finite and the tiny-head launches as the topology
+    says; then one forward with grad and its backward, with as many
+    tiny-head backward launches as forward ones, every gradient finite.
+    Returns {name: tiny-head backward launches per train step}."""
     import torch
 
     from masked_diffusion_tpu_torch.models.zoo import ZOO_NAMES, Model
-    from masked_diffusion_tpu_torch.ops.tinyhead_attention import tinyhead_attention
+    from masked_diffusion_tpu_torch.ops.tinyhead_attention import (
+        tinyhead_attention,
+        tinyhead_attention_backward,
+    )
 
     dev = torch.device("cuda")
     size, batch = 128, 2
     gen = torch.Generator(device=dev).manual_seed(14)
     x = torch.randn((batch, 3, size, size), generator=gen, device=dev).to(torch.bfloat16)
     t = torch.full((batch,), 10.0, device=dev)
+    backward = {}
     for name in ZOO_NAMES:
         torch.manual_seed(0)
         with dev:
@@ -1402,13 +1597,26 @@ def phase_zoo():
             raise AssertionError(f"zoo {name} at {size}x{size}: shape {tuple(out.shape)}, "
                                  f"finite {bool(torch.isfinite(out).all())}, tinyhead "
                                  f"launches {launched}, expected {want}")
+        before = (tinyhead_attention.launches, tinyhead_attention_backward.launches)
+        model(x, t).float().square().mean().backward()
+        torch.cuda.synchronize()
+        with_grad = (tinyhead_attention.launches - before[0],
+                     tinyhead_attention_backward.launches - before[1])
+        finite = all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+        if with_grad != (want, want) or not finite:
+            raise AssertionError(f"zoo {name} at {size}x{size} with grad: tinyhead launches "
+                                 f"(forward, backward) {with_grad}, expected {want} each; "
+                                 f"gradients finite {finite}")
+        backward[name] = with_grad[1]
         params = sum(p.numel() for p in model.parameters())
         log(f"[15] zoo {name} at {size}x{size}, bf16, batch {batch}: {params / 1e6:.1f}M "
             f"params, block_out_channels {model.config.block_out_channels}, output finite, "
             f"std {out.float().std().item():.4f}; tinyhead launches {launched} (expected "
-            f"{want}); {time.perf_counter() - t0:.2f} s")
+            f"{want}); with grad {with_grad[0]} forward and {with_grad[1]} backward tinyhead "
+            f"launches, gradients finite; {time.perf_counter() - t0:.2f} s")
         del model, out
         torch.cuda.empty_cache()
+    return backward
 
 
 def _run_cli(argv, tag: str):
@@ -1430,9 +1638,10 @@ def phase_cli_pair(tag: str, what: str, common, train_extra, per_forward: int, e
                    steps_per_epoch: int):
     """Train through the CLI (--method mean_shift), then serve the checkpoint
     it wrote (--method sample, EMA weights). Checks the counts: one kmask
-    launch per indexing train step, one fused launch per reverse step, and
+    launch per indexing train step, one fused launch per reverse step,
     `per_forward` tinyhead launches per UNet forward (one per train step and
-    per reverse step). Returns the launches of both runs."""
+    per reverse step) and `per_forward` tinyhead backward launches per train
+    step, none in serving. Returns the launches of both runs."""
     import numpy as np
 
     rc, stats, train = _run_cli(["--method", "mean_shift", "--num_epochs", str(epochs),
@@ -1442,19 +1651,21 @@ def phase_cli_pair(tag: str, what: str, common, train_extra, per_forward: int, e
         raise AssertionError(f"{what} train CLI: rc {rc}, stats {stats}")
     (ckpt,) = stats["checkpoints"]
     want = {"exact_count_masks": steps,
-            "tinyhead_attention": per_forward * (steps + train["fused_degrade_update"])}
+            "tinyhead_attention": per_forward * (steps + train["fused_degrade_update"]),
+            "tinyhead_attention_backward": per_forward * steps}
     if any(train[k] != n for k, n in want.items()) or not train["fused_degrade_update"]:
         raise AssertionError(f"{what} train CLI: launches {train}, expected {want}")
     log(f"{tag} {what} train CLI: {epochs} epochs x {steps_per_epoch} steps, losses "
         f"{[round(v, 5) for v in stats['loss_mean_epoch']]}, {stats['ms_per_step']:.3f} ms/step "
         f"and {stats['images_per_sec']:.2f} images/s (last epoch) on {stats['device']}; "
-        f"launches {train} ({per_forward} tinyhead per UNet forward)")
+        f"launches {train} ({per_forward} tinyhead forward launches per UNet forward, "
+        f"{per_forward} backward launches per train step)")
 
     rc, served, serve = _run_cli(["--method", "sample", "--test_model_path", ckpt, *common],
                                  "sample_stats")
     n_steps = served["steps"] * served["batches"]
     want = {"exact_count_masks": 0, "fused_degrade_update": n_steps,
-            "tinyhead_attention": per_forward * n_steps}
+            "tinyhead_attention": per_forward * n_steps, "tinyhead_attention_backward": 0}
     if rc != 0 or not (served["finite"] and served["ema"]) or any(
             serve[k] != n for k, n in want.items()):
         raise AssertionError(f"{what} serve CLI: rc {rc}, {served}, launches {serve}, "
@@ -1511,11 +1722,14 @@ def _counted():
     from masked_diffusion_tpu_torch.ops.fused_degrade import fused_degrade_update
     from masked_diffusion_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_backward
     from masked_diffusion_tpu_torch.ops.kmask import exact_count_masks
-    from masked_diffusion_tpu_torch.ops.tinyhead_attention import tinyhead_attention
+    from masked_diffusion_tpu_torch.ops.tinyhead_attention import (
+        tinyhead_attention,
+        tinyhead_attention_backward,
+    )
 
     return {f.__name__: f for f in (fused_degrade_update, group_norm_silu,
                                     group_norm_silu_backward, exact_count_masks,
-                                    tinyhead_attention)}
+                                    tinyhead_attention, tinyhead_attention_backward)}
 
 
 def reset_counts() -> None:
@@ -1542,7 +1756,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     smi = phase_env()
-    tinyhead_err, tinyhead_times = phase_tinyhead()
+    tinyhead_err, tinyhead_bwd_err, tinyhead_times, tinyhead_bwd_times, _ = phase_tinyhead()
     phase_exact_k_large()
     fused_err, fused_times, fused_bound = phase_fused()
     calls = norm_shapes(16)
@@ -1555,7 +1769,7 @@ def main() -> int:
     phase_train_parity()
     phase_train_bf16_parity()
     phase_train_throughput(smi)
-    phase_zoo()
+    zoo_backward = phase_zoo()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
         main_runs = [phase_serve(workdir)[0], phase_train_cli(workdir),
@@ -1567,17 +1781,27 @@ def main() -> int:
     def launches(name):
         return sum(run.get(name, 0) for run in main_runs)
 
-    # the tiny-head entry: per bf16 UNet forward of the CelebA-HQ config at
-    # batch 32, five launches at S=1024 and five at S=256
+    # the tiny-head entries: per bf16 UNet forward (and backward) of the
+    # CelebA-HQ config at batch 32, five launches at S=1024 and five at S=256
     per_forward = [(shape, 5) for shape in TINYHEAD_SHAPES[:2]]
-    th = [sum(n * tinyhead_times[(shape, "bfloat16")][i] for shape, n in per_forward)
-          for i in range(3)]
-    th_bound = terms_bound({t: sum(n * tinyhead_times[(shape, "bfloat16")][3][t]
-                                   for shape, n in per_forward)
-                            for t in ("bytes", "products", "softmax")})
-    log(f"[11] tinyhead per bf16 UNet forward of the CelebA-HQ config, batch 32 (5 x S=1024, "
-        f"5 x S=256): kernel {th[0]:.4f} ms, plain {th[1]:.4f} ms, SDPA {th[2]:.4f} ms, bound "
-        f"{th_bound[0]:.5f} ms ({th_bound[2]})")
+
+    def per_step(times, what):
+        ms = [sum(n * times[(shape, "bfloat16")][i] for shape, n in per_forward)
+              for i in range(3)]
+        terms = times[(per_forward[0][0], "bfloat16")][3]
+        bnd = terms_bound({t: sum(n * times[(shape, "bfloat16")][3][t]
+                                  for shape, n in per_forward) for t in terms})
+        log(f"[11] tinyhead {what} of the CelebA-HQ config, bf16, batch 32 (5 x S=1024, "
+            f"5 x S=256): kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, SDPA {ms[2]:.4f} ms, "
+            f"bound {bnd[0]:.5f} ms ({bnd[2]})")
+        return ms, bnd
+
+    th, th_bound = per_step(tinyhead_times, "forward per UNet forward")
+    thb, thb_bound = per_step(tinyhead_bwd_times, "backward per train step")
+    log(f"[11] tinyhead backward launches per train step: CelebA-HQ "
+        f"{main_runs[2]['tinyhead_attention_backward'] // 4} (phase 16, 4 steps), unet6 256x256 "
+        f"{main_runs[3]['tinyhead_attention_backward'] // 4} (phase 17, 4 steps), at 128x128 "
+        f"(phase 15) {zoo_backward}")
     log(smi)
     print(json.dumps({"kernels": [
         kernel_entry("fused_degrade_update", "cuda",
@@ -1601,6 +1825,11 @@ def main() -> int:
                      "masked_diffusion_tpu/ops/pallas/tinyhead_attention.py:99",
                      launches("tinyhead_attention"), tinyhead_err, th[0], th[1], th_bound[:2],
                      th[2]),
+        kernel_entry("tinyhead_attention_backward", "cuda",
+                     "masked_diffusion_tpu_torch/csrc/tinyhead_attention_bwd.cu",
+                     "masked_diffusion_tpu/ops/pallas/tinyhead_attention.py:168",
+                     launches("tinyhead_attention_backward"), tinyhead_bwd_err, thb[0], thb[1],
+                     thb_bound[:2], thb[2]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

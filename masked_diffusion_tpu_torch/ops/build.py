@@ -87,6 +87,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.mdt_tinyhead_attention
     fn.argtypes = [
         vp, vp, vp, vp,          # q, k, v, out
+        vp,                      # lse (nullable: not written)
+        i32, i32, i32,           # batch * heads, sequence, head_dim
+        f32, i32,                # scale, dtype (0 fp32, 1 bf16)
+        vp,                      # cudaStream_t
+    ]
+    fn.restype = i32
+    fn = lib.mdt_tinyhead_attention_bwd
+    fn.argtypes = [
+        vp, vp, vp, vp, vp, vp,  # q, k, v, out, lse, dout
+        vp, vp, vp,              # dq, dk, dv
         i32, i32, i32,           # batch * heads, sequence, head_dim
         f32, i32,                # scale, dtype (0 fp32, 1 bf16)
         vp,                      # cudaStream_t

@@ -33,7 +33,7 @@ import time
 
 # kernel name fragments of the port's own kernels
 OWN = {"gn_fwd": "gn_silu_kernel", "gn_bwd": "gn_silu_bwd_kernel", "kmask": "kmask_kernel",
-       "tinyhead": "tinyhead_kernel"}
+       "tinyhead": "tinyhead_fwd", "tinyhead_bwd": "tinyhead_bwd"}
 # name: (zoo name, --num_attention, image size, batch, [(schedule, selection, T)])
 CONFIGS = {
     "flagship": ("default", 1, 64, 64, (("linear", "thresholding", 1000),

@@ -1,0 +1,79 @@
+"""Planted faults in the tiny-head attention kernels, and what phase 11 of
+chip_smoke.py reads for each.
+
+    python -m masked_diffusion_tpu_torch.tools.tinyhead_faults [NAME ...]
+
+Run from the root of a checkout on a machine with the GPU. For each fault
+(all of FAULTS by default) it copies the package and chip_smoke.py into a
+temporary directory, changes the one line the fault names, and runs phase
+1 and phase 11 there: the copy builds its own kernels and phase 11 must
+fail. Prints, per fault, the exit code and phase 11's last lines (the check
+that caught it, with its reading against its limit). The checkout itself is
+never changed.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_ROOT = os.path.dirname(_PKG)
+_CU = "masked_diffusion_tpu_torch/csrc/"
+_LAST_TILE = "for (int tile = 0; tile < tiles; ++tile) {"
+_BUT_LAST = "for (int tile = 0; tile < tiles - 1 + (tiles == 1); ++tile) {"
+_RN = ("if (col < d) p[0] = __float2bfloat16_rn(c0);\n"
+       "  if (col + 1 < d) p[1] = __float2bfloat16_rn(c1);")
+
+# name: (file, text, replacement); the first occurrence is replaced
+FAULTS = {
+    "fwd_drops_last_key_tile": (_CU + "tinyhead_attention.cu", _LAST_TILE, _BUT_LAST),
+    "fwd_misses_rescale": (
+        _CU + "tinyhead_attention.cu",
+        "          acc[mt][2 * r] *= corr;\n          acc[mt][2 * r + 1] *= corr;\n", ""),
+    "truncating_p_and_ds": (_CU + "tinyhead_mma.cuh", "cvt.rn.bf16x2.f32", "cvt.rz.bf16x2.f32"),
+    "truncating_output": (_CU + "tinyhead_mma.cuh", _RN, _RN.replace("_rn(", "_rz(")),
+    "bwd_dq_drops_d": (_CU + "tinyhead_attention_bwd.cu",
+                       "dp[nt][i] = p * (dp[nt][i] - dr[mt][i >> 1]);",
+                       "dp[nt][i] = p * dp[nt][i];"),
+    "bwd_dkdv_drops_last_query_tile": (_CU + "tinyhead_attention_bwd.cu", _LAST_TILE, _BUT_LAST),
+}
+
+
+def run(name: str) -> int:
+    path, text, replacement = FAULTS[name]
+    with tempfile.TemporaryDirectory(prefix=f"tinyhead_{name}_") as work:
+        shutil.copytree(_PKG, os.path.join(work, "masked_diffusion_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy(os.path.join(_ROOT, "chip_smoke.py"), work)
+        target = os.path.join(work, path)
+        with open(target) as f:
+            src = f.read()
+        if text not in src:
+            raise ValueError(f"{name}: {text!r} not in {path}")
+        with open(target, "w") as f:
+            f.write(src.replace(text, replacement, 1))
+        proc = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke as c; c.phase_env(); c.phase_tinyhead()"],
+            cwd=work, capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in (proc.stdout + proc.stderr).splitlines()
+             if ln.startswith("[11]") or "Error" in ln]
+    print(f"=== {name}: exit {proc.returncode}")
+    for ln in lines[-3:]:
+        print(f"    {ln}")
+    sys.stdout.flush()
+    return proc.returncode
+
+
+def main(argv=None) -> int:
+    names = (sys.argv[1:] if argv is None else argv) or list(FAULTS)
+    caught = [run(name) != 0 for name in names]
+    print(f"{sum(caught)} of {len(names)} faults caught by phase 11")
+    return 0 if all(caught) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

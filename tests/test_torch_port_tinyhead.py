@@ -8,10 +8,14 @@ Function. Tolerances: fp32, atol = rtol = 1e-5 (both compute fp32 scores
 and an fp32 softmax, in another summation order); bf16, atol = rtol = 4e-3
 (both round the probabilities and the output to bf16, so one bf16 ulp,
 2^-8, may separate them). Gradients hold against jax.grad through the JAX
-custom VJP at the fp32 tolerance. The AttentionBlock routes by shape, as
-the JAX block does with tiny_flash on. The CUDA kernel itself is held
-against the plain version in fp32 on the card (chip_smoke.py phase 11, and
-the cuda-marked test here).
+custom VJP at the fp32 tolerance. The plain forward's log-sum-exp holds
+against jax.nn.logsumexp of the JAX einsum scores, and the plain backward
+(the backward kernel's arithmetic, from out and that log-sum-exp) against
+the JAX custom VJP's backward and against autograd through the plain
+version. The AttentionBlock routes by shape, as the JAX block does with
+tiny_flash on. The CUDA kernels themselves are held against the plain
+versions on the card (chip_smoke.py phase 11, and the cuda-marked test
+here).
 """
 
 import math
@@ -29,6 +33,11 @@ from masked_diffusion_tpu_torch.ops import tinyhead_attention as tth
 
 SHAPES = [(2, 4, 128, 8), (1, 8, 256, 8), (2, 2, 384, 8), (1, 2, 200, 8), (1, 2, 128, 4)]
 TOL = {"float32": 1e-5, "bfloat16": 4e-3}
+# the plain backward against autograd through the plain version, atol = rtol:
+# fp32, sums in another order; bf16, each side rounds its probabilities, its
+# dS (or dP) and the result to bf16 (2^-8 relative each) on gradients of
+# order 1, so two bf16 ulps of 1 may separate them
+GRAD_TOL = {"float32": 1e-5, "bfloat16": 2**-6}
 
 
 def _qkv(shape, seed):
@@ -85,6 +94,86 @@ def test_gradients_match_jax_custom_vjp(shape):
     for a, w in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=TOL["float32"],
                                    rtol=TOL["float32"])
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_forward_plain_out_and_lse(shape):
+    """out bitwise the plain version's (fp32 and bf16); lse the base-2
+    log-sum-exp of the JAX einsum's scaled fp32 scores."""
+    arrays = _qkv(shape, 20)
+    scale = 1.0 / math.sqrt(shape[-1])
+    for name in ("float32", "bfloat16"):
+        qt, kt, vt = _torch(arrays, name)
+        out, lse = tth.tinyhead_forward_plain(qt, kt, vt, scale)
+        torch.testing.assert_close(out, tth.tinyhead_attention_plain(qt, kt, vt, scale),
+                                   rtol=0, atol=0)
+        assert lse.dtype == torch.float32 and lse.shape == shape[:3]
+
+    @jax.jit
+    def jax_lse(q, k):
+        scores = jnp.einsum("bhsd,bhtd->bhst", q, k, preferred_element_type=jnp.float32)
+        return jax.nn.logsumexp(scores * scale, axis=-1)
+
+    want = np.asarray(jax_lse(jnp.asarray(arrays[0]), jnp.asarray(arrays[1]))) * math.log2(math.e)
+    _, lse = tth.tinyhead_forward_plain(*_torch(arrays, "float32"), scale)
+    np.testing.assert_allclose(lse.numpy(), want, atol=TOL["float32"], rtol=TOL["float32"])
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_backward_plain_matches_jax_custom_vjp(jax_outputs, shape):
+    """From the fixture's inputs and the JAX kernel's own fp32 output, the
+    plain backward equals the JAX custom VJP's backward (_bwd, the einsum
+    recompute; the interpret-mode kernel is not run again)."""
+    (q, k, v), out = jax_outputs[(shape, "float32")]
+    g = np.random.default_rng(21).normal(size=shape).astype(np.float32)
+    scale = 1.0 / math.sqrt(shape[-1])
+    want = jax.jit(lambda *a: jth._bwd(scale, 256, True, a[:3], a[3]))(
+        *(jnp.asarray(t) for t in (q, k, v, g)))
+    qt, kt, vt = _torch((q, k, v), "float32")
+    _, lse = tth.tinyhead_forward_plain(qt, kt, vt, scale)
+    got = tth.tinyhead_backward_plain(qt, kt, vt, torch.from_numpy(out.copy()), lse,
+                                      torch.from_numpy(g), scale)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=TOL["float32"],
+                                   rtol=TOL["float32"])
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_backward_plain_matches_autograd_through_plain(shape, name):
+    arrays = _qkv(shape, 22)
+    qt, kt, vt = _torch(arrays, name)
+    g = torch.from_numpy(np.random.default_rng(23).normal(size=shape).astype(np.float32))
+    g = g.to(qt.dtype)
+    scale = 1.0 / math.sqrt(shape[-1])
+    out, lse = tth.tinyhead_forward_plain(qt, kt, vt, scale)
+    got = tth.tinyhead_backward_plain(qt, kt, vt, out, lse, g, scale)
+    leaves = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
+    want = torch.autograd.grad(tth.tinyhead_attention_plain(*leaves, scale), leaves, g)
+    for a, w in zip(got, want):
+        assert a.dtype == qt.dtype and a.shape == shape
+        torch.testing.assert_close(a.float(), w.float(), atol=GRAD_TOL[name],
+                                   rtol=GRAD_TOL[name])
+
+
+def test_cpu_backward_runs_the_plain_version():
+    """On the CPU the Function's backward is tinyhead_backward_plain, bitwise,
+    and launches no kernel; the backward wrapper takes CPU tensors to it."""
+    shape = (1, 2, 128, 8)
+    arrays = _qkv(shape, 24)
+    g = torch.from_numpy(np.random.default_rng(25).normal(size=shape).astype(np.float32))
+    scale = 1.0 / math.sqrt(shape[-1])
+    qt, kt, vt = _torch(arrays, "float32")
+    out, lse = tth.tinyhead_forward_plain(qt, kt, vt, scale)
+    want = tth.tinyhead_backward_plain(qt, kt, vt, out, lse, g, scale)
+    before = (tth.tinyhead_attention.launches, tth.tinyhead_attention_backward.launches)
+    leaves = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
+    got = torch.autograd.grad(tth.tinyhead_attention(*leaves, scale), leaves, g)
+    wrapped = tth.tinyhead_attention_backward(qt, kt, vt, out, lse, g, scale)
+    assert (tth.tinyhead_attention.launches, tth.tinyhead_attention_backward.launches) == before
+    for a, b, w in zip(got, wrapped, want):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+        torch.testing.assert_close(b, w, rtol=0, atol=0)
 
 
 def test_supported_equals_the_jax_predicate():
@@ -158,21 +247,41 @@ def test_attention_block_routes_as_the_jax_block(monkeypatch):
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_cuda():
-    """The CUDA kernel against its plain version in fp32 on the same inputs
-    on the card (TF32 off; bf16 inputs widened exactly; chip_smoke.py's
-    TINYHEAD_TOL: the bf16 output within half a bf16 ulp)."""
+    """The CUDA kernels against their plain versions in fp32 on the same
+    inputs on the card (TF32 off; bf16 inputs widened exactly). Forward: fp32
+    within 1e-5 + 1e-4 |ref|; bf16 within chip_smoke.py's per-element limit,
+    2^-8 of P|V| (P rounded to bf16) and of |ref| (the output rounded) plus
+    the fp32 term. Backward, from the kernel's out and lse: dq, dk, dv
+    against tinyhead_backward_plain in fp32 within the same terms of the
+    magnitude of what each sums (chip_smoke.tinyhead_grad_mags)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
+    import chip_smoke
+
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
+    u = chip_smoke.BF16_U
     for shape in SHAPES + [(4, 16, 1024, 8)]:
         scale = 1.0 / math.sqrt(shape[-1])
-        qkv = [torch.randn(shape, generator=gen, device="cuda") for _ in range(3)]
-        for dtype, (atol, rtol) in ((torch.float32, (1e-5, 1e-4)),
-                                    (torch.bfloat16, (1e-5, 2**-8 + 1e-4))):
-            q, k, v = (t.to(dtype) for t in qkv)
-            before = tth.tinyhead_attention.launches
-            got = tth.tinyhead_attention(q, k, v, scale)
-            assert tth.tinyhead_attention.launches == before + 1
-            want = tth.tinyhead_attention_plain(q.float(), k.float(), v.float(), scale)
-            torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+        qkvg = [torch.randn(shape, generator=gen, device="cuda") for _ in range(4)]
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            q, k, v, g = (t.to(dtype) for t in qkvg)
+            wide = [t.float() for t in (q, k, v, g)]
+            before = (tth.tinyhead_attention.launches, tth.tinyhead_attention_backward.launches)
+            out, lse = tth.tinyhead_forward(q, k, v, scale)
+            grads = tth.tinyhead_attention_backward(q, k, v, out, lse, g, scale)
+            after = (tth.tinyhead_attention.launches, tth.tinyhead_attention_backward.launches)
+            assert after == (before[0] + 1, before[1] + 1)
+            ref, ref_lse = tth.tinyhead_forward_plain(*wide[:3], scale)
+            plain = tth.tinyhead_backward_plain(*wide[:3], out.float(), lse, wide[3], scale)
+            mags = [chip_smoke.tinyhead_out_mag(*wide[:3], scale),
+                    *chip_smoke.tinyhead_grad_mags(*wide, scale)]
+            torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+            for got, want, mag in zip((out, *grads), (ref, *plain), mags):
+                assert got.dtype == dtype
+                if bf16:
+                    limit = 1e-5 + (u + 1e-4) * mag + u * want.abs()
+                else:
+                    limit = 1e-5 + 1e-4 * (mag if got is not out else want.abs())
+                assert bool(((got.float() - want).abs() <= limit).all()), shape
