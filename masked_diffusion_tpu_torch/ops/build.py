@@ -102,6 +102,34 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp,                      # cudaStream_t
     ]
     fn.restype = i32
+    i64 = ctypes.c_longlong
+    fn = lib.mdt_group_norm_fwd
+    fn.argtypes = [
+        vp, vp, vp, vp,          # x, scale, bias, y
+        vp, vp,                  # mean, rstd (nullable: not written)
+        i32, i32, i32, i32,      # batch, channels, hw, groups
+        i64, i64, i64,           # x strides: image, channel, pixel
+        f32, i32, i32, i32,      # eps, silu, dtype, scale/bias dtype
+        i32, i32, i32, i32, i32,  # plan: ctas, per_lane, threads, smem bytes, staged
+        vp,                      # cudaStream_t
+    ]
+    fn.restype = i32
+    fn = lib.mdt_group_norm_bwd
+    fn.argtypes = [
+        vp, vp, vp, vp, vp, vp,  # x, grad_out, scale, bias, mean, rstd
+        vp, vp, vp,              # dx, dscale, dbias
+        vp, vp,                  # (2, B, C) fp32 parts, (groups,) int32 counters
+        i32, i32, i32, i32,      # batch, channels, hw, groups
+        i64, i64, i64,           # x strides: image, channel, pixel
+        i64, i64, i64,           # grad_out strides
+        i32, i32, i32,           # silu, dtype, scale/bias dtype
+        i32, i32, i32, i32, i32,  # plan: ctas, per_lane, threads, smem bytes, staged
+        vp,                      # cudaStream_t
+    ]
+    fn.restype = i32
+    fn = lib.mdt_group_norm_max_clusters
+    fn.argtypes = [i32, i32, i32, i32, i32, ctypes.POINTER(i32)]
+    fn.restype = i32
     lib.mdt_error_string.argtypes = [i32]
     lib.mdt_error_string.restype = ctypes.c_char_p
 
@@ -165,7 +193,3 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
         msg = lib.mdt_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
-
-def triton_cache_env() -> None:
-    """Keep Triton's compile cache inside the checkout's build/ directory."""
-    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(BUILD_DIR, "triton"))

@@ -1,54 +1,133 @@
-"""GroupNorm (+ affine) (+ SiLU), forward and backward: Triton kernels and
-their plain PyTorch version, NCHW.
+"""GroupNorm (+ affine) (+ SiLU), forward and backward: the CUDA kernels'
+wrappers, their launch plan, and their plain PyTorch versions, NCHW.
 
 Replaces the TPU kernel masked_diffusion_tpu/ops/pallas/groupnorm.py:
-group_norm_silu (pallas_call at :113, body _gn_silu_kernel :55). Every
+group_norm_silu (pallas_call at :113, body _gn_silu_kernel :55) and its
+custom VJP's backward (_bwd :169, a jnp recompute on the TPU). Every
 GroupNorm of the port's UNet goes through `group_norm_silu`.
 
-Kernel design. In NCHW the group g of image b is one contiguous span of
-C/G * H*W elements, so one program owns one (image, group): it reduces fp32
-sum and sum of squares over its span in blocks, then walks the span again to
-normalise, apply the per-channel affine and the optional SiLU, and writes in
-the input's dtype. The span (at most 64 KB of fp32 at the flagship's widest
-level) is read twice; the second read comes from L2. Bound: device-memory
-bytes, one read and one write of the tensor. The TPU kernel's one-hot MXU
-matmul for group sums has no counterpart: contiguous spans make it a plain
-reduction.
+The kernels are csrc/groupnorm.cu (its header has the design): in NCHW an
+(image, group) is a span of C/G * H*W elements, which the kernels read from
+device memory once. Spans above 1024 elements take the cluster path: `ctas`
+CTAs per span (a thread-block cluster when above 1), each staging its slice
+of the span in shared memory and meeting its peers' partial sums through
+distributed shared memory, in rank order. Smaller spans take the warp path:
+a warp per span, up to eight spans per CTA, the span in registers (the
+backward's dy and x^ in shared memory). The backward writes dx, dgamma and
+dbeta in one launch: each span's per-channel parts go to a (2, B, C) fp32
+scratch, and the last span of a group to finish (a per-group arrival
+counter) sums them in image order. Bound: device-memory bytes, one read of x
+(and of the incoming gradient) and one write of y (dx).
 
-The forward also writes the per-(image, group) fp32 mean and rstd, which
-the backward reads instead of recomputing them.
+`gn_plan` is the launch plan, a pure host function the wrappers use and the
+CPU tests hold: cluster size, spans per CTA, threads, shared memory, and
+whether each CTA's slice stays on chip.
 
-Backward kernel. The JAX package's backward is a jnp recompute through
-_gn_reference (groupnorm.py:169-178), not a Pallas kernel; the port writes
-it as one because a training step runs it once per norm (71 times in the
-flagship UNet). One program per (image, group) again, over the group's
-(channels, pixels) tile:
-  1. recompute x^ = (x - mean) * rstd and y = gamma * x^ + beta; with SiLU,
-     dy = g * s * (1 + y * (1 - s)), s = sigmoid(y); without, dy = g;
-  2. reduce fp32 per-channel sums of dy and dy * x^ over the pixels: the
-     (image, channel) partials of dbeta and dgamma, written to a (B, C) fp32
-     buffer, and from them sum(dy * gamma) and sum(dy * gamma * x^);
-  3. a second pass writes dx = rstd * (dy * gamma - mean(dy * gamma)
-     - x^ * mean(dy * gamma * x^)) in x's dtype.
-dgamma and dbeta are the partials summed over B (a torch.sum over the small
-buffer). Bound: device-memory bytes, one read of x and of g and one write of
-dx (the second pass reads the group's span again from L2).
-
-The plain version transliterates the JAX package's _gn_reference
+The plain forward transliterates the JAX package's _gn_reference
 (groupnorm.py:132-154): fp32 statistics, normalise/affine/SiLU in the input
-dtype. Its backward is autograd through it.
+dtype. The plain backward, `group_norm_silu_backward_plain`, follows the
+backward kernel's arithmetic in fp32 (the JAX custom VJP's formula,
+groupnorm.py:164-181): per-channel sums of dy and dy * x^, then dx, and
+dgamma/dbeta summed over the batch in image order.
 
-`group_norm_silu` is a torch.autograd.Function on CUDA: forward kernel, then
-the backward kernel (`group_norm_silu_backward`). Each has its own launch
-count. CPU tensors take the plain version, forward and backward.
+`group_norm_silu` is a torch.autograd.Function on CUDA: the forward kernel,
+then the backward kernel (`group_norm_silu_backward`). Each has its own
+launch count. CPU tensors take the plain forward, and autograd through it.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
-_kernels = None  # the @triton.jit functions (forward, backward), built at first launch
+from masked_diffusion_tpu_torch.ops import build
+
+SMEM_MAX = 232448  # bytes of shared memory a CTA may use on an H100 (227 KB)
+# staged bytes per CTA (forward, backward) up to which a span keeps fewer CTAs;
+# a larger span takes the next cluster size. Fewer, larger slices save the
+# forward cluster barriers and waves; the backward's CTAs carry twice the
+# arithmetic and do better six to an SM (readings in PERF.md)
+STAGE_TARGET = (64 * 1024, 32 * 1024)
+# staged bytes per CTA (forward, backward) above which a slice is read twice
+# from device memory instead of staged
+STAGE_MAX = (SMEM_MAX, SMEM_MAX)
+STREAM_SLICE = 32768  # elements per CTA, at most, of a slice read twice
+WARP_SPAN_MAX = 1024  # spans up to this many elements take the warp path
+WARP_LANE_WIDTHS = (2, 8, 32)  # elements a lane holds: the warp kernels' instances
+WARP_SPANS = 8  # spans per CTA on the warp path, at most
+WARP_MIN_CTAS = 264  # fewer spans per CTA until the launch has two CTAs per SM
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # 16 is above the portable limit of 8
+GROUP = 8  # elements of one load group (16 bytes of bf16)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+class GnPlan(NamedTuple):
+    ctas: int  # CTAs per span: the cluster size (1: no cluster)
+    spans_per_cta: int  # (image, group) spans per CTA: above 1 only on the warp path
+    threads: int
+    smem: int  # dynamic shared memory bytes per CTA
+    on_chip: bool  # each slice held in shared memory or registers; False: read twice
+    slice: int  # elements of a span per CTA (the cluster path's slice)
+    per_lane: int  # the warp path's elements per lane; 0 on the cluster path
+    grid: int  # CTAs of the launch
+
+
+def gn_slice(span: int, ctas: int) -> int:
+    """Elements of a span per CTA: ceil(span / ctas), rounded up to a load
+    group; rank r owns [r * slice, min(span, (r + 1) * slice))."""
+    per_cta = -(-span // ctas)
+    return -(-per_cta // GROUP) * GROUP
+
+
+def _block_threads(slice_: int) -> int:
+    return 512 if slice_ >= 16384 else 256 if slice_ >= 8192 else 128
+
+
+def _float_bytes(cg: int, threads: int) -> int:
+    """The cluster path's float region (csrc/groupnorm.cu:float_region)."""
+    return 4 * (2 * cg * (threads // 32 + 3) + 68)
+
+
+def gn_plan(b: int, c: int, h: int, w: int, groups: int, dtype: torch.dtype,
+            backward: bool, max_cluster: int = 16) -> GnPlan:
+    """The launch plan of one forward (or backward) call on (b, c, h, w)."""
+    cg = c // groups
+    span = cg * h * w
+    spans = b * groups
+    if span <= WARP_SPAN_MAX:
+        per_lane = next(v for v in WARP_LANE_WIDTHS if 32 * v >= span)
+        per_cta = WARP_SPANS
+        while per_cta > 1 and -(-spans // per_cta) < WARP_MIN_CTAS:
+            per_cta //= 2
+        # the backward keeps each warp's dy and x^ in shared memory, fp32, a pad
+        # word every 32 (csrc/groupnorm.cu:warp_words)
+        smem = per_cta * 2 * 33 * per_lane * 4 if backward else 0
+        return GnPlan(1, per_cta, 32 * per_cta, smem, True, span, per_lane,
+                      -(-spans // per_cta))
+    elt = dtype.itemsize
+    tensors = 2 if backward else 1
+    sizes = [k for k in CLUSTER_SIZES if k <= max_cluster]
+
+    def plan(k: int, staged: bool) -> GnPlan:
+        slice_ = gn_slice(span, k)
+        threads = _block_threads(slice_)
+        tile = tensors * (-(-slice_ * elt // 16) * 16) if staged else 0
+        return GnPlan(k, 1, threads, tile + _float_bytes(cg, threads), staged, slice_, 0,
+                      spans * k)
+
+    for k in sizes:  # the smallest cluster whose slices are within the target
+        p = plan(k, True)
+        if k <= 8 and p.smem - _float_bytes(cg, p.threads) <= STAGE_TARGET[backward]:
+            return p
+    for k in sizes:  # else the smallest whose slices fit at all
+        p = plan(k, True)
+        if p.smem <= SMEM_MAX and p.smem - _float_bytes(cg, p.threads) <= STAGE_MAX[backward]:
+            return p
+    return plan(next(k for k in sizes if gn_slice(span, k) <= STREAM_SLICE or k == sizes[-1]),
+                False)
 
 
 def group_norm_silu_plain(
@@ -73,107 +152,42 @@ def group_norm_silu_plain(
     return y.to(x.dtype)
 
 
-def _build_kernels():
-    global _kernels
-    if _kernels is not None:
-        return _kernels
-    from masked_diffusion_tpu_torch.ops import build
+def group_norm_stats_plain(x: torch.Tensor, groups: int, eps: float = 1e-5):
+    """The fp32 (B*G,) mean and rstd that the forward kernel saves."""
+    b = x.shape[0]
+    xg = x.reshape(b, groups, -1).float()
+    mean = xg.mean(dim=2)
+    rstd = torch.rsqrt(xg.square().mean(dim=2) - mean.square() + eps)
+    return mean.reshape(-1), rstd.reshape(-1)
 
-    build.triton_cache_env()
-    import triton
-    import triton.language as tl
 
-    @triton.jit
-    def gn_silu_kernel(
-        x_ptr, w_ptr, b_ptr, y_ptr, mean_ptr, rstd_ptr, span, hw, cg, groups, eps,
-        SILU: tl.constexpr, BLOCK: tl.constexpr,
-    ):
-        pid = tl.program_id(0)  # image * groups + group
-        g = pid % groups
-        base = pid.to(tl.int64) * span
-        offs = tl.arange(0, BLOCK)
-        acc = tl.zeros([BLOCK], dtype=tl.float32)
-        acc_sq = tl.zeros([BLOCK], dtype=tl.float32)
-        for start in range(0, span, BLOCK):
-            idx = start + offs
-            m = idx < span
-            v = tl.load(x_ptr + base + idx, mask=m, other=0.0).to(tl.float32)
-            acc += v
-            acc_sq += v * v
-        n = span.to(tl.float32)
-        mean = tl.sum(acc, axis=0) / n
-        var = tl.sum(acc_sq, axis=0) / n - mean * mean
-        rstd = 1.0 / tl.sqrt(var + eps)
-        tl.store(mean_ptr + pid, mean)
-        tl.store(rstd_ptr + pid, rstd)
-        for start in range(0, span, BLOCK):
-            idx = start + offs
-            m = idx < span
-            ch = g * cg + idx // hw
-            v = tl.load(x_ptr + base + idx, mask=m, other=0.0).to(tl.float32)
-            wv = tl.load(w_ptr + ch, mask=m, other=1.0).to(tl.float32)
-            bv = tl.load(b_ptr + ch, mask=m, other=0.0).to(tl.float32)
-            y = (v - mean) * rstd * wv + bv
-            if SILU:
-                y = y * tl.sigmoid(y)
-            tl.store(y_ptr + base + idx, y.to(y_ptr.dtype.element_ty), mask=m)
-
-    @triton.jit
-    def gn_silu_bwd_kernel(
-        x_ptr, g_ptr, w_ptr, b_ptr, mean_ptr, rstd_ptr, dx_ptr, dw_ptr, db_ptr,
-        hw, cg, groups, channels, n,
-        SILU: tl.constexpr, BLOCK_C: tl.constexpr, BLOCK_HW: tl.constexpr,
-    ):
-        pid = tl.program_id(0)  # image * groups + group
-        img = pid // groups
-        grp = pid % groups
-        base = pid.to(tl.int64) * cg * hw
-        mean = tl.load(mean_ptr + pid)
-        rstd = tl.load(rstd_ptr + pid)
-        c_offs = tl.arange(0, BLOCK_C)
-        c_m = c_offs < cg
-        ch = grp * cg + c_offs
-        wv = tl.load(w_ptr + ch, mask=c_m, other=0.0).to(tl.float32)
-        bv = tl.load(b_ptr + ch, mask=c_m, other=0.0).to(tl.float32)
-        p_offs = tl.arange(0, BLOCK_HW)
-        acc_db = tl.zeros([BLOCK_C, BLOCK_HW], dtype=tl.float32)
-        acc_dg = tl.zeros([BLOCK_C, BLOCK_HW], dtype=tl.float32)
-        for start in range(0, hw, BLOCK_HW):
-            p = start + p_offs
-            m = c_m[:, None] & (p < hw)[None, :]
-            off = base + c_offs[:, None] * hw + p[None, :]
-            xv = tl.load(x_ptr + off, mask=m, other=0.0).to(tl.float32)
-            gv = tl.load(g_ptr + off, mask=m, other=0.0).to(tl.float32)
-            xh = (xv - mean) * rstd
-            if SILU:
-                y = xh * wv[:, None] + bv[:, None]
-                s = tl.sigmoid(y)
-                gv = gv * s * (1.0 + y * (1.0 - s))
-            dy = tl.where(m, gv, 0.0)
-            acc_db += dy
-            acc_dg += dy * xh
-        db_c = tl.sum(acc_db, axis=1)  # (BLOCK_C,) per-channel partials
-        dg_c = tl.sum(acc_dg, axis=1)
-        tl.store(db_ptr + img * channels + ch, db_c, mask=c_m)
-        tl.store(dw_ptr + img * channels + ch, dg_c, mask=c_m)
-        mean_dyw = tl.sum(db_c * wv, axis=0) / n
-        mean_dyw_xh = tl.sum(dg_c * wv, axis=0) / n
-        for start in range(0, hw, BLOCK_HW):
-            p = start + p_offs
-            m = c_m[:, None] & (p < hw)[None, :]
-            off = base + c_offs[:, None] * hw + p[None, :]
-            xv = tl.load(x_ptr + off, mask=m, other=0.0).to(tl.float32)
-            gv = tl.load(g_ptr + off, mask=m, other=0.0).to(tl.float32)
-            xh = (xv - mean) * rstd
-            if SILU:
-                y = xh * wv[:, None] + bv[:, None]
-                s = tl.sigmoid(y)
-                gv = gv * s * (1.0 + y * (1.0 - s))
-            dx = rstd * (gv * wv[:, None] - mean_dyw - xh * mean_dyw_xh)
-            tl.store(dx_ptr + off, dx.to(dx_ptr.dtype.element_ty), mask=m)
-
-    _kernels = (gn_silu_kernel, gn_silu_bwd_kernel)
-    return _kernels
+def group_norm_silu_backward_plain(x, scale, bias, grad_out, mean, rstd, groups: int,
+                                   silu: bool):
+    """The backward kernel's arithmetic in fp32: per-channel sums of dy and
+    dy * x^, then dx (in x's dtype), and dscale, dbias summed over the batch
+    in image order (in scale's and bias's dtypes). mean, rstd: the forward's
+    fp32 (B*G,) statistics."""
+    b, c, h, w = x.shape
+    cg = c // groups
+    xh = (x.float().reshape(b, groups, cg, h * w) - mean.reshape(b, groups, 1, 1)) \
+        * rstd.reshape(b, groups, 1, 1)
+    gam = scale.float().reshape(1, groups, cg, 1)
+    dy = grad_out.float().reshape(b, groups, cg, h * w)
+    if silu:
+        y = xh * gam + bias.float().reshape(1, groups, cg, 1)
+        s = torch.sigmoid(y)
+        dy = dy * s * (1 + y * (1 - s))
+    db = dy.sum(dim=3)  # (B, G, cg): the (image, channel) parts of dbias
+    dg = (dy * xh).sum(dim=3)  # and of dscale
+    n = cg * h * w
+    m1 = (db * gam[..., 0]).sum(dim=2)[..., None, None] / n
+    m2 = (dg * gam[..., 0]).sum(dim=2)[..., None, None] / n
+    dx = rstd.reshape(b, groups, 1, 1) * (dy * gam - m1 - xh * m2)
+    dscale, dbias = dg[0].reshape(c).clone(), db[0].reshape(c).clone()
+    for i in range(1, b):  # image order, as the kernel sums
+        dscale += dg[i].reshape(c)
+        dbias += db[i].reshape(c)
+    return dx.reshape(b, c, h, w).to(x.dtype), dscale.to(scale.dtype), dbias.to(bias.dtype)
 
 
 def _check(x, scale, bias, groups):
@@ -189,63 +203,129 @@ def _check(x, scale, bias, groups):
 def _check_cuda(x, scale, bias):
     if x.device.type != "cuda":
         raise RuntimeError(f"group_norm_silu: no kernel for {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+    if x.dtype not in _DTYPES:
         raise TypeError(f"group_norm_silu: unsupported dtype {x.dtype}")
+    if scale.dtype not in _DTYPES or bias.dtype != scale.dtype:
+        raise TypeError(f"group_norm_silu: scale {scale.dtype} and bias {bias.dtype} "
+                        "must share one of float32, bfloat16, float16")
     if scale.device != x.device or bias.device != x.device:
         raise ValueError("scale and bias must lie on x's device")
+    if not (scale.is_contiguous() and bias.is_contiguous()):
+        raise ValueError("scale and bias must be contiguous")
 
 
-def group_norm_silu_forward(x, scale, bias, groups: int, eps: float, silu: bool):
-    """Launch the forward kernel on CUDA x. Returns (y in x's dtype, fp32
-    mean (B*G,), fp32 rstd (B*G,))."""
+def _flat_strides(t: torch.Tensor, what: str):
+    """(image, channel, pixel) strides of a (B, C, H, W) tensor whose H*W
+    run flattens to one stride; anything else raises."""
+    sb, sc, sh, sw = t.stride()
+    h, w = t.shape[2], t.shape[3]
+    if w == 1:
+        sp = sh
+    elif h == 1 or sh == w * sw:
+        sp = sw
+    else:
+        raise ValueError(f"group_norm_silu: {what} with strides {t.stride()} has no "
+                         "flat H*W run; the kernels do not take that layout")
+    return sb, sc, sp
+
+
+_max_clusters: dict = {}  # (backward, dtype, ctas, threads, smem) -> resident clusters
+_counters: dict = {}  # device -> the backward's per-group arrival counters (int32)
+
+
+def max_active_clusters(backward: bool, dtype: torch.dtype, plan: GnPlan) -> int:
+    """cudaOccupancyMaxActiveClusters for a cluster-path plan on the current
+    card: 0 means the cluster size cannot be scheduled."""
+    key = (backward, dtype, plan.ctas, plan.threads, plan.smem)
+    if key not in _max_clusters:
+        import ctypes
+
+        lib = build.load_library()
+        out = ctypes.c_int(0)
+        code = lib.mdt_group_norm_max_clusters(int(backward), _DTYPES[dtype], plan.ctas,
+                                               plan.threads, plan.smem, ctypes.byref(out))
+        build.check(lib, code, "group_norm_silu: cluster occupancy")
+        _max_clusters[key] = out.value
+    return _max_clusters[key]
+
+
+@functools.lru_cache(maxsize=None)
+def _cuda_plan(b: int, c: int, h: int, w: int, groups: int, dtype: torch.dtype,
+               backward: bool) -> GnPlan:
+    """gn_plan, without the cluster of 16 where this card cannot schedule it."""
+    plan = gn_plan(b, c, h, w, groups, dtype, backward)
+    if plan.ctas == 16 and max_active_clusters(backward, dtype, plan) == 0:
+        plan = gn_plan(b, c, h, w, groups, dtype, backward, max_cluster=8)
+    return plan
+
+
+def group_norm_silu_forward(x, scale, bias, groups: int, eps: float, silu: bool,
+                            stats: bool = True):
+    """Launch the forward kernel on CUDA x (any image and channel strides
+    with a flat H*W run). Returns (y in x's dtype, contiguous; fp32 mean
+    (B*G,); fp32 rstd (B*G,)), the statistics None when not `stats`."""
     _check(x, scale, bias, groups)
     _check_cuda(x, scale, bias)
-    kernel, _ = _build_kernels()
     b, c, h, w = x.shape
-    xc = x.contiguous()
-    y = torch.empty_like(xc)
-    stats = torch.empty((2, b * groups), dtype=torch.float32, device=x.device)
-    cg = c // groups
-    span = cg * h * w
-    block = min(4096, max(128, 1 << (span - 1).bit_length()))
+    xs = _flat_strides(x, "x")
+    plan = _cuda_plan(b, c, h, w, groups, x.dtype, False)
+    lib = build.load_library()
+    y = torch.empty((b, c, h, w), dtype=x.dtype, device=x.device)
+    mean = rstd = None
+    if stats:
+        st = torch.empty((2, b * groups), dtype=torch.float32, device=x.device)
+        mean, rstd = st[0], st[1]
     with torch.cuda.device(x.device):
-        kernel[(b * groups,)](
-            xc, scale.contiguous(), bias.contiguous(), y, stats[0], stats[1],
-            span, h * w, cg, groups, float(eps), SILU=bool(silu), BLOCK=block,
-            num_warps=4 if block <= 1024 else 8,
-        )
+        code = lib.mdt_group_norm_fwd(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            mean.data_ptr() if stats else None, rstd.data_ptr() if stats else None,
+            b, c, h * w, groups, *xs, float(eps), int(silu), _DTYPES[x.dtype],
+            _DTYPES[scale.dtype], plan.ctas, plan.per_lane, plan.threads, plan.smem,
+            int(plan.on_chip), torch.cuda.current_stream().cuda_stream)
+    build.check(lib, code, "group_norm_silu")
     group_norm_silu.launches += 1
-    return y, stats[0], stats[1]
+    return y, mean, rstd
 
 
 def group_norm_silu_backward(x, scale, bias, grad_out, mean, rstd, groups: int, silu: bool):
-    """Launch the backward kernel on CUDA tensors. x, grad_out: (B, C, H, W);
-    mean, rstd: the forward's fp32 (B*G,) statistics. Returns (dx in x's
-    dtype, dscale, dbias in scale's and bias's dtypes)."""
+    """Launch the backward kernel on CUDA tensors: dx, dscale and dbias in
+    one launch. x, grad_out: (B, C, H, W), any image and channel strides
+    with a flat H*W run (a gradient that is not contiguous is counted in
+    `.strided`); mean, rstd: the forward's fp32 (B*G,) statistics. Returns
+    (dx in x's dtype, contiguous; dscale, dbias in scale's dtype)."""
     _check(x, scale, bias, groups)
     _check_cuda(x, scale, bias)
-    if grad_out.shape != x.shape:
-        raise ValueError(f"grad_out {tuple(grad_out.shape)} != x {tuple(x.shape)}")
-    _, kernel = _build_kernels()
+    if grad_out.shape != x.shape or grad_out.dtype != x.dtype or grad_out.device != x.device:
+        raise ValueError(f"grad_out {grad_out.dtype} {tuple(grad_out.shape)} on "
+                         f"{grad_out.device} does not match x {x.dtype} {tuple(x.shape)}")
     b, c, h, w = x.shape
-    hw = h * w
-    cg = c // groups
-    xc = x.contiguous()
-    gc = grad_out.contiguous()
-    dx = torch.empty_like(xc)
-    partials = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
-    block_c = max(2, 1 << (cg - 1).bit_length())
-    block_hw = max(16, min(1 << (hw - 1).bit_length(), 4096 // block_c))
+    for t, what in ((mean, "mean"), (rstd, "rstd")):
+        if t.dtype != torch.float32 or t.numel() != b * groups or not t.is_contiguous():
+            raise ValueError(f"{what} must be a contiguous fp32 ({b * groups},) tensor")
+    xs = _flat_strides(x, "x")
+    gs = _flat_strides(grad_out, "grad_out")
+    if not grad_out.is_contiguous():
+        group_norm_silu_backward.strided += 1
+    plan = _cuda_plan(b, c, h, w, groups, x.dtype, True)
+    lib = build.load_library()
+    counters = _counters.get(x.device)
+    if counters is None or counters.numel() < groups:
+        counters = torch.zeros(max(groups, 64), dtype=torch.int32, device=x.device)
+        _counters[x.device] = counters
+    dx = torch.empty((b, c, h, w), dtype=x.dtype, device=x.device)
+    dscale = torch.empty((c,), dtype=scale.dtype, device=x.device)
+    dbias = torch.empty((c,), dtype=scale.dtype, device=x.device)
+    parts = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        kernel[(b * groups,)](
-            xc, gc, scale.contiguous(), bias.contiguous(), mean, rstd, dx,
-            partials[0], partials[1], hw, cg, groups, c, float(cg * hw), SILU=bool(silu),
-            BLOCK_C=block_c, BLOCK_HW=block_hw,
-            num_warps=4 if block_c * block_hw <= 1024 else 8,
-        )
+        code = lib.mdt_group_norm_bwd(
+            x.data_ptr(), grad_out.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+            dbias.data_ptr(), parts.data_ptr(), counters.data_ptr(), b, c, h * w, groups, *xs,
+            *gs, int(silu), _DTYPES[x.dtype], _DTYPES[scale.dtype], plan.ctas, plan.per_lane,
+            plan.threads, plan.smem, int(plan.on_chip), torch.cuda.current_stream().cuda_stream)
+    build.check(lib, code, "group_norm_silu_backward")
     group_norm_silu_backward.launches += 1
-    dscale, dbias = partials.sum(dim=1)  # the (B, C) partials over B
-    return dx, dscale.to(scale.dtype), dbias.to(bias.dtype)
+    return dx, dscale, dbias
 
 
 class _GroupNormSiLU(torch.autograd.Function):
@@ -275,18 +355,20 @@ def group_norm_silu(
     """Fused GroupNorm + affine + optional SiLU over NCHW x, differentiable.
 
     CPU tensors take the plain version (its backward is autograd's); CUDA
-    tensors launch the Triton forward kernel, and its backward kernel when
-    a gradient flows back, or raise."""
+    tensors launch the forward kernel, and the backward kernel when a
+    gradient flows back, or raise."""
     if x.device.type == "cpu":
         _check(x, scale, bias, groups)
         return group_norm_silu_plain(x, scale, bias, groups, eps, silu)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
                                     or bias.requires_grad):
         return _GroupNormSiLU.apply(x, scale, bias, groups, float(eps), bool(silu))
-    return group_norm_silu_forward(x, scale, bias, groups, eps, silu)[0]
+    return group_norm_silu_forward(x, scale, bias, groups, eps, silu, stats=False)[0]
 
 
 #: forward kernel launches since the count was last set to 0 (the plain path adds none)
 group_norm_silu.launches = 0
 #: backward kernel launches since the count was last set to 0
 group_norm_silu_backward.launches = 0
+#: backward calls whose incoming gradient was not contiguous (the kernel takes its strides)
+group_norm_silu_backward.strided = 0

@@ -12,12 +12,17 @@ EMA on, mean_shift with a 1-d_constant shift). --config picks it:
              (scripts/train/celeba_hq/base/script_main.sh)
   unet6_256  the zoo's unet6 at 256x256x3, batch 8, log+indexing at T=16
 
-Per mode: the wall time per step over 20 steps without the profiler, then
-a profiled window of --steps steps after a warm-up. From the window: wall
-and device-busy ms per step, the device's idle share, the kernels run per
-step, the top kernels by device time, with the shares of the port's own
-kernels (GroupNorm forward and backward, exact-k masks, tiny-head
-attention), and the host operators with the most self CPU time.
+Per mode: the wall time per step over 20 steps without the profiler, and
+over the same steps the host time spent inside the GroupNorm wrappers
+(ops/groupnorm.py: group_norm_silu_forward and group_norm_silu_backward,
+timed by wrapping them) with the count of their calls whose x or incoming
+gradient was not contiguous (a wrapper that copies such a tensor copies it
+there); then a profiled window of --steps steps after a warm-up. From the
+window: wall and device-busy ms per step, the device's idle share, the
+kernels run per step, the top kernels by device time, with the device ms
+and shares of the port's own kernels (GroupNorm forward and backward,
+exact-k masks, tiny-head attention), and the host operators with the most
+self CPU time.
 Prints one JSON object per mode and writes them all to --out (default
 build/profile_train_<config>.json). Needs CUDA.
 """
@@ -31,9 +36,11 @@ import subprocess
 import sys
 import time
 
-# kernel name fragments of the port's own kernels
-OWN = {"gn_fwd": "gn_silu_kernel", "gn_bwd": "gn_silu_bwd_kernel", "kmask": "kmask_kernel",
-       "tinyhead": "tinyhead_fwd", "tinyhead_bwd": "tinyhead_bwd"}
+# kernel name fragments of the port's own kernels (the GroupNorm kernels'
+# CUDA names, and the Triton names they had before, for runs on older trees)
+OWN = {"gn_fwd": ("gn_fwd_", "gn_silu_kernel"), "gn_bwd": ("gn_bwd_", "gn_silu_bwd_kernel"),
+       "kmask": ("kmask_kernel",), "tinyhead": ("tinyhead_fwd",),
+       "tinyhead_bwd": ("tinyhead_bwd",)}
 # name: (zoo name, --num_attention, image size, batch, [(schedule, selection, T)])
 CONFIGS = {
     "flagship": ("default", 1, 64, 64, (("linear", "thresholding", 1000),
@@ -73,6 +80,38 @@ def _host_rows(prof, steps: int, top: int = 12):
             for n, t, c in rows[:top]]
 
 
+def _timed_wrappers():
+    """Wrap the GroupNorm wrappers in ops/groupnorm.py with host timers: the
+    module's own calls (the autograd Function, the no-grad path) look them
+    up by name. Returns (stats dict, restore function)."""
+    import functools
+
+    from masked_diffusion_tpu_torch.ops import groupnorm as gn
+
+    stats = {"host_s": 0.0, "calls": 0, "strided_inputs": 0}
+    saved = {}
+    # name: positions of the tensors whose layout a wrapper may have to copy
+    for name, checked in (("group_norm_silu_forward", (0,)), ("group_norm_silu_backward", (0, 3))):
+        fn = getattr(gn, name)
+        saved[name] = fn
+
+        def timed(*args, _fn=fn, _checked=checked, **kwargs):
+            stats["strided_inputs"] += sum(not args[i].is_contiguous() for i in _checked)
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            stats["host_s"] += time.perf_counter() - t0
+            stats["calls"] += 1
+            return out
+
+        setattr(gn, name, functools.wraps(fn)(timed))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(gn, name, fn)
+
+    return stats, restore
+
+
 def profile_mode(config: str, sched: str, select: str, t_steps: int, steps: int) -> dict:
     import numpy as np
     import torch
@@ -107,11 +146,13 @@ def profile_mode(config: str, sched: str, select: str, t_steps: int, steps: int)
     for _ in range(5):
         step(state, data, gen)
     torch.cuda.synchronize()
+    gn_host, restore = _timed_wrappers()
     t0 = time.perf_counter()
     for _ in range(20):
         step(state, data, gen)
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / 20
+    restore()
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -123,8 +164,8 @@ def profile_mode(config: str, sched: str, select: str, t_steps: int, steps: int)
         window_ms = 1e3 * (time.perf_counter() - t0) / steps
     rows = _device_rows(prof)
     busy = sum(r[1] for r in rows) / steps
-    own = {k: sum(r[1] for r in rows if frag in r[0] and not (k == "gn_fwd" and "bwd" in r[0]))
-           / steps for k, frag in OWN.items()}
+    own = {k: sum(r[1] for r in rows if any(f in r[0] for f in frags)) / steps
+           for k, frags in OWN.items()}
     return {
         "config": config, "mode": f"{sched}+{select}", "batch": batch, "size": size,
         "steps_profiled": steps,
@@ -137,6 +178,12 @@ def profile_mode(config: str, sched: str, select: str, t_steps: int, steps: int)
         "kernels_per_step": sum(r[2] for r in rows) / steps,
         "own_kernels_ms_per_step": own,
         "own_kernels_share": {k: v / busy for k, v in own.items()},
+        "own_kernels_per_step": {k: sum(r[2] for r in rows if any(f in r[0] for f in frags))
+                                 / steps for k, frags in OWN.items()},
+        # host time inside the GroupNorm wrappers, per step, over the 20 unprofiled steps
+        "gn_wrapper_host_ms_per_step": 1e3 * gn_host["host_s"] / 20,
+        "gn_wrapper_calls_per_step": gn_host["calls"] / 20,
+        "gn_strided_inputs_per_step": gn_host["strided_inputs"] / 20,
         "top": [{"name": n[:120], "ms_per_step": t / steps, "share": t / steps / busy,
                  "calls_per_step": c / steps} for n, t, c in rows[:15]],
         "host_top": _host_rows(prof, steps),

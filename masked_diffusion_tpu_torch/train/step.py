@@ -6,7 +6,7 @@ or on. Per step:
 
   timestep draw from the epoch's curriculum -> degrade (the exact-k mask
   kernel in indexing mode) -> (shift) -> UNet under autocast (bf16 for
-  --mixed_precision bf16; every GroupNorm forward and backward is a Triton
+  --mixed_precision bf16; every GroupNorm forward and backward is a CUDA
   kernel on CUDA) -> recon = net_in + out -> (inverse shift) -> (weighted)
   MSE in fp32 -> backward -> global-norm clip(1.0) -> optimizer update ->
   EMA update on sync steps.
