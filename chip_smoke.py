@@ -72,20 +72,31 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
  17. unet6 at 256x256 through the CLI (batch 8, bf16, log+indexing): 2
      epochs of 2 train steps, then served; 5 tiny-head launches per UNet
      forward, 5 backward launches per train step
+ 18. data-parallel: the sharded kernel forms (fused degrade, exact-k) at N =
+     2 and 4 ranks, flagship shape, both select modes, each rank bitwise the
+     single-device kernel on its rows with the folded seed, exact counts,
+     ranks' masks distinct; timed at a 2-rank shard beside the plain
+     versions. Then 2 ranks under torch.distributed.run (this script with
+     `--rank <dir>`; nccl on two cards, else gloo with both on cuda:0): a
+     2-rank fp32 train step parity against one process (phase 8's
+     tolerances), the flagship trained through the CLI with phase 10's
+     flags and --mesh_data 2 (8 steps) and served; the dist line, per-rank
+     launches (one sharded exact-k a train step, one sharded fused a reverse
+     step), bitwise-equal ranks and global_step 8 checked
 
-Phases 11 and 12 run first (the newest kernels fail fast); phases 5, 10, 16
-and 17, the main-path runs, come last, in one work directory. The kernels'
-`launches` are counted over those four runs, with every count set to 0
-just before each. `bound_ms` is the least time the card could take for the
-same work: the larger of the bytes moved over 3.35 TB/s and the operations
-over 67 TFLOP/s (fp32 outside the tensor cores; integer operations counted
-at the same rate), from each run's shapes. For the tiny-head kernels the
-products count at the dense bf16 tensor-core rate of 989 TFLOP/s (fp32: 67
-TFLOP/s), the softmax's other ~4 operations a score at 67 TFLOP/s, and one
-exp2 a score (forward; the least the backward needs) at 16 a clock per SM
-times the SM count times the card's maximum SM clock; the exponentials set
-the bound in bf16 at every shape the main paths give them (in fp32 the
-products on the CUDA cores do).
+Phases 11 and 12 run first (the newest kernels fail fast); phases 5, 10,
+16, 17 and 18, the main-path runs, come last, in one work directory. The
+kernels' `launches` are counted over those runs (phase 18's summed over its
+ranks), with every count set to 0 just before each. `bound_ms` is the least
+time the card could take for the same work: the larger of the bytes moved
+over 3.35 TB/s and the operations over 67 TFLOP/s (fp32 outside the tensor
+cores; integer operations counted at the same rate), from each run's
+shapes. For the tiny-head kernels the products count at the dense bf16
+tensor-core rate of 989 TFLOP/s (fp32: 67 TFLOP/s), the softmax's other ~4
+operations a score at 67 TFLOP/s, and one exp2 a score (forward; the least
+the backward needs) at 16 a clock per SM times the SM count times the
+card's maximum SM clock; the exponentials set the bound in bf16 at every
+shape the main paths give them (in fp32 the products on the CUDA cores do).
 
 Its last two lines are one JSON object of kernel results and
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints neither.
@@ -1041,8 +1052,9 @@ def phase_serve(workdir: str):
                                  f"groupnorm {n_gn}, steps x batches "
                                  f"{stats['steps'] * stats['batches']}")
         if (counts["group_norm_silu_backward"] or counts["exact_count_masks"]
-                or counts["tinyhead_attention_backward"]):
-            raise AssertionError(f"serve {sched}: training kernels launched: {counts}")
+                or counts["tinyhead_attention_backward"] or not same_through_sharded(counts)):
+            raise AssertionError(f"serve {sched}: training kernels launched, or the fused "
+                                 f"kernel not through its sharded form: {counts}")
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
         runs.append(stats)
@@ -1084,6 +1096,7 @@ def phase_train_parity():
         create_train_state,
         make_train_step,
     )
+    from masked_diffusion_tpu_torch.utils import host
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1173,15 +1186,15 @@ def plain_versions():
     from masked_diffusion_tpu_torch.ops.groupnorm import group_norm_silu_plain
     from masked_diffusion_tpu_torch.ops.kmask import exact_count_masks_plain
 
-    def masks(batch, height, width, counts, *, generator=None, bits=None):
-        return exact_count_masks_plain(bits, counts).reshape(batch, 1, height, width)
+    def masks(batch, height, width, counts, *, plan, generator=None, bits=None):
+        return exact_count_masks_plain(bits, counts).reshape(-1, 1, height, width)
 
-    saved = unet_mod.group_norm_silu, degrade_mod.exact_count_masks
-    unet_mod.group_norm_silu, degrade_mod.exact_count_masks = group_norm_silu_plain, masks
+    saved = unet_mod.group_norm_silu, degrade_mod.exact_count_masks_sharded
+    unet_mod.group_norm_silu, degrade_mod.exact_count_masks_sharded = group_norm_silu_plain, masks
     try:
         yield
     finally:
-        unet_mod.group_norm_silu, degrade_mod.exact_count_masks = saved
+        unet_mod.group_norm_silu, degrade_mod.exact_count_masks_sharded = saved
 
 
 def phase_train_bf16_parity():
@@ -1243,7 +1256,8 @@ def phase_train_bf16_parity():
             want = dict.fromkeys(counts, 0)
             if route == "kernels":
                 want.update(group_norm_silu=norms, group_norm_silu_backward=norms,
-                            exact_count_masks=int(select == "indexing"))
+                            exact_count_masks=int(select == "indexing"),
+                            exact_count_masks_sharded=int(select == "indexing"))
             if counts != want:
                 raise AssertionError(f"bf16 parity {sched} {route}: launches {counts}, "
                                      f"expected {want}")
@@ -1318,7 +1332,8 @@ def phase_train_throughput(smi: str):
         want = {"exact_count_masks": 1 if select == "indexing" else 0,
                 "group_norm_silu": norms, "group_norm_silu_backward": norms,
                 "fused_degrade_update": 0, "tinyhead_attention": 0,
-                "tinyhead_attention_backward": 0}
+                "tinyhead_attention_backward": 0, "fused_degrade_update_sharded": 0,
+                "exact_count_masks_sharded": 1 if select == "indexing" else 0}
         if per != want:
             raise AssertionError(f"train {sched}: launches per step {per}, expected {want}")
         if not bool(torch.isfinite(metrics["train_loss"])):
@@ -1336,11 +1351,9 @@ def phase_train_throughput(smi: str):
     return out
 
 
-def phase_train_cli(workdir: str):
-    import numpy as np
-
-    from masked_diffusion_tpu_torch.cli.main_train_masked import main
-
+def flagship_cli_args(workdir: str):
+    """(training argv, flags shared with serving) of the flagship through the
+    CLI: batch 64, bf16, log + indexing at T=200, 2 epochs of 4 steps."""
     common = [
         "--data_name", "synthetic", "--data_size", str(SIZE), "--data_subset", "True",
         "--data_subset_num", "256", "--batch_size", "64", "--sample_num", "16",
@@ -1355,6 +1368,15 @@ def phase_train_cli(workdir: str):
             "--sampling", "momentum", "--optim", "adamw", "--lr", "1e-4",
             "--lr_scheduler", "cosine", "--lr_warmup_steps", "0",
             "--dir_work", os.path.join(workdir, "train"), *common]
+    return argv, common
+
+
+def phase_train_cli(workdir: str):
+    import numpy as np
+
+    from masked_diffusion_tpu_torch.cli.main_train_masked import main
+
+    argv, common = flagship_cli_args(workdir)
     buf = io.StringIO()
     reset_counts()
     with contextlib.redirect_stdout(buf):
@@ -1380,9 +1402,11 @@ def phase_train_cli(workdir: str):
     grids = os.listdir(os.path.join(run, "train", "image", "ema_sample_img"))
     if meta["global_step"] != 8 or "ema_sample_00001_global.png" not in grids:
         raise AssertionError(f"train CLI: meta {meta}, grids {grids}")
-    tiny = ("tinyhead_attention", "tinyhead_attention_backward")
-    if (train_counts["exact_count_masks"] != 8 or any(train_counts[k] for k in tiny)
-            or not all(n for k, n in train_counts.items() if k not in tiny)):
+    # one process reaches the kernels through their sharded forms on one rank
+    off = ("tinyhead_attention", "tinyhead_attention_backward")
+    if (train_counts["exact_count_masks"] != 8 or any(train_counts[k] for k in off)
+            or not all(n for k, n in train_counts.items() if k not in off)
+            or not same_through_sharded(train_counts)):
         raise AssertionError(f"train CLI: launches {train_counts}")
     log(f"[10] train CLI mean_shift log+indexing: 2 epochs x 4 steps, losses "
         f"{[round(v, 5) for v in stats['loss_mean_epoch']]}, {stats['ms_per_step']:.3f} "
@@ -1401,11 +1425,14 @@ def phase_train_cli(workdir: str):
     served = json.loads(line.split(" ", 1)[1])
     if rc != 0 or not (served["finite"] and served["ema"] and served["images"] == 16):
         raise AssertionError(f"serve the trained checkpoint: rc {rc}, {served}")
-    if not (serve_counts["fused_degrade_update"] and serve_counts["group_norm_silu"]):
+    if not (serve_counts["fused_degrade_update"] and serve_counts["group_norm_silu"]) or (
+            not same_through_sharded(serve_counts)):
         raise AssertionError(f"serve the trained checkpoint: launches {serve_counts}")
     log(f"[10] served the trained checkpoint (EMA weights): {served['images']} images, "
         f"{served['steps']} steps, {served['ms_per_step']:.3f} ms/step; launches {serve_counts}")
-    return {k: train_counts[k] + serve_counts[k] for k in train_counts}
+    perf = {"train_ms": stats["ms_per_step"], "train_ips": stats["images_per_sec"],
+            "serve_ms": served["ms_per_step"], "serve_ips": served["images_per_sec"]}
+    return {k: train_counts[k] + serve_counts[k] for k in train_counts}, perf
 
 
 def tinyhead_out_mag(q, k, v, scale):
@@ -1865,7 +1892,8 @@ def phase_cli_pair(tag: str, what: str, common, train_extra, per_forward: int, e
     want = {"exact_count_masks": steps,
             "tinyhead_attention": per_forward * (steps + train["fused_degrade_update"]),
             "tinyhead_attention_backward": per_forward * steps}
-    if any(train[k] != n for k, n in want.items()) or not train["fused_degrade_update"]:
+    if (any(train[k] != n for k, n in want.items()) or not train["fused_degrade_update"]
+            or not same_through_sharded(train)):
         raise AssertionError(f"{what} train CLI: launches {train}, expected {want}")
     log(f"{tag} {what} train CLI: {epochs} epochs x {steps_per_epoch} steps, losses "
         f"{[round(v, 5) for v in stats['loss_mean_epoch']]}, {stats['ms_per_step']:.3f} ms/step "
@@ -1879,7 +1907,7 @@ def phase_cli_pair(tag: str, what: str, common, train_extra, per_forward: int, e
     want = {"exact_count_masks": 0, "fused_degrade_update": n_steps,
             "tinyhead_attention": per_forward * n_steps, "tinyhead_attention_backward": 0}
     if rc != 0 or not (served["finite"] and served["ema"]) or any(
-            serve[k] != n for k, n in want.items()):
+            serve[k] != n for k, n in want.items()) or not same_through_sharded(serve):
         raise AssertionError(f"{what} serve CLI: rc {rc}, {served}, launches {serve}, "
                              f"expected {want}")
     log(f"{tag} {what} served the trained checkpoint (EMA weights): {served['images']} "
@@ -1929,11 +1957,430 @@ def phase_unet6_cli(workdir: str):
     return phase_cli_pair("[17]", "unet6 256x256", common, train, 5, 2, 2)
 
 
+DDP_RANKS = 2
+DDP_TIMEOUT = 600  # seconds for one torch.distributed.run of phase 18
+DDP_PARITY_BATCH = 4  # global; 2 rows a rank
+
+
+def phase_sharded():
+    """[18] The data-parallel forms on the card, no process group: every rank
+    of an N-rank plan (N = 2, 4) at the flagship shape (global batch 64,
+    64x64x3), both select modes, bitwise the single-device kernel call on
+    that rank's rows with the folded seed; exact counts per shard; local
+    image 0 of ranks 0 and 1 (same count) masked differently. Then each
+    form at a 2-rank shard (32 rows) against its plain version on injected
+    bits, and timed beside the plain version, with the shard's bound."""
+    import numpy as np
+    import torch
+
+    from masked_diffusion_tpu_torch.ops.fused_degrade import (
+        fused_degrade_update,
+        fused_degrade_update_sharded,
+        fused_rows,
+    )
+    from masked_diffusion_tpu_torch.ops.kmask import (
+        exact_count_masks,
+        exact_count_masks_plain,
+        exact_count_masks_sharded,
+    )
+    from masked_diffusion_tpu_torch.ops.shard import fold_seed
+    from masked_diffusion_tpu_torch.parallel.mesh import MeshPlan
+
+    dev = torch.device("cuda")
+    b, c, hw = B_KERNEL, 3, SIZE * SIZE
+    rng = np.random.default_rng(18)
+    xt = torch.from_numpy(rng.normal(size=(b, c, SIZE, SIZE)).astype(np.float32)).to(dev)
+    x0 = torch.from_numpy(rng.normal(size=(b, c, SIZE, SIZE)).astype(np.float32)).to(dev)
+    counts = rng.integers(0, hw + 1, size=(2, b)).astype(np.float32)
+    counts[:, ::16] = hw // 3  # local image 0 of every rank at N = 2 and 4: one count
+    ratios = rng.uniform(0, 1, size=(2, b)).astype(np.float32)
+    for n in (2, 4):
+        per = b // n
+        for select, amounts in (("thresholding", ratios), ("indexing", counts)):
+            amt = torch.from_numpy(amounts).to(dev)
+            kw = dict(select=select, mean_mode="degraded_area", rule="base_momentum", offset=5)
+            masks = []
+            for r in range(n):
+                rows = slice(r * per, (r + 1) * per)
+                out, mask = fused_degrade_update_sharded(
+                    xt[rows], x0[rows], amt[0, rows], amt[1, rows],
+                    plan=MeshPlan(dev, n, r), batch=b, seed=4242, **kw)
+                ref, ref_mask = fused_degrade_update(
+                    xt[rows], x0[rows], amt[0, rows], amt[1, rows], seed=fold_seed(4242, r), **kw)
+                torch.cuda.synchronize()
+                if not (torch.equal(out, ref) and torch.equal(mask, ref_mask)):
+                    raise AssertionError(f"[18] fused sharded {select} N={n} rank {r}: not "
+                                         "bitwise the per-rank kernel call on the folded seed")
+                if select == "indexing" and not torch.equal(
+                        (1.0 - mask).reshape(per, hw).sum(1), amt[1, rows]):
+                    raise AssertionError(f"[18] fused sharded N={n} rank {r}: counts != k")
+                masks.append(mask)
+            if torch.equal(masks[0][0], masks[1][0]):
+                raise AssertionError(f"[18] fused sharded {select} N={n}: ranks 0 and 1 gave "
+                                     "local image 0 the same mask")
+        cnt = torch.from_numpy(counts[0].astype(np.int32)).to(dev)
+        seed0 = int(torch.randint(0, 2**62, (1,), generator=torch.Generator().manual_seed(8)))
+        masks = []
+        for r in range(n):
+            rows = slice(r * per, (r + 1) * per)
+            got = exact_count_masks_sharded(b, SIZE, SIZE, cnt[rows], plan=MeshPlan(dev, n, r),
+                                            generator=torch.Generator().manual_seed(8))
+            # rank 0 draws from the shared generator, rank r from the folded one
+            ref_gen = torch.Generator().manual_seed(8 if r == 0 else fold_seed(seed0, r))
+            ref = exact_count_masks(per, SIZE, SIZE, cnt[rows], generator=ref_gen)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"[18] kmask sharded N={n} rank {r}: not bitwise the "
+                                     "per-rank kernel call on the folded seed")
+            if not torch.equal((1.0 - got).reshape(per, hw).sum(1).int(), cnt[rows]):
+                raise AssertionError(f"[18] kmask sharded N={n} rank {r}: counts != k")
+            masks.append(got)
+        if torch.equal(masks[0][0], masks[1][0]):
+            raise AssertionError(f"[18] kmask sharded N={n}: ranks 0 and 1 gave local image 0 "
+                                 "the same mask")
+    log(f"[18] sharded forms at N = 2 and 4, global batch {b} at {SIZE}x{SIZE}x{c}, "
+        "thresholding and indexing: every rank bitwise the single-device kernel on its rows "
+        "with the folded seed; exact counts per shard; local image 0 of ranks 0 and 1 "
+        "masked differently")
+
+    # a 2-rank shard: against the plain version on injected bits, then timed
+    per, plan = b // DDP_RANKS, MeshPlan(dev, DDP_RANKS, 1)
+    rows = slice(per, 2 * per)
+    bits = torch.from_numpy(rng.integers(0, 2**32, size=(2, per, hw), dtype=np.uint64)
+                            .astype(np.int64)).to(dev)
+    amt = torch.from_numpy(counts).to(dev)[:, rows]
+    kw = dict(select="indexing", mean_mode="degraded_area", mean_value=0.0, rule="base_momentum")
+    out, mask = fused_degrade_update_sharded(xt[rows], x0[rows], amt[0], amt[1], plan=plan,
+                                             batch=b, bits=bits, **kw)
+    ref, ref_mask = fused_rows(bits[0], bits[1], xt[rows].reshape(per, -1),
+                               x0[rows].reshape(per, -1), amt[0][:, None], amt[1][:, None],
+                               channels=c, **kw)
+    fused_err = (out.reshape(per, -1) - ref).abs().max().item()
+    if not torch.equal(mask.reshape(per, hw), ref_mask) or not fused_err <= FUSED_TOL:
+        raise AssertionError(f"[18] fused sharded vs plain: masks or |out - plain| {fused_err}")
+    cnt = amt[0].to(torch.int32)
+    got = exact_count_masks_sharded(b, SIZE, SIZE, cnt, plan=plan, bits=bits[0])
+    kmask_err = (got - exact_count_masks_plain(bits[0], cnt).reshape(got.shape)).abs().max().item()
+    if kmask_err != 0.0:
+        raise AssertionError(f"[18] kmask sharded vs plain: max |mask - plain| {kmask_err}")
+    gen = torch.Generator().manual_seed(9)
+
+    def fused():
+        fused_degrade_update_sharded(xt[rows], x0[rows], amt[0], amt[1], plan=plan, batch=b,
+                                     seed=7, offset=1, **kw)
+
+    def fused_plain():
+        bb = torch.randint(0, 2**32, (2, per, hw), device=dev, dtype=torch.int64)
+        fused_rows(bb[0], bb[1], xt[rows].reshape(per, -1), x0[rows].reshape(per, -1),
+                   amt[0][:, None], amt[1][:, None], channels=c, **kw)
+
+    def kmask():
+        exact_count_masks_sharded(b, SIZE, SIZE, cnt, plan=plan, generator=gen)
+
+    def kmask_plain():
+        bb = torch.randint(0, 2**32, (per, hw), device=dev, dtype=torch.int64)
+        exact_count_masks_plain(bb, cnt)
+
+    (f_ms, f_eager), (fp_ms, _) = cuda_ms(fused), cuda_ms(fused_plain)
+    (k_ms, k_eager), (kp_ms, _) = cuda_ms(kmask), cuda_ms(kmask_plain)
+    # the shard's work, counted as phases 2 and 6 count the whole batch's
+    f_bound = bound(4 * (3 * per * c * hw + per * hw + 2 * per),
+                    per * hw * (2 * 120 + 2 * 32 * 2) + 6 * per * c * hw)
+    k_bound = bound(4 * per * hw + 4 * per, per * hw * (120 + 32 * 2 + 8))
+    log(f"[18] per-rank shard of {per} rows at {SIZE}x{SIZE}: fused_degrade_update_sharded "
+        f"(indexing) {f_ms:.4f} ms device ({f_eager:.4f} eager), plain {fp_ms:.4f} ms, bound "
+        f"{f_bound[0]:.5f} ms by {f_bound[1]}, max |out - plain| {fused_err:.3g}; "
+        f"exact_count_masks_sharded {k_ms:.4f} ms device ({k_eager:.4f} eager), plain "
+        f"{kp_ms:.4f} ms, bound {k_bound[0]:.5f} ms by {k_bound[1]}, max |mask - plain| "
+        f"{kmask_err}")
+    return {"fused": (fused_err, f_ms, fp_ms, f_bound), "kmask": (kmask_err, k_ms, kp_ms, k_bound)}
+
+
+def _parity_data(used_len: int):
+    """The global batch and draws of phase 18's parity steps (numpy, seeded)."""
+    import numpy as np
+
+    rng = np.random.default_rng(181)
+    n, hw = DDP_PARITY_BATCH, SIZE * SIZE
+    return [dict(
+        img=rng.uniform(-1, 1, (n, SIZE, SIZE, 3)).astype(np.float32),
+        timeindex=rng.integers(0, used_len, n),
+        bits=rng.integers(0, 2**32, (n, hw), dtype=np.uint64).astype(np.int64),
+        uniform=rng.uniform(-1, 1, n).astype(np.float32)) for _ in range(3)]
+
+
+def parity_steps(plan, dev):
+    """3 fp32 flagship train steps (TF32 off, log + indexing, AdamW, EMA) on
+    phase 18's global batch on `dev`, this plan's rows (None: one process,
+    all rows). Returns (losses, {name: parameter and EMA tensors on the
+    CPU})."""
+    import torch
+
+    from masked_diffusion_tpu_torch.ops.schedule import build_schedule
+    from masked_diffusion_tpu_torch.parallel.mesh import local_rows
+    from masked_diffusion_tpu_torch.train.optim import build_lr_schedule, build_optimizer
+    from masked_diffusion_tpu_torch.train.step import (
+        TrainDraws,
+        create_train_state,
+        make_train_step,
+    )
+    from masked_diffusion_tpu_torch.utils import host
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sched, select, t_steps = MODES[1]
+    cfg = _train_cfg(sched, select, t_steps, "--mixed_precision", "no")
+    schedule = build_schedule(sched, t_steps, SIZE, select)
+    used = schedule.timesteps_for_epoch(0, 10, 1)
+    model = _flagship_weights(8).to(dev)
+    lr = build_lr_schedule("cosine", 1e-4, 0, 100)
+    opt = build_optimizer("adamw", model.parameters(), lr, 1.0, 1)
+    state = create_train_state(model, opt, use_ema=True, plan=plan)
+    step = make_train_step(model, schedule, cfg, opt, used, lr, device=dev, plan=plan)
+    rows = local_rows(DDP_PARITY_BATCH, plan) if plan is not None else slice(None)
+    losses = []
+    for d in _parity_data(len(used)):
+        draws = TrainDraws(**{k: torch.from_numpy(v).to(dev) for k, v in d.items() if k != "img"})
+        losses.append(step(state, torch.from_numpy(d["img"][rows]).to(dev),
+                           draws=draws)["train_loss"])
+    # each rank's loss is its rows'; the global batch's is their mean, as the
+    # trainer logs it
+    losses = host.mean_over_ranks(torch.stack(losses)).tolist()
+    tensors = {**{f"p.{k}": v.detach().cpu() for k, v in model.state_dict().items()},
+               **{f"e.{k}": v.detach().cpu() for k, v in state.ema_model.state_dict().items()}}
+    torch.backends.cudnn.allow_tf32 = True
+    return losses, tensors
+
+
+def _checksum(tensors: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode() + tensors[k].contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_main(workdir: str) -> int:
+    """One rank of phase 18 under torch.distributed.run: the parity steps,
+    then the flagship through the CLI data-parallel (train, then serve what
+    it wrote), each with the launch counts set to 0 just before and read
+    just after; writes rank<r>.json (and rank 0 its parity tensors) to
+    workdir."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    import masked_diffusion_tpu_torch.sample.generate as generate_mod
+    import masked_diffusion_tpu_torch.train.trainer as trainer_mod
+    from masked_diffusion_tpu_torch.cli.main_train_masked import main
+    from masked_diffusion_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    # a card for each rank where the machine has them, else both ask for cuda:0
+    device_arg = "cuda" if torch.cuda.device_count() >= DDP_RANKS else "cuda:0"
+    device = init_distributed(device_arg)
+    plan = make_mesh(DDP_RANKS, 1, device)
+    out = {"rank": plan.rank, "device": str(device), "backend": dist.get_backend()}
+    losses, tensors = parity_steps(plan, device)
+    out["parity"] = {"losses": losses, "checksum": _checksum(tensors)}
+    if plan.rank == 0:
+        torch.save(tensors, os.path.join(workdir, "parity_rank0.pt"))
+
+    seen = {}
+    train, generate = trainer_mod.Trainer.train, generate_mod.generate_images
+
+    def train_and_keep(self, *a, **k):
+        seen["trainer"], seen["train"] = self, train(self, *a, **k)
+        return seen["train"]
+
+    def generate_and_keep(*a, **k):
+        seen["generate"] = generate(*a, **k)
+        return seen["generate"]
+
+    trainer_mod.Trainer.train = train_and_keep
+    generate_mod.generate_images = generate_and_keep
+    argv, common = flagship_cli_args(os.path.join(workdir, "ddp"))
+    argv, common = ([device_arg if a == "cuda" else a for a in args] for args in (argv, common))
+    argv = argv + ["--mesh_data", str(DDP_RANKS)]
+    for what, args in (("train", argv), ("serve", None)):
+        if what == "serve":
+            args = ["--method", "sample", "--test_model_path", out["checkpoints"][0],
+                    "--mesh_data", str(DDP_RANKS), "--dir_work",
+                    os.path.join(workdir, "ddp", "serve"), *common]
+        buf = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = main(args)
+        out[f"{what}_counts"] = read_counts()
+        sys.stdout.write(buf.getvalue())
+        if rc != 0:
+            raise AssertionError(f"rank {plan.rank} {what}: rc {rc}")
+        if what == "train":
+            trainer, result = seen["trainer"], seen["train"]
+            model = {f"p.{k}": v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+            model.update({f"e.{k}": v.detach().cpu()
+                          for k, v in trainer.state.ema_model.state_dict().items()})
+            out.update(checksum=_checksum(model), global_step=trainer.global_step,
+                       cadence_steps=len(trainer.timesteps_used_epoch),
+                       checkpoints=result["checkpoints"], train_ms=result["ms_per_step"],
+                       train_ips=result["images_per_sec"])
+        else:
+            g = seen["generate"]
+            out.update(serve_ms=g["ms_per_step"], serve_ips=g["images_per_sec"],
+                       serve_steps=g["steps"], serve_batches=g["batches"],
+                       serve_images=len(g["images"]),
+                       serve_finite=bool(torch.isfinite(torch.from_numpy(g["images"])).all()))
+    with open(os.path.join(workdir, f"rank{plan.rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_group(cmd, timeout: int):
+    """Run cmd in a session of its own; on timeout kill the whole session
+    (torch.distributed.run and its ranks). Returns (rc, stdout + stderr)."""
+    import signal
+
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        output, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        output, _ = proc.communicate()
+        raise AssertionError(f"{' '.join(cmd[:6])} ...: no end in {timeout} s\n{output[-4000:]}")
+    return proc.returncode, output
+
+
+def phase_ddp(workdir: str, smi: str, single: dict):
+    """[18] Data-parallel on 2 ranks through torch.distributed.run (nccl when
+    the machine has two cards, else gloo with both ranks on cuda:0): the
+    parity steps against one process on the same global batch (phase 8's
+    tolerances), then the flagship CLI trained (phase 10's flags plus
+    --mesh_data 2: global batch 64, 8 steps) and served on 2 ranks. Checks
+    the dist line, the per-rank launches (one sharded exact-k launch per
+    train step, one sharded fused launch per reverse step), bitwise-equal
+    ranks, global_step 8, one run tree. Returns the launches summed over the
+    ranks and both runs."""
+    import numpy as np
+    import torch
+
+    os.makedirs(workdir, exist_ok=True)
+    t0 = time.perf_counter()
+    rc, output = _run_group(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         str(DDP_RANKS), os.path.join(ROOT, "chip_smoke.py"), "--rank", workdir], DDP_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    sys.stdout.write("".join(f"[18|ranks] {ln}\n" for ln in output.splitlines()
+                             if ln.startswith(("dist:", "train_stats", "sample_stats",
+                                               "sampled", "*****"))))
+    if rc != 0:
+        raise AssertionError(f"[18] torch.distributed.run: rc {rc}\n{output[-6000:]}")
+    ranks = []
+    for r in range(DDP_RANKS):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    dist_lines = [ln for ln in output.splitlines() if ln.startswith("dist: ")]
+    if len(dist_lines) != 1:
+        raise AssertionError(f"[18] expected one dist: line, got {dist_lines}")
+    dist_info = json.loads(dist_lines[0][len("dist: "):])
+    own = torch.cuda.device_count() >= DDP_RANKS
+    want_devices = [f"cuda:{r}" for r in range(DDP_RANKS)] if own else ["cuda:0"] * DDP_RANKS
+    if (dist_info["backend"] != ("nccl" if own else "gloo") or dist_info["world_size"] != DDP_RANKS
+            or dist_info["devices"] != want_devices):
+        raise AssertionError(f"[18] dist line {dist_info}, expected backend "
+                             f"{'nccl' if own else 'gloo'} on {want_devices}")
+
+    # parity: 2 ranks vs one process on the same global batch, fp32, TF32 off
+    one_losses, one = parity_steps(None, torch.device("cuda"))
+    two = torch.load(os.path.join(workdir, "parity_rank0.pt"))
+    lt, lo = np.array(ranks[0]["parity"]["losses"]), np.array(one_losses)
+    if ranks[0]["parity"] != ranks[1]["parity"]:
+        raise AssertionError(f"[18] parity: the ranks differ: {ranks[0]['parity']} vs "
+                             f"{ranks[1]['parity']}")
+    init = _flagship_weights(8).state_dict()
+    errs = []
+    for prefix in ("p.", "e."):
+        diff2 = upd2 = 0.0
+        for k, ref in one.items():
+            if k.startswith(prefix):
+                diff2 += float((two[k] - ref).square().sum())
+                upd2 += float((ref - init[k[2:]]).square().sum())
+        errs.append((diff2 / upd2) ** 0.5)
+    loss_diff = float(np.abs((lt - lo) / lo).max())
+    if not (np.isfinite(lt).all() and loss_diff <= TRAIN_LOSS_RTOL
+            and max(errs) <= TRAIN_UPDATE_RTOL):
+        raise AssertionError(f"[18] parity: losses 2 ranks {lt} vs 1 {lo}, update rel L2 "
+                             f"{errs}")
+    log(f"[18] parity, flagship fp32 (TF32 off), log+indexing, global batch "
+        f"{DDP_PARITY_BATCH}, 3 AdamW steps: 2 ranks ({dist_info['backend']}) vs 1 process, "
+        f"losses {[round(float(v), 6) for v in lo]}, max rel diff {loss_diff:.3g} (rtol "
+        f"{TRAIN_LOSS_RTOL}); update rel L2 diff params {errs[0]:.3g}, EMA {errs[1]:.3g} (tol "
+        f"{TRAIN_UPDATE_RTOL}); ranks bitwise equal (checksum "
+        f"{ranks[0]['parity']['checksum'][:16]})")
+
+    # the CLI runs, per rank
+    total = {}
+    for rank in ranks:
+        tc, sc = rank["train_counts"], rank["serve_counts"]
+        reverse = rank["cadence_steps"]  # one cadence sample, at the last epoch
+        n_serve = rank["serve_steps"] * rank["serve_batches"]
+        want_train = {"exact_count_masks": 8, "exact_count_masks_sharded": 8,
+                      "fused_degrade_update": reverse, "fused_degrade_update_sharded": reverse,
+                      "tinyhead_attention": 0, "tinyhead_attention_backward": 0}
+        want_serve = {"exact_count_masks": 0, "exact_count_masks_sharded": 0,
+                      "fused_degrade_update": n_serve, "fused_degrade_update_sharded": n_serve,
+                      "group_norm_silu_backward": 0}
+        if (any(tc[k] != n for k, n in want_train.items()) or not tc["group_norm_silu"]
+                or not tc["group_norm_silu_backward"]
+                or any(sc[k] != n for k, n in want_serve.items()) or not sc["group_norm_silu"]):
+            raise AssertionError(f"[18] rank {rank['rank']}: launches train {tc}, serve {sc}; "
+                                 f"expected {want_train}, {want_serve}")
+        if rank["global_step"] != 8 or rank["serve_images"] != 16 or not rank["serve_finite"]:
+            raise AssertionError(f"[18] rank {rank['rank']}: {rank}")
+        for counts in (tc, sc):
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+    if ranks[0]["checksum"] != ranks[1]["checksum"] or (
+            ranks[0]["checkpoints"] != ranks[1]["checkpoints"]):
+        raise AssertionError(f"[18] the ranks' final parameters or checkpoints differ: "
+                             f"{[(r['checksum'][:16], r['checkpoints']) for r in ranks]}")
+    runs = os.listdir(os.path.join(workdir, "ddp", "train", "result", "test_code", "synthetic",
+                                   "mean_shift"))
+    stats = json.loads(next(ln for ln in output.splitlines() if ln.startswith("train_stats "))
+                       .split(" ", 1)[1])
+    served = json.loads(next(ln for ln in output.splitlines() if ln.startswith("sample_stats "))
+                        .split(" ", 1)[1])
+    pngs = [f for f in os.listdir(served["out_dir"]) if f.endswith(".png")]
+    if (len(runs) != 1 or stats["global_step"] != 8 or stats["ranks"] != DDP_RANKS
+            or len(pngs) != 16 + served["batches"]):
+        raise AssertionError(f"[18] run trees {runs}, train_stats {stats}, {len(pngs)} PNGs")
+    backend = f"{dist_info['backend']}, {dist_info['cards']}"
+    log(f"[18] train CLI on {DDP_RANKS} ranks ({backend}; {smi}): global batch 64 (32 a "
+        f"rank), 2 epochs x 4 steps, global_step 8 on every rank, final parameters and EMA "
+        f"bitwise equal across ranks (checksum {ranks[0]['checksum'][:16]}); ms/step per rank "
+        f"{[round(r['train_ms'], 3) for r in ranks]}, {ranks[0]['train_ips']:.2f} images/s "
+        f"global (one process, phase 10: {single['train_ms']:.3f} ms/step, "
+        f"{single['train_ips']:.2f} images/s); per rank per train step 1 exact_count_masks_"
+        f"sharded launch, per reverse step 1 fused_degrade_update_sharded launch; launches "
+        f"per rank {[r['train_counts'] for r in ranks]}")
+    log(f"[18] served the 2-rank checkpoint on {DDP_RANKS} ranks: {served['images']} images "
+        f"(8 a rank), {served['steps']} steps x {served['batches']} batch(es); ms/step per rank "
+        f"{[round(r['serve_ms'], 3) for r in ranks]}, {ranks[0]['serve_ips']:.3f} images/s "
+        f"global (one process, phase 10: {single['serve_ms']:.3f} ms/step, "
+        f"{single['serve_ips']:.3f} images/s); {len(pngs)} PNGs written once; phase 18's "
+        f"ranks took {seconds:.1f} s")
+    return total
+
+
 def _counted():
     """The launch-counted wrappers of every kernel, by name."""
-    from masked_diffusion_tpu_torch.ops.fused_degrade import fused_degrade_update
+    from masked_diffusion_tpu_torch.ops.fused_degrade import (
+        fused_degrade_update,
+        fused_degrade_update_sharded,
+    )
     from masked_diffusion_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_backward
-    from masked_diffusion_tpu_torch.ops.kmask import exact_count_masks
+    from masked_diffusion_tpu_torch.ops.kmask import exact_count_masks, exact_count_masks_sharded
     from masked_diffusion_tpu_torch.ops.tinyhead_attention import (
         tinyhead_attention,
         tinyhead_attention_backward,
@@ -1941,7 +2388,8 @@ def _counted():
 
     return {f.__name__: f for f in (fused_degrade_update, group_norm_silu,
                                     group_norm_silu_backward, exact_count_masks,
-                                    tinyhead_attention, tinyhead_attention_backward)}
+                                    tinyhead_attention, tinyhead_attention_backward,
+                                    fused_degrade_update_sharded, exact_count_masks_sharded)}
 
 
 def reset_counts() -> None:
@@ -1951,6 +2399,13 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in _counted().items()}
+
+
+def same_through_sharded(counts: dict) -> bool:
+    """The sampling loop and the train step reach the fused and exact-k
+    kernels only through their sharded forms: each launch counts in both."""
+    return (counts["fused_degrade_update"] == counts["fused_degrade_update_sharded"]
+            and counts["exact_count_masks"] == counts["exact_count_masks_sharded"])
 
 
 def kernel_entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
@@ -1984,9 +2439,12 @@ def main() -> int:
     phase_train_throughput(smi)
     zoo_backward = phase_zoo()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    sharded = phase_sharded()
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
-        main_runs = [phase_serve(workdir)[0], phase_train_cli(workdir),
-                     phase_celeba_cli(workdir), phase_unet6_cli(workdir)]
+        main_runs = [phase_serve(workdir)[0]]
+        flagship_cli, flagship_perf = phase_train_cli(workdir)
+        main_runs += [flagship_cli, phase_celeba_cli(workdir), phase_unet6_cli(workdir),
+                      phase_ddp(os.path.join(workdir, "ranks"), smi, flagship_perf)]
     for mod in sorted(sys.modules):
         if mod.split(".")[0] in ("jax", "flax", "masked_diffusion_tpu"):
             raise AssertionError(f"{mod} was imported")
@@ -2043,6 +2501,14 @@ def main() -> int:
                      "masked_diffusion_tpu/ops/pallas/tinyhead_attention.py:168",
                      launches("tinyhead_attention_backward"), tinyhead_bwd_err, thb[0], thb[1],
                      thb_bound[:2], thb[2]),
+        kernel_entry("fused_degrade_update_sharded", "cuda",
+                     "masked_diffusion_tpu_torch/csrc/fused_degrade.cu",
+                     "masked_diffusion_tpu/ops/pallas/fused_degrade.py:295",
+                     launches("fused_degrade_update_sharded"), *sharded["fused"], None),
+        kernel_entry("exact_count_masks_sharded", "cuda",
+                     "masked_diffusion_tpu_torch/csrc/kmask.cu",
+                     "masked_diffusion_tpu/ops/pallas/kmask.py:122",
+                     launches("exact_count_masks_sharded"), *sharded["kmask"], None),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2051,4 +2517,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # `--rank <dir>` is one rank of phase 18 under torch.distributed.run
+    sys.exit(rank_main(sys.argv[2]) if sys.argv[1:2] == ["--rank"] else main())

@@ -24,6 +24,21 @@ is refused.
 
 --device cuda (the default) without CUDA raises; nothing carries on on the
 CPU unless --device cpu asks for it. --method test is not ported yet.
+
+Data-parallel, one process per rank (parallel/mesh.py):
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m masked_diffusion_tpu_torch.cli.main_train_masked --mesh_data N ...
+
+With WORLD_SIZE > 1 the process group is set up before anything touches the
+card (--device cuda becomes cuda:LOCAL_RANK, one card per rank, NCCL, and
+more ranks than cards raise; --device cuda:N puts every rank on card N,
+gloo; --device cpu is gloo), rank 0 builds the kernel library before the
+others load it, --batch_size is the global batch, and only rank 0 writes
+files and prints the stats lines. --mesh_data must equal WORLD_SIZE (-1:
+whatever it is). --multihost True is the same setup across nodes
+(torchrun --nnodes), and raises without torchrun's WORLD_SIZE.
+--mesh_model > 1 and --mesh_spatial are refused.
 """
 
 from __future__ import annotations
@@ -222,14 +237,17 @@ def config_from_args(args) -> Config:
     return Config(**kw)
 
 
-def parse(argv=None):
-    """Flags -> (Config, torch.device of --device)."""
+def _parse_args(argv=None):
     p = build_parser()
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device to run on (cuda, cuda:N or cpu)")
-    args = p.parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError("not yet ported: --multihost (multi-GPU)")
+                   help="torch device to run on: cuda (each rank its own card), cuda:N "
+                        "(every rank on card N) or cpu")
+    return p.parse_args(argv)
+
+
+def parse(argv=None):
+    """Flags -> (Config, torch.device of --device)."""
+    args = _parse_args(argv)
     return config_from_args(args), torch.device(args.device)
 
 
@@ -237,20 +255,27 @@ def _device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
 
-def _train(cfg: Config, device: torch.device, dirs, dataset, dataset_hist, visualizer) -> None:
+def _train(cfg: Config, plan, dirs, dataset, dataset_hist, visualizer) -> None:
     from masked_diffusion_tpu_torch.train.trainer import Trainer
+    from masked_diffusion_tpu_torch.utils import host
 
-    trainer = Trainer(cfg, dataset, dataset_hist, visualizer=visualizer, device=device)
-    print(
-        f"***** Running {cfg.method} *****\n"
-        f"  Num examples = {len(dataset)}\n"
-        f"  Num epochs = {cfg.num_epochs}\n"
-        f"  Batch size per step = {cfg.batch_size}\n"
-        f"  Gradient accumulation = {cfg.gradient_accumulation_steps}\n"
-        f"  Device = {_device_name(device)}",
-        flush=True,
-    )
+    device = plan.device
+    trainer = Trainer(cfg, dataset, dataset_hist, visualizer=visualizer, device=device,
+                      plan=plan)
+    if host.is_main_process():
+        print(
+            f"***** Running {cfg.method} *****\n"
+            f"  Num examples = {len(dataset)}\n"
+            f"  Num epochs = {cfg.num_epochs}\n"
+            f"  Batch size per step = {cfg.batch_size} (x{plan.data_size} data-parallel "
+            f"ranks)\n"
+            f"  Gradient accumulation = {cfg.gradient_accumulation_steps}\n"
+            f"  Device = {_device_name(device)}",
+            flush=True,
+        )
     result = trainer.train(dirs=dirs, visualizer=visualizer)
+    if not host.is_main_process():
+        return
     print("train_stats " + json.dumps({
         "epochs": len(result["loss_mean_epoch"]),
         "loss_mean_epoch": result["loss_mean_epoch"],
@@ -258,15 +283,17 @@ def _train(cfg: Config, device: torch.device, dirs, dataset, dataset_hist, visua
         "ms_per_step": result["ms_per_step"],
         "images_per_sec": result["images_per_sec"],
         "device": _device_name(device),
+        "ranks": plan.data_size,
         "checkpoints": result["checkpoints"],
     }), flush=True)
 
 
-def _sample(cfg: Config, device: torch.device, dirs, dataset_hist) -> None:
+def _sample(cfg: Config, plan, dirs, dataset_hist) -> None:
     from masked_diffusion_tpu_torch.io.weights import load_checkpoint
     from masked_diffusion_tpu_torch.models.factory import build_model_from_config
     from masked_diffusion_tpu_torch.ops.schedule import build_schedule
     from masked_diffusion_tpu_torch.sample.generate import generate_images
+    from masked_diffusion_tpu_torch.utils import host
 
     if not cfg.test_model_path:
         raise SystemExit("--method sample needs --test_model_path (a checkpoint-epoch-N "
@@ -283,9 +310,11 @@ def _sample(cfg: Config, device: torch.device, dirs, dataset_hist) -> None:
     )
     cfg.updated_ddpm_num_steps = schedule.num_steps
     out_dir = dirs.list_dir.get("sample") or dirs.list_dir["test_sample_img"]
-    stats = generate_images(cfg, model, schedule, dataset_hist, device=device,
-                            out_dir=out_dir)
-    name = _device_name(device)
+    stats = generate_images(cfg, model, schedule, dataset_hist, device=plan.device,
+                            out_dir=out_dir, plan=plan)
+    if not host.is_main_process():
+        return
+    name = _device_name(plan.device)
     print(
         f"sampled {len(stats['images'])} images in {stats['batches']} batch(es) "
         f"of {stats['steps']} steps -> {out_dir} ({stats['images_per_sec']:.2f} "
@@ -295,14 +324,15 @@ def _sample(cfg: Config, device: torch.device, dirs, dataset_hist) -> None:
     print("sample_stats " + json.dumps({
         "images": len(stats["images"]), "batches": stats["batches"],
         "steps": stats["steps"], "images_per_sec": stats["images_per_sec"],
-        "ms_per_step": stats["ms_per_step"], "device": name,
+        "ms_per_step": stats["ms_per_step"], "device": name, "ranks": plan.data_size,
         "ema": use_ema, "out_dir": out_dir,
         "finite": bool(np.isfinite(stats["images"]).all()),
     }), flush=True)
 
 
 def main(argv=None) -> int:
-    cfg, device = parse(argv)
+    args = _parse_args(argv)
+    cfg, device = config_from_args(args), torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {device}: CUDA is not available")
     method = cfg.method.lower()
@@ -312,19 +342,34 @@ def main(argv=None) -> int:
 
     from masked_diffusion_tpu_torch.data.datasets import get_dataset
     from masked_diffusion_tpu_torch.data.histogram import compute_mean_histogram, empty_histogram
+    from masked_diffusion_tpu_torch.ops import build
+    from masked_diffusion_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from masked_diffusion_tpu_torch.utils import host
     from masked_diffusion_tpu_torch.utils.dirs import Dir
     from masked_diffusion_tpu_torch.utils.visualizer import Visualizer
 
+    # WORLD_SIZE > 1: before the card is touched
+    device = init_distributed(device, multihost=args.multihost)
+    plan = make_mesh(cfg.mesh_data, cfg.mesh_model, device)
+    main_process = host.is_main_process()
+    if plan.data_size > 1:
+        if plan.device.type == "cuda":
+            # rank 0 builds the kernel library; the others load what it built
+            if main_process:
+                build.load_library()
+            host.barrier()
+        if not (cfg.date and cfg.time):
+            cfg.date, cfg.time = host.synced_timestamp()
     dirs = Dir(
         task=cfg.task, content=cfg.content, dir_work=cfg.dir_work,
         dir_dataset=cfg.dir_dataset, data_name=cfg.data_name, data_set=cfg.data_set,
         data_size=cfg.data_size, date=cfg.date, time=cfg.time,
-        method=cfg.method, title=cfg.title,
+        method=cfg.method, title=cfg.title, make_dirs=main_process,
     )
     np.random.seed(cfg.seed)  # host-side seeding (main_train_masked.py:441-445)
     torch.manual_seed(cfg.seed)
     # the sample-task tree (utils/dirs.py:100-113) has no option/log dirs
-    if "option" in dirs.list_dir:
+    if main_process and "option" in dirs.list_dir:
         cfg.save_option(dirs.list_dir["option"])
 
     # the dataset is needed to train, or for the 'data' latent's histogram
@@ -341,12 +386,13 @@ def main(argv=None) -> int:
         dataset_hist = empty_histogram()
 
     if method == "sample":
-        _sample(cfg, device, dirs, dataset_hist)
+        _sample(cfg, plan, dirs, dataset_hist)
         return 0
-    # always-on JSONL metrics sink (log/metrics.jsonl); wandb only if enabled
-    visualizer = Visualizer(cfg, dirs.list_dir["log"]) if "log" in dirs.list_dir else None
+    # always-on JSONL metrics sink (log/metrics.jsonl) on rank 0; wandb only if enabled
+    visualizer = (Visualizer(cfg, dirs.list_dir["log"])
+                  if main_process and "log" in dirs.list_dir else None)
     try:
-        _train(cfg, device, dirs, dataset, dataset_hist, visualizer)
+        _train(cfg, plan, dirs, dataset, dataset_hist, visualizer)
     finally:
         if visualizer is not None:
             visualizer.finish()

@@ -21,7 +21,10 @@ UNet2DModel tensor names — the names of the port's UNet2D parameters.
 - load_checkpoint / save_checkpoint: the export layout,
   checkpoint-epoch-N/{unet,unet_ema}/ (config.json and the safetensors
   file each) plus meta.json, which the port's trainer writes and its
-  `--method sample` reads.
+  `--method sample` reads. A data-parallel run saves the module that
+  DistributedDataParallel wraps, never the wrapper: the names carry no
+  `module.` prefix, so a checkpoint of N ranks loads in one process and
+  in the JAX package's io/import_torch.py.
 """
 
 from __future__ import annotations
@@ -208,10 +211,16 @@ def save_checkpoint(
     meta: Optional[dict] = None,
 ) -> str:
     """Write the export layout under dirname: unet/, unet_ema/ when ema_sd
-    is given (with ema_config, else config), and meta.json when given."""
+    is given (with ema_config, else config), and meta.json when given.
+    Raises on a state dict of a DistributedDataParallel wrapper."""
     folders = [("unet", unet_sd, config)]
     if ema_sd is not None:
         folders.append(("unet_ema", ema_sd, ema_config or config))
+    for sub, sd, _ in folders:
+        wrapped = [k for k in sd if k.startswith("module.")]
+        if wrapped:
+            raise ValueError(f"{sub}: {wrapped[0]!r} is a DistributedDataParallel name; "
+                             "save the wrapped module (its .module)")
     for sub, sd, cfg in folders:
         folder = os.path.join(dirname, sub)
         os.makedirs(folder, exist_ok=True)

@@ -10,7 +10,10 @@ them.
                  CUDA, its plain version on the CPU, 1-channel, broadcast
                  over channels. masks_from_uniforms (:50-78) has no copy:
                  its exact-k law, ties broken by pixel index, is the
-                 kernel's on composite keys
+                 kernel's on composite keys. It goes through the kernel's
+                 sharded form (exact_count_masks_sharded: the rank's rows,
+                 its generator folded with the rank), as the JAX route
+                 (:200-217), on a 1-rank plan when no plan is given
   'thresholding' per-pixel uniform > ratio, 1-channel (one mask shared by
                  the channels) or 3-channel (independent per channel)
 
@@ -37,7 +40,8 @@ from typing import Optional, Tuple
 import torch
 
 from masked_diffusion_tpu_torch.config import parse_mean_option
-from masked_diffusion_tpu_torch.ops.kmask import exact_count_masks
+from masked_diffusion_tpu_torch.ops.kmask import exact_count_masks_sharded
+from masked_diffusion_tpu_torch.parallel.mesh import MeshPlan
 
 
 def device_generator(generator: torch.Generator, device: torch.device) -> torch.Generator:
@@ -81,13 +85,17 @@ def generate_masks(
     generator: Optional[torch.Generator] = None,
     bits: Optional[torch.Tensor] = None,
     uniforms: Optional[torch.Tensor] = None,
+    plan=None,
 ) -> torch.Tensor:
     """Masks broadcast to img's (B, C, H, W) shape. On CUDA, indexing always
-    launches the exact-k mask kernel."""
+    launches the exact-k mask kernel, through its sharded form on `plan` (a
+    parallel/mesh.MeshPlan, img holding this rank's rows; one rank when
+    None)."""
     b, c, h, w = img.shape
     if select_degrade_pixel == "indexing":
-        masks = exact_count_masks(b, h, w, amount.to(torch.int32), generator=generator,
-                                  bits=bits)
+        plan = plan or MeshPlan(device=img.device)
+        masks = exact_count_masks_sharded(b * plan.data_size, h, w, amount.to(torch.int32),
+                                          plan=plan, generator=generator, bits=bits)
     elif select_degrade_pixel == "thresholding":
         masks = threshold_masks(b, h, w, c, amount, degrade_channel == "3-channel",
                                 generator=generator, uniforms=uniforms)
@@ -145,6 +153,7 @@ def degrade_training(
     generator: Optional[torch.Generator] = None,
     bits: Optional[torch.Tensor] = None,
     uniforms: Optional[torch.Tensor] = None,
+    plan=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Training-time degradation (scheduler.py:266-323), img (B, C, H, W).
 
@@ -155,7 +164,7 @@ def degrade_training(
       mean_mask    = mu everywhere
     """
     masks = generate_masks(img, amount, select_degrade_pixel, degrade_channel,
-                           generator=generator, bits=bits, uniforms=uniforms)
+                           generator=generator, bits=bits, uniforms=uniforms, plan=plan)
     mean_pixel = compute_mean_pixel(img, masks, mean_option, mean_area)
     inv = 1.0 - masks
     degrade_img = inv * mean_pixel + masks * img

@@ -16,6 +16,9 @@ lacks shifts and comparisons on the CPU).
 `fused_degrade_update` is the wrapper the sampling loop calls. For CPU
 tensors it runs the plain version; for CUDA tensors it launches the kernel
 or raises. It never falls back from one to the other.
+`fused_degrade_update_sharded` is its data-parallel form (one launch per
+rank on its rows, the seed folded with the rank: ops/shard.py), through
+which the sampling loop reaches it, with a 1-rank plan in one process.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Optional
 import torch
 
 from masked_diffusion_tpu_torch.ops import build
+from masked_diffusion_tpu_torch.ops.shard import data_parallel_kernel
 
 #: Largest H*W the kernel takes (256 * 256).
 MAX_HW = 256 * 256
@@ -234,3 +238,46 @@ def fused_degrade_update(
 
 #: kernel launches since the count was last set to 0 (the plain path adds none)
 fused_degrade_update.launches = 0
+
+
+def fused_degrade_update_sharded(
+    sample_t: torch.Tensor,
+    sample_0: torch.Tensor,
+    amount_t: torch.Tensor,
+    amount_next: torch.Tensor,
+    *,
+    plan,
+    batch: int,
+    select: str,
+    mean_mode: str,
+    mean_value: float = 0.0,
+    rule: str = "base_momentum",
+    seed: int = 0,
+    offset: int = 0,
+    bits: Optional[torch.Tensor] = None,
+):
+    """Data-parallel form of fused_degrade_update (JAX
+    fused_degrade_update_sharded, ops/pallas/fused_degrade.py:295): this
+    rank's rows of a global batch of `batch` images (sample_*, amount_* and
+    `bits` hold the rank's batch // N rows), one kernel launch with the
+    Philox seed folded with plan.rank (ops/shard.py). Returns the rank's
+    (new_sample_t, mask_next)."""
+
+    def fn(folded, xt, x0, amt, amn, bits_rows):
+        out = fused_degrade_update(
+            xt, x0, amt, amn, select=select, mean_mode=mean_mode, mean_value=mean_value,
+            rule=rule, seed=folded, offset=offset,
+            bits=None if bits_rows is None else bits_rows.transpose(0, 1),
+        )
+        if xt.device.type == "cuda":
+            fused_degrade_update_sharded.launches += 1
+        return out
+
+    # the harness slices batch-major arguments: bits travel as (b, 2, HW)
+    return data_parallel_kernel(fn, plan)(
+        batch, seed, sample_t, sample_0, amount_t, amount_next,
+        None if bits is None else bits.transpose(0, 1))
+
+
+#: kernel launches through the sharded form since the count was last set to 0
+fused_degrade_update_sharded.launches = 0

@@ -9,6 +9,9 @@ threshold scan of ops/fused_degrade.py:exact_k_degrade.
 
 `exact_count_masks` is the wrapper the training step's indexing mode calls.
 CPU tensors take the plain version; CUDA tensors launch the kernel or raise.
+`exact_count_masks_sharded` is its data-parallel form (one launch per rank
+on its rows, the generator folded with the rank: ops/shard.py), through
+which the train step reaches it, with a 1-rank plan in one process.
 Random bits are uint32 values carried in int64 tensors, as in
 ops/fused_degrade.py.
 """
@@ -26,6 +29,7 @@ from masked_diffusion_tpu_torch.ops.fused_degrade import (
     exact_k_degrade,
     uint32_to_int32,
 )
+from masked_diffusion_tpu_torch.ops.shard import data_parallel_kernel, fold_generator
 
 
 def exact_count_masks_plain(bits: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
@@ -111,3 +115,37 @@ def exact_count_masks(
 
 #: kernel launches since the count was last set to 0 (the plain path adds none)
 exact_count_masks.launches = 0
+
+
+def exact_count_masks_sharded(
+    batch: int,
+    height: int,
+    width: int,
+    counts: torch.Tensor,
+    *,
+    plan,
+    generator: Optional[torch.Generator] = None,
+    bits: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Data-parallel form of exact_count_masks (JAX
+    exact_count_masks_pallas_sharded, ops/pallas/kmask.py:122): `batch` is
+    the GLOBAL batch; counts (and `bits`) hold this rank's batch // N rows.
+    The single-device call on the rank's rows draws from `generator` folded
+    with plan.rank (ops/shard.py:fold_generator; rank 0 draws from it
+    as it is). Returns the rank's (batch // N, 1, H, W) masks."""
+
+    if bits is None and generator is None:
+        generator = torch.Generator()  # as the single-device call, then folded
+
+    def fn(gen, cnt, bits_rows):
+        masks = exact_count_masks(cnt.shape[0], height, width, cnt, generator=gen,
+                                  bits=bits_rows)
+        if cnt.device.type == "cuda":
+            exact_count_masks_sharded.launches += 1
+        return masks
+
+    return data_parallel_kernel(fn, plan, fold_generator)(batch, generator, counts, bits)
+
+
+#: kernel launches through the sharded form since the count was last set to 0
+exact_count_masks_sharded.launches = 0

@@ -1,0 +1,1 @@
+"""Data parallelism on torch.distributed (counterpart of masked_diffusion_tpu/parallel)."""

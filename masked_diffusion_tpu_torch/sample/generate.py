@@ -1,8 +1,14 @@
 """Standalone generation: model -> N images (the serving path).
 
-Counterpart of masked_diffusion_tpu/sample/generate.py:generate_images,
-without a mesh: one sampler reused across batches, latents from a CPU
-generator per batch, images written as PNG grids and per-image files.
+Counterpart of masked_diffusion_tpu/sample/generate.py:generate_images:
+one sampler reused across batches, latents from a CPU generator per batch,
+images written as PNG grids and per-image files.
+
+Data-parallel (a parallel/mesh.MeshPlan of N > 1 ranks, as JAX :54-66): the
+batch rounds up to a multiple of N; every rank draws the same global latents
+from the shared generator, samples its rows, and `fetch` (collective)
+gathers the batch on every rank; only rank 0 writes files. Throughput is
+global images per second.
 """
 
 from __future__ import annotations
@@ -15,10 +21,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from masked_diffusion_tpu_torch.utils.grids import normalize01, save_image_grid, save_png
 from masked_diffusion_tpu_torch.ops.schedule import MaskSchedule
+from masked_diffusion_tpu_torch.parallel.mesh import MeshPlan, local_rows, round_up
 from masked_diffusion_tpu_torch.sample.latent import latent_initial
 from masked_diffusion_tpu_torch.sample.loop import make_sample_fn
+from masked_diffusion_tpu_torch.utils import host
+from masked_diffusion_tpu_torch.utils.grids import normalize01, save_image_grid, save_png
 
 
 def generate_images(
@@ -29,9 +37,11 @@ def generate_images(
     *,
     device="cuda",
     out_dir: Optional[str] = None,
+    plan=None,
 ) -> dict:
     """Sample cfg.sample_num images in batches of at most cfg.batch_size
-    on `device`, seeded by cfg.seed.
+    (rounded up to a multiple of the plan's ranks) on `device`, seeded by
+    cfg.seed. Collective under a plan of more than one rank.
 
     Returns {"images": (N, H, W, C) float32 numpy array in model space,
     "images_per_sec", "ms_per_step", "batches", "steps"}. Throughput is
@@ -39,10 +49,12 @@ def generate_images(
     is left out.
     """
     num = int(cfg.sample_num)
-    batch = min(num, int(cfg.batch_size))
+    plan = plan or MeshPlan(device=torch.device(device))
+    batch = round_up(min(num, int(cfg.batch_size)), plan.data_size)
+    rows = local_rows(batch, plan)
     # the Tester's fixed curriculum slice (masked_diffusion_tpu/tester.py:62)
     used = schedule.timesteps_for_epoch(1, 10, cfg.scheduler_num_scale_timesteps)
-    sample_fn = make_sample_fn(model, schedule, cfg, used, device=device)
+    sample_fn = make_sample_fn(model, schedule, cfg, used, device=device, plan=plan)
 
     n_batches = int(math.ceil(num / batch))
     chunks = []
@@ -54,7 +66,7 @@ def generate_images(
             gen, batch, cfg.out_channel, cfg.data_size, cfg.sample_latent_shape,
             cfg.mean_area, dataset_hist, device=device,
         )
-        chunks.append(sample_fn(latent, gen).cpu().numpy())  # the copy syncs
+        chunks.append(host.fetch(sample_fn(latent[rows], gen)))  # the copy syncs
         if t_first is None:
             t_first = time.perf_counter() - t0
     elapsed = time.perf_counter() - t0
@@ -68,7 +80,7 @@ def generate_images(
         ips = num / max(seconds, 1e-9)
     ms_per_step = 1e3 * seconds / (timed_batches * len(used))
 
-    if out_dir is not None:
+    if out_dir is not None and host.is_main_process():
         for b, chunk in enumerate(chunks):
             real = chunk[: max(0, num - b * batch)]
             if len(real):

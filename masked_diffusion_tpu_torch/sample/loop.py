@@ -20,6 +20,13 @@ JAX package's layout. The loop makes no host sync: schedule amounts live on
 the device, the kernel's Philox seed and the shift generator's seed come
 from a CPU torch.Generator.
 
+Data-parallel (a parallel/mesh.MeshPlan; one rank when none is given): the
+latent holds this rank's rows of the global batch; the fused step goes
+through fused_degrade_update_sharded (the rank's rows, its Philox seed
+folded with the rank, as JAX loop.py:274-285; rank 0's seed is the one
+drawn) and the shift generator's seed is folded with the rank too, so
+local image i on two ranks draws differently.
+
 `draws=` is the one injection point: a callable step -> StepDraws giving the
 bits for t and t-1 and the shift draws of that step, so the tests and the
 smoke check can feed both sides the same random numbers.
@@ -35,8 +42,10 @@ import torch
 
 from masked_diffusion_tpu_torch.config import parse_mean_option, validate_sampling_modes
 from masked_diffusion_tpu_torch.ops import shift as shift_ops
-from masked_diffusion_tpu_torch.ops.fused_degrade import fused_degrade_update
+from masked_diffusion_tpu_torch.ops.fused_degrade import fused_degrade_update_sharded
 from masked_diffusion_tpu_torch.ops.schedule import MaskSchedule
+from masked_diffusion_tpu_torch.ops.shard import fold_seed
+from masked_diffusion_tpu_torch.parallel.mesh import MeshPlan
 
 
 @dataclasses.dataclass
@@ -89,6 +98,7 @@ def make_sample_fn(
     used_timesteps: np.ndarray,
     *,
     device="cuda",
+    plan=None,
 ) -> Callable:
     """Build sample(latent, generator=None, draws=None) -> sample_0.
 
@@ -98,9 +108,12 @@ def make_sample_fn(
     mixed_precision=bf16, else fp32) — module.to() acts in place.
     generator: a CPU torch.Generator for the kernel's and the shift's seeds
     (default: seeded with cfg.seed). draws: callable step -> StepDraws, step
-    the index into used_timesteps.
+    the index into used_timesteps. plan: a parallel/mesh.MeshPlan (default:
+    one rank); with more than one rank the latent (and the draws) hold this
+    rank's rows.
     """
     device = torch.device(device)
+    plan = plan or MeshPlan(device=device)
     mean_mode, mean_value = fused_mode(cfg)
     compute_dtype = torch.bfloat16 if cfg.weight_dtype == "bfloat16" else torch.float32
     model = model.to(device=device, dtype=compute_dtype).eval()
@@ -118,7 +131,7 @@ def make_sample_fn(
         if generator is None:
             generator = torch.Generator().manual_seed(int(cfg.seed))
         seeds = torch.randint(0, 2**62, (2,), generator=generator).tolist()
-        shift_gen = torch.Generator(device=device).manual_seed(seeds[1])
+        shift_gen = torch.Generator(device=device).manual_seed(fold_seed(seeds[1], plan.rank))
 
         sample_t = latent.to(device=device, dtype=torch.float32).permute(0, 3, 1, 2).contiguous()
         b = sample_t.shape[0]
@@ -147,10 +160,10 @@ def make_sample_fn(
                 out = model(shifted.to(compute_dtype), t_rows[i]).float()
                 sample_0 = shift_ops.perturb_shift_inverse(shifted + out, shift)
                 # --- degrade at t and t-1 + update rule, one kernel
-                new_sample_t, _ = fused_degrade_update(
-                    sample_t, sample_0, amt_rows[i], amn_rows[i],
-                    select=cfg.select_degrade_pixel, mean_mode=mean_mode,
-                    mean_value=mean_value, rule=cfg.momentum_adaptive,
+                new_sample_t, _ = fused_degrade_update_sharded(
+                    sample_t, sample_0, amt_rows[i], amn_rows[i], plan=plan,
+                    batch=b * plan.data_size, select=cfg.select_degrade_pixel,
+                    mean_mode=mean_mode, mean_value=mean_value, rule=cfg.momentum_adaptive,
                     seed=seeds[0], offset=n_steps - 1 - i, bits=bits,
                 )
                 if i > 0:  # the reference guards the state update on the last step

@@ -17,10 +17,11 @@ reference's get_optimizer / get_lr_scheduler (main_train_masked.py:134-165):
     gradient, computed on the device;
   - adam, adamw (weight decay 0.01 on every parameter, eps 1e-8) and plain
     sgd are torch.optim's, whose update equals optax's;
-  - gradient accumulation as MultiSteps: the running mean of k micro-step
-    gradients (optax's Welford update acc + (g - acc)/(n + 1)) goes through
-    clip + optimizer on the k-th micro step, and parameters stay put on the
-    others;
+  - gradient accumulation as MultiSteps: the k micro-step gradients sum
+    in .grad (under DistributedDataParallel's no_sync too), and on the k-th
+    micro step their mean, the sum over k, goes through clip + optimizer;
+    parameters stay put on the others. optax's Welford running mean
+    acc + (g - acc)/(n + 1) is the same mean up to rounding;
   - the LR is the schedule at the optimizer's update count from 0, as optax
     evaluates it, so it advances once per update.
 
@@ -84,11 +85,13 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Te
 class Optimizer:
     """clip + base optimizer + MultiSteps accumulation over `params`.
 
-    After backward, `update()` takes the parameters' .grad: it accumulates
-    them and, on every k-th call, clips the mean, sets the LR to
-    schedule(count) and steps the base optimizer. `count` is the number of
-    updates made (the LR schedule's step), `mini_step` the micro steps since
-    the last one."""
+    Before backward, `zero_grad()` clears .grad where a window starts, so
+    backward sums the micro steps' gradients there. After it, `update()`
+    on every k-th call divides the sum by k, clips it (.grad keeps the
+    clipped mean until the next window), sets the LR to schedule(count)
+    and steps the base optimizer. `count` is the number of updates made
+    (the LR schedule's step), `mini_step` the micro steps since the last
+    one."""
 
     def __init__(
         self,
@@ -105,26 +108,24 @@ class Optimizer:
         self.every_k = max(1, int(gradient_accumulation_steps))
         self.count = 0
         self.mini_step = 0
-        self._acc: Optional[List[torch.Tensor]] = None
 
     def zero_grad(self) -> None:
-        for p in self.params:
-            p.grad = None
+        """Clear .grad where an accumulation window starts (on every call
+        when k = 1); inside a window the micro steps' gradients sum there."""
+        if self.mini_step == 0:
+            for p in self.params:
+                p.grad = None
 
     @torch.no_grad()
     def update(self) -> bool:
         """Consume the micro step's gradients; True when parameters moved."""
+        self.mini_step += 1
+        if self.mini_step < self.every_k:
+            return False
         # a parameter the loss did not reach has a zero gradient, as in JAX
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         if self.every_k > 1:
-            if self._acc is None:
-                self._acc = [torch.zeros_like(g) for g in grads]
-            diff = torch._foreach_sub(grads, self._acc)
-            torch._foreach_add_(self._acc, diff, alpha=1.0 / (self.mini_step + 1))
-            self.mini_step += 1
-            if self.mini_step < self.every_k:
-                return False
-            grads = self._acc
+            torch._foreach_div_(grads, float(self.every_k))
         if self.grad_clip_norm is not None:
             clip_by_global_norm_(grads, self.grad_clip_norm)
         for p, g in zip(self.params, grads):
@@ -134,10 +135,7 @@ class Optimizer:
             group["lr"] = lr
         self.base.step()
         self.count += 1
-        if self._acc is not None:
-            self.mini_step = 0
-            self.zero_grad()  # the accumulator is the next round's zero
-            torch._foreach_zero_(self._acc)
+        self.mini_step = 0
         return True
 
 

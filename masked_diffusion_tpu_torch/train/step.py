@@ -14,15 +14,28 @@ or on. Per step:
 The step makes no host sync: the schedule's per-timestep tables live on the
 device, seeds come from a CPU torch.Generator, the LR and the counters are
 host numbers, and the metrics come back as 0-d device tensors for the
-trainer to fetch once per epoch.
+trainer to fetch once per epoch (under a plan, the rank's own: the trainer
+takes their mean over the ranks in that fetch).
 
 `draws=` is the one injection point: a TrainDraws giving the timestep
 indices, the mask draws and the shift draws of the step, so the tests and
 the smoke check can feed both packages the same random numbers.
+
+Data-parallel (a parallel/mesh.MeshPlan of N > 1 ranks, one process each):
+create_train_state wraps the model in DistributedDataParallel, whose
+construction broadcasts rank 0's parameters, and the EMA copy is made after
+it. The step takes this rank's rows of the global batch; injected draws are
+the global batch's and are sliced to the rank's rows. DDP averages the
+gradients over the ranks during backward (under gradient accumulation,
+no_sync on every micro step but the window's last), so the clip at 1.0 and
+the update see the global batch's gradient and every rank makes the same
+update; the EMA follows the unwrapped module. Masks go through the sharded kernel form (ops/degrade.py), and
+the caller's generator is the rank's own (train/trainer.py folds its seed).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 from typing import Callable, Dict, Optional
@@ -34,6 +47,7 @@ from masked_diffusion_tpu_torch.models.ema import ema_decay, ema_update
 from masked_diffusion_tpu_torch.ops import shift as shift_ops
 from masked_diffusion_tpu_torch.ops.degrade import degrade_training, device_generator
 from masked_diffusion_tpu_torch.ops.schedule import MaskSchedule
+from masked_diffusion_tpu_torch.parallel.mesh import local_rows
 from masked_diffusion_tpu_torch.train.optim import Optimizer
 
 
@@ -56,21 +70,34 @@ class TrainDraws:
 
 @dataclasses.dataclass
 class TrainState:
-    """The model, its EMA copy (None when EMA is off), the optimizer and
-    the micro-step counter (which drives the EMA warmup and the logged LR)."""
+    """The model, its EMA copy (None when EMA is off), the optimizer, the
+    micro-step counter (which drives the EMA warmup and the logged LR), and
+    the DistributedDataParallel wrapper of the model when data-parallel."""
 
     model: torch.nn.Module
     ema_model: Optional[torch.nn.Module]
     optimizer: Optimizer
     step: int = 0
+    ddp: Optional[torch.nn.Module] = None
 
 
 def create_train_state(model: torch.nn.Module, optimizer: Optimizer,
-                       use_ema: bool = True) -> TrainState:
+                       use_ema: bool = True, plan=None) -> TrainState:
+    """The state of a fresh run. With a plan of more than one rank the model
+    (already on the rank's device) is wrapped in DistributedDataParallel,
+    which gives every rank rank 0's parameters, before the EMA copy."""
+    ddp = None
+    if plan is not None and plan.data_size > 1:
+        from torch.nn.parallel import DistributedDataParallel
+
+        dev = next(model.parameters()).device
+        ddp = DistributedDataParallel(
+            model, device_ids=[dev] if dev.type == "cuda" else None,
+            find_unused_parameters=False)
     ema = None
     if use_ema:
         ema = copy.deepcopy(model).requires_grad_(False)
-    return TrainState(model=model, ema_model=ema, optimizer=optimizer)
+    return TrainState(model=model, ema_model=ema, optimizer=optimizer, ddp=ddp)
 
 
 def make_train_step(
@@ -81,16 +108,19 @@ def make_train_step(
     used_timesteps: np.ndarray,
     lr_schedule: Optional[Callable[[int], float]] = None,
     device="cuda",
+    plan=None,
 ) -> Callable:
     """Build step(state, batch, generator=None, draws=None) -> metrics.
 
-    batch: (B, H, W, C) NHWC images (the dataset's layout) on any device.
+    batch: (B, H, W, C) NHWC images (the dataset's layout) on any device;
+    with a plan of N > 1 ranks, this rank's B rows of the global batch.
     generator: a CPU torch.Generator for every seed of the step (default:
-    seeded with cfg.seed). draws: a TrainDraws, replacing every draw.
-    `model` and `optimizer` are those of the state the step is given; the
-    model, and at its first update the EMA copy, move to `device` (in
-    place)."""
+    seeded with cfg.seed). draws: a TrainDraws, replacing every draw (with a
+    plan, the global batch's). `model` and `optimizer` are those of the
+    state the step is given; the model, and at its first update the EMA
+    copy, move to `device` (in place)."""
     device = torch.device(device)
+    ranks = plan.data_size if plan is not None else 1
     model.to(device)
     used = torch.as_tensor(np.asarray(used_timesteps, dtype=np.int64), device=device)
     n_used = int(used.numel())
@@ -114,6 +144,10 @@ def make_train_step(
         if generator is None:
             generator = torch.Generator().manual_seed(int(cfg.seed))
         dev_gen = None
+        if draws is not None and ranks > 1:
+            rows = local_rows(b * ranks, plan)
+            draws = TrainDraws(**{k: None if v is None else v[rows]
+                                  for k, v in vars(draws).items()})
         if draws is None:
             dev_gen = device_generator(generator, device)
             timeindex = torch.randint(0, n_used, (b,), generator=dev_gen, device=device)
@@ -125,7 +159,7 @@ def make_train_step(
             img, amount_by_index[timeindex], cfg.select_degrade_pixel, cfg.degrade_channel,
             cfg.mean_option, cfg.mean_area, generator=generator,
             bits=None if draws is None else draws.bits,
-            uniforms=None if draws is None else draws.mask_uniform,
+            uniforms=None if draws is None else draws.mask_uniform, plan=plan,
         )
 
         # --- mean shift (trainer_masked_mean_shift.py:119-120)
@@ -142,18 +176,23 @@ def make_train_step(
             net_in = degraded + shift
 
         # --- UNet, residual reconstruction, fp32 loss
-        state.optimizer.zero_grad()
-        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
-            out = state.model(net_in, t_by_index[timeindex])
-        recon = net_in + out.float()
-        inv_recon = recon - shift if mean_shift else recon
-        per_px = (inv_recon - img) ** 2
-        if weight_table is not None:
-            # indexed by timeindex, the reference's quirk (step.py:169)
-            per_px = weight_table[timeindex][:, None, None, None] * per_px
-        loss = per_px.mean()
-        loss.backward()
-        state.optimizer.update()
+        opt = state.optimizer
+        opt.zero_grad()  # where a window starts; inside it the micro steps sum
+        net = state.ddp if state.ddp is not None else state.model
+        # DDP: only the accumulation window's last micro step all-reduces
+        window_open = state.ddp is not None and opt.mini_step + 1 < opt.every_k
+        with state.ddp.no_sync() if window_open else contextlib.nullcontext():
+            with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
+                out = net(net_in, t_by_index[timeindex])
+            recon = net_in + out.float()
+            inv_recon = recon - shift if mean_shift else recon
+            per_px = (inv_recon - img) ** 2
+            if weight_table is not None:
+                # indexed by timeindex, the reference's quirk (step.py:169)
+                per_px = weight_table[timeindex][:, None, None, None] * per_px
+            loss = per_px.mean()
+            loss.backward()
+        opt.update()
 
         # --- EMA, only on sync boundaries (trainer_masked.py:151-153)
         state.step += 1

@@ -1,18 +1,28 @@
 """Training orchestration: the host-side shell around the train step.
 
-Counterpart of masked_diffusion_tpu/train/trainer.py without a mesh: epoch
-loop, per-epoch timestep curriculum, metrics fetched once per epoch, the
+Counterpart of masked_diffusion_tpu/train/trainer.py: epoch loop,
+per-epoch timestep curriculum, metrics fetched once per epoch, the
 non-finite-loss guard, the metrics JSONL, and on the save cadence an EMA
 sample grid (the port's fused sampler) and a checkpoint in the export
 layout, checkpoint-epoch-N/{unet,unet_ema}/ with meta.json, which the
 port's `--method sample` serves.
 
   shuffle     np.random.default_rng([seed, epoch]), as trainer.py:477, so
-              batch membership equals the JAX trainer's
+              batch membership equals the JAX trainer's; the same on every
+              rank
   curriculum  schedule.timesteps_for_epoch(epoch, epoch_total, scale)
   data        the whole (subset) dataset on the device once; each epoch's
               index rows cross in one transfer, so a step makes no host sync
   seeds       a CPU torch.Generator per epoch, seeded from (seed, epoch)
+              and folded with the rank (ops/shard.py:fold_seed; rank 0
+              keeps the single-process stream)
+
+Data-parallel (a parallel/mesh.MeshPlan of N > 1 ranks, under torchrun):
+--batch_size is the global batch and rank r trains on rows
+[r*B/N, (r+1)*B/N) of each (train/step.py wraps the model in DDP); the
+logged metrics are the mean over the ranks, taken in the epoch's one fetch;
+the cadence samples the global (rounded-up) latent batch, each rank its rows,
+gathered to every rank; only rank 0 writes files, after a barrier.
 
 The model comes from models/factory.build_model_from_config: the default
 factory or a zoo name (--model unet1..unet6). Its attention takes the
@@ -21,7 +31,8 @@ tiny-head kernel wherever it applies; --tinyhead_attention false is refused.
 Not ported yet, and refused at construction when a flag asks for them:
 resume (--resume_from_checkpoint), --sampling base with EMA (its cadence
 captures trajectories), trajectory capture, interpolation sampling,
-multi-GPU meshes, profiling, checkpoint retention and async saves, and the
+tensor and spatial parallelism, profiling, checkpoint retention and async
+saves, and the
 JAX-only switches (--epoch_scan, --remat, --attention_chunk). Not written:
 optimizer state on disk, the loss PNG and the train-visual grids.
 """
@@ -42,10 +53,13 @@ from masked_diffusion_tpu_torch.data.datasets import InMemoryDataset
 from masked_diffusion_tpu_torch.io.weights import diffusers_config_from_unet, save_checkpoint
 from masked_diffusion_tpu_torch.models.factory import build_model_from_config
 from masked_diffusion_tpu_torch.ops.schedule import MaskSchedule, build_schedule
+from masked_diffusion_tpu_torch.ops.shard import fold_seed
+from masked_diffusion_tpu_torch.parallel.mesh import MeshPlan, local_rows, round_up
 from masked_diffusion_tpu_torch.sample.latent import latent_initial
 from masked_diffusion_tpu_torch.sample.loop import fused_mode, make_sample_fn
 from masked_diffusion_tpu_torch.train.optim import build_lr_schedule, build_optimizer
 from masked_diffusion_tpu_torch.train.step import create_train_state, make_train_step
+from masked_diffusion_tpu_torch.utils import host
 from masked_diffusion_tpu_torch.utils.grids import save_image_grid
 
 __all__ = ["Trainer", "build_model_from_config", "unported_options"]
@@ -62,8 +76,9 @@ def unported_options(cfg: Config) -> List[str]:
         asked.append("--capture_trajectory")
     if cfg.interpolation_shift is not None:
         asked.append("--interpolation_shift (interpolation sampling)")
-    if cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1 or cfg.mesh_spatial:
-        asked.append("--mesh_data/--mesh_model/--mesh_spatial (multi-GPU)")
+    if cfg.mesh_model != 1 or cfg.mesh_spatial:
+        asked.append("--mesh_model/--mesh_spatial (tensor/spatial parallelism over "
+                     "multi-GPU)")
     if cfg.profile_dir:
         asked.append("--profile_dir")
     if cfg.keep_last_checkpoints:
@@ -121,6 +136,7 @@ class Trainer:
         model: Optional[torch.nn.Module] = None,
         schedule: Optional[MaskSchedule] = None,
         device="cuda",
+        plan: Optional[MeshPlan] = None,
     ):
         asked = unported_options(cfg)
         if asked:
@@ -137,6 +153,8 @@ class Trainer:
         self.dataset_hist = dataset_hist
         self.visualizer = visualizer
         self.device = torch.device(device)
+        self.plan = plan or MeshPlan(device=self.device)
+        local_rows(cfg.batch_size, self.plan)  # the global batch divides the ranks
         self.schedule = schedule or build_schedule(
             cfg.ddpm_schedule, cfg.ddpm_num_steps, cfg.data_size,
             cfg.select_degrade_pixel, cfg.ddpm_schedule_base,
@@ -157,7 +175,8 @@ class Trainer:
         )
         optimizer = build_optimizer(cfg.optim, self.model.parameters(), self.lr_schedule,
                                     1.0, cfg.gradient_accumulation_steps)
-        self.state = create_train_state(self.model, optimizer, use_ema=cfg.use_ema)
+        self.state = create_train_state(self.model, optimizer, use_ema=cfg.use_ema,
+                                        plan=self.plan)
         self._step_cache: Dict[tuple, callable] = {}
         self._data_dev: Optional[torch.Tensor] = None
         self.loss_mean_epoch: List[float] = []
@@ -169,7 +188,7 @@ class Trainer:
         if key not in self._step_cache:
             self._step_cache[key] = make_train_step(
                 self.model, self.schedule, self.cfg, self.state.optimizer, used,
-                self.lr_schedule, self.device,
+                self.lr_schedule, self.device, self.plan,
             )
         return self._step_cache[key]
 
@@ -192,7 +211,8 @@ class Trainer:
         for epoch in range(epoch_start, epoch_start + epoch_length):
             t_start = time.perf_counter()
             rng = np.random.default_rng([cfg.seed, epoch])
-            gen = torch.Generator().manual_seed((cfg.seed + 1) * 1_000_003 + epoch)
+            gen = torch.Generator().manual_seed(
+                fold_seed((cfg.seed + 1) * 1_000_003 + epoch, self.plan.rank))
             used = self.schedule.timesteps_for_epoch(
                 epoch, epoch_total, cfg.scheduler_num_scale_timesteps
             )
@@ -202,14 +222,18 @@ class Trainer:
             rows = list(self.dataset.epoch_index_batches(rng, cfg.batch_size))
             losses = []
             if rows:
-                # one host->device transfer of the epoch's index rows
-                sel = torch.as_tensor(np.stack(rows), device=self.device)
+                # one host->device transfer of the epoch's index rows, this
+                # rank's columns of each global batch
+                sel = np.stack(rows)[:, local_rows(cfg.batch_size, self.plan)]
+                sel = torch.as_tensor(sel, device=self.device)
                 for i in range(len(rows)):
                     losses.append(step_fn(self.state, self._data_dev[sel[i]], gen))
                     self.global_step += 1
-                # host sync once per epoch, as ONE stacked transfer
+                # host sync once per epoch, as ONE stacked transfer of the
+                # steps' metrics, their mean over the ranks (one collective)
                 keys = list(losses[0].keys())
-                mat = torch.stack([torch.stack([m[k] for k in keys]) for m in losses]).cpu()
+                mat = torch.stack([torch.stack([m[k] for k in keys]) for m in losses])
+                mat = host.mean_over_ranks(mat).cpu()
                 losses = [{k: float(v) for k, v in zip(keys, row)} for row in mat.numpy()]
             epoch_time = time.perf_counter() - t_start
             timed.append((epoch_time, len(losses)))
@@ -269,6 +293,8 @@ class Trainer:
 
     # ------------------------------------------------------------------ artifacts
     def _save_checkpoint(self, dirs, epoch: int, extra_meta: Optional[dict] = None) -> str:
+        """Rank 0 writes the checkpoint after a barrier; every rank returns
+        its path once it is on disk."""
         ema = self.state.ema_model
         meta = {
             "epoch": int(epoch),
@@ -285,17 +311,23 @@ class Trainer:
             ema_config = {**config, "optimization_step": int(self.global_step),
                           **self._ckpt_meta.get("ema", {})}
         path = os.path.join(dirs.list_dir["checkpoint"], f"checkpoint-epoch-{epoch}")
-        return save_checkpoint(
-            path, _cpu_state_dict(self.model), config,
-            ema_sd=_cpu_state_dict(ema) if ema is not None else None,
-            ema_config=ema_config, meta=meta,
-        )
+        host.barrier()
+        if host.is_main_process():
+            save_checkpoint(
+                path, _cpu_state_dict(self.model), config,
+                ema_sd=_cpu_state_dict(ema) if ema is not None else None,
+                ema_config=ema_config, meta=meta,
+            )
+        host.barrier()
+        return path
 
     def sample_ema(self, generator: torch.Generator, sample_num: Optional[int] = None):
-        """sample_num images (N, H, W, C) on the device from the EMA weights
-        (the online weights when EMA is off), through the fused sampler. The
-        sampler casts its model to the compute dtype in place, so it gets a
-        copy."""
+        """sample_num images (N, H, W, C), a numpy array on every rank, from
+        the EMA weights (the online weights when EMA is off), through the
+        fused sampler. The latents are drawn over the global batch rounded
+        up to the ranks (JAX _cadence_latent); each rank samples its rows
+        and `fetch` gathers them (collective). The sampler casts its model
+        to the compute dtype in place, so it gets a copy."""
         cfg = self.cfg
         used = self.timesteps_used_epoch
         if used is None:
@@ -304,18 +336,21 @@ class Trainer:
             )
         source = self.state.ema_model if self.state.ema_model is not None else self.model
         sample_fn = make_sample_fn(copy.deepcopy(source), self.schedule, cfg, used,
-                                   device=self.device)
+                                   device=self.device, plan=self.plan)
+        num = sample_num or cfg.sample_num
+        padded = round_up(num, self.plan.data_size)
         latent = latent_initial(
-            generator, sample_num or cfg.sample_num, cfg.out_channel, cfg.data_size,
+            generator, padded, cfg.out_channel, cfg.data_size,
             cfg.sample_latent_shape, cfg.mean_area, self.dataset_hist, device=self.device,
         )
-        return sample_fn(latent, generator)
+        return host.fetch(sample_fn(latent[local_rows(padded, self.plan)], generator))[:num]
 
     def _save_ema_momentum_sample(self, dirs, epoch: int, visualizer=None) -> None:
         """EMA sampling + global/local grids (trainer_masked_mean_shift.py:
         409-429)."""
         sample = self.sample_ema(torch.Generator().manual_seed(self.cfg.seed + epoch))
-        sample = sample.cpu().numpy()
+        if not host.is_main_process():
+            return  # the sampling ended in a collective gather; writes are rank 0's
         d = dirs.list_dir["ema_sample_img"]
         g_global = save_image_grid(sample, "global", d, f"ema_sample_{epoch:05d}_global.png")
         g_local = save_image_grid(sample, "image", d, f"ema_sample_{epoch:05d}_local.png")

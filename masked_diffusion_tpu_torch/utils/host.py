@@ -1,0 +1,100 @@
+"""Multi-process write discipline on torch.distributed.
+
+Counterpart of masked_diffusion_tpu/utils/host.py (which is written on
+jax.distributed, so the port has its own). The reference gates every
+artifact write behind `accelerator.is_main_process`
+(trainer_masked_mean_shift.py:242); the port's policy:
+
+  * ONLY rank 0 writes files: run-directory trees, option.ini, metrics
+    JSONL, PNG grids, checkpoints;
+  * results computed on every rank's rows are brought to every rank with
+    `fetch`, which is COLLECTIVE: call it before any rank-0 gate, never
+    inside one;
+  * the run timestamp is rank 0's clock, broadcast (`synced_timestamp`), so
+    every rank agrees on the result-tree path.
+
+Without a process group every function is its single-process self.
+"""
+
+from __future__ import annotations
+
+import datetime
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def _live() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def process_index() -> int:
+    return dist.get_rank() if _live() else 0
+
+
+def process_count() -> int:
+    return dist.get_world_size() if _live() else 1
+
+
+def is_main_process() -> bool:
+    return process_index() == 0
+
+
+def barrier() -> None:
+    """Wait for every rank (a no-op for one process)."""
+    if process_count() > 1:
+        dist.barrier()
+
+
+def _comm_device() -> torch.device:
+    """Where collective tensors live: the rank's card under NCCL, else the CPU."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def mean_over_ranks(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise mean of x over the ranks, on x's device (collective
+    when multi-process)."""
+    n = process_count()
+    if n <= 1:
+        return x
+    y = x.detach().to(_comm_device(), copy=True)
+    dist.all_reduce(y)  # SUM: gloo has no AVG
+    return (y / n).to(x.device)
+
+
+def fetch(x: torch.Tensor) -> np.ndarray:
+    """Every rank's rows of a batch-major tensor, concatenated in rank order,
+    as numpy on every rank. Shards may differ in length: each is padded to
+    the longest for one all_gather of equal tensors, then trimmed.
+    COLLECTIVE when multi-process."""
+    if process_count() <= 1:
+        return x.detach().cpu().numpy()
+    dev = _comm_device()
+    n = process_count()
+    rows = torch.tensor([x.shape[0]], dtype=torch.int64, device=dev)
+    sizes = [torch.empty_like(rows) for _ in range(n)]
+    dist.all_gather(sizes, rows)
+    sizes = [int(s.item()) for s in sizes]
+    longest = max(sizes)
+    local = x.detach().to(dev).contiguous()
+    if local.shape[0] < longest:
+        pad = local.new_zeros((longest - local.shape[0],) + tuple(local.shape[1:]))
+        local = torch.cat([local, pad])
+    parts = [torch.empty_like(local) for _ in range(n)]
+    dist.all_gather(parts, local)
+    return torch.cat([p[:s] for p, s in zip(parts, sizes)]).cpu().numpy()
+
+
+def synced_timestamp() -> Tuple[str, str]:
+    """(date, time) strings agreed across ranks: rank 0's wall clock,
+    broadcast when more than one process is live."""
+    now = datetime.datetime.now()
+    if process_count() > 1:
+        stamp = torch.tensor([int(now.timestamp())], dtype=torch.int64, device=_comm_device())
+        dist.broadcast(stamp, src=0)
+        now = datetime.datetime.fromtimestamp(int(stamp.item()))
+    return now.strftime("%Y_%m_%d"), now.strftime("%H_%M_%S")

@@ -5,8 +5,10 @@ neither triton nor nvcc (only a kernel launch needs them).
 Two checks: a subprocess (conftest.py imports jax into this process) that
 imports every module of the port and runs the CLI's main for --method
 mean_shift and --method sample on the CPU at toy size (the default model and
-the zoo's unet1), then inspects sys.modules; and an AST scan of every .py of
-the port and of chip_smoke.py for an import of masked_diffusion_tpu."""
+the zoo's unet1), then inspects sys.modules, and has each of two ranks under
+torch.distributed.run (gloo) train and serve data-parallel and inspect its
+own; and an AST scan of every .py of the port and of chip_smoke.py for an
+import of masked_diffusion_tpu."""
 
 import ast
 import glob
@@ -64,6 +66,42 @@ with tempfile.TemporaryDirectory() as work:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "flax", "triton", "masked_diffusion_tpu"))
 assert not bad, bad
+
+# each rank of a 2-rank run (torch.distributed.run, gloo) trains and serves
+# data-parallel, then inspects its own sys.modules
+RANK = '''
+import contextlib, glob, io, json, sys
+sys.path.insert(0, sys.argv[1])
+from masked_diffusion_tpu_torch.cli.main_train_masked import main
+args = json.loads(sys.argv[3])
+with contextlib.redirect_stdout(io.StringIO()):
+    main(["--method", "mean_shift", "--mesh_data", "2"] + args)
+    (ckpt,) = glob.glob(sys.argv[2] + "/**/checkpoint-epoch-*", recursive=True)
+    main(["--method", "sample", "--mesh_data", "2", "--test_model_path", ckpt] + args)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "flax", "triton", "masked_diffusion_tpu"))
+assert not bad, bad
+print("RANK CLEAN", flush=True)
+'''
+import os, signal, subprocess
+with tempfile.TemporaryDirectory() as work:
+    script = os.path.join(work, "rank.py")
+    with open(script, "w") as f:
+        f.write(RANK)
+    two = args[:-1] + [work, "--batch_size", "4", "--sample_num", "3"]
+    # the launcher and its ranks in a session of their own, killed as a whole on timeout
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+         script, os.getcwd(), work, json.dumps(two)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=200)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    assert proc.returncode == 0, out[-3000:] + err[-3000:]
+    assert out.count("RANK CLEAN") == 2, out
 print("IMPORTED", len(names))
 """
 

@@ -63,8 +63,9 @@ def test_optimizer_matches_optax(name, law, accum):
     for i, g in enumerate(grads):
         jparams, jstate = jstep(jparams, jstate, [jnp.asarray(x) for x in g])
         opt.zero_grad()
-        for p, x in zip(params, g):
-            p.grad = torch.from_numpy(x.copy())
+        for p, x in zip(params, g):  # as backward does, the micro steps sum in .grad
+            x = torch.from_numpy(x.copy())
+            p.grad = x if p.grad is None else p.grad + x
         moved = opt.update()
         assert moved == ((i + 1) % accum == 0)
         for p, ref in zip(params, jparams):
