@@ -10,9 +10,15 @@ sampling slice against the plain CPU path, and serves images through the
 port's CLI at the flagship width. Every phase raises on failure. Phases:
 
   1. environment: card name and power limit, torch/CUDA versions, SM count
-     and maximum SM clock (the exp2 rate of the bounds), build time
+     and maximum SM clock (the exp2 and integer rates of the bounds), the
+     instructions of one Philox draw in the compiled code, build time
   2. fused degrade kernel vs its plain version, explicit bits (64x64x3,
-     batch 64); then its Philox path's exact counts and kept share
+     batch 64); then its Philox path's exact counts and kept share; then
+     every branch of the exact-k launch plan (EXACT_K_SHAPES and every
+     cluster size at 64x64): explicit bits and the Philox route, against the
+     plain version fed the plain Philox's bits at the same seed and offset,
+     masks bitwise; plans the kernel must refuse; each plan's resident
+     clusters
   3. GroupNorm(+SiLU) kernel vs its plain version at every (C, H, W) the
      flagship UNet normalises, fp32 and bf16, with both times; then at
      shapes that reach every branch of the launch plan (each cluster size,
@@ -27,7 +33,7 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
   6. exact-k mask kernel vs its plain version, explicit bits (64x64 at
      batch 64 with k = 0, HW-1, HW and tied top bits; 128x128 at batch 8):
      masks bitwise equal; then its Philox path's exact counts and per-pixel
-     frequency, and its time
+     frequency, and its time; then every plan branch as in phase 2
   7. GroupNorm(+SiLU) as training runs it, at the training batch (64): the
      forward with grad through the autograd Function and its backward
      kernel vs the plain forward and autograd through the plain version, at
@@ -56,9 +62,11 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      Function (one launch of each) vs autograd through the plain version;
      times beside the plain versions', SDPA's forward and backward, the
      plain recompute's and the bounds; the backward's peak extra memory
- 12. kernels 1 and 3 above 128x128 (keys in device memory) at 256x256 and
-     160x160, batch 8: bitwise masks with explicit bits, the Philox route's
-     exact k, determinism and per-pixel frequency; times at 256x256
+ 12. kernels 1 and 3 above 128x128 (keys in registers, 8 or 16 CTAs an
+     image) at 256x256 and 160x160, batch 8: bitwise masks with explicit
+     bits, the Philox route's exact k, determinism and per-pixel frequency;
+     times at 256x256; the plan branches at those sizes and 256x256 at
+     batch 1 as in phase 2
  13. GroupNorm(+SiLU) forward with grad and backward at unet6@256x256's
      norm shapes, batch 8
  14. slice parity on the CelebA-HQ topology (--num_attention 5): every
@@ -74,7 +82,8 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      forward, 5 backward launches per train step
  18. data-parallel: the sharded kernel forms (fused degrade, exact-k) at N =
      2 and 4 ranks, flagship shape, both select modes, each rank bitwise the
-     single-device kernel on its rows with the folded seed, exact counts,
+     single-device kernel on its rows with the folded seed and the plain
+     version on the plain Philox's draws at that seed, exact counts,
      ranks' masks distinct; timed at a 2-rank shard beside the plain
      versions. Then 2 ranks under torch.distributed.run (this script with
      `--rank <dir>`; nccl on two cards, else gloo with both on cuda:0): a
@@ -89,9 +98,13 @@ Phases 11 and 12 run first (the newest kernels fail fast); phases 5, 10,
 kernels' `launches` are counted over those runs (phase 18's summed over its
 ranks), with every count set to 0 just before each. `bound_ms` is the least
 time the card could take for the same work: the larger of the bytes moved
-over 3.35 TB/s and the operations over 67 TFLOP/s (fp32 outside the tensor
-cores; integer operations counted at the same rate), from each run's
-shapes. For the tiny-head kernels the products count at the dense bf16
+over 3.35 TB/s, the fp32 operations over 67 TFLOP/s (outside the tensor
+cores) and the 32-bit integer operations at 64 a clock per SM times the SM
+count times the card's maximum SM clock, from each run's shapes. For the
+exact-k kernels the integer work is what any implementation must do: the
+Philox draws (two a pixel for kernel 1, one for kernel 3) at
+PHILOX_INT_OPS instructions each, read from the compiled code, and one
+compare per key and selection. For the tiny-head kernels the products count at the dense bf16
 tensor-core rate of 989 TFLOP/s (fp32: 67 TFLOP/s), the softmax's other ~4
 operations a score at 67 TFLOP/s, and one exp2 a score (forward; the least
 the backward needs) at 16 a clock per SM times the SM count times the
@@ -157,7 +170,16 @@ KMASK_Z = 5.0  # per-pixel |z| bound over 4096 pixels: a 4-sigma bound fails by
 # the same chance of a false alarm (~0.25%) over the 65536 pixels of a 256x256
 # image: 65536 * P(|z| > 5.5) = 0.0025
 KMASK_Z_LARGE = 5.5
-LARGE_SIZES = (256, 160)  # above 128x128: keys in device memory; 160x160 is no power of 2
+# unet6's 256x256 (16 CTAs an image at batch 8) and 160x160, no power of 2
+LARGE_SIZES = (256, 160)
+# (batch, height, width) of the exact-k kernels' plan branches
+# (ops/fused_degrade.py:exact_k_plan): on 132 SMs 64x64 takes 4 CTAs an
+# image at batch 1 and 16, 2 at batch 32 and 1 at batch 64; the ragged 45x45
+# and 5x7 take single pixels, 1 CTA; LARGE_SIZES at batch 8 take 8 and
+# 256x256 at batch 1 16
+EXACT_K_SHAPES = ((1, 64, 64), (16, 64, 64), (32, 64, 64), (64, 64, 64), (1, 45, 45),
+                  (1, 5, 7))
+EXACT_K_LARGE_SHAPES = tuple((8, n, n) for n in LARGE_SIZES) + ((1, 256, 256),)
 # tinyhead forward and backward kernels vs their plain versions in fp32 on the
 # same inputs (bf16 ones widened exactly). fp32, (atol, rtol): the kernels'
 # online base-2 softmax and sums over S keys in another order, a few fp32 ulps.
@@ -191,6 +213,19 @@ TINYHEAD_SHAPES = (  # (B, heads, S, D) where the main paths run the kernel
 TINYHEAD_RAGGED = ((2, 4, 200, 8), (2, 4, 384, 8), (2, 4, 256, 4), (2, 4, 200, 4))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+# 32-bit integer multiply, add, logic and compare on the CUDA cores: 64 a
+# clock per SM on compute capability 9.0 (CUDA C++ Programming Guide,
+# arithmetic instruction throughput); phase 1 sets the rate from the card's
+# SM count and its maximum SM clock
+INT_OPS_PER_CLOCK_PER_SM = 64
+INT_OPS_PER_S = None
+# instructions of one Philox4x32-10 draw (its first word) as the exact-k
+# kernels compile it for sm_90a: the SASS of a probe kernel that draws once
+# less its draw-free twin's, read with cuobjdump -sass by
+# masked_diffusion_tpu_torch/tools/philox_sass.py (phase 1 logs it again)
+PHILOX_INT_OPS = 42  # 50 SASS instructions less the 8 UIADD3 of the key
+# schedule, which run once a warp on the uniform datapath (19 IMAD, 15 LOP3,
+# 6 IADD3, 2 VIADD; CUDA 12 nvcc -O3, NVIDIA H100 80GB HBM3)
 BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 # exp2 on the special-function units: 16 a clock per SM on compute capability
 # 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput); phase 1
@@ -239,11 +274,188 @@ def cuda_ms(fn, reps: int = 20, iters: int = 10):
     return device, _event_ms(fn, reps * iters)
 
 
-def bound(nbytes: float, ops: float):
-    """(least ms for the work, "bytes" or "operations")."""
+def bound(nbytes: float, ops: float, int_ops: float = 0.0):
+    """(least ms for the work, "bytes" or "operations"): the larger of the
+    bytes over the memory rate, fp32 operations over the fp32 rate and
+    32-bit integer operations over the integer rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = max(ops / FP32_OPS_PER_S, int_ops / INT_OPS_PER_S if int_ops else 0.0) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fused_bound(b: int, c: int, hw: int):
+    """Bound of one fused degrade call (base_momentum, degraded_area): x_t
+    and x0 read, out and the mask written, two amounts read; two Philox draws
+    and one compare per pixel and mask (integer); ~6 fp32 operations per
+    element for the means, fills and update."""
+    return bound(4 * (3 * b * c * hw + b * hw + 2 * b), 6 * b * c * hw,
+                 b * hw * 2 * (PHILOX_INT_OPS + 1))
+
+
+def kmask_bound(b: int, hw: int):
+    """Bound of one exact-k mask call: the mask written and the counts read;
+    one Philox draw and one compare per pixel (integer)."""
+    return bound(4 * b * hw + 4 * b, 0, b * hw * (PHILOX_INT_OPS + 1))
+
+
+def _exact_k_cases(rng, b: int, hw: int, ties: bool = True):
+    """Draws and amounts for one exact-k check: (2, b, hw) uint32 draws (tied
+    top bits in some images), counts per mask with k = 0, HW, 1 and HW - 1
+    among them, ratios with 0 and 1 among them."""
+    import numpy as np
+
+    bits = rng.integers(0, 2**32, size=(2, b, hw), dtype=np.uint64).astype(np.int64)
+    if ties and b > 2:
+        bits[:, 1:3] &= 0xE0000000  # 8 values of top bits: heavy ties
+    counts = rng.integers(0, hw + 1, size=(2, b))
+    for i, k in enumerate((0, hw, 1, hw - 1)[:b]):
+        counts[:, i] = k
+    ratios = rng.uniform(0, 1, size=(2, b)).astype(np.float32)
+    ratios[:, 0] = 0.0
+    if b > 1:
+        ratios[:, 1] = 1.0
+    return bits, counts, ratios
+
+
+def fused_branch_check(rng, b: int, h: int, w: int, launch_plan=None, c: int = 3) -> float:
+    """Kernel 1 at one shape and plan: with explicit bits (ties, k = 0, 1,
+    HW - 1, HW) and on the Philox route, both selections, both rules and
+    means, against fused_rows on the same bits (the route's bits from the
+    plain Philox at the same seed and offset): masks bitwise equal, outputs
+    within FUSED_TOL, exact counts. Returns the worst |out - plain|."""
+    import numpy as np
+    import torch
+
+    from masked_diffusion_tpu_torch.ops.fused_degrade import (
+        fused_degrade_update,
+        fused_rows,
+        philox_fused_bits,
+    )
+
+    dev = torch.device("cuda")
+    hw = h * w
+    bits_np, counts, ratios = _exact_k_cases(rng, b, hw)
+    bits = torch.from_numpy(bits_np).to(dev)
+    xt = torch.from_numpy(rng.normal(size=(b, c, h, w)).astype(np.float32)).to(dev)
+    x0 = torch.from_numpy(rng.normal(size=(b, c, h, w)).astype(np.float32)).to(dev)
+    seed, offset = int(rng.integers(0, 2**62)), int(rng.integers(0, 2**40))
+    route = philox_fused_bits(seed, offset, b, hw, dev)
+    worst = 0.0
+    for select, amounts in (("thresholding", ratios), ("indexing", counts.astype(np.float32))):
+        amt = torch.from_numpy(amounts).to(dev)
+        for rule, mean_mode, mean_value in (("base_momentum", "degraded_area", 0.0),
+                                            ("base_sampling", "const", 0.25)):
+            kw = dict(select=select, mean_mode=mean_mode, mean_value=mean_value, rule=rule)
+            for name, given, ref_bits in (("bits", bits, bits), ("Philox", None, route)):
+                out, mask = fused_degrade_update(
+                    xt, x0, amt[0], amt[1], bits=given, seed=seed, offset=offset,
+                    launch_plan=launch_plan, **kw)
+                ref_out, ref_mask = fused_rows(
+                    ref_bits[0], ref_bits[1], xt.reshape(b, -1), x0.reshape(b, -1),
+                    amt[0][:, None], amt[1][:, None], channels=c, **kw)
+                torch.cuda.synchronize()
+                where = f"fused_degrade {b}x{h}x{w} plan {launch_plan} {name} {kw}"
+                if not torch.equal(mask.reshape(b, hw), ref_mask):
+                    raise AssertionError(f"{where}: masks differ from the plain version")
+                err = (out.reshape(b, -1) - ref_out).abs().max().item()
+                worst = max(worst, err)
+                if not err <= FUSED_TOL:
+                    raise AssertionError(f"{where}: max |out - plain| {err} > {FUSED_TOL}")
+                if select == "indexing" and not torch.equal(
+                        (1.0 - mask).reshape(b, hw).sum(1), amt[1]):
+                    raise AssertionError(f"{where}: degraded counts != k")
+    return worst
+
+
+def kmask_branch_check(rng, b: int, h: int, w: int, launch_plan=None) -> None:
+    """Kernel 3 at one shape and plan: with explicit bits (ties, k = 0, 1,
+    HW - 1, HW) and on the Philox route against exact_count_masks_plain on
+    the same bits (the route's from the plain Philox at the generator's seed
+    and offset): masks bitwise equal, exact counts."""
+    import torch
+
+    from masked_diffusion_tpu_torch.ops.fused_degrade import philox_kmask_bits
+    from masked_diffusion_tpu_torch.ops.kmask import (
+        exact_count_masks,
+        exact_count_masks_plain,
+        philox_seed,
+    )
+
+    dev = torch.device("cuda")
+    hw = h * w
+    bits_np, counts_np, _ = _exact_k_cases(rng, b, hw)
+    bits = torch.from_numpy(bits_np[0]).to(dev)
+    counts = torch.from_numpy(counts_np[0].astype("int32")).to(dev)
+    gen_seed = int(rng.integers(0, 2**62))
+    seed, offset = philox_seed(torch.Generator().manual_seed(gen_seed))
+    for name, kw, ref_bits in (
+            ("bits", dict(bits=bits), bits),
+            ("Philox", dict(generator=torch.Generator().manual_seed(gen_seed)),
+             philox_kmask_bits(seed, offset, b, hw, dev))):
+        mask = exact_count_masks(b, h, w, counts, launch_plan=launch_plan, **kw)
+        ref = exact_count_masks_plain(ref_bits, counts).reshape(mask.shape)
+        torch.cuda.synchronize()
+        where = f"kmask {b}x{h}x{w} plan {launch_plan} {name}"
+        if not torch.equal(mask, ref):
+            raise AssertionError(f"{where}: masks differ from the plain version")
+        if not torch.equal((1.0 - mask).reshape(b, hw).sum(1).long(), counts.long()):
+            raise AssertionError(f"{where}: zero counts != counts")
+
+
+def exact_k_branches(kind: str, shapes, tag: str, seed: int):
+    """fused_branch_check or kmask_branch_check at each shape on the plan the
+    wrapper takes there, then at 64x64 batch 4 on every cluster size's plan
+    (the ones this card's SM count does not pick included). Logs each plan
+    and, for each plan, how many of its clusters the card holds at once.
+    Returns (the plans the wrapper took, the worst |out - plain|)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from masked_diffusion_tpu_torch.ops import build
+    from masked_diffusion_tpu_torch.ops import fused_degrade as fd
+
+    rng = np.random.default_rng(seed)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    check = fused_branch_check if kind == "fused" else kmask_branch_check
+    taken, worst, lines = set(), 0.0, []
+    runs = [(b, h, w, None) for b, h, w in shapes]
+    runs += [(4, 64, 64, fd.exact_k_plan_at(64 * 64, cs, True)) for cs in fd.EXACT_K_CLUSTER_SIZES]
+    for b, h, w, forced in runs:
+        plan = forced or fd.exact_k_plan(b, h * w, sms)
+        if forced is None:
+            taken.add(plan)
+        worst = max(worst, check(rng, b, h, w, forced) or 0.0)
+        lines.append(f"{b}x{h}x{w} {'forced' if forced else 'plan'} cs={plan.cs} "
+                     f"threads={plan.threads} per_thread={plan.per_thread} vec={plan.vec}")
+    log(f"[{tag}] {kind}: explicit bits and the Philox route against the plain version on "
+        f"the plain Philox's bits, bitwise masks and exact counts at: " + "; ".join(lines))
+    lib = build.load_library()
+    query = lib.mdt_fused_degrade_max_clusters if kind == "fused" else lib.mdt_kmask_max_clusters
+    for plan in sorted({p for *_, p in runs if p} | taken):
+        n = ctypes.c_int(0)
+        build.check(lib, query(*plan, ctypes.byref(n)), "max clusters")
+        log(f"[{tag}] cudaOccupancyMaxActiveClusters: {kind} cs={plan.cs} threads="
+            f"{plan.threads} per_thread={plan.per_thread} vec={plan.vec}: {n.value} at once")
+    return taken, worst
+
+
+def check_plan_coverage(kind: str, taken) -> None:
+    """On a 132-SM card the branch shapes' plans reach every cluster size and
+    both the vector and the ragged path (elsewhere the forced plans of
+    exact_k_branches ran every cluster size)."""
+    import torch
+
+    from masked_diffusion_tpu_torch.ops.fused_degrade import EXACT_K_CLUSTER_SIZES
+
+    reached = ({p.cs for p in taken}, {p.vec for p in taken})
+    log(f"[2/6/12] {kind}: the branch shapes took cluster sizes {sorted(reached[0])}, "
+        f"vector path {sorted(reached[1])}")
+    if torch.cuda.get_device_properties(0).multi_processor_count == 132 and reached != (
+            set(EXACT_K_CLUSTER_SIZES), {False, True}):
+        raise AssertionError(f"{kind}: the branch shapes reached {reached}, not every branch "
+                             "of exact_k_plan")
 
 
 def attention_terms(b: int, h: int, s: int, d: int, bf16: bool) -> dict:
@@ -306,15 +518,21 @@ def phase_env():
     log(smi)
     log(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
-    global EXP_PER_S
+    global EXP_PER_S, INT_OPS_PER_S
     clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     EXP_PER_S = EXP_PER_CLOCK_PER_SM * sms * float(clock.split()[0]) * 1e6
+    INT_OPS_PER_S = INT_OPS_PER_CLOCK_PER_SM * sms * float(clock.split()[0]) * 1e6
     log(f"[1] {sms} SMs, max SM clock {clock}: {EXP_PER_S:.4g} exp2 a second "
-        f"({EXP_PER_CLOCK_PER_SM} a clock per SM)")
+        f"({EXP_PER_CLOCK_PER_SM} a clock per SM), {INT_OPS_PER_S:.4g} integer operations "
+        f"a second ({INT_OPS_PER_CLOCK_PER_SM} a clock per SM)")
+    sass = subprocess.run([sys.executable, "-m", "masked_diffusion_tpu_torch.tools.philox_sass"],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT)
+    log(f"[1] one Philox draw: {PHILOX_INT_OPS} instructions in the bounds; the compiled "
+        f"code now: {sass.stdout.strip() or sass.stderr.strip()[-300:]}")
     t0 = time.perf_counter()
     build.load_library()
     log(f"[1] csrc/*.cu built and loaded in {time.perf_counter() - t0:.2f} s "
@@ -329,7 +547,12 @@ def phase_fused():
     import numpy as np
     import torch
 
-    from masked_diffusion_tpu_torch.ops.fused_degrade import fused_degrade_update, fused_rows
+    from masked_diffusion_tpu_torch.ops.fused_degrade import (
+        ExactKPlan,
+        exact_k_plan_ok,
+        fused_degrade_update,
+        fused_rows,
+    )
 
     dev = torch.device("cuda")
     b, c, hw = B_KERNEL, 3, SIZE * SIZE
@@ -406,15 +629,30 @@ def phase_fused():
         times[select] = (k_dev, p_dev)
         log(f"[2] time {select} {b}x{SIZE}x{SIZE}x{c}: kernel {k_dev:.4f} ms device "
             f"({k_eager:.4f} eager), plain {p_dev:.4f} ms device ({p_eager:.4f} eager)")
-    # indexing with Philox bits: x_t, x0 read, out and the mask written, two
-    # amounts; two Philox draws (~120 operations each) and two 32-pass scans
-    # per pixel, ~6 operations per element for the means, fills and update
-    nbytes = 4 * (3 * b * c * hw + b * hw + 2 * b)
-    ops = b * hw * (2 * 120 + 2 * 32 * 2) + 6 * b * c * hw
-    bnd = bound(nbytes, ops)
-    log(f"[2] bound indexing {b}x{SIZE}x{SIZE}x{c}: {bnd[0]:.5f} ms by {bnd[1]} "
-        f"({nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} M operations)")
-    return worst, times, bnd
+    bnd = fused_bound(b, c, hw)
+    log(f"[2] bound {b}x{SIZE}x{SIZE}x{c}: {bnd[0]:.5f} ms by {bnd[1]} "
+        f"({4 * (3 * b * c * hw + b * hw + 2 * b) / 1e6:.2f} MB; "
+        f"{b * hw * 2 * (PHILOX_INT_OPS + 1) / 1e6:.1f} M integer operations)")
+
+    # every branch of the launch plan, and plans the kernel refuses
+    taken, branch_err = exact_k_branches("fused", EXACT_K_SHAPES, "2", 20)
+    worst = max(worst, branch_err)
+    ragged = torch.zeros((1, c, 5, 7), device=dev)
+    refused = ((ExactKPlan(3, 256, 4, True), xt, k),  # a cluster of 3
+               (ExactKPlan(2, 256, 4, True), xt, k),  # threads short of the slice
+               (ExactKPlan(1, 512, 4, True), ragged, torch.full((1,), 3.0, device=dev)))
+    for bad, x, kk in refused:
+        if exact_k_plan_ok(bad, x.shape[0], x.shape[2] * x.shape[3]):
+            raise AssertionError(f"exact_k_plan_ok takes {bad}")
+        try:
+            fused_degrade_update(x, x, kk, kk, select="indexing", mean_mode="degraded_area",
+                                 launch_plan=bad)
+        except RuntimeError:
+            continue
+        raise AssertionError(f"fused_degrade launched the plan {bad}, which it must refuse")
+    log("[2] refused plans (cluster of 3; threads short of the slice; float4 groups on a "
+        "ragged 5x7): each raised, as exact_k_plan_ok says")
+    return worst, times, bnd, taken
 
 
 def norm_shapes(batch: int, name: str = "default", size: int = SIZE, tag: str = "[3]"):
@@ -577,12 +815,11 @@ def phase_kmask():
         exact_count_masks_plain(bb, counts)
 
     pms, peager = cuda_ms(plain)
-    # mask written, counts read; per pixel one Philox draw (~120 operations),
-    # 32 passes of a compare and an add, the key and the store (~8)
-    bnd = bound(4 * b * hw + 4 * b, b * hw * (120 + 32 * 2 + 8))
+    bnd = kmask_bound(b, hw)
     log(f"[6] time {b}x{SIZE}x{SIZE}: kernel {kms:.4f} ms device ({keager:.4f} eager), "
         f"plain {pms:.4f} ms device ({peager:.4f} eager), bound {bnd[0]:.5f} ms by {bnd[1]}")
-    return worst, kms, pms, bnd
+    taken, _ = exact_k_branches("kmask", EXACT_K_SHAPES, "6", 60)
+    return worst, kms, pms, bnd, taken
 
 
 def gn_backward_checks(xd, scale, bias, gd, groups: int, silu: bool, where: str) -> None:
@@ -1667,9 +1904,11 @@ def phase_tinyhead():
 
 
 def phase_exact_k_large():
-    """Kernels 1 and 3 above 128x128 (keys in device memory): explicit bits
-    against the plain versions, bitwise masks; the Philox route's exact k,
-    determinism and, at 256x256, per-pixel frequency; times at 256x256."""
+    """Kernels 1 and 3 above 128x128 (keys in registers across a cluster of
+    8 or 16 CTAs an image): explicit bits against the plain versions,
+    bitwise masks; the Philox route's exact k, determinism and, at 256x256,
+    per-pixel frequency; times at 256x256; then the Philox route against
+    the plain versions on the plain Philox's bits at EXACT_K_LARGE_SHAPES."""
     import numpy as np
     import torch
 
@@ -1784,11 +2023,10 @@ def phase_exact_k_large():
 
     for what, kernel, plain, bnd in (
         ("kmask", lambda: exact_count_masks(b, size, size, counts_t, generator=kgen),
-         kmask_plain, bound(4 * b * hw + 4 * b, b * hw * (120 + 32 * 2 + 8))),
+         kmask_plain, kmask_bound(b, hw)),
         ("fused_degrade", lambda: fused_degrade_update(
             x0, x0, a, a, seed=5, offset=1, select="indexing", mean_mode="degraded_area"),
-         fused_plain, bound(4 * (3 * b * c * hw + b * hw + 2 * b),
-                            b * hw * (2 * 120 + 2 * 32 * 2) + 6 * b * c * hw)),
+         fused_plain, fused_bound(b, c, hw)),
     ):
         kms, _ = cuda_ms(kernel)
         pms, _ = cuda_ms(plain, 5, 4)
@@ -1796,7 +2034,9 @@ def phase_exact_k_large():
         log(f"[12] time {what} {b}x{size}x{size}" + (f"x{c}" if what == "fused_degrade" else "")
             + f" (Philox, indexing): kernel {kms:.4f} ms, plain {pms:.4f} ms, bound "
             f"{bnd[0]:.5f} ms by {bnd[1]}")
-    return worst_fused, worst_kmask, times
+    fused_taken, err = exact_k_branches("fused", EXACT_K_LARGE_SHAPES, "12", 120)
+    kmask_taken, _ = exact_k_branches("kmask", EXACT_K_LARGE_SHAPES, "12", 121)
+    return max(worst_fused, err), worst_kmask, times, fused_taken, kmask_taken
 
 
 def phase_zoo():
@@ -1977,11 +2217,14 @@ def phase_sharded():
         fused_degrade_update,
         fused_degrade_update_sharded,
         fused_rows,
+        philox_fused_bits,
+        philox_kmask_bits,
     )
     from masked_diffusion_tpu_torch.ops.kmask import (
         exact_count_masks,
         exact_count_masks_plain,
         exact_count_masks_sharded,
+        philox_seed,
     )
     from masked_diffusion_tpu_torch.ops.shard import fold_seed
     from masked_diffusion_tpu_torch.parallel.mesh import MeshPlan
@@ -2011,6 +2254,16 @@ def phase_sharded():
                 if not (torch.equal(out, ref) and torch.equal(mask, ref_mask)):
                     raise AssertionError(f"[18] fused sharded {select} N={n} rank {r}: not "
                                          "bitwise the per-rank kernel call on the folded seed")
+                route = philox_fused_bits(fold_seed(4242, r), 5, per, hw, dev)
+                plain_out, plain_mask = fused_rows(
+                    route[0], route[1], xt[rows].reshape(per, -1), x0[rows].reshape(per, -1),
+                    amt[0, rows][:, None], amt[1, rows][:, None], channels=c,
+                    select=select, mean_mode="degraded_area", mean_value=0.0,
+                    rule="base_momentum")
+                if not torch.equal(mask.reshape(per, hw), plain_mask) or not (
+                        (out.reshape(per, -1) - plain_out).abs().max().item() <= FUSED_TOL):
+                    raise AssertionError(f"[18] fused sharded {select} N={n} rank {r}: not the "
+                                         "plain version on the plain Philox's folded draws")
                 if select == "indexing" and not torch.equal(
                         (1.0 - mask).reshape(per, hw).sum(1), amt[1, rows]):
                     raise AssertionError(f"[18] fused sharded N={n} rank {r}: counts != k")
@@ -2026,12 +2279,18 @@ def phase_sharded():
             got = exact_count_masks_sharded(b, SIZE, SIZE, cnt[rows], plan=MeshPlan(dev, n, r),
                                             generator=torch.Generator().manual_seed(8))
             # rank 0 draws from the shared generator, rank r from the folded one
-            ref_gen = torch.Generator().manual_seed(8 if r == 0 else fold_seed(seed0, r))
-            ref = exact_count_masks(per, SIZE, SIZE, cnt[rows], generator=ref_gen)
+            gen_seed = 8 if r == 0 else fold_seed(seed0, r)
+            route = philox_kmask_bits(*philox_seed(torch.Generator().manual_seed(gen_seed)),
+                                      per, hw, dev)
+            ref = exact_count_masks(per, SIZE, SIZE, cnt[rows],
+                                    generator=torch.Generator().manual_seed(gen_seed))
             torch.cuda.synchronize()
             if not torch.equal(got, ref):
                 raise AssertionError(f"[18] kmask sharded N={n} rank {r}: not bitwise the "
                                      "per-rank kernel call on the folded seed")
+            if not torch.equal(got, exact_count_masks_plain(route, cnt[rows]).reshape(got.shape)):
+                raise AssertionError(f"[18] kmask sharded N={n} rank {r}: not the plain "
+                                     "version on the plain Philox's folded draws")
             if not torch.equal((1.0 - got).reshape(per, hw).sum(1).int(), cnt[rows]):
                 raise AssertionError(f"[18] kmask sharded N={n} rank {r}: counts != k")
             masks.append(got)
@@ -2040,8 +2299,8 @@ def phase_sharded():
                                  "the same mask")
     log(f"[18] sharded forms at N = 2 and 4, global batch {b} at {SIZE}x{SIZE}x{c}, "
         "thresholding and indexing: every rank bitwise the single-device kernel on its rows "
-        "with the folded seed; exact counts per shard; local image 0 of ranks 0 and 1 "
-        "masked differently")
+        "with the folded seed, and the plain version on the plain Philox's draws at that "
+        "seed; exact counts per shard; local image 0 of ranks 0 and 1 masked differently")
 
     # a 2-rank shard: against the plain version on injected bits, then timed
     per, plan = b // DDP_RANKS, MeshPlan(dev, DDP_RANKS, 1)
@@ -2084,9 +2343,7 @@ def phase_sharded():
     (f_ms, f_eager), (fp_ms, _) = cuda_ms(fused), cuda_ms(fused_plain)
     (k_ms, k_eager), (kp_ms, _) = cuda_ms(kmask), cuda_ms(kmask_plain)
     # the shard's work, counted as phases 2 and 6 count the whole batch's
-    f_bound = bound(4 * (3 * per * c * hw + per * hw + 2 * per),
-                    per * hw * (2 * 120 + 2 * 32 * 2) + 6 * per * c * hw)
-    k_bound = bound(4 * per * hw + 4 * per, per * hw * (120 + 32 * 2 + 8))
+    f_bound, k_bound = fused_bound(per, c, hw), kmask_bound(per, hw)
     log(f"[18] per-rank shard of {per} rows at {SIZE}x{SIZE}: fused_degrade_update_sharded "
         f"(indexing) {f_ms:.4f} ms device ({f_eager:.4f} eager), plain {fp_ms:.4f} ms, bound "
         f"{f_bound[0]:.5f} ms by {f_bound[1]}, max |out - plain| {fused_err:.3g}; "
@@ -2424,13 +2681,15 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     smi = phase_env()
     tinyhead_err, tinyhead_bwd_err, tinyhead_times, tinyhead_bwd_times, _ = phase_tinyhead()
-    phase_exact_k_large()
-    fused_err, fused_times, fused_bound = phase_fused()
+    large = phase_exact_k_large()
+    fused_err, fused_times, fused_bnd, fused_taken = phase_fused()
+    check_plan_coverage("fused", fused_taken | large[3])
     calls = norm_shapes(16)
     gn = phase_groupnorm(calls, 16)
     phase_slice()
     phase_slice("[14]", 5, (("log", "indexing", 16, 4),))
     kmask = phase_kmask()
+    check_plan_coverage("kmask", kmask[4] | large[4])
     gn_bwd, _ = phase_groupnorm_train(calls, B_KERNEL)
     phase_groupnorm_branches()
     phase_groupnorm_train(norm_shapes(8, "unet6", 256, "[13]"), 8, "[13]", timed=False)
@@ -2479,7 +2738,7 @@ def main() -> int:
                      "masked_diffusion_tpu_torch/csrc/fused_degrade.cu",
                      "masked_diffusion_tpu/ops/pallas/fused_degrade.py:209",
                      launches("fused_degrade_update"), fused_err, fused_times["indexing"][0],
-                     fused_times["indexing"][1], fused_bound, None),
+                     fused_times["indexing"][1], fused_bnd, None),
         kernel_entry("group_norm_silu", "cuda", "masked_diffusion_tpu_torch/csrc/groupnorm.cu",
                      "masked_diffusion_tpu/ops/pallas/groupnorm.py:158",
                      launches("group_norm_silu"), gn[0], gn[1], gn[2], gn[4], gn[3]),

@@ -53,6 +53,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "cluster_launch.cuh"
+
 namespace cgrp = cooperative_groups;
 
 namespace {
@@ -61,7 +63,7 @@ constexpr int kGroup = 8;       // elements per load group: 16 bytes of bf16, 32
 constexpr int kWarpSpans = 8;   // spans per CTA on the warp path, at most
 constexpr int kParamLoads = 32; // loads in flight per thread summing dgamma, dbeta
 constexpr int kMaxThreads = 512;
-constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
+using mdt::kMaxSmem;
 
 struct GnArgs {
   int batch, channels, hw, groups, cg, n;  // n = cg * hw, one span
@@ -801,35 +803,11 @@ int round16(long long bytes) { return static_cast<int>((bytes + 15) / 16 * 16); 
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// The kernel instance for (dtype, path), and its attributes set once.
-template <typename K>
-cudaError_t prepare(K kernel, bool cluster) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kMaxSmem);
-  if (err == cudaSuccess && cluster) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  }
-  return err;
-}
-
+// Every instance launches through the shared cluster helper, allowed the
+// full shared memory of a block.
 template <auto Kernel, typename... Args>
 cudaError_t launch(int grid, int threads, int smem, int ctas, cudaStream_t st, Args... args) {
-  static const cudaError_t prepared = prepare(Kernel, true);  // once per kernel instance
-  if (prepared != cudaSuccess) return prepared;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ctas;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = ctas > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, Kernel, args...);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return mdt::launch_cluster<Kernel, kMaxSmem>(grid, threads, smem, ctas, st, args...);
 }
 
 // Fills the geometry of a and checks the host's plan against it; returns
@@ -1024,17 +1002,6 @@ extern "C" int mdt_group_norm_bwd(const void* x, const void* g, const void* scal
 // scheduled on this card.
 extern "C" int mdt_group_norm_max_clusters(int backward, int dtype, int ctas, int threads,
                                            int smem, int* out) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ctas;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
   const void* fn;
   if (dtype == 0) {
     fn = backward ? reinterpret_cast<const void*>(gn_bwd_block_kernel<float>)
@@ -1046,11 +1013,5 @@ extern "C" int mdt_group_norm_max_clusters(int backward, int dtype, int ctas, in
     fn = backward ? reinterpret_cast<const void*>(gn_bwd_block_kernel<__half>)
                   : reinterpret_cast<const void*>(gn_fwd_block_kernel<__half>);
   }
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kMaxSmem);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  }
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(out, fn, &cfg);
-  return static_cast<int>(err);
+  return static_cast<int>(mdt::max_active_clusters(fn, kMaxSmem, ctas, threads, smem, out));
 }

@@ -61,16 +61,19 @@ def library_path() -> str:
     return os.path.join(KERNEL_DIR, f"libmdt_kernels_{h.hexdigest()[:16]}.so")
 
 
-def _declare(lib: ctypes.CDLL) -> None:
+def declare_exact_k(lib: ctypes.CDLL) -> None:
+    """argtypes of the exact-k kernels' entry points (csrc/fused_degrade.cu,
+    csrc/kmask.cu) and of mdt_error_string."""
     vp, i32, u64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_float
+    plan = [i32, i32, i32, i32]  # exact-k plan: cs, threads, per_thread, vec
     fn = lib.mdt_fused_degrade
     fn.argtypes = [
         vp, vp, vp, vp, vp,      # xt, x0, amount_t, amount_next, bits (nullable)
         u64, u64,                # philox seed, offset
         vp, vp,                  # out, mask_next
-        vp,                      # key scratch above 128x128 (nullable)
         i32, i32, i32,           # batch, channels, hw
         i32, i32, f32, i32,      # select, mean_mode, mean_value, rule
+        *plan,
         vp,                      # cudaStream_t
     ]
     fn.restype = i32
@@ -79,11 +82,21 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp,                  # counts (int32), bits (nullable)
         u64, u64,                # philox seed, offset
         vp,                      # out
-        vp,                      # key scratch above 128x128 (nullable)
         i32, i32,                # batch, hw
+        *plan,
         vp,                      # cudaStream_t
     ]
     fn.restype = i32
+    for fn in (lib.mdt_fused_degrade_max_clusters, lib.mdt_kmask_max_clusters):
+        fn.argtypes = [*plan, ctypes.POINTER(i32)]
+        fn.restype = i32
+    lib.mdt_error_string.argtypes = [i32]
+    lib.mdt_error_string.restype = ctypes.c_char_p
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    declare_exact_k(lib)
     fn = lib.mdt_tinyhead_attention
     fn.argtypes = [
         vp, vp, vp, vp,          # q, k, v, out
@@ -130,8 +143,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.mdt_group_norm_max_clusters
     fn.argtypes = [i32, i32, i32, i32, i32, ctypes.POINTER(i32)]
     fn.restype = i32
-    lib.mdt_error_string.argtypes = [i32]
-    lib.mdt_error_string.restype = ctypes.c_char_p
 
 
 def _compile_and_link(path: str) -> str:

@@ -2,10 +2,13 @@
 
 Counterpart of masked_diffusion_tpu/ops/pallas/kmask.py:
 exact_count_masks_pallas. The kernel is csrc/kmask.cu (its header says what
-it computes, how it differs from the TPU kernel on ties, and what bounds it).
-The plain version is the same law in tensor ops: composite keys (each draw's
-low ceil(log2 HW) bits replaced by the pixel index), then the MSB-first
-threshold scan of ops/fused_degrade.py:exact_k_degrade.
+it computes, how it differs from the TPU kernel on ties, and what bounds
+it): a cluster of CTAs per image, keys in registers at every H*W up to
+256 * 256, and the radix select of csrc/exact_k.cuh, launched on the plan
+of ops/fused_degrade.py:exact_k_plan. The plain version is the same law in
+tensor ops: composite keys (each draw's low ceil(log2 HW) bits replaced by
+the pixel index), then the radix select of
+ops/fused_degrade.py:exact_k_degrade.
 
 `exact_count_masks` is the wrapper the training step's indexing mode calls.
 CPU tensors take the plain version; CUDA tensors launch the kernel or raise.
@@ -13,7 +16,8 @@ CPU tensors take the plain version; CUDA tensors launch the kernel or raise.
 on its rows, the generator folded with the rank: ops/shard.py), through
 which the train step reaches it, with a 1-rank plan in one process.
 Random bits are uint32 values carried in int64 tensors, as in
-ops/fused_degrade.py.
+ops/fused_degrade.py; the card's draws are
+ops/fused_degrade.py:philox_kmask_bits at `philox_seed(generator)`.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import torch
 from masked_diffusion_tpu_torch.ops import build
 from masked_diffusion_tpu_torch.ops.fused_degrade import (
     MAX_HW,
-    REGISTER_HW,
+    ExactKPlan,
+    device_plan,
     exact_k_degrade,
     uint32_to_int32,
 )
@@ -39,6 +44,13 @@ def exact_count_masks_plain(bits: torch.Tensor, counts: torch.Tensor) -> torch.T
     (B, HW): 0 on the counts[i] pixels with the smallest composite keys."""
     degrade = exact_k_degrade(bits, counts.to(torch.int64)[:, None])
     return (~degrade).to(torch.float32)
+
+
+def philox_seed(generator: torch.Generator):
+    """The (seed, offset) of the kernel's Philox draws: two draws of the
+    CPU generator."""
+    seed, offset = torch.randint(0, 2**62, (2,), generator=generator).tolist()
+    return seed, offset
 
 
 def _check(batch, height, width, counts, bits):
@@ -71,14 +83,17 @@ def exact_count_masks(
     *,
     generator: Optional[torch.Generator] = None,
     bits: Optional[torch.Tensor] = None,
+    launch_plan: Optional[ExactKPlan] = None,
 ) -> torch.Tensor:
     """(B, 1, H, W) float32 keep-masks on counts' device with exactly
     counts[i] zeros, placed uniformly at random.
 
     counts: int32 (B,). Draws come from `bits` (int64 (B, H*W) uint32 values)
-    when given; otherwise from Philox on the card at a (seed, offset) drawn
-    from `generator` (a CPU torch.Generator; a fresh unseeded one when None),
-    or, for CPU tensors, from torch.randint on that generator."""
+    when given; otherwise from Philox on the card at philox_seed(generator)
+    (a CPU torch.Generator; a fresh unseeded one when None), or, for CPU
+    tensors, from torch.randint on that generator. The kernel runs
+    `launch_plan`, by default exact_k_plan for the batch on counts' card; a
+    plan the kernel refuses raises."""
     _check(batch, height, width, counts, bits)
     hw = height * width
     if bits is None and generator is None:
@@ -93,20 +108,18 @@ def exact_count_masks(
 
     seed = offset = 0
     if bits is None:
-        seed, offset = torch.randint(0, 2**62, (2,), generator=generator).tolist()
+        seed, offset = philox_seed(generator)
     lib = build.load_library()
     cnt = counts.contiguous()
     bits32 = uint32_to_int32(bits).contiguous() if bits is not None else None
     out = torch.empty((batch, 1, height, width), dtype=torch.float32, device=cnt.device)
-    keys = None
-    if hw > REGISTER_HW and bits is None:
-        keys = torch.empty((batch, hw), dtype=torch.int32, device=cnt.device)
+    if launch_plan is None:
+        launch_plan = device_plan(batch, hw, cnt.device, out)
     with torch.cuda.device(cnt.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.mdt_kmask(
             cnt.data_ptr(), bits32.data_ptr() if bits32 is not None else None,
-            seed, offset, out.data_ptr(), keys.data_ptr() if keys is not None else None,
-            batch, hw, stream,
+            seed, offset, out.data_ptr(), batch, hw, *launch_plan, stream,
         )
     build.check(lib, code, "exact_count_masks")
     exact_count_masks.launches += 1
