@@ -92,11 +92,36 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      flags and --mesh_data 2 (8 steps) and served; the dist line, per-rank
      launches (one sharded exact-k a train step, one sharded fused a reverse
      step), bitwise-equal ranks and global_step 8 checked
+ 19. the reverse loop's plain branch (the modes the fused kernel does not
+     cover) at the flagship's width, 64x64, batch 2, 10 steps, fp32 with
+     TF32 off: CUDA vs the CPU path on the same draws within SLICE_TOL in
+     SAMPLING_MODES (independent+momentum+thresholding 3-channel
+     channel-wise; dependent_prev+boosting+indexing non_degraded_area;
+     dependent_t+base_sampling+thresholding; independent+base_momentum+
+     indexing with trajectory capture, its 11 fields and 4 means), each
+     under set_sync_debug_mode("error") with the exact-k kernel launched 2,
+     1 or 0 times a step; the captured mode again on the kernel's own
+     Philox draws (every captured mask at t and t-1 degrades exactly the
+     schedule's count); kernel 3's time at batch 2 and a bf16 flagship
+     reverse step at batch 16, fused, plain and plain captured
+ 20. the flagship through the CLI with the default sampling flags (no
+     --sampling, no --use_ema: --sampling base with EMA), phase 10's flags
+     otherwise: the cadence's EMA grids, 11 x 4 trajectory PNGs, the train
+     visuals and finite trajectory means; kernel 3 launched once a train
+     step, once for the visuals pass and twice a reverse step of the
+     captured cadence, whose ms a reverse step is logged beside phase 10's
+     fused cadence; then the checkpoint served with dependent_prev +
+     momentum (two requests of 16 images)
 
-Phases 11 and 12 run first (the newest kernels fail fast); phases 5, 10,
-16, 17 and 18, the main-path runs, come last, in one work directory. The
-kernels' `launches` are counted over those runs (phase 18's summed over its
-ranks), with every count set to 0 just before each. `bound_ms` is the least
+Phases 11 and 12 run first (the newest kernels fail fast), phase 19 after
+the slice phases; phases 5, 10, 20, 16, 17 and 18, the main-path runs, come
+last, in one work directory. The kernels' `launches` are counted over those
+runs (phase 18's summed over its ranks), with every count set to 0 just
+before each. Run phase 19 alone with `python3 -c "import chip_smoke as c;
+c.phase_env(); c.phase_sampling_modes()"`, phases 10 and 20 with `python3
+-c "import tempfile, chip_smoke as c; c.phase_env(); d =
+tempfile.mkdtemp(dir='build'); c.phase_default_cli(d,
+c.phase_train_cli(d)[1])"`. `bound_ms` is the least
 time the card could take for the same work: the larger of the bytes moved
 over 3.35 TB/s, the fp32 operations over 67 TFLOP/s (outside the tensor
 cores) and the 32-bit integer operations at 64 a clock per SM times the SM
@@ -1615,8 +1640,9 @@ def phase_train_cli(workdir: str):
 
     argv, common = flagship_cli_args(workdir)
     buf = io.StringIO()
+    cadence = {}
     reset_counts()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), _timed_cadence(cadence):
         rc = main(argv)
     train_counts = read_counts()
     sys.stdout.write(buf.getvalue())
@@ -1639,9 +1665,10 @@ def phase_train_cli(workdir: str):
     grids = os.listdir(os.path.join(run, "train", "image", "ema_sample_img"))
     if meta["global_step"] != 8 or "ema_sample_00001_global.png" not in grids:
         raise AssertionError(f"train CLI: meta {meta}, grids {grids}")
-    # one process reaches the kernels through their sharded forms on one rank
+    # one process reaches the kernels through their sharded forms on one rank;
+    # one exact-k launch a train step and one for the cadence's visuals pass
     off = ("tinyhead_attention", "tinyhead_attention_backward")
-    if (train_counts["exact_count_masks"] != 8 or any(train_counts[k] for k in off)
+    if (train_counts["exact_count_masks"] != 8 + 1 or any(train_counts[k] for k in off)
             or not all(n for k, n in train_counts.items() if k not in off)
             or not same_through_sharded(train_counts)):
         raise AssertionError(f"train CLI: launches {train_counts}")
@@ -1649,7 +1676,9 @@ def phase_train_cli(workdir: str):
         f"{[round(v, 5) for v in stats['loss_mean_epoch']]}, {stats['ms_per_step']:.3f} "
         f"ms/step and {stats['images_per_sec']:.2f} images/s (epoch 1) on {stats['device']}; "
         f"checkpoint {os.path.basename(ckpt)} with unet/, unet_ema/, meta.json; EMA grids "
-        f"{sorted(grids)}; launches {train_counts}")
+        f"{sorted(grids)}; launches {train_counts}; the fused cadence: {cadence['steps']} "
+        f"reverse steps of 16 images in {cadence['seconds']:.2f} s, "
+        f"{1e3 * cadence['seconds'] / cadence['steps']:.3f} ms a reverse step")
 
     buf = io.StringIO()
     reset_counts()
@@ -1668,7 +1697,8 @@ def phase_train_cli(workdir: str):
     log(f"[10] served the trained checkpoint (EMA weights): {served['images']} images, "
         f"{served['steps']} steps, {served['ms_per_step']:.3f} ms/step; launches {serve_counts}")
     perf = {"train_ms": stats["ms_per_step"], "train_ips": stats["images_per_sec"],
-            "serve_ms": served["ms_per_step"], "serve_ips": served["images_per_sec"]}
+            "serve_ms": served["ms_per_step"], "serve_ips": served["images_per_sec"],
+            "cadence_ms": 1e3 * cadence["seconds"] / cadence["steps"]}
     return {k: train_counts[k] + serve_counts[k] for k in train_counts}, perf
 
 
@@ -2117,10 +2147,11 @@ def phase_cli_pair(tag: str, what: str, common, train_extra, per_forward: int, e
                    steps_per_epoch: int):
     """Train through the CLI (--method mean_shift), then serve the checkpoint
     it wrote (--method sample, EMA weights). Checks the counts: one kmask
-    launch per indexing train step, one fused launch per reverse step,
-    `per_forward` tinyhead launches per UNet forward (one per train step and
-    per reverse step) and `per_forward` tinyhead backward launches per train
-    step, none in serving. Returns the launches of both runs."""
+    launch per indexing train step and one for the cadence's visuals pass,
+    one fused launch per reverse step, `per_forward` tinyhead launches per
+    UNet forward (one per train step, the visuals pass and each reverse
+    step) and `per_forward` tinyhead backward launches per train step, none
+    in serving. Returns the launches of both runs."""
     import numpy as np
 
     rc, stats, train = _run_cli(["--method", "mean_shift", "--num_epochs", str(epochs),
@@ -2129,8 +2160,10 @@ def phase_cli_pair(tag: str, what: str, common, train_extra, per_forward: int, e
     if rc != 0 or stats["global_step"] != steps or not np.isfinite(stats["loss_mean_epoch"]).all():
         raise AssertionError(f"{what} train CLI: rc {rc}, stats {stats}")
     (ckpt,) = stats["checkpoints"]
-    want = {"exact_count_masks": steps,
-            "tinyhead_attention": per_forward * (steps + train["fused_degrade_update"]),
+    # one save cadence (the last epoch): its visuals pass is one more exact-k
+    # launch and one more UNet forward
+    want = {"exact_count_masks": steps + 1,
+            "tinyhead_attention": per_forward * (steps + 1 + train["fused_degrade_update"]),
             "tinyhead_attention_backward": per_forward * steps}
     if (any(train[k] != n for k, n in want.items()) or not train["fused_degrade_update"]
             or not same_through_sharded(train)):
@@ -2195,6 +2228,335 @@ def phase_unet6_cli(workdir: str):
              "--lr_warmup_steps", "0", "--use_ema", "True", "--sampling", "momentum",
              "--save_images_epochs", "2"]
     return phase_cli_pair("[17]", "unet6 256x256", common, train, 5, 2, 2)
+
+
+# [19] the plain branch's modes: (what, schedule, selection, flags, capture)
+SAMPLING_MODES = (
+    ("independent+momentum+thresholding, 3-channel, channel-wise degraded_area", "linear",
+     "thresholding", ["--sampling_mask_dependency", "independent", "--momentum_adaptive",
+                      "momentum", "--degrade_channel", "3-channel", "--mean_option",
+                      "degraded_area", "--mean_area", "channel-wise"], False),
+    ("dependent_prev+boosting+indexing, non_degraded_area", "log", "indexing",
+     ["--sampling_mask_dependency", "dependent_prev", "--momentum_adaptive", "boosting",
+      "--mean_option", "non_degraded_area"], False),
+    ("dependent_t+base_sampling+thresholding", "linear", "thresholding",
+     ["--sampling_mask_dependency", "dependent_t", "--momentum_adaptive", "base_sampling",
+      "--mean_option", "degraded_area"], False),
+    ("independent+base_momentum+indexing, captured", "log", "indexing",
+     ["--sampling_mask_dependency", "independent", "--momentum_adaptive", "base_momentum",
+      "--mean_option", "degraded_area"], True),
+)
+SAMPLING_TIMED_BATCH = 16
+SAMPLING_TIMED_STEPS = 50
+
+
+def kmask_per_step(cfg) -> int:
+    """Exact-k launches a plain-branch reverse step makes: one for each mask
+    drawn by index (t and t-1 when independent, t-1 when dependent_prev)."""
+    if cfg.select_degrade_pixel != "indexing":
+        return 0
+    return 2 if cfg.sampling_mask_dependency == "independent" else 1
+
+
+def _close(a, b) -> bool:
+    import torch
+
+    return bool(torch.isfinite(a).all()) and torch.allclose(a, b, atol=SLICE_TOL, rtol=SLICE_TOL)
+
+
+def phase_sampling_modes(steps: int = 10):
+    """[19] The reverse loop's plain branch at the flagship's width, 64x64,
+    batch 2, `steps` reverse steps, fp32 with TF32 off: CUDA (the exact-k
+    kernel for indexing masks) against the CPU path (its plain version) on
+    the same injected draws, within SLICE_TOL, for SAMPLING_MODES; the
+    captured mode compares all 11 fields and the 4 means. Each CUDA run is
+    under set_sync_debug_mode("error") and launches kernel 3 (through its
+    sharded form) kmask_per_step times a step, kernel 1 never. Then the
+    captured mode on the kernel's own Philox draws: every captured mask at t
+    and t-1 degrades exactly the schedule's count. Then times, bf16: kernel
+    3 at batch 2, and a flagship reverse step at batch SAMPLING_TIMED_BATCH
+    on the fused branch, the plain one and the plain one captured."""
+    import numpy as np
+    import torch
+
+    from masked_diffusion_tpu_torch.cli.main_train_masked import parse
+    from masked_diffusion_tpu_torch.models.factory import build_unet
+    from masked_diffusion_tpu_torch.ops.kmask import exact_count_masks, exact_count_masks_plain
+    from masked_diffusion_tpu_torch.ops.schedule import build_schedule
+    from masked_diffusion_tpu_torch.ops.shift import draw_shapes
+    from masked_diffusion_tpu_torch.sample.latent import latent_initial
+    from masked_diffusion_tpu_torch.sample.loop import (
+        TRAJECTORY_FIELDS,
+        TRAJECTORY_MEANS,
+        StepDraws,
+        make_sample_fn,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch, hw = 2, SIZE * SIZE
+    ref_model = _flagship_weights(19)
+    latent = latent_initial(torch.Generator().manual_seed(3), batch, 3, SIZE, "uniform",
+                            device="cpu")
+
+    def mode_cfg(sched, select, flags, t_steps=steps, *extra):
+        cfg, _ = parse(["--method", "sample", "--data_size", str(SIZE), "--ddpm_schedule", sched,
+                        "--ddpm_num_steps", str(t_steps), "--select_degrade_pixel", select,
+                        "--shift_type", "1-d_constant", *flags, *extra])
+        return cfg, build_schedule(sched, t_steps, SIZE, select)
+
+    def run(cfg, schedule, used, dev, capture, lat, **kw):
+        """fn(lat) on `dev` (sync debug "error" on CUDA); returns (out,
+        kernel launches of the run)."""
+        model = build_unet()
+        model.load_state_dict(ref_model.state_dict())
+        fn = make_sample_fn(model, schedule, cfg, used, device=dev, capture_trajectory=capture,
+                            capture_items=batch)
+        lat = lat.to(dev)
+        reset_counts()
+        if dev == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn(lat, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return out, read_counts()
+
+    for what, sched, select, flags, capture in SAMPLING_MODES:
+        cfg, schedule = mode_cfg(sched, select, flags, steps, "--mixed_precision", "no")
+        used = schedule.timesteps_for_epoch(1, 10, 1)[-steps:]
+        channels = 3 if cfg.degrade_channel == "3-channel" else 1
+        rng = np.random.default_rng(19)
+        u_shape, _ = draw_shapes(cfg.shift_type, (batch, 3, SIZE, SIZE))
+        cpu_draws = [StepDraws(
+            bits=torch.from_numpy(rng.integers(0, 2**32, size=(2, batch, hw),
+                                               dtype=np.uint64).astype(np.int64)),
+            mask_uniform=torch.from_numpy(
+                rng.uniform(size=(2, batch, channels, SIZE, SIZE)).astype(np.float32)),
+            uniform=torch.from_numpy(rng.uniform(-1, 1, size=u_shape).astype(np.float32)),
+        ) for _ in used]
+        cuda_draws = [StepDraws(**{k: None if v is None else v.cuda()
+                                   for k, v in vars(d).items()}) for d in cpu_draws]
+        outs = {}
+        for dev, draws in (("cuda", cuda_draws), ("cpu", cpu_draws)):
+            t0 = time.perf_counter()
+            outs[dev], counts = run(cfg, schedule, used, dev, capture, latent,
+                                    draws=lambda i, d=draws: d[i])
+            want = kmask_per_step(cfg) * len(used) if dev == "cuda" else 0
+            if (counts["exact_count_masks"] != want
+                    or counts["exact_count_masks_sharded"] != want
+                    or counts["fused_degrade_update"] or counts["fused_degrade_update_sharded"]):
+                raise AssertionError(f"[19] {what} on {dev}: launches {counts}, expected "
+                                     f"{want} exact_count_masks and no fused launch")
+            log(f"[19] {what} on {dev}: {len(used)} steps in {time.perf_counter() - t0:.2f} s"
+                + (f" with no host sync inside the loop, {want} exact_count_masks launches "
+                   f"({kmask_per_step(cfg)} a step)" if dev == "cuda" else ""))
+        a, r = outs["cuda"], outs["cpu"]
+        pairs = [("sample_0", a, r)]
+        if capture:
+            (a, ta), (r, tr) = a, r
+            pairs = [("sample_0", a, r)] + [(name, ta[name], tr[name])
+                                            for name in TRAJECTORY_FIELDS]
+            pairs += [(f"mean {name}", ta["means"][name], tr["means"][name])
+                      for name in TRAJECTORY_MEANS]
+            for name in TRAJECTORY_FIELDS:
+                if tuple(ta[name].shape) != (len(used), batch, SIZE, SIZE, 3):
+                    raise AssertionError(f"[19] {what}: {name} {tuple(ta[name].shape)}")
+        if tuple(a.shape) != (batch, SIZE, SIZE, 3):
+            raise AssertionError(f"[19] {what}: output {tuple(a.shape)}")
+        errs = {}
+        for name, x, y in pairs:
+            x = x.cpu()
+            errs[name] = (x - y).abs().max().item()
+            if not _close(x, y):
+                raise AssertionError(f"[19] {what}: {name} CUDA vs CPU max err {errs[name]}")
+        log(f"[19] {what}: CUDA vs CPU plain, max |diff| {max(errs.values()):.3g} over "
+            f"{len(pairs)} tensors (atol = rtol = {SLICE_TOL}); output std {r.std().item():.4f}")
+
+    # the captured mode on the kernel's own Philox draws: exact counts
+    what, sched, select, flags, _ = SAMPLING_MODES[-1]
+    cfg, schedule = mode_cfg(sched, select, flags, steps, "--mixed_precision", "no")
+    used = schedule.timesteps_for_epoch(1, 10, 1)[-steps:]
+    (out, traj), counts = run(cfg, schedule, used, "cuda", True, latent,
+                              generator=torch.Generator().manual_seed(5))
+    walk = used[::-1].copy()  # capture row j is reverse step j
+    nxt = np.where(np.arange(len(walk)) == len(walk) - 1, walk, walk - 1)
+    for field, ts in (("degrade_mask_t", walk), ("degrade_mask_next_t", nxt)):
+        want = schedule.degrade_amount(torch.as_tensor(ts)).long()[:, None].expand(-1, batch)
+        got = (1.0 - traj[field][..., 0]).sum(dim=(2, 3)).round().long().cpu()
+        if not torch.equal(got, want):
+            raise AssertionError(f"[19] Philox draws: {field} degraded counts {got.tolist()}, "
+                                 f"expected {want.tolist()}")
+        if not bool(((traj[field] == 0) | (traj[field] == 1)).all()):
+            raise AssertionError(f"[19] Philox draws: {field} is not binary")
+    if counts["exact_count_masks"] != 2 * len(used) or not torch.isfinite(out).all():
+        raise AssertionError(f"[19] Philox draws: launches {counts}")
+    log(f"[19] {what} on the kernel's own Philox draws: every captured mask at t and t-1 of "
+        f"{batch} images x {len(used)} steps degrades exactly the schedule's count "
+        f"(t from {int(walk.max())} down to {int(walk.min())}); "
+        f"{counts['exact_count_masks']} exact_count_masks launches")
+
+    # times (bf16): kernel 3 at this phase's batch; a flagship reverse step
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = True
+    counts2 = torch.full((batch,), hw // 3, dtype=torch.int32, device=dev)
+    kgen = torch.Generator().manual_seed(8)
+    kms, keager = cuda_ms(lambda: exact_count_masks(batch, SIZE, SIZE, counts2, generator=kgen))
+    pms, _ = cuda_ms(lambda: exact_count_masks_plain(
+        torch.randint(0, 2**32, (batch, hw), device=dev, dtype=torch.int64), counts2))
+    kbnd = kmask_bound(batch, hw)
+    log(f"[19] exact_count_masks at {batch}x{SIZE}x{SIZE} (the loop's masks at this batch): "
+        f"kernel {kms:.4f} ms device ({keager:.4f} eager), plain {pms:.4f} ms, bound "
+        f"{kbnd[0]:.5f} ms by {kbnd[1]}")
+    b = SAMPLING_TIMED_BATCH
+    lat = latent_initial(torch.Generator().manual_seed(4), b, 3, SIZE, "uniform",
+                         device="cpu").to(dev)
+    base = ["--sampling_mask_dependency", "independent", "--mean_option", "degraded_area"]
+    fns, per = {}, {}
+    for name, rule, capture in (("fused", "base_momentum", False),
+                                ("plain (momentum rule)", "momentum", False),
+                                ("plain, captured", "base_momentum", True)):
+        cfg, schedule = mode_cfg("log", "indexing", base + ["--momentum_adaptive", rule], 200,
+                                 "--mixed_precision", "bf16")
+        used = schedule.timesteps_for_epoch(1, 10, 1)[-SAMPLING_TIMED_STEPS:]
+        model = build_unet()
+        model.load_state_dict(ref_model.state_dict())
+        fns[name] = make_sample_fn(model, schedule, cfg, used, device=dev,
+                                   capture_trajectory=capture, capture_items=4)
+        fns[name](lat, torch.Generator().manual_seed(0))  # warm-up
+        reset_counts()
+        fns[name](lat, torch.Generator().manual_seed(0))
+        per[name] = read_counts()
+    timed = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:  # in turns: a b c c b a
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns[name](lat, torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        timed[name].append(1e3 * (time.perf_counter() - t0) / SAMPLING_TIMED_STEPS)
+    timed = {name: sum(v) / len(v) for name, v in timed.items()}
+    for name, ms in timed.items():
+        log(f"[19] flagship reverse step, bf16, batch {b}, log+indexing, {name}: {ms:.3f} "
+            f"ms/step over {SAMPLING_TIMED_STEPS} steps (mean of 2 runs in turns); launches a "
+            f"step: fused {per[name]['fused_degrade_update'] / SAMPLING_TIMED_STEPS:g}, "
+            f"exact_count_masks {per[name]['exact_count_masks'] / SAMPLING_TIMED_STEPS:g}")
+    del fns
+    torch.cuda.empty_cache()
+    return {"kmask_b2": (kms, pms, kbnd), "reverse_ms": timed}
+
+
+def _timed_cadence(record: dict):
+    """A context that times each Trainer.sample_ema call of the run (the
+    cadence's sampling, up to the host copy of its images) into record:
+    {"seconds", "steps"}."""
+    import masked_diffusion_tpu_torch.train.trainer as trainer_mod
+
+    real = trainer_mod.Trainer.sample_ema
+
+    def timed(self, *a, **k):
+        t0 = time.perf_counter()
+        out = real(self, *a, **k)
+        record["seconds"] = record.get("seconds", 0.0) + time.perf_counter() - t0
+        record["steps"] = record.get("steps", 0) + len(self.timesteps_used_epoch)
+        return out
+
+    @contextlib.contextmanager
+    def ctx():
+        trainer_mod.Trainer.sample_ema = timed
+        try:
+            yield record
+        finally:
+            trainer_mod.Trainer.sample_ema = real
+
+    return ctx()
+
+
+def phase_default_cli(workdir: str, flagship_perf: dict):
+    """[20] The flagship through the CLI with the default sampling flags (no
+    --sampling, no --use_ema: EMA on, --sampling base): phase 10's flags
+    otherwise (batch 64, bf16, log + indexing at T=200, 2 epochs of 4 steps,
+    --sample_num 16). The cadence samples with trajectory capture on the
+    plain branch. Checks the EMA grids, 11 x 4 trajectory PNGs, the train
+    visuals, finite trajectory means in metrics.jsonl, and kernel 3's
+    launches: one a train step, one for the visuals pass, two a reverse step
+    of the cadence; none of kernel 1. Then serves the checkpoint with
+    dependent_prev + momentum (two requests of 16): one exact-k launch a
+    reverse step. Returns the launches of both runs."""
+    import numpy as np
+
+    from masked_diffusion_tpu_torch.ops.schedule import build_schedule
+    from masked_diffusion_tpu_torch.sample.loop import TRAJECTORY_FIELDS
+
+    argv, common = flagship_cli_args(os.path.join(workdir, "default"))
+    i = argv.index("--sampling")
+    argv = argv[:i] + argv[i + 2:]
+    if "--use_ema" in argv:
+        raise AssertionError("phase 20 runs the default --use_ema")
+    cadence = {}
+    with _timed_cadence(cadence):
+        rc, stats, train = _run_cli(argv, "train_stats")
+    if rc != 0 or stats["global_step"] != 8 or not np.isfinite(stats["loss_mean_epoch"]).all():
+        raise AssertionError(f"[20] default-flags train CLI: rc {rc}, stats {stats}")
+    (ckpt,) = stats["checkpoints"]
+    run = os.path.dirname(os.path.dirname(ckpt))
+    image = os.path.join(run, "train", "image")
+    grids = sorted(os.listdir(os.path.join(image, "ema_sample_img")))
+    traj = sorted(os.listdir(os.path.join(image, "sample_all_t")))
+    want_traj = sorted(f"{f}_00001_item{k}.png" for f in TRAJECTORY_FIELDS for k in range(4))
+    visuals = sorted(f for d in ("train_image", "noisy_image", "mask_image", "img",
+                                 "noise_image", "predict_image", "shift_input", "shift_noisy")
+                     for f in os.listdir(os.path.join(image, d)))
+    if grids != ["ema_sample_00001_global.png", "ema_sample_00001_local.png"] or (
+            traj != want_traj or len(visuals) != 20):
+        raise AssertionError(f"[20] EMA grids {grids}, trajectory PNGs {len(traj)}, "
+                             f"visual grids {visuals}")
+    with open(os.path.join(run, "log", "metrics.jsonl")) as f:
+        rows = [json.loads(ln) for ln in f]
+    means = [r for r in rows if "ema_sample_t_mean" in r]
+    keys = ("ema_sample_mean", "ema_sample_t_mean", "ema_sample_0_mean",
+            "ema_sample_shift_t_mean", "ema_sample_0_shift_mean")
+    if len(means) != 1 or not all(np.isfinite(means[0][k]) for k in keys):
+        raise AssertionError(f"[20] trajectory means in metrics.jsonl: {means}")
+    schedule = build_schedule("log", 200, SIZE, "indexing")
+    reverse = len(schedule.timesteps_for_epoch(1, 2, 1))  # the last epoch's curriculum
+    if cadence.get("steps") != reverse:
+        raise AssertionError(f"[20] cadence sampled {cadence}, expected {reverse} steps")
+    want = {"exact_count_masks": 8 + 1 + 2 * reverse, "fused_degrade_update": 0,
+            "tinyhead_attention": 0, "tinyhead_attention_backward": 0}
+    if any(train[k] != n for k, n in want.items()) or not same_through_sharded(train) or not (
+            train["group_norm_silu"] and train["group_norm_silu_backward"]):
+        raise AssertionError(f"[20] default-flags train CLI: launches {train}, expected {want}")
+    cadence_ms = 1e3 * cadence["seconds"] / reverse
+    log(f"[20] train CLI with the default sampling flags (--sampling base, EMA): 2 epochs x 4 "
+        f"steps, losses {[round(v, 5) for v in stats['loss_mean_epoch']]}, "
+        f"{stats['ms_per_step']:.3f} ms/step; the captured cadence: {reverse} reverse steps of "
+        f"16 images in {cadence['seconds']:.2f} s, {cadence_ms:.3f} ms a reverse step (phase "
+        f"10's fused cadence: {flagship_perf['cadence_ms']:.3f}); {len(traj)} trajectory PNGs, "
+        f"{len(visuals)} train-visual grids, EMA grids {grids}; trajectory means "
+        f"{ {k: round(means[0][k], 5) for k in keys} }; launches {train} (exact_count_masks: "
+        f"8 train steps + 1 visuals pass + 2 x {reverse} reverse steps)")
+
+    serve_args = list(common)
+    for flag, value in (("--sampling_mask_dependency", "dependent_prev"),
+                        ("--momentum_adaptive", "momentum"), ("--batch_size", "16"),
+                        ("--sample_num", "32")):
+        serve_args[serve_args.index(flag) + 1] = value
+    rc, served, serve = _run_cli(["--method", "sample", "--test_model_path", ckpt, "--dir_work",
+                                  os.path.join(workdir, "default", "serve"), *serve_args],
+                                 "sample_stats")
+    n_steps = served["steps"] * served["batches"]
+    want = {"exact_count_masks": n_steps, "fused_degrade_update": 0,
+            "group_norm_silu_backward": 0}
+    if rc != 0 or not (served["finite"] and served["ema"] and served["images"] == 32
+                       and served["batches"] == 2) or any(
+            serve[k] != n for k, n in want.items()) or not same_through_sharded(serve):
+        raise AssertionError(f"[20] serve dependent_prev+momentum: rc {rc}, {served}, "
+                             f"launches {serve}, expected {want}")
+    log(f"[20] served the checkpoint, dependent_prev+momentum (EMA weights): "
+        f"{served['images']} images, {served['steps']} steps x {served['batches']} batches, "
+        f"{served['ms_per_step']:.3f} ms/step, {served['images_per_sec']:.3f} images/s; "
+        f"launches {serve}")
+    return {k: train[k] + serve[k] for k in train}, cadence_ms
 
 
 DDP_RANKS = 2
@@ -2582,7 +2944,8 @@ def phase_ddp(workdir: str, smi: str, single: dict):
         tc, sc = rank["train_counts"], rank["serve_counts"]
         reverse = rank["cadence_steps"]  # one cadence sample, at the last epoch
         n_serve = rank["serve_steps"] * rank["serve_batches"]
-        want_train = {"exact_count_masks": 8, "exact_count_masks_sharded": 8,
+        # a launch a train step, and one for the cadence's visuals pass
+        want_train = {"exact_count_masks": 9, "exact_count_masks_sharded": 9,
                       "fused_degrade_update": reverse, "fused_degrade_update_sharded": reverse,
                       "tinyhead_attention": 0, "tinyhead_attention_backward": 0}
         want_serve = {"exact_count_masks": 0, "exact_count_masks_sharded": 0,
@@ -2619,7 +2982,8 @@ def phase_ddp(workdir: str, smi: str, single: dict):
         f"{[round(r['train_ms'], 3) for r in ranks]}, {ranks[0]['train_ips']:.2f} images/s "
         f"global (one process, phase 10: {single['train_ms']:.3f} ms/step, "
         f"{single['train_ips']:.2f} images/s); per rank per train step 1 exact_count_masks_"
-        f"sharded launch, per reverse step 1 fused_degrade_update_sharded launch; launches "
+        f"sharded launch (and 1 for the visuals pass), per reverse step 1 "
+        f"fused_degrade_update_sharded launch; launches "
         f"per rank {[r['train_counts'] for r in ranks]}")
     log(f"[18] served the 2-rank checkpoint on {DDP_RANKS} ranks: {served['images']} images "
         f"(8 a rank), {served['steps']} steps x {served['batches']} batch(es); ms/step per rank "
@@ -2688,6 +3052,7 @@ def main() -> int:
     gn = phase_groupnorm(calls, 16)
     phase_slice()
     phase_slice("[14]", 5, (("log", "indexing", 16, 4),))
+    modes = phase_sampling_modes()
     kmask = phase_kmask()
     check_plan_coverage("kmask", kmask[4] | large[4])
     gn_bwd, _ = phase_groupnorm_train(calls, B_KERNEL)
@@ -2702,7 +3067,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
         main_runs = [phase_serve(workdir)[0]]
         flagship_cli, flagship_perf = phase_train_cli(workdir)
-        main_runs += [flagship_cli, phase_celeba_cli(workdir), phase_unet6_cli(workdir),
+        default_cli, captured_ms = phase_default_cli(workdir, flagship_perf)
+        main_runs += [flagship_cli, default_cli, phase_celeba_cli(workdir),
+                      phase_unet6_cli(workdir),
                       phase_ddp(os.path.join(workdir, "ranks"), smi, flagship_perf)]
     for mod in sorted(sys.modules):
         if mod.split(".")[0] in ("jax", "flax", "masked_diffusion_tpu"):
@@ -2729,9 +3096,17 @@ def main() -> int:
     th, th_bound = per_step(tinyhead_times, "forward per UNet forward")
     thb, thb_bound = per_step(tinyhead_bwd_times, "backward per train step")
     log(f"[11] tinyhead backward launches per train step: CelebA-HQ "
-        f"{main_runs[2]['tinyhead_attention_backward'] // 4} (phase 16, 4 steps), unet6 256x256 "
-        f"{main_runs[3]['tinyhead_attention_backward'] // 4} (phase 17, 4 steps), at 128x128 "
+        f"{main_runs[3]['tinyhead_attention_backward'] // 4} (phase 16, 4 steps), unet6 256x256 "
+        f"{main_runs[4]['tinyhead_attention_backward'] // 4} (phase 17, 4 steps), at 128x128 "
         f"(phase 15) {zoo_backward}")
+    kb2 = modes["kmask_b2"]
+    log(f"[19/20] exact_count_masks on the main path: {launches('exact_count_masks')} launches, "
+        f"{default_cli['exact_count_masks']} of them in phase 20 (its captured cadence "
+        f"{captured_ms:.3f} ms a reverse step, phase 10's fused "
+        f"{flagship_perf['cadence_ms']:.3f}); at batch 2, 64x64: {kb2[0]:.4f} ms (plain "
+        f"{kb2[1]:.4f}, bound {kb2[2][0]:.5f}); flagship reverse step at batch "
+        f"{SAMPLING_TIMED_BATCH}, bf16: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in modes["reverse_ms"].items()))
     log(smi)
     print(json.dumps({"kernels": [
         kernel_entry("fused_degrade_update", "cuda",

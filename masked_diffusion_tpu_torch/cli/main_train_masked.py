@@ -12,10 +12,16 @@ The method dispatch mirrors that file's main (:232-327) without a mesh:
 
   base | mean_shift  train (train/trainer.py) and write checkpoints in the
                      export layout, checkpoint-epoch-N/{unet,unet_ema}/ with
-                     meta.json; prints a `train_stats {json}` line
+                     meta.json, and on the save cadence the loss curve, the
+                     train visuals and the EMA sample (--sampling base, the
+                     default, with its trajectory grids and means); prints a
+                     `train_stats {json}` line
   sample             load --test_model_path in that layout (written by the
                      port's trainer or by masked_diffusion_tpu.io.export_torch)
-                     and generate --sample_num images; prints `sample_stats`
+                     and generate --sample_num images in any sampling mode
+                     (--sampling_mask_dependency, --momentum_adaptive,
+                     --degrade_channel, --mean_option, --mean_area) but
+                     --encoder_reuse > 1; prints `sample_stats`
 
 --model picks the default factory (--num_attention) or a zoo name
 (unet1..unet6, models/zoo.py). Attention takes the tiny-head kernel wherever

@@ -1,9 +1,9 @@
-"""Mask generation and mean-fill degradation for training, NCHW.
+"""Mask generation and mean-fill degradation, NCHW.
 
-Counterpart of masked_diffusion_tpu/ops/degrade.py, the parts the train step
-uses (:96-113, :186-301). The sampling-time variants (:304-471) are not
-ported yet; the fused sampling path (ops/fused_degrade.py) does not need
-them.
+Counterpart of masked_diffusion_tpu/ops/degrade.py: the parts the train step
+uses (:96-113, :186-301) and the sampling-time ops of the reverse loop's
+plain branch (:116-132, :304-441). The interpolation sampler's op (:444) is
+not ported.
 
   'indexing'     exactly k degraded pixels per image (k from the schedule's
                  integer table): the exact-k mask kernel (ops/kmask.py) on
@@ -27,10 +27,18 @@ formula and its zero-count guard):
                        channel, 0 where nothing is degraded
 Degradation D(x) = (1-m)*mu + m*x (scheduler.py:319).
 
-Random numbers: a CPU torch.Generator seeds everything (the mask kernel's
-Philox seed, or a device generator for the thresholding uniforms); `bits`
-(indexing) or `uniforms` (thresholding) inject the draws instead, as the
-tests and the smoke check do.
+Sampling-time ops (scheduler.py:326-598): the independent degrade returns
+the *binary* mask, unlike training; the dependent one thresholds one shared
+uniform field at two ratios (nested masks at t and t-1); the index ops
+degrade a prefix of a fixed per-image pixel permutation, through a
+slot-of-pixel map built with one scatter on the device (the count stays a
+tensor: no host sync).
+
+Random numbers: a CPU torch.Generator seeds the mask kernel's Philox, or a
+device generator for the thresholding uniforms, made on each call (the
+sampling loop draws its fields from one device generator per call and
+passes them in); `bits` (indexing) or `uniforms` (thresholding) inject the
+draws, as the tests and the smoke check do.
 """
 
 from __future__ import annotations
@@ -68,12 +76,41 @@ def threshold_masks(
     device: (B, 1, H, W) shared ('1-channel') or (B, C, H, W) ('3-channel').
     uniforms: the draws in [0, 1) of that shape, else drawn from generator."""
     shape = (batch, channels if per_channel else 1, height, width)
+    u = _uniform_field(shape, ratios.device, generator, uniforms)
+    return _above(u, ratios)
+
+
+def nested_threshold_masks(
+    batch: int,
+    height: int,
+    width: int,
+    channels: int,
+    ratios_a: torch.Tensor,
+    ratios_b: torch.Tensor,
+    per_channel: bool,
+    *,
+    generator: Optional[torch.Generator] = None,
+    uniforms: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One shared uniform field thresholded at two levels -> nested masks
+    (degrade_dependent_base_sampling, scheduler.py:494-513), each of
+    threshold_masks' shape; `uniforms` injects the one field."""
+    shape = (batch, channels if per_channel else 1, height, width)
+    u = _uniform_field(shape, ratios_a.device, generator, uniforms)
+    return _above(u, ratios_a), _above(u, ratios_b)
+
+
+def _uniform_field(shape, device, generator, uniforms) -> torch.Tensor:
     if uniforms is None:
-        gen = device_generator(generator or torch.Generator(), ratios.device)
-        uniforms = torch.rand(shape, generator=gen, device=ratios.device)
-    elif tuple(uniforms.shape) != shape:
+        gen = device_generator(generator or torch.Generator(), device)
+        return torch.rand(shape, generator=gen, device=device)
+    if tuple(uniforms.shape) != shape:
         raise ValueError(f"uniforms must have shape {shape}, got {tuple(uniforms.shape)}")
-    return (uniforms > ratios.to(torch.float32).reshape(batch, 1, 1, 1)).to(torch.float32)
+    return uniforms
+
+
+def _above(u: torch.Tensor, ratios: torch.Tensor) -> torch.Tensor:
+    return (u > ratios.to(torch.float32).reshape(-1, 1, 1, 1)).to(torch.float32)
 
 
 def generate_masks(
@@ -171,3 +208,134 @@ def degrade_training(
     degrade_mask = inv * mean_pixel + masks
     mean_mask = mean_pixel.expand(img.shape)
     return degrade_img, masks, degrade_mask, mean_mask
+
+
+def degrade_independent_base_sampling(
+    img: torch.Tensor,
+    amount: torch.Tensor,
+    select_degrade_pixel: str,
+    degrade_channel: str,
+    mean_option,
+    mean_area: str,
+    *,
+    generator: Optional[torch.Generator] = None,
+    bits: Optional[torch.Tensor] = None,
+    uniforms: Optional[torch.Tensor] = None,
+    plan=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sampling-time degradation with a fresh independent mask
+    (scheduler.py:418-477). Returns (degrade_img, masks, mean_mask), masks
+    the *binary* mask broadcast to img (unlike training's degrade_mask)."""
+    masks = generate_masks(img, amount, select_degrade_pixel, degrade_channel,
+                           generator=generator, bits=bits, uniforms=uniforms, plan=plan)
+    mean_pixel = compute_mean_pixel(img, masks, mean_option, mean_area)
+    degrade_img = (1.0 - masks) * mean_pixel + masks * img
+    return degrade_img, masks, mean_pixel.expand(img.shape)
+
+
+def degrade_dependent_base_sampling(
+    img: torch.Tensor,
+    amount_t: torch.Tensor,
+    amount_next_t: torch.Tensor,
+    degrade_channel: str,
+    mean_option,
+    mean_area: str,
+    *,
+    generator: Optional[torch.Generator] = None,
+    uniforms: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """Nested masks for (t, t-1) from one shared uniform field
+    (scheduler.py:480-549; thresholding only, config.validate_sampling_modes
+    refuses indexing). Returns (degrade_t, mask_t, mean_mask_t, degrade_next,
+    mask_next, mean_mask_next)."""
+    b, c, h, w = img.shape
+    masks = nested_threshold_masks(b, h, w, c, amount_t, amount_next_t,
+                                   degrade_channel == "3-channel",
+                                   generator=generator, uniforms=uniforms)
+    out = []
+    for m in masks:
+        m = m.expand(img.shape)
+        mean_pixel = compute_mean_pixel(img, m, mean_option, mean_area)
+        out += [(1.0 - m) * mean_pixel + m * img, m, mean_pixel.expand(img.shape)]
+    return tuple(out)
+
+
+def degrade_with_mask(img: torch.Tensor, masks: torch.Tensor, mean_option,
+                      mean_area: str) -> torch.Tensor:
+    """Degrade with a caller-provided mask (scheduler.py:572-598): the
+    'dependent_prev' mode reuses the previous step's mask."""
+    mean_pixel = compute_mean_pixel(img, masks, mean_option, mean_area)
+    return (1.0 - masks) * mean_pixel + masks * img
+
+
+def _slot_of_pixel(index: torch.Tensor, hw: int) -> torch.Tensor:
+    """(B, HW) int64: slot[i, p] = j where index[i, j] == p (one scatter on
+    index's device)."""
+    index = index.to(torch.int64)
+    positions = torch.arange(hw, device=index.device).expand(index.shape[0], hw)
+    return torch.zeros((index.shape[0], hw), dtype=torch.int64,
+                       device=index.device).scatter_(1, index, positions)
+
+
+def degrade_index_sampling(
+    index: torch.Tensor,
+    count_t: torch.Tensor,
+    img: torch.Tensor,
+    mean_option,
+    mean_area: str,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Degrade the first count_t[0] entries of a fixed per-image pixel
+    permutation (scheduler.py:379-415; every image shares the count at a
+    step, as in the reference). index: (B, H*W) integers. Pixels whose slot
+    in the permutation is >= the count are kept. Returns (degrade_img,
+    masks, mean_mask)."""
+    b, c, h, w = img.shape
+    count = count_t.reshape(-1)[0].to(torch.int64)
+    masks = (_slot_of_pixel(index, h * w) >= count).to(torch.float32)
+    masks = masks.reshape(b, 1, h, w).expand(img.shape)
+    mean_pixel = compute_mean_pixel(img, masks, mean_option, mean_area)
+    degrade_img = (1.0 - masks) * mean_pixel + masks * img
+    return degrade_img, masks, mean_pixel.expand(img.shape)
+
+
+def degrade_dependent_momentum_sampling(
+    sample_t: torch.Tensor,
+    sample_0: torch.Tensor,
+    index_list: torch.Tensor,
+    index_start,
+    index_end,
+    mean_option,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Composite degradation on a shared permutation (scheduler.py:326-376):
+    pixels in slots [0, index_start) keep sample_t's values, [index_start,
+    index_end) take sample_0's, and the rest are mean-filled. index_start,
+    index_end: integers or 0-d tensors. Returns (noisy_img, mean_masks,
+    mean_pixel broadcast to the image). The mean is a const or
+    'non_degraded_area' (the reference's image-wise sum of the preserved
+    pixels over the 1-channel degraded count and the channel count,
+    negated); any other mode raises ValueError."""
+    b, c, h, w = sample_t.shape
+    slot = _slot_of_pixel(index_list, h * w).reshape(b, 1, h, w)
+    start = torch.as_tensor(index_start, dtype=torch.int64, device=slot.device)
+    end = torch.as_tensor(index_end, dtype=torch.int64, device=slot.device)
+    masks_t = (slot < start).to(torch.float32)
+    masks_0 = ((slot >= start) & (slot < end)).to(torch.float32)
+    mask = (slot < end).to(torch.float32)
+    preserved = sample_t * masks_t + sample_0 * masks_0
+
+    mode, value = parse_mean_option(mean_option)
+    if mode == "const":
+        mean_pixel = torch.full((b, c, 1, 1), value, dtype=sample_t.dtype,
+                                device=sample_t.device)
+    elif mode == "non_degraded_area":
+        sum_pixel = (preserved * mask).sum(dim=(1, 2, 3), keepdim=True)
+        count = (1.0 - mask).sum(dim=(1, 2, 3), keepdim=True)
+        mean_pixel = torch.where(count > 0, sum_pixel / count.clamp(min=1.0) / c * -1.0,
+                                 torch.zeros_like(sum_pixel))
+    else:
+        raise ValueError(
+            f"mean_option {mean_option!r} unsupported for dependent momentum sampling"
+        )
+    noisy_img = (1.0 - mask) * mean_pixel + preserved
+    mean_masks = (1.0 - mask) * mean_pixel
+    return noisy_img, mean_masks, mean_pixel.expand(sample_t.shape)

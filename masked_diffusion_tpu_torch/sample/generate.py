@@ -2,7 +2,8 @@
 
 Counterpart of masked_diffusion_tpu/sample/generate.py:generate_images:
 one sampler reused across batches, latents from a CPU generator per batch,
-images written as PNG grids and per-image files.
+images written as PNG grids and per-image files. Every sampling mode of
+sample/loop.py is served, on its fused or its plain branch.
 
 Data-parallel (a parallel/mesh.MeshPlan of N > 1 ranks, as JAX :54-66): the
 batch rounds up to a multiple of N; every rank draws the same global latents

@@ -1,7 +1,8 @@
-"""The train step.
+"""The train step, and the train-visuals pass of the save cadence.
 
 Counterpart of masked_diffusion_tpu/train/step.py:_make_step_impl
-(:103-217). `base` and `mean_shift` are one step with the shift stage off
+(:103-217) and make_train_visuals_fn (:278-340), which share the work before
+the UNet (_make_prepare). `base` and `mean_shift` are one step with the shift stage off
 or on. Per step:
 
   timestep draw from the epoch's curriculum -> degrade (the exact-k mask
@@ -122,12 +123,7 @@ def make_train_step(
     device = torch.device(device)
     ranks = plan.data_size if plan is not None else 1
     model.to(device)
-    used = torch.as_tensor(np.asarray(used_timesteps, dtype=np.int64), device=device)
-    n_used = int(used.numel())
-    # per-curriculum-position tables on the device: the step only gathers
-    amount_by_index = schedule.degrade_amount(used)
-    ratio_by_index = schedule.shift_ratio(used)
-    t_by_index = used.float()
+    prepare = _make_prepare(schedule, cfg, used_timesteps, device, plan)
     weight_table = (
         schedule.loss_weight_table(cfg.loss_weight_power_base, device)
         if cfg.loss_weight_use else None
@@ -143,37 +139,12 @@ def make_train_step(
         b = img.shape[0]
         if generator is None:
             generator = torch.Generator().manual_seed(int(cfg.seed))
-        dev_gen = None
         if draws is not None and ranks > 1:
             rows = local_rows(b * ranks, plan)
             draws = TrainDraws(**{k: None if v is None else v[rows]
                                   for k, v in vars(draws).items()})
-        if draws is None:
-            dev_gen = device_generator(generator, device)
-            timeindex = torch.randint(0, n_used, (b,), generator=dev_gen, device=device)
-        else:
-            timeindex = draws.timeindex.to(device)
-
-        # --- degrade (scheduler.degrade_training)
-        degraded, _, _, _ = degrade_training(
-            img, amount_by_index[timeindex], cfg.select_degrade_pixel, cfg.degrade_channel,
-            cfg.mean_option, cfg.mean_area, generator=generator,
-            bits=None if draws is None else draws.bits,
-            uniforms=None if draws is None else draws.mask_uniform, plan=plan,
-        )
-
-        # --- mean shift (trainer_masked_mean_shift.py:119-120)
-        shift = None
-        net_in = degraded
-        if mean_shift:
-            ratios = ratio_by_index[timeindex]
-            if draws is None:
-                shift = shift_ops.schedule_shift(dev_gen, ratios, tuple(img.shape),
-                                                 cfg.shift_type, cfg.noise_mean)
-            else:
-                shift = shift_ops.shift_from_draws(cfg.shift_type, ratios, tuple(img.shape),
-                                                   draws.uniform, draws.normal, cfg.noise_mean)
-            net_in = degraded + shift
+        p = prepare(img, generator, draws)
+        timeindex, degraded, shift, net_in = p["timeindex"], p["degraded"], p["shift"], p["net_in"]
 
         # --- UNet, residual reconstruction, fp32 loss
         opt = state.optimizer
@@ -183,7 +154,7 @@ def make_train_step(
         window_open = state.ddp is not None and opt.mini_step + 1 < opt.every_k
         with state.ddp.no_sync() if window_open else contextlib.nullcontext():
             with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
-                out = net(net_in, t_by_index[timeindex])
+                out = net(net_in, p["t"])
             recon = net_in + out.float()
             inv_recon = recon - shift if mean_shift else recon
             per_px = (inv_recon - img) ** 2
@@ -217,3 +188,104 @@ def make_train_step(
         return metrics
 
     return step
+
+
+def _make_prepare(schedule: MaskSchedule, cfg, used_timesteps: np.ndarray, device, plan):
+    """prepare(img, generator, draws) -> the step's work before the UNet
+    (train/step.py:_make_step_impl up to the forward): the timestep draw from
+    the epoch's curriculum, the degrade (the exact-k mask kernel in indexing
+    mode) and, for mean_shift, the shift. img is NCHW on `device`. Returns a
+    dict: timeindex, t, degraded, masks, degrade_mask, mean_mask, shift
+    (None for base) and net_in."""
+    used = torch.as_tensor(np.asarray(used_timesteps, dtype=np.int64), device=device)
+    n_used = int(used.numel())
+    # per-curriculum-position tables on the device: the step only gathers
+    amount_by_index = schedule.degrade_amount(used)
+    ratio_by_index = schedule.shift_ratio(used)
+    t_by_index = used.float()
+    mean_shift = cfg.method == "mean_shift"
+
+    def prepare(img: torch.Tensor, generator: torch.Generator,
+                draws: Optional[TrainDraws] = None) -> Dict[str, Optional[torch.Tensor]]:
+        dev_gen = None
+        if draws is None:
+            dev_gen = device_generator(generator, device)
+            timeindex = torch.randint(0, n_used, (img.shape[0],), generator=dev_gen,
+                                      device=device)
+        else:
+            timeindex = draws.timeindex.to(device)
+
+        # --- degrade (scheduler.degrade_training)
+        degraded, masks, degrade_mask, mean_mask = degrade_training(
+            img, amount_by_index[timeindex], cfg.select_degrade_pixel, cfg.degrade_channel,
+            cfg.mean_option, cfg.mean_area, generator=generator,
+            bits=None if draws is None else draws.bits,
+            uniforms=None if draws is None else draws.mask_uniform, plan=plan,
+        )
+
+        # --- mean shift (trainer_masked_mean_shift.py:119-120)
+        shift = None
+        net_in = degraded
+        if mean_shift:
+            ratios = ratio_by_index[timeindex]
+            if draws is None:
+                shift = shift_ops.schedule_shift(dev_gen, ratios, tuple(img.shape),
+                                                 cfg.shift_type, cfg.noise_mean)
+            else:
+                shift = shift_ops.shift_from_draws(cfg.shift_type, ratios, tuple(img.shape),
+                                                   draws.uniform, draws.normal, cfg.noise_mean)
+            net_in = degraded + shift
+        return {"timeindex": timeindex, "t": t_by_index[timeindex], "degraded": degraded,
+                "masks": masks, "degrade_mask": degrade_mask, "mean_mask": mean_mask,
+                "shift": shift, "net_in": net_in}
+
+    return prepare
+
+
+def make_train_visuals_fn(
+    model: torch.nn.Module,
+    schedule: MaskSchedule,
+    cfg,
+    used_timesteps: np.ndarray,
+    device="cuda",
+    plan=None,
+) -> Callable:
+    """Build visuals(batch, generator) -> the reference's train-time visual
+    tensors (JAX train/step.py:make_train_visuals_fn; train_visual_names,
+    trainer_masked.py:58, trainer_masked_mean_shift.py:58): input,
+    degraded_img, degrade_binary_masks, degradation_mask, mean_pixel, mask
+    (the network output, as the reference names it) and reconstructed_img,
+    plus shift, shifted_degrade_img and inverse_shift_reconstructed_img on
+    the mean-shift path; each (B, H, W, C) float32, NHWC.
+
+    One forward under torch.no_grad, on the batch the step was given (NHWC;
+    with a plan, this rank's rows), drawing as the step does from
+    `generator` (a CPU torch.Generator). The trainer runs it once per save
+    cadence, never in the hot loop."""
+    device = torch.device(device)
+    prepare = _make_prepare(schedule, cfg, used_timesteps, device, plan)
+    bf16 = cfg.weight_dtype == "bfloat16"
+
+    def visuals(batch: torch.Tensor, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        img = batch.to(device=device, dtype=torch.float32).permute(0, 3, 1, 2).contiguous()
+        with torch.no_grad():
+            p = prepare(img, generator)
+            with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
+                out = model(p["net_in"], p["t"])
+            recon = p["net_in"] + out.float()
+            tensors = {
+                "input": img,
+                "degraded_img": p["degraded"],
+                "degrade_binary_masks": p["masks"],
+                "degradation_mask": p["degrade_mask"],
+                "mean_pixel": p["mean_mask"],
+                "mask": out.float(),
+                "reconstructed_img": recon,
+            }
+            if p["shift"] is not None:
+                tensors["shift"] = p["shift"]
+                tensors["shifted_degrade_img"] = p["net_in"]
+                tensors["inverse_shift_reconstructed_img"] = recon - p["shift"]
+            return {k: v.expand(img.shape).permute(0, 2, 3, 1) for k, v in tensors.items()}
+
+    return visuals

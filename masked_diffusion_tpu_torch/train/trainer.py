@@ -2,10 +2,16 @@
 
 Counterpart of masked_diffusion_tpu/train/trainer.py: epoch loop,
 per-epoch timestep curriculum, metrics fetched once per epoch, the
-non-finite-loss guard, the metrics JSONL, and on the save cadence an EMA
-sample grid (the port's fused sampler) and a checkpoint in the export
-layout, checkpoint-epoch-N/{unet,unet_ema}/ with meta.json, which the
-port's `--method sample` serves.
+non-finite-loss guard, the metrics JSONL, and the save cadence
+(trainer.py:625-648): the loss curve (train/loss/loss.png, when matplotlib
+is installed), the train visuals (one forward on the epoch's last batch,
+train/step.py:make_train_visuals_fn), the EMA sample and a checkpoint in the
+export layout, checkpoint-epoch-N/{unet,unet_ema}/ with meta.json, which the
+port's `--method sample` serves. The EMA sample follows --sampling: 'base'
+(the default) samples with trajectory capture and writes the result grids,
+one trajectory grid per captured field and item (train/image/sample_all_t/)
+and the trajectory means (the metrics JSONL); 'momentum' writes the result
+grids, and the trajectory grids too under --capture_trajectory.
 
   shuffle     np.random.default_rng([seed, epoch]), as trainer.py:477, so
               batch membership equals the JAX trainer's; the same on every
@@ -22,19 +28,21 @@ Data-parallel (a parallel/mesh.MeshPlan of N > 1 ranks, under torchrun):
 [r*B/N, (r+1)*B/N) of each (train/step.py wraps the model in DDP); the
 logged metrics are the mean over the ranks, taken in the epoch's one fetch;
 the cadence samples the global (rounded-up) latent batch, each rank its rows,
-gathered to every rank; only rank 0 writes files, after a barrier.
+gathered to every rank (the trajectory images are rank 0's, its means
+averaged over the ranks: sample/loop.py), and the visuals pass runs on each
+rank's rows of the last batch, gathered; only rank 0 writes files, after a
+barrier.
 
 The model comes from models/factory.build_model_from_config: the default
 factory or a zoo name (--model unet1..unet6). Its attention takes the
 tiny-head kernel wherever it applies; --tinyhead_attention false is refused.
 
 Not ported yet, and refused at construction when a flag asks for them:
-resume (--resume_from_checkpoint), --sampling base with EMA (its cadence
-captures trajectories), trajectory capture, interpolation sampling,
-tensor and spatial parallelism, profiling, checkpoint retention and async
-saves, and the
-JAX-only switches (--epoch_scan, --remat, --attention_chunk). Not written:
-optimizer state on disk, the loss PNG and the train-visual grids.
+resume (--resume_from_checkpoint), interpolation sampling, tensor and
+spatial parallelism, profiling, checkpoint retention and async saves, and
+the JAX-only switches (--epoch_scan, --remat, --attention_chunk); so are the
+sampling modes the cadence's sampler refuses (sample/loop.py:validate_modes).
+Not written: optimizer state on disk and history.npz.
 """
 
 from __future__ import annotations
@@ -56,11 +64,19 @@ from masked_diffusion_tpu_torch.ops.schedule import MaskSchedule, build_schedule
 from masked_diffusion_tpu_torch.ops.shard import fold_seed
 from masked_diffusion_tpu_torch.parallel.mesh import MeshPlan, local_rows, round_up
 from masked_diffusion_tpu_torch.sample.latent import latent_initial
-from masked_diffusion_tpu_torch.sample.loop import fused_mode, make_sample_fn
+from masked_diffusion_tpu_torch.sample.loop import make_sample_fn, validate_modes
 from masked_diffusion_tpu_torch.train.optim import build_lr_schedule, build_optimizer
-from masked_diffusion_tpu_torch.train.step import create_train_state, make_train_step
+from masked_diffusion_tpu_torch.train.step import (
+    create_train_state,
+    make_train_step,
+    make_train_visuals_fn,
+)
 from masked_diffusion_tpu_torch.utils import host
-from masked_diffusion_tpu_torch.utils.grids import save_image_grid
+from masked_diffusion_tpu_torch.utils.grids import (
+    save_image_grid,
+    save_multi_index_image_grid,
+    save_png,
+)
 
 __all__ = ["Trainer", "build_model_from_config", "unported_options"]
 
@@ -70,10 +86,6 @@ def unported_options(cfg: Config) -> List[str]:
     asked = []
     if str(cfg.resume_from_checkpoint) != "False":
         asked.append(f"--resume_from_checkpoint {cfg.resume_from_checkpoint} (resume)")
-    if cfg.use_ema and cfg.sampling == "base":
-        asked.append("--sampling base (its save cadence captures sampling trajectories)")
-    if cfg.capture_trajectory:
-        asked.append("--capture_trajectory")
     if cfg.interpolation_shift is not None:
         asked.append("--interpolation_shift (interpolation sampling)")
     if cfg.mesh_model != 1 or cfg.mesh_spatial:
@@ -143,10 +155,11 @@ class Trainer:
             raise NotImplementedError(f"not yet ported: {', '.join(asked)}")
         # silently-broken mode couplings fail here, not at the first save
         # cadence (config.py:validate_sampling_modes); so do sampling modes
-        # the cadence's fused sampler does not cover
-        validate_sampling_modes(cfg)
+        # the cadence's sampler refuses
         if cfg.use_ema:
-            fused_mode(cfg)
+            validate_modes(cfg)
+        else:
+            validate_sampling_modes(cfg)
 
         self.cfg = cfg
         self.dataset = dataset
@@ -178,8 +191,11 @@ class Trainer:
         self.state = create_train_state(self.model, optimizer, use_ema=cfg.use_ema,
                                         plan=self.plan)
         self._step_cache: Dict[tuple, callable] = {}
+        self._visuals_cache: Dict[tuple, callable] = {}
         self._data_dev: Optional[torch.Tensor] = None
+        self._last_batch: Optional[torch.Tensor] = None  # this rank's rows, on the device
         self.loss_mean_epoch: List[float] = []
+        self.lr_list: List[float] = []
         self.global_step = 0
         self.timesteps_used_epoch = None
 
@@ -191,6 +207,13 @@ class Trainer:
                 self.lr_schedule, self.device, self.plan,
             )
         return self._step_cache[key]
+
+    def _get_visuals_fn(self, used: np.ndarray):
+        key = tuple(int(t) for t in used)
+        if key not in self._visuals_cache:
+            self._visuals_cache[key] = make_train_visuals_fn(
+                self.model, self.schedule, self.cfg, used, self.device, self.plan)
+        return self._visuals_cache[key]
 
     # ------------------------------------------------------------------ train
     def train(self, epoch_start: int = 0, epoch_length: Optional[int] = None,
@@ -227,7 +250,8 @@ class Trainer:
                 sel = np.stack(rows)[:, local_rows(cfg.batch_size, self.plan)]
                 sel = torch.as_tensor(sel, device=self.device)
                 for i in range(len(rows)):
-                    losses.append(step_fn(self.state, self._data_dev[sel[i]], gen))
+                    self._last_batch = self._data_dev[sel[i]]
+                    losses.append(step_fn(self.state, self._last_batch, gen))
                     self.global_step += 1
                 # host sync once per epoch, as ONE stacked transfer of the
                 # steps' metrics, their mean over the ranks (one collective)
@@ -249,6 +273,7 @@ class Trainer:
                 )
             loss_mean = statistics.mean(m["train_loss"] for m in losses) if losses else 0.0
             self.loss_mean_epoch.append(loss_mean)
+            self.lr_list.extend(m.get("lr", 0.0) for m in losses)
             last_metrics = losses[-1] if losses else {}
 
             if visualizer is not None and losses:
@@ -264,8 +289,17 @@ class Trainer:
                 )
 
             if dirs is not None and self._on_save_cadence(epoch, epoch_start, epoch_length):
+                # the sampling and the visuals pass end in collectives: every
+                # rank runs them; the writes inside are rank 0's
+                if host.is_main_process():
+                    self._save_learning_curve(dirs)
+                self._save_train_visuals(dirs, epoch, used, gen, visualizer)
                 if cfg.use_ema:
-                    self._save_ema_momentum_sample(dirs, epoch, visualizer)
+                    # --sampling dispatch (trainer_masked_mean_shift.py:254-260)
+                    if cfg.sampling == "base":
+                        self._save_ema_sample(dirs, epoch, visualizer)
+                    else:
+                        self._save_ema_momentum_sample(dirs, epoch, visualizer)
                 checkpoints.append(self._save_checkpoint(dirs, epoch))
 
         steady = timed[1:] if len(timed) > 1 else timed
@@ -321,36 +355,122 @@ class Trainer:
         host.barrier()
         return path
 
-    def sample_ema(self, generator: torch.Generator, sample_num: Optional[int] = None):
+    def _save_learning_curve(self, dirs) -> None:
+        """3-panel loss/lr/schedule PNG (trainer_masked.py:275-297); skipped
+        where matplotlib is not installed (rank 0 only)."""
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            return
+        fig = plt.figure(figsize=(24, 8))
+        plt.subplot(1, 3, 1)
+        plt.plot(np.asarray(self.loss_mean_epoch), color="red")
+        plt.title("loss")
+        plt.subplot(1, 3, 2)
+        plt.plot(np.asarray(self.lr_list), color="red")
+        plt.title("learning rate")
+        plt.subplot(1, 3, 3)
+        ratios = np.asarray(self.schedule.ratios)
+        plt.plot(ratios, color="red")
+        plt.title(f"degrade black area num = {len(ratios)}")
+        plt.tight_layout()
+        plt.savefig(os.path.join(dirs.list_dir["train_loss"], "loss.png"),
+                    bbox_inches="tight", dpi=100)
+        plt.close(fig)
+
+    # tensor name -> run-directory key (utils/dirs.py == dirutils.py:77-101).
+    # 'noisy_img' is the degraded image (scheduler.py:260 names its output
+    # noisy_img); 'noise_img' holds the network's predicted residual (the
+    # reference calls it 'mask', trainer_masked_mean_shift.py:140).
+    _VISUAL_DIRS = {
+        "input": "train_img",
+        "degraded_img": "noisy_img",
+        "degrade_binary_masks": "mask_img",
+        "degradation_mask": "mask_img",
+        "mean_pixel": "img",
+        "mask": "noise_img",
+        "reconstructed_img": "predict_img",
+        "inverse_shift_reconstructed_img": "predict_img",
+        "shift": "shift_img",
+        "shifted_degrade_img": "shift_noisy",
+    }
+
+    def _save_train_visuals(self, dirs, epoch: int, used, generator, visualizer=None) -> None:
+        """The last batch's train-time tensors as global and local grids in
+        the run tree and the visualizer (trainer_masked.py:58-80,300-342,
+        trainer_masked_mean_shift.py:264): one forward per save cadence on
+        each rank's rows, gathered (collective) before rank 0 writes."""
+        if self._last_batch is None:
+            return
+        out = self._get_visuals_fn(used)(self._last_batch, generator)
+        out = {name: host.fetch(tensor) for name, tensor in out.items()}
+        if not host.is_main_process():
+            return
+        display = {}
+        for name, arr in out.items():
+            d = dirs.list_dir.get(self._VISUAL_DIRS.get(name, "img"))
+            if d is None or not os.path.isdir(d):
+                continue
+            display[f"{name}_normalize_global"] = save_image_grid(
+                arr, "global", d, f"{name}_{epoch:05d}_global.png")
+            display[f"{name}_normalize_local"] = save_image_grid(
+                arr, "image", d, f"{name}_{epoch:05d}_local.png")
+        if visualizer is not None and display:
+            visualizer.display_current_results(epoch, display)
+
+    def sample_ema(self, generator: torch.Generator, sample_num: Optional[int] = None,
+                   capture: Optional[bool] = None):
         """sample_num images (N, H, W, C), a numpy array on every rank, from
-        the EMA weights (the online weights when EMA is off), through the
-        fused sampler. The latents are drawn over the global batch rounded
-        up to the ranks (JAX _cadence_latent); each rank samples its rows
-        and `fetch` gathers them (collective). The sampler casts its model
-        to the compute dtype in place, so it gets a copy."""
+        the EMA weights (the online weights when EMA is off). The latents
+        are drawn over the global batch rounded up to the ranks (JAX
+        _cadence_latent); each rank samples its rows and `fetch` gathers
+        them (collective). With capture (default: --capture_trajectory)
+        returns (images, trajectory): the sampler's trajectory of the first
+        4 images, device tensors (sample/loop.py). The sampler casts its
+        model to the compute dtype in place, so it gets a copy."""
         cfg = self.cfg
+        capture = cfg.capture_trajectory if capture is None else capture
         used = self.timesteps_used_epoch
         if used is None:
             used = self.schedule.timesteps_for_epoch(
                 0, cfg.num_epochs, cfg.scheduler_num_scale_timesteps
             )
         source = self.state.ema_model if self.state.ema_model is not None else self.model
+        # only _save_trajectory_grids' 4 items are ever rendered
         sample_fn = make_sample_fn(copy.deepcopy(source), self.schedule, cfg, used,
-                                   device=self.device, plan=self.plan)
+                                   device=self.device, plan=self.plan,
+                                   capture_trajectory=capture, capture_items=4 if capture else 0)
         num = sample_num or cfg.sample_num
         padded = round_up(num, self.plan.data_size)
         latent = latent_initial(
             generator, padded, cfg.out_channel, cfg.data_size,
             cfg.sample_latent_shape, cfg.mean_area, self.dataset_hist, device=self.device,
         )
-        return host.fetch(sample_fn(latent[local_rows(padded, self.plan)], generator))[:num]
+        out = sample_fn(latent[local_rows(padded, self.plan)], generator)
+        if capture:
+            return host.fetch(out[0])[:num], out[1]
+        return host.fetch(out)[:num]
 
-    def _save_ema_momentum_sample(self, dirs, epoch: int, visualizer=None) -> None:
-        """EMA sampling + global/local grids (trainer_masked_mean_shift.py:
-        409-429)."""
-        sample = self.sample_ema(torch.Generator().manual_seed(self.cfg.seed + epoch))
-        if not host.is_main_process():
-            return  # the sampling ended in a collective gather; writes are rank 0's
+    @staticmethod
+    def _fetch_trajectory(trajectory: dict, n_items: int = 4) -> dict:
+        """The captured image buffers on the host, the first n_items only:
+        {field: (n_items, T, H, W, C) numpy}."""
+        return {name: buf[:, :n_items].cpu().numpy().transpose(1, 0, 2, 3, 4)
+                for name, buf in trajectory.items() if name != "means"}
+
+    @staticmethod
+    def _save_trajectory_grids(dirs, epoch: int, trajectory: dict) -> None:
+        """One grid over the timesteps per captured field and item
+        (sampler.py:390-417), from _fetch_trajectory's arrays (rank 0)."""
+        d = dirs.list_dir["sample_all_t"]
+        for name, traj in trajectory.items():
+            for i, g in enumerate(save_multi_index_image_grid(traj, normalization="image")):
+                save_png(np.clip(g, 0.0, 1.0), os.path.join(d, f"{name}_{epoch:05d}_item{i}.png"))
+
+    def _save_result_grids(self, dirs, epoch: int, sample: np.ndarray, visualizer) -> None:
         d = dirs.list_dir["ema_sample_img"]
         g_global = save_image_grid(sample, "global", d, f"ema_sample_{epoch:05d}_global.png")
         g_local = save_image_grid(sample, "image", d, f"ema_sample_{epoch:05d}_local.png")
@@ -362,3 +482,37 @@ class Trainer:
                     "ema_sample_result_normalize_local": g_local,
                 },
             )
+
+    def _save_ema_momentum_sample(self, dirs, epoch: int, visualizer=None) -> None:
+        """EMA sampling + global/local grids (trainer_masked_mean_shift.py:
+        409-429); with --capture_trajectory, the trajectory grids too."""
+        out = self.sample_ema(torch.Generator().manual_seed(self.cfg.seed + epoch))
+        if not host.is_main_process():
+            return  # the sampling ended in a collective gather; writes are rank 0's
+        if isinstance(out, tuple):
+            out, trajectory = out
+            self._save_trajectory_grids(dirs, epoch, self._fetch_trajectory(trajectory))
+        self._save_result_grids(dirs, epoch, out, visualizer)
+
+    def _save_ema_sample(self, dirs, epoch: int, visualizer=None) -> None:
+        """--sampling base: EMA sampling with trajectory capture — the result
+        grids, the trajectory grids and the trajectory means (the intent of
+        trainer_masked_mean_shift.py:374-404, whose unpack of the sampler's
+        returns is stale). The means are the full batch's, averaged over
+        the steps."""
+        sample, trajectory = self.sample_ema(
+            torch.Generator().manual_seed(self.cfg.seed + epoch), capture=True)
+        if not host.is_main_process():
+            return
+        m = trajectory["means"]
+        means = {
+            "ema_sample_mean": float(sample.mean()),
+            "ema_sample_t_mean": float(m["sample_t"].mean()),
+            "ema_sample_0_mean": float(m["sample_0"].mean()),
+            "ema_sample_shift_t_mean": float(m["shifted"].mean()),
+            "ema_sample_0_shift_mean": float(m["shifted_result"].mean()),
+        }
+        self._save_trajectory_grids(dirs, epoch, self._fetch_trajectory(trajectory))
+        self._save_result_grids(dirs, epoch, sample, visualizer)
+        if visualizer is not None:
+            visualizer.plot_current_losses(epoch, means, "value")

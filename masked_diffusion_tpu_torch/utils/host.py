@@ -66,13 +66,14 @@ def mean_over_ranks(x: torch.Tensor) -> torch.Tensor:
     return (y / n).to(x.device)
 
 
-def fetch(x: torch.Tensor) -> np.ndarray:
+def gather(x: torch.Tensor) -> torch.Tensor:
     """Every rank's rows of a batch-major tensor, concatenated in rank order,
-    as numpy on every rank. Shards may differ in length: each is padded to
-    the longest for one all_gather of equal tensors, then trimmed.
-    COLLECTIVE when multi-process."""
+    on every rank: x itself for one process, else on the collectives' device
+    (the CPU under gloo). Shards may differ in length: each is padded to the
+    longest for one all_gather of equal tensors, then trimmed. COLLECTIVE
+    when multi-process."""
     if process_count() <= 1:
-        return x.detach().cpu().numpy()
+        return x
     dev = _comm_device()
     n = process_count()
     rows = torch.tensor([x.shape[0]], dtype=torch.int64, device=dev)
@@ -86,7 +87,12 @@ def fetch(x: torch.Tensor) -> np.ndarray:
         local = torch.cat([local, pad])
     parts = [torch.empty_like(local) for _ in range(n)]
     dist.all_gather(parts, local)
-    return torch.cat([p[:s] for p, s in zip(parts, sizes)]).cpu().numpy()
+    return torch.cat([p[:s] for p, s in zip(parts, sizes)])
+
+
+def fetch(x: torch.Tensor) -> np.ndarray:
+    """gather(x) as numpy on every rank. COLLECTIVE when multi-process."""
+    return gather(x).detach().cpu().numpy()
 
 
 def synced_timestamp() -> Tuple[str, str]:

@@ -533,6 +533,41 @@ def test_cli_trains_and_serves_on_two_ranks(tmp_path):
     assert len(pngs) == 3 + 1  # the 3 images and one grid (batch 4 holds them)
 
 
+def _trajectory_means(run_root):
+    (path,) = glob.glob(os.path.join(run_root, "**", "log", "metrics.jsonl"), recursive=True)
+    with open(path) as f:
+        (line,) = [json.loads(ln) for ln in f if "ema_sample_t_mean" in ln]
+    return {k: v for k, v in line.items() if k.startswith("ema_sample")}
+
+
+def test_cli_sampling_base_trajectory_means_on_two_ranks_equal_one_process(tmp_path):
+    """--sampling base on 2 ranks: the cadence's trajectory means are the
+    full global batch's, as in one process. The runs draw differently (each
+    rank folds its seeds), so the test picks a setting in which the means do
+    not depend on the draws: LR 0 keeps the zero-initialised output layer at
+    zero, no shift, and the image-wise degraded_area fill keeps every
+    image's sum, so every step's mean is the latents' (drawn alike on both
+    runs from the shared generator). A rank-local or summed mean differs;
+    the ranks' 2 rows each are fewer than the 4 items captured, so the
+    trajectory images are gathered across them."""
+    def args(work, ranks):
+        a = _cli_args(work, "mean_shift")
+        a[a.index("--mesh_data") + 1] = str(ranks)
+        for flag, value in (("--sampling", "base"), ("--shift_type", "non_shift"),
+                            ("--sample_num", "4")):
+            a[a.index(flag) + 1] = value
+        return a + ["--lr", "0"]
+
+    _torchrun(args(str(tmp_path / "two"), 2))
+    assert port_cli.main(args(str(tmp_path / "one"), 1)) == 0
+    two, one = _trajectory_means(str(tmp_path / "two")), _trajectory_means(str(tmp_path / "one"))
+    assert sorted(two) == sorted(one) and len(one) == 5
+    for key in one:
+        assert np.isfinite(one[key]) and abs(two[key] - one[key]) <= 1e-5, (key, two, one)
+    traj = glob.glob(str(tmp_path / "two" / "**" / "sample_all_t" / "*.png"), recursive=True)
+    assert len(traj) == 44
+
+
 @pytest.mark.parametrize("extra,error,message", [
     ([], ValueError, "--mesh_data 2 but WORLD_SIZE is 1"),
     (["--mesh_data", "-1", "--multihost", "True"], RuntimeError,

@@ -4,8 +4,9 @@ neither triton nor nvcc (only a kernel launch needs them).
 
 Two checks: a subprocess (conftest.py imports jax into this process) that
 imports every module of the port and runs the CLI's main for --method
-mean_shift and --method sample on the CPU at toy size (the default model and
-the zoo's unet1), then inspects sys.modules, and has each of two ranks under
+mean_shift (with --sampling momentum and with the default sampling flags)
+and --method sample on the CPU at toy size (the default model and the zoo's
+unet1), then inspects sys.modules, and has each of two ranks under
 torch.distributed.run (gloo) train and serve data-parallel and inspect its
 own; and an AST scan of every .py of the port and of chip_smoke.py for an
 import of masked_diffusion_tpu."""
@@ -52,6 +53,10 @@ with tempfile.TemporaryDirectory() as work:
     with contextlib.redirect_stdout(buf):
         main(["--method", "sample", "--test_model_path", ckpt] + args)
     assert "sample_stats " in buf.getvalue()
+    # the default sampling flags: the cadence captures a trajectory
+    i = args.index("--sampling")
+    with contextlib.redirect_stdout(buf):
+        main(["--method", "mean_shift"] + args[:i] + args[i + 2:])
     # a zoo model, through the tiny-head route's plain version
     zoo = args + ["--model", "unet1", "--data_size", "32", "--tinyhead_attention", "true"]
     buf = io.StringIO()

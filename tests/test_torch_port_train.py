@@ -266,8 +266,44 @@ def test_cli_trains_on_cpu_then_serves_its_checkpoint(tmp_path, capsys):
     assert served["ema"] and served["finite"] and served["images"] == 4
 
 
+def test_cli_trains_with_the_default_sampling_flags(tmp_path, capsys):
+    """No --sampling and no --use_ema: the cadence samples the EMA weights
+    with trajectory capture (--sampling base) and writes the result grids,
+    11 fields x 4 items of trajectory grids, the train visuals, the loss
+    curve and the trajectory means."""
+    args = _train_args(tmp_path / "run")
+    i = args.index("--sampling")
+    del args[i:i + 2]
+    assert port_cli.main(args) == 0
+    stats = _stats(capsys.readouterr().out, "train_stats")
+    (ckpt,) = stats["checkpoints"]
+    run = os.path.dirname(os.path.dirname(ckpt))
+    image = os.path.join(run, "train", "image")
+    assert len(glob.glob(os.path.join(image, "ema_sample_img", "ema_sample_00001_*.png"))) == 2
+    traj = glob.glob(os.path.join(image, "sample_all_t", "*_00001_item*.png"))
+    assert len(traj) == 44
+    from masked_diffusion_tpu_torch.sample.loop import TRAJECTORY_FIELDS
+
+    assert {os.path.basename(p).rsplit("_00001_", 1)[0] for p in traj} == set(TRAJECTORY_FIELDS)
+    visuals = {os.path.relpath(p, image) for p in glob.glob(os.path.join(image, "*", "*.png"))
+               if "/sample_all_t/" not in p and "/ema_sample_img/" not in p}
+    assert len(visuals) == 2 * 10  # global and local grids of the 10 mean-shift tensors
+    for name in ("train_image/input", "noisy_image/degraded_img", "shift_input/shift",
+                 "shift_noisy/shifted_degrade_img",
+                 "predict_image/inverse_shift_reconstructed_img"):
+        assert f"{name}_00001_global.png" in visuals and f"{name}_00001_local.png" in visuals
+    assert os.path.exists(os.path.join(run, "train", "loss", "loss.png"))
+    with open(os.path.join(run, "log", "metrics.jsonl")) as f:
+        lines = [json.loads(ln) for ln in f]
+    (means,) = [ln for ln in lines if "ema_sample_t_mean" in ln]
+    assert means["epoch"] == 1
+    for key in ("ema_sample_mean", "ema_sample_t_mean", "ema_sample_0_mean",
+                "ema_sample_shift_t_mean", "ema_sample_0_shift_mean"):
+        assert np.isfinite(means[key]), key
+
+
 @pytest.mark.parametrize("extra,match", [
-    (["--sampling", "base"], "--sampling base"),
+    (["--keep_last_checkpoints", "2"], "--keep_last_checkpoints"),
     (["--resume_from_checkpoint", "latest"], "--resume_from_checkpoint latest"),
     (["--mesh_model", "2"], "multi-GPU"),
     (["--epoch_scan", "true"], "--epoch_scan"),
