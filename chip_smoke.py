@@ -112,16 +112,32 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      captured cadence, whose ms a reverse step is logged beside phase 10's
      fused cadence; then the checkpoint served with dependent_prev +
      momentum (two requests of 16 images)
+ 21. checkpoints, resume and preemption at the flagship's width (phase
+     10's flags, 4 steps an epoch): (a) 3 epochs through the Trainer API
+     and (b) the same run SIGTERM'd in-process in its 6th step, restored
+     into a fresh Trainer and finished, both under deterministic settings
+     (cuDNN deterministic, torch.use_deterministic_algorithms, warn_only,
+     CUBLAS_WORKSPACE_CONFIG): params and EMA bitwise equal, the max |diff|
+     printed, the ops that warned named; (d) the host-blocking time of a
+     sync and an async save of the full state, its bytes on disk and the
+     restore time; (c) the CLI as a subprocess (this script with
+     `--counted <file>`, 6 epochs) SIGTERM'd once log/metrics.jsonl has
+     epoch 0's line, exit 0 with a preemption checkpoint, then resumed
+     with --keep_last_checkpoints 1 --async_checkpoints true to
+     global_step 24 with one complete checkpoint left, holding optimizer/
+     and history.npz. Every run launches the GroupNorm and exact-k kernels
 
 Phases 11 and 12 run first (the newest kernels fail fast), phase 19 after
-the slice phases; phases 5, 10, 20, 16, 17 and 18, the main-path runs, come
-last, in one work directory. The kernels' `launches` are counted over those
-runs (phase 18's summed over its ranks), with every count set to 0 just
-before each. Run phase 19 alone with `python3 -c "import chip_smoke as c;
+the slice phases; phases 5, 10, 20, 16, 17, 18 and 21, the main-path runs,
+come last, in one work directory. The kernels' `launches` are counted over
+those runs (phase 18's summed over its ranks, phase 21's over its five),
+with every count set to 0 just before each. Run phase 19 alone with `python3 -c "import chip_smoke as c;
 c.phase_env(); c.phase_sampling_modes()"`, phases 10 and 20 with `python3
 -c "import tempfile, chip_smoke as c; c.phase_env(); d =
 tempfile.mkdtemp(dir='build'); c.phase_default_cli(d,
-c.phase_train_cli(d)[1])"`. `bound_ms` is the least
+c.phase_train_cli(d)[1])"`, phase 21 with `python3 -c "import tempfile,
+chip_smoke as c; smi = c.phase_env(); d = tempfile.mkdtemp(dir='build');
+c.phase_preempt(d, smi)"`. `bound_ms` is the least
 time the card could take for the same work: the larger of the bytes moved
 over 3.35 TB/s, the fp32 operations over 67 TFLOP/s (outside the tensor
 cores) and the 32-bit integer operations at 64 a clock per SM times the SM
@@ -2559,6 +2575,327 @@ def phase_default_cli(workdir: str, flagship_perf: dict):
     return {k: train[k] + serve[k] for k in train}, cadence_ms
 
 
+# [21] checkpoints, resume and preemption at the flagship's width
+RESUME_EPOCHS = 3  # (a)/(b): 3 epochs of 4 steps
+PREEMPT_AT = 6  # (b): SIGTERM in the step that makes global step 6 (epoch 1, step 2)
+CLI_EPOCHS = 6  # (c): 24 steps
+CLI_TIMEOUT = 600  # seconds for (c)'s preempted CLI subprocess
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms, torch's deterministic mode with
+    CUBLAS_WORKSPACE_CONFIG, and no cuDNN autotuning; restored afterwards.
+    warn_only: an op with no deterministic form warns instead of raising,
+    and the warnings are collected (yielded list) so the op can be named."""
+    import warnings
+
+    import torch
+
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+        if saved[4] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved[4]
+
+
+def _resume_setup(workdir: str):
+    """(cfg, device, dataset, histogram) of phase 21's Trainer-API runs:
+    phase 10's flags, 3 epochs of 4 steps, the cadence at the last epoch
+    only."""
+    from masked_diffusion_tpu_torch.cli.main_train_masked import parse
+    from masked_diffusion_tpu_torch.data.datasets import get_dataset
+    from masked_diffusion_tpu_torch.data.histogram import compute_mean_histogram
+
+    argv, _ = flagship_cli_args(workdir)
+    argv = _with(argv, "--num_epochs", str(RESUME_EPOCHS), "--save_images_epochs", "3")
+    cfg, device = parse(argv)
+    data = get_dataset(cfg.dir_dataset, cfg.data_name, cfg.data_size, cfg.data_set,
+                       cfg.data_subset, cfg.data_subset_num, seed=cfg.seed)
+    return cfg, device, data, compute_mean_histogram(data.data, cfg.sample_num, cfg.mean_area)
+
+
+def _with(argv, *pairs):
+    """argv with each (flag, value) of pairs set (replaced, else appended)."""
+    argv = list(argv)
+    for flag, value in zip(pairs[::2], pairs[1::2]):
+        if flag in argv:
+            argv[argv.index(flag) + 1] = value
+        else:
+            argv += [flag, value]
+    return argv
+
+
+def _run_dirs(cfg, workdir: str, sub: str):
+    from masked_diffusion_tpu_torch.utils.dirs import Dir
+
+    return Dir(task="train", content=sub, dir_work=workdir, data_name=cfg.data_name,
+               data_size=cfg.data_size, method=cfg.method)
+
+
+def _host_state(trainer) -> dict:
+    """Params and EMA of a trainer, copied to the host."""
+    out = {f"p.{k}": v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+    out.update({f"e.{k}": v.detach().cpu().clone()
+                for k, v in trainer.state.ema_model.state_dict().items()})
+    return out
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def _release() -> None:
+    """Return the card memory of trainers the caller has dropped."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _uninterrupted(cfg, device, data, hist, workdir: str, sub: str):
+    """(a): 3 epochs through the Trainer API; (host state, counts, losses)."""
+    from masked_diffusion_tpu_torch.train.trainer import Trainer
+
+    reset_counts()
+    t = Trainer(cfg, data, hist, device=device)
+    t.train(0, RESUME_EPOCHS, dirs=_run_dirs(cfg, workdir, sub))
+    out = (_host_state(t), read_counts(), list(t.loss_mean_epoch))
+    del t
+    _release()
+    return out
+
+
+def _check_counts(what: str, counts: dict) -> None:
+    need = ("group_norm_silu", "group_norm_silu_backward", "exact_count_masks")
+    if not all(counts[k] > 0 for k in need):
+        raise AssertionError(f"[21] {what}: launches {counts}, expected {need} above 0")
+
+
+def phase_preempt(workdir: str, smi: str) -> dict:
+    """[21] Checkpoints, resume and preemption, the flagship at full width
+    (113.7M parameters, 64x64x3, bf16, batch 64, log + indexing at T=200,
+    phase 10's flags, 4 steps an epoch).
+    (a) 3 epochs uninterrupted, through the Trainer API; (b) the same run
+    SIGTERM'd in-process inside the step that makes global step 6 (epoch
+    1, step 2), restored into a fresh Trainer and finished: params and EMA
+    must equal (a)'s bitwise; both under `deterministic()`. Should they
+    differ, a second uninterrupted run measures the card's own
+    run-to-run difference and (b)'s may not exceed it. (c) the CLI as a
+    subprocess, 6 epochs, --save_images_epochs 3: SIGTERM from outside once
+    log/metrics.jsonl has the first epoch's line; it must exit 0 with a
+    preemption checkpoint; then rerun with --resume_from_checkpoint latest
+    --keep_last_checkpoints 1 --async_checkpoints true: global_step 24 and
+    exactly one complete checkpoint left, with optimizer/ and history.npz.
+    (d) the host-blocking time of a sync and an async save, the bytes on
+    disk and the restore time. Every run launches the GroupNorm forward and
+    backward and exact-k kernels (counts above 0). Returns the launches of
+    all runs, (b)'s and (c)'s counted just as the others'."""
+    import signal as signals
+    import types
+
+    import numpy as np
+    import torch
+
+    from masked_diffusion_tpu_torch.cli.main_train_masked import parse
+    from masked_diffusion_tpu_torch.io import checkpoint as ckpt_io
+    from masked_diffusion_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    work = os.path.join(workdir, "preempt")
+    cfg, device, data, hist = _resume_setup(work)
+    runs = []
+
+    with deterministic() as caught:
+        ref, counts, ref_losses = _uninterrupted(cfg, device, data, hist, work, "a")
+        _check_counts("(a) uninterrupted", counts)
+        runs.append(counts)
+
+        reset_counts()
+        pre = Trainer(cfg, data, hist, device=device)
+        make = pre._get_step_fn
+
+        def get(used):
+            fn = make(used)
+
+            def step(*a, **k):
+                out = fn(*a, **k)
+                if pre.global_step + 1 == PREEMPT_AT:
+                    signals.raise_signal(signals.SIGTERM)
+                return out
+            return step
+
+        pre._get_step_fn = get
+        result = pre.train(0, RESUME_EPOCHS, dirs=_run_dirs(cfg, work, "b"))
+        if not result["preempted"] or pre.global_step != PREEMPT_AT:
+            raise AssertionError(f"[21] (b) SIGTERM at step {PREEMPT_AT}: preempted "
+                                 f"{result['preempted']}, global_step {pre.global_step}")
+        (path,) = result["checkpoints"]
+        del pre, make, get
+        _release()
+        res = Trainer(cfg, data, hist, device=device)
+        gs = res.restore(path)
+        first, skip = divmod(gs, data.num_batches(cfg.batch_size))
+        res.train(first, RESUME_EPOCHS - first, skip, gs, dirs=_run_dirs(cfg, work, "b"))
+        counts = read_counts()
+        _check_counts("(b) preempted and resumed", counts)
+        runs.append(counts)
+        got = _host_state(res)
+        diff = _max_diff(ref, got)
+        bitwise = all(torch.equal(ref[k], got[k]) for k in ref)
+        losses_equal = res.loss_mean_epoch == ref_losses
+        own = None
+        if not (bitwise and losses_equal):
+            again, counts, _ = _uninterrupted(cfg, device, data, hist, work, "a2")
+            runs.append(counts)
+            own = _max_diff(ref, again)
+        varying = sorted({str(w.message).split("\n")[0][:200] for w in caught
+                          if "deterministic" in str(w.message)})
+    log(f"[21] (b) SIGTERM in step {PREEMPT_AT} (epoch 1, step 2), restored from "
+        f"{os.path.basename(path)} into a fresh Trainer, finished at global_step "
+        f"{res.global_step}: params and EMA vs the uninterrupted run (a) "
+        f"{'BITWISE EQUAL' if bitwise else 'differ'}, max |diff| {diff:.3g}; loss_mean_epoch "
+        f"{'equal' if losses_equal else 'differs'} ({[round(v, 6) for v in ref_losses]}); "
+        f"deterministic mode (cuDNN deterministic, torch.use_deterministic_algorithms "
+        f"warn_only, CUBLAS_WORKSPACE_CONFIG=:4096:8); ops without a deterministic form: "
+        f"{varying or 'none warned'}")
+    if own is not None:
+        log(f"[21] (b) two uninterrupted runs differ by max |diff| {own:.3g} on the card")
+        if not (own > 0 and diff <= own):
+            raise AssertionError(f"[21] (b) resumed run differs by {diff:.3g}, two "
+                                 f"uninterrupted runs by {own:.3g}")
+
+    # (d) save and restore times of the flagship's full state
+    save_dir = os.path.join(work, "timed")
+    dirs = types.SimpleNamespace(list_dir={"checkpoint": save_dir})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sync_path = res._save_checkpoint(dirs, 100, None, res._history())
+    sync_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, files in os.walk(sync_path) for f in files)
+    t0 = time.perf_counter()
+    res._save_checkpoint(dirs, 101, None, res._history(), async_save=True)
+    async_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt_io.wait_for_async_saves()
+    drain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res.restore(sync_path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    log(f"[21] (d) the flagship's full state (params, EMA, AdamW moments and steps; "
+        f"{nbytes} bytes on disk): a sync save blocks the host {sync_s:.3f} s, an async save "
+        f"{async_s:.3f} s (its write then took {drain_s:.3f} s more in the background), a "
+        f"restore takes {restore_s:.3f} s ({smi})")
+    del res
+    _release()
+
+    # (c) the CLI: preempted from outside, then resumed with retention and async saves
+    argv, _ = flagship_cli_args(os.path.join(work, "cli"))
+    argv = _with(argv, "--num_epochs", str(CLI_EPOCHS), "--save_images_epochs", "3",
+                 "--date", "preempt", "--time", "run")
+    run_dirs = _run_dirs_of(parse(argv)[0])
+    metrics = os.path.join(run_dirs["log"], "metrics.jsonl")
+    counts_path = os.path.join(work, "cli_counts.json")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--counted", counts_path, *argv],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    signalled = False
+    deadline = time.monotonic() + CLI_TIMEOUT
+    try:
+        while proc.poll() is None and time.monotonic() < deadline:
+            if os.path.exists(metrics) and os.path.getsize(metrics) > 0:
+                proc.send_signal(signals.SIGTERM)
+                signalled = True
+                break
+            time.sleep(0.02)
+        output, _ = proc.communicate(timeout=max(1, deadline - time.monotonic()))
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signals.SIGKILL)
+            proc.communicate()
+    sys.stdout.write("".join(f"[21|cli] {ln}\n" for ln in output.splitlines()
+                             if ln.startswith(("train_stats", "SIGTERM", "*****"))))
+    if not signalled:
+        raise AssertionError(f"[21] (c) the CLI ended (rc {proc.returncode}) before the signal "
+                             f"landed\n{output[-3000:]}")
+    stats = [ln for ln in output.splitlines() if ln.startswith("train_stats ")]
+    if proc.returncode != 0 or not stats:
+        raise AssertionError(f"[21] (c) preempted CLI: rc {proc.returncode}\n{output[-4000:]}")
+    first = json.loads(stats[-1].split(" ", 1)[1])
+    with open(counts_path) as f:
+        counts = json.load(f)
+    _check_counts("(c) preempted CLI", counts)
+    runs.append(counts)
+    with open(os.path.join(first["checkpoints"][-1], "meta.json")) as f:
+        meta = json.load(f)
+    if not first["preempted"] or meta.get("preempted") is not True or (
+            first["global_step"] >= 4 * CLI_EPOCHS):
+        raise AssertionError(f"[21] (c) preempted CLI: stats {first}, meta {meta}")
+
+    rc, stats, counts = _run_cli(argv + ["--resume_from_checkpoint", "latest",
+                                         "--keep_last_checkpoints", "1",
+                                         "--async_checkpoints", "true"], "train_stats")
+    _check_counts("(c) resumed CLI", counts)
+    runs.append(counts)
+    ckpt_dir = run_dirs["checkpoint"]
+    left = sorted(os.listdir(ckpt_dir))
+    complete = [d for d in left if ckpt_io.is_complete_checkpoint(os.path.join(ckpt_dir, d))]
+    kept = os.path.join(ckpt_dir, left[0]) if left else ""
+    if (rc != 0 or stats["global_step"] != 4 * CLI_EPOCHS or stats["preempted"]
+            or len(left) != 1 or complete != left
+            or not {"optimizer", "history.npz"} <= set(os.listdir(kept))
+            or not np.isfinite(stats["loss_mean_epoch"]).all()):
+        raise AssertionError(f"[21] (c) resumed CLI: rc {rc}, stats {stats}, left {left}")
+    log(f"[21] (c) CLI SIGTERM'd from outside after epoch 0's metrics line: exit 0, "
+        f"preemption checkpoint {os.path.basename(first['checkpoints'][-1])} at global_step "
+        f"{first['global_step']}; resumed with --keep_last_checkpoints 1 --async_checkpoints "
+        f"true to global_step {stats['global_step']} ({len(stats['loss_mean_epoch'])} epoch "
+        f"means), left {left} with optimizer/ and history.npz; phase 21 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {k: sum(c[k] for c in runs) for k in runs[0]}
+
+
+def _run_dirs_of(cfg) -> dict:
+    """The run directory's paths the CLI makes for cfg (none made here)."""
+    from masked_diffusion_tpu_torch.utils.dirs import Dir
+
+    return Dir(task=cfg.task, content=cfg.content, dir_work=cfg.dir_work,
+               dir_dataset=cfg.dir_dataset, data_name=cfg.data_name, data_set=cfg.data_set,
+               data_size=cfg.data_size, date=cfg.date, time=cfg.time, method=cfg.method,
+               title=cfg.title, make_dirs=False).list_dir
+
+
+def counted_main(counts_path: str, argv) -> int:
+    """The CLI's main(argv) with every launch count set to 0 just before;
+    writes the counts to counts_path after it (phase 21's subprocess)."""
+    sys.path.insert(0, ROOT)
+    from masked_diffusion_tpu_torch.cli.main_train_masked import main
+
+    reset_counts()
+    rc = main(argv)
+    with open(counts_path, "w") as f:
+        json.dump(read_counts(), f)
+    return rc
+
+
 DDP_RANKS = 2
 DDP_TIMEOUT = 600  # seconds for one torch.distributed.run of phase 18
 DDP_PARITY_BATCH = 4  # global; 2 rows a rank
@@ -3070,7 +3407,8 @@ def main() -> int:
         default_cli, captured_ms = phase_default_cli(workdir, flagship_perf)
         main_runs += [flagship_cli, default_cli, phase_celeba_cli(workdir),
                       phase_unet6_cli(workdir),
-                      phase_ddp(os.path.join(workdir, "ranks"), smi, flagship_perf)]
+                      phase_ddp(os.path.join(workdir, "ranks"), smi, flagship_perf),
+                      phase_preempt(workdir, smi)]
     for mod in sorted(sys.modules):
         if mod.split(".")[0] in ("jax", "flax", "masked_diffusion_tpu"):
             raise AssertionError(f"{mod} was imported")
@@ -3151,5 +3489,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    # `--rank <dir>` is one rank of phase 18 under torch.distributed.run
-    sys.exit(rank_main(sys.argv[2]) if sys.argv[1:2] == ["--rank"] else main())
+    # `--rank <dir>` is one rank of phase 18 under torch.distributed.run;
+    # `--counted <file> <CLI flags>` is phase 21's CLI subprocess
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--counted"]:
+        sys.exit(counted_main(sys.argv[2], sys.argv[3:]))
+    sys.exit(main())

@@ -10,15 +10,25 @@ masked_diffusion_tpu/cli/main_train_masked.py:23-208 (the port imports
 nothing of the JAX package; tests/test_torch_port_host.py holds them equal).
 The method dispatch mirrors that file's main (:232-327) without a mesh:
 
-  base | mean_shift  train (train/trainer.py) and write checkpoints in the
-                     export layout, checkpoint-epoch-N/{unet,unet_ema}/ with
-                     meta.json, and on the save cadence the loss curve, the
-                     train visuals and the EMA sample (--sampling base, the
-                     default, with its trajectory grids and means); prints a
-                     `train_stats {json}` line
-  sample             load --test_model_path in that layout (written by the
-                     port's trainer or by masked_diffusion_tpu.io.export_torch)
-                     and generate --sample_num images in any sampling mode
+  base | mean_shift  train (train/trainer.py) and write checkpoints
+                     (io/checkpoint.py: checkpoint-epoch-N/{unet,unet_ema,
+                     optimizer}/, meta.json, history.npz), and on the save
+                     cadence the loss curve, the train visuals and the EMA
+                     sample (--sampling base, the default, with its
+                     trajectory grids and means); prints a `train_stats
+                     {json}` line. --resume_from_checkpoint latest|<path>
+                     continues a run from its newest complete checkpoint in
+                     --output_dir, or else in the run's own checkpoint
+                     directory (the same --date/--time/--title name it):
+                     --num_epochs is the total, so it trains the epochs left.
+                     SIGTERM saves a resumable checkpoint and exits 0;
+                     --keep_last_checkpoints N and --async_checkpoints true
+                     bound and background the cadence's saves
+  sample             load --test_model_path in the export layout (written by
+                     the port's trainer or by masked_diffusion_tpu.io.
+                     export_torch), or with --resume_from_checkpoint latest
+                     the newest checkpoint of --output_dir, and generate
+                     --sample_num images in any sampling mode
                      (--sampling_mask_dependency, --momentum_adaptive,
                      --degrade_channel, --mean_option, --mean_area) but
                      --encoder_reuse > 1; prints `sample_stats`
@@ -53,6 +63,7 @@ import argparse
 import dataclasses
 import json
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -261,6 +272,19 @@ def _device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
 
+def _resume_path(cfg: Config, dirs) -> Optional[str]:
+    """The checkpoint --resume_from_checkpoint names: in --output_dir, or
+    else in the run's checkpoint directory. None for 'latest' when there is
+    none (a fresh run); a named checkpoint that does not exist raises."""
+    from masked_diffusion_tpu_torch.io.checkpoint import find_resume_checkpoint
+
+    wanted = cfg.resume_from_checkpoint
+    path = find_resume_checkpoint(cfg.output_dir or dirs.list_dir.get("checkpoint", ""), wanted)
+    if path is None and wanted not in ("latest", "True", True):
+        raise FileNotFoundError(f"Checkpoint '{wanted}' does not exist.")
+    return path
+
+
 def _train(cfg: Config, plan, dirs, dataset, dataset_hist, visualizer) -> None:
     from masked_diffusion_tpu_torch.train.trainer import Trainer
     from masked_diffusion_tpu_torch.utils import host
@@ -268,6 +292,18 @@ def _train(cfg: Config, plan, dirs, dataset, dataset_hist, visualizer) -> None:
     device = plan.device
     trainer = Trainer(cfg, dataset, dataset_hist, visualizer=visualizer, device=device,
                       plan=plan)
+    global_step = first_epoch = resume_step = 0
+    if str(cfg.resume_from_checkpoint) != "False":
+        path = _resume_path(cfg, dirs)
+        if path is not None:
+            global_step = trainer.restore(path)
+            steps_per_epoch = max(1, dataset.num_batches(cfg.batch_size))
+            first_epoch, resume_step = divmod(global_step, steps_per_epoch)
+            if host.is_main_process():
+                print(f"Resuming from checkpoint {path} (epoch {first_epoch})", flush=True)
+        elif host.is_main_process():
+            print(f"Checkpoint '{cfg.resume_from_checkpoint}' does not exist. "
+                  "Starting a new training run.", flush=True)
     if host.is_main_process():
         print(
             f"***** Running {cfg.method} *****\n"
@@ -279,7 +315,10 @@ def _train(cfg: Config, plan, dirs, dataset, dataset_hist, visualizer) -> None:
             f"  Device = {_device_name(device)}",
             flush=True,
         )
-    result = trainer.train(dirs=dirs, visualizer=visualizer)
+    # --num_epochs is the total (main_train_masked.py:285-335): a resumed run
+    # trains the epochs left
+    result = trainer.train(first_epoch, max(0, cfg.num_epochs - first_epoch), resume_step,
+                           global_step, dirs, visualizer)
     if not host.is_main_process():
         return
     print("train_stats " + json.dumps({
@@ -291,6 +330,7 @@ def _train(cfg: Config, plan, dirs, dataset, dataset_hist, visualizer) -> None:
         "device": _device_name(device),
         "ranks": plan.data_size,
         "checkpoints": result["checkpoints"],
+        "preempted": result["preempted"],
     }), flush=True)
 
 
@@ -301,11 +341,15 @@ def _sample(cfg: Config, plan, dirs, dataset_hist) -> None:
     from masked_diffusion_tpu_torch.sample.generate import generate_images
     from masked_diffusion_tpu_torch.utils import host
 
-    if not cfg.test_model_path:
+    path = cfg.test_model_path
+    if not path and str(cfg.resume_from_checkpoint) != "False":
+        path = _resume_path(cfg, dirs)
+    if not path:
         raise SystemExit("--method sample needs --test_model_path (a checkpoint-epoch-N "
                          "folder written by the port's trainer or by "
-                         "masked_diffusion_tpu.io.export_torch)")
-    unet_sd, ema_sd, _ = load_checkpoint(cfg.test_model_path)
+                         "masked_diffusion_tpu.io.export_torch), or --resume_from_checkpoint "
+                         "latest with --output_dir")
+    unet_sd, ema_sd, _ = load_checkpoint(path)
     model = build_model_from_config(cfg)
     use_ema = cfg.use_ema and ema_sd is not None
     model.load_state_dict(ema_sd if use_ema else unet_sd, strict=True)

@@ -156,7 +156,7 @@ def write_safetensors(path: str, tensors: Dict[str, Any]) -> None:
     for name in sorted(tensors):
         t = tensors[name]
         a = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
-        a = np.ascontiguousarray(a)
+        a = np.asarray(a, order="C")  # keeps a 0-d shape (ascontiguousarray makes it 1-d)
         if a.dtype not in _CODES:
             raise TypeError(f"{name}: dtype {a.dtype} has no safetensors code here")
         raw = a.astype(a.dtype.newbyteorder("<"), copy=False).tobytes()

@@ -51,6 +51,17 @@ def fold_seed(seed: int, rank: int) -> int:
     return _mix64((seed & _MASK64) ^ _mix64(rank * 0x9E3779B97F4A7C15 & _MASK64)) >> 1
 
 
+def step_seed(seed: int, epoch: int, index: int) -> int:
+    """The seed of draw stream `index` of epoch `epoch` in a run seeded with
+    `seed`: a 63-bit mix of the three. Each step's stream is a function of
+    (seed, epoch, index) alone, as the JAX trainer's split chain is of
+    (epoch, i), so a run resumed inside an epoch draws what the
+    uninterrupted run drew without replaying the steps it skips."""
+    z = _mix64((seed + 0x9E3779B97F4A7C15) & _MASK64)
+    z = _mix64(z ^ (epoch * 0xBF58476D1CE4E5B9 & _MASK64))
+    return _mix64(z ^ (index * 0x94D049BB133111EB & _MASK64)) >> 1
+
+
 def fold_generator(generator: Optional[torch.Generator], rank: int):
     """The CPU generator rank `rank` draws from in place of the shared
     `generator`: the generator itself for rank 0 (and for None), otherwise

@@ -27,12 +27,20 @@ reference's get_optimizer / get_lr_scheduler (main_train_masked.py:134-165):
 
 The LR and every count are host numbers: a step makes no host-device
 transfer.
+
+`Optimizer.state_dict` is what a checkpoint keeps of it (optax keeps the
+same in MultiSteps' opt_state): the base optimizer's per-parameter state
+(AdamW's exp_avg, exp_avg_sq and step), the update `count` that drives the
+LR, `mini_step`, and inside an accumulation window the summed .grad, so that
+a run resumed there finishes the window as the uninterrupted run does.
+Tensors are keyed "<parameter name>.<key>" by the model's parameter names
+(the diffusers names of io/weights.py), never by position.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -100,8 +108,12 @@ class Optimizer:
         schedule: Callable[[int], float],
         grad_clip_norm: Optional[float] = 1.0,
         gradient_accumulation_steps: int = 1,
+        names: Optional[Sequence[str]] = None,
     ):
         self.params = list(params)
+        self.names = list(names) if names is not None else None
+        if self.names is not None and len(self.names) != len(self.params):
+            raise ValueError(f"{len(self.names)} names for {len(self.params)} parameters")
         self.base = base
         self.schedule = schedule
         self.grad_clip_norm = grad_clip_norm
@@ -138,6 +150,59 @@ class Optimizer:
         self.mini_step = 0
         return True
 
+    def state_dict(self) -> Tuple[Dict[str, torch.Tensor], dict]:
+        """(tensors, scalars): the base optimizer's per-parameter tensors and,
+        inside an accumulation window, each parameter's summed .grad (None
+        grads are left out), keyed "<name>.<key>"; and the counters and the
+        base optimizer's hyperparameters, JSON-able. The tensors are the
+        live ones: copy them before the next step."""
+        if self.names is None:
+            raise ValueError("Optimizer.state_dict needs the parameter names (names=)")
+        tensors: Dict[str, torch.Tensor] = {}
+        for name, p in zip(self.names, self.params):
+            for key, value in self.base.state.get(p, {}).items():
+                if isinstance(value, torch.Tensor):
+                    tensors[f"{name}.{key}"] = value
+            if self.mini_step > 0 and p.grad is not None:
+                tensors[f"{name}.grad"] = p.grad
+        groups = [{k: v for k, v in g.items() if k != "params"}
+                  for g in self.base.state_dict()["param_groups"]]
+        scalars = {"count": self.count, "mini_step": self.mini_step, "every_k": self.every_k,
+                   "base": type(self.base).__name__, "param_groups": groups}
+        return tensors, scalars
+
+    def load_state_dict(self, tensors: Dict[str, torch.Tensor], scalars: dict) -> None:
+        """Restore what state_dict returned, onto the parameters' devices.
+        Raises on another base optimizer, another accumulation length, or a
+        tensor of no parameter."""
+        if self.names is None:
+            raise ValueError("Optimizer.load_state_dict needs the parameter names (names=)")
+        if scalars["base"] != type(self.base).__name__ or scalars["every_k"] != self.every_k:
+            raise ValueError(
+                f"optimizer state of {scalars['base']} with accumulation {scalars['every_k']}, "
+                f"this run has {type(self.base).__name__} with {self.every_k}")
+        index = {name: i for i, name in enumerate(self.names)}
+        state: Dict[int, dict] = {}
+        grads: Dict[int, torch.Tensor] = {}
+        for full, value in tensors.items():
+            name, key = full.rsplit(".", 1)
+            if name not in index:
+                raise KeyError(f"optimizer state for {name!r}, which is no parameter here")
+            if key == "grad":
+                grads[index[name]] = value
+            else:
+                state.setdefault(index[name], {})[key] = value
+        groups = self.base.state_dict()["param_groups"]
+        # torch places each tensor on its parameter's device and dtype (a
+        # step count stays where torch keeps it)
+        self.base.load_state_dict({"state": state, "param_groups": groups})
+        with torch.no_grad():
+            for i, p in enumerate(self.params):
+                g = grads.get(i)
+                p.grad = None if g is None else g.to(p.device, p.dtype, copy=True)
+        self.count = int(scalars["count"])
+        self.mini_step = int(scalars["mini_step"])
+
 
 def build_optimizer(
     optim_name: str,
@@ -145,6 +210,7 @@ def build_optimizer(
     schedule: Callable[[int], float],
     grad_clip_norm: Optional[float] = 1.0,
     gradient_accumulation_steps: int = 1,
+    names: Optional[Sequence[str]] = None,
 ) -> Optimizer:
     params = list(params)
     name = optim_name.lower()
@@ -159,4 +225,5 @@ def build_optimizer(
                                  weight_decay=0.01)
     else:
         raise ValueError(f"unknown optimizer: {optim_name!r}")
-    return Optimizer(params, base, schedule, grad_clip_norm, gradient_accumulation_steps)
+    return Optimizer(params, base, schedule, grad_clip_norm, gradient_accumulation_steps,
+                     names)

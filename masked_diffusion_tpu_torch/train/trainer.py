@@ -2,16 +2,18 @@
 
 Counterpart of masked_diffusion_tpu/train/trainer.py: epoch loop,
 per-epoch timestep curriculum, metrics fetched once per epoch, the
-non-finite-loss guard, the metrics JSONL, and the save cadence
+non-finite-loss guard, the metrics JSONL, the save cadence
 (trainer.py:625-648): the loss curve (train/loss/loss.png, when matplotlib
 is installed), the train visuals (one forward on the epoch's last batch,
-train/step.py:make_train_visuals_fn), the EMA sample and a checkpoint in the
-export layout, checkpoint-epoch-N/{unet,unet_ema}/ with meta.json, which the
-port's `--method sample` serves. The EMA sample follows --sampling: 'base'
-(the default) samples with trajectory capture and writes the result grids,
-one trajectory grid per captured field and item (train/image/sample_all_t/)
-and the trajectory means (the metrics JSONL); 'momentum' writes the result
-grids, and the trajectory grids too under --capture_trajectory.
+train/step.py:make_train_visuals_fn), the EMA sample and a checkpoint
+(io/checkpoint.py: checkpoint-epoch-N/{unet,unet_ema,optimizer}/, meta.json
+and history.npz), which the port's `--method sample` serves and `restore`
+resumes from; and preemption (trainer.py:383-456, 583-592). The EMA sample
+follows --sampling: 'base' (the default) samples with trajectory capture
+and writes the result grids, one trajectory grid per captured field and
+item (train/image/sample_all_t/) and the trajectory means (the metrics
+JSONL); 'momentum' writes the result grids, and the trajectory grids too
+under --capture_trajectory.
 
   shuffle     np.random.default_rng([seed, epoch]), as trainer.py:477, so
               batch membership equals the JAX trainer's; the same on every
@@ -19,9 +21,30 @@ grids, and the trajectory grids too under --capture_trajectory.
   curriculum  schedule.timesteps_for_epoch(epoch, epoch_total, scale)
   data        the whole (subset) dataset on the device once; each epoch's
               index rows cross in one transfer, so a step makes no host sync
-  seeds       a CPU torch.Generator per epoch, seeded from (seed, epoch)
-              and folded with the rank (ops/shard.py:fold_seed; rank 0
-              keeps the single-process stream)
+  seeds       a CPU torch.Generator per step, seeded from (seed, epoch,
+              step index) (ops/shard.py:step_seed; the cadence's visuals
+              pass has an index of its own) and folded with the rank
+              (ops/shard.py:fold_seed; rank 0 keeps the single-process
+              stream)
+
+Resume (`restore`, then `train(epoch_start, epoch_length, resume_step,
+global_step)`): params, EMA, the optimizer's state, the step counter (which
+drives the EMA warmup) and the loss and LR history come back; the resumed
+epoch skips its first resume_step batches without drawing for them (every
+step's stream is its own), so the continued run equals the uninterrupted
+one bitwise where the device is deterministic. A checkpoint that lacks the
+EMA (with EMA on) or the optimizer state is refused.
+
+Preemption: SIGTERM sets a flag (the handler lives for the call of train).
+One process stops after the step in flight; with more ranks every rank stops
+at the end of the epoch in which any rank saw the signal (the flag rides in
+the epoch's metrics collective). A cut epoch's partial loss mean is left out
+of loss_mean_epoch, and its step losses go into the checkpoint's history so
+that the resumed epoch's mean is the uninterrupted one. Then a synchronous
+checkpoint is saved (meta.json "preempted": true) and train returns. Cadence
+checkpoints carry the history and honour --keep_last_checkpoints and
+--async_checkpoints; the non-finite post-mortem is synchronous and never
+prunes. In-flight async writes are drained before train returns.
 
 Data-parallel (a parallel/mesh.MeshPlan of N > 1 ranks, under torchrun):
 --batch_size is the global batch and rank r trains on rows
@@ -31,25 +54,27 @@ the cadence samples the global (rounded-up) latent batch, each rank its rows,
 gathered to every rank (the trajectory images are rank 0's, its means
 averaged over the ranks: sample/loop.py), and the visuals pass runs on each
 rank's rows of the last batch, gathered; only rank 0 writes files, after a
-barrier.
+barrier. Inside an accumulation window a checkpoint keeps every rank's own
+gradient sum (DDP has not reduced them yet), and a restore gives each rank
+its own.
 
 The model comes from models/factory.build_model_from_config: the default
 factory or a zoo name (--model unet1..unet6). Its attention takes the
 tiny-head kernel wherever it applies; --tinyhead_attention false is refused.
 
 Not ported yet, and refused at construction when a flag asks for them:
-resume (--resume_from_checkpoint), interpolation sampling, tensor and
-spatial parallelism, profiling, checkpoint retention and async saves, and
-the JAX-only switches (--epoch_scan, --remat, --attention_chunk); so are the
+interpolation sampling, tensor and spatial parallelism, profiling, and the
+JAX-only switches (--epoch_scan, --remat, --attention_chunk); so are the
 sampling modes the cadence's sampler refuses (sample/loop.py:validate_modes).
-Not written: optimizer state on disk and history.npz.
 """
 
 from __future__ import annotations
 
 import copy
 import os
+import signal
 import statistics
+import sys
 import time
 from typing import Dict, List, Optional
 
@@ -58,10 +83,11 @@ import torch
 
 from masked_diffusion_tpu_torch.config import Config, validate_sampling_modes
 from masked_diffusion_tpu_torch.data.datasets import InMemoryDataset
-from masked_diffusion_tpu_torch.io.weights import diffusers_config_from_unet, save_checkpoint
+from masked_diffusion_tpu_torch.io import checkpoint as ckpt_io
+from masked_diffusion_tpu_torch.io.weights import diffusers_config_from_unet
 from masked_diffusion_tpu_torch.models.factory import build_model_from_config
 from masked_diffusion_tpu_torch.ops.schedule import MaskSchedule, build_schedule
-from masked_diffusion_tpu_torch.ops.shard import fold_seed
+from masked_diffusion_tpu_torch.ops.shard import fold_seed, step_seed
 from masked_diffusion_tpu_torch.parallel.mesh import MeshPlan, local_rows, round_up
 from masked_diffusion_tpu_torch.sample.latent import latent_initial
 from masked_diffusion_tpu_torch.sample.loop import make_sample_fn, validate_modes
@@ -84,8 +110,6 @@ __all__ = ["Trainer", "build_model_from_config", "unported_options"]
 def unported_options(cfg: Config) -> List[str]:
     """The flags of cfg that ask for something the port has not yet."""
     asked = []
-    if str(cfg.resume_from_checkpoint) != "False":
-        asked.append(f"--resume_from_checkpoint {cfg.resume_from_checkpoint} (resume)")
     if cfg.interpolation_shift is not None:
         asked.append("--interpolation_shift (interpolation sampling)")
     if cfg.mesh_model != 1 or cfg.mesh_spatial:
@@ -93,10 +117,6 @@ def unported_options(cfg: Config) -> List[str]:
                      "multi-GPU)")
     if cfg.profile_dir:
         asked.append("--profile_dir")
-    if cfg.keep_last_checkpoints:
-        asked.append("--keep_last_checkpoints")
-    if cfg.async_checkpoints:
-        asked.append("--async_checkpoints")
     for flag in ("epoch_scan", "remat"):
         if getattr(cfg, flag):
             asked.append(f"--{flag}")
@@ -134,8 +154,8 @@ def _ckpt_meta(model, cfg: Config) -> dict:
     return meta
 
 
-def _cpu_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    return {k: v.detach().to("cpu", torch.float32) for k, v in model.state_dict().items()}
+#: the draw-stream index of the cadence's visuals pass (steps count from 0)
+VISUALS_INDEX = -1
 
 
 class Trainer:
@@ -186,8 +206,9 @@ class Trainer:
             cfg.lr_warmup_steps * cfg.gradient_accumulation_steps,
             total_steps, cfg.lr_cycle,
         )
-        optimizer = build_optimizer(cfg.optim, self.model.parameters(), self.lr_schedule,
-                                    1.0, cfg.gradient_accumulation_steps)
+        names, params = zip(*self.model.named_parameters())
+        optimizer = build_optimizer(cfg.optim, params, self.lr_schedule, 1.0,
+                                    cfg.gradient_accumulation_steps, names=names)
         self.state = create_train_state(self.model, optimizer, use_ema=cfg.use_ema,
                                         plan=self.plan)
         self._step_cache: Dict[tuple, callable] = {}
@@ -198,6 +219,50 @@ class Trainer:
         self.lr_list: List[float] = []
         self.global_step = 0
         self.timesteps_used_epoch = None
+        # the step losses of an epoch a preemption cut, from restore: the
+        # resumed epoch's mean covers them too
+        self._cut_epoch_losses: List[float] = []
+        self._preempt_requested = False
+
+    # ------------------------------------------------------------------ resume
+    def restore(self, path: str) -> int:
+        """Full-state resume from a checkpoint of io/checkpoint.py: params,
+        EMA, the optimizer's state, TrainState.step (the EMA warmup) and the
+        loss and LR history, onto this trainer's device (every rank loads
+        the same files). Returns the restored global step. Raises when the
+        checkpoint lacks the EMA (with EMA on) or the optimizer state."""
+        model_sd, ema_sd, opt_state, meta = ckpt_io.load_checkpoint(path)
+        missing = [name for name, expected, got in (
+            ("unet_ema", self.state.ema_model, ema_sd),
+            ("optimizer", self.state.optimizer, opt_state)) if expected is not None and got is None]
+        if missing:
+            raise ValueError(
+                f"checkpoint {path} is missing {missing}; resuming would silently "
+                "re-initialize that state. Use --method sample for params-only "
+                "checkpoints, or point at a complete checkpoint.")
+        tensors, scalars = opt_state
+        if scalars["mini_step"] > 0:
+            ranks = scalars.get("grad_ranks", 1)
+            if ranks != self.plan.data_size:
+                raise ValueError(
+                    f"checkpoint {path} was taken inside an accumulation window on {ranks} "
+                    f"rank(s); its gradient sums resume only on as many, not "
+                    f"{self.plan.data_size}")
+            if ranks > 1:  # every rank's own sum, stacked by rank
+                tensors = {k: v[self.plan.rank] if k.endswith(".grad") else v
+                           for k, v in tensors.items()}
+        self.model.load_state_dict(model_sd)
+        if self.state.ema_model is not None:
+            self.state.ema_model.load_state_dict(ema_sd)
+        self.state.optimizer.load_state_dict(tensors, scalars)
+        global_step = int(meta.get("global_step", 0))
+        self.state.step = global_step
+        self.global_step = global_step
+        hist = meta.get("history", {})
+        self.loss_mean_epoch = [float(v) for v in hist.get("loss_mean_epoch", [])]
+        self.lr_list = [float(v) for v in hist.get("lr_list", [])]
+        self._cut_epoch_losses = [float(v) for v in hist.get("cut_epoch_losses", [])]
+        return global_step
 
     def _get_step_fn(self, used: np.ndarray):
         key = tuple(int(t) for t in used)
@@ -216,49 +281,106 @@ class Trainer:
         return self._visuals_cache[key]
 
     # ------------------------------------------------------------------ train
+    def _step_generator(self, epoch: int, index: int) -> torch.Generator:
+        """The CPU generator of draw stream `index` of `epoch` on this rank."""
+        seed = step_seed(self.cfg.seed, epoch, index)
+        return torch.Generator().manual_seed(fold_seed(seed, self.plan.rank))
+
     def train(self, epoch_start: int = 0, epoch_length: Optional[int] = None,
-              dirs=None, visualizer=None) -> Dict:
-        """Train epochs epoch_start .. epoch_start + epoch_length - 1.
-        Returns {"loss_mean_epoch", "last_metrics", "ms_per_step",
-        "images_per_sec", "checkpoints"}; the rates leave out the first
-        epoch (compiles and autotuning) when there is more than one."""
+              resume_step: int = 0, global_step: Optional[int] = None, dirs=None,
+              visualizer=None) -> Dict:
+        """Train epochs epoch_start .. epoch_start + epoch_length - 1, the
+        first from its batch resume_step on, counting global steps from
+        global_step (default: this trainer's count). Returns
+        {"loss_mean_epoch", "last_metrics", "ms_per_step", "images_per_sec",
+        "checkpoints", "preempted"}; the rates leave out the first epoch
+        (compiles and autotuning) when there is more than one. SIGTERM
+        during the call preempts (the module docstring)."""
+        if global_step is not None:
+            self.global_step = global_step
+        self._preempt_requested = False
+
+        def on_sigterm(*_):
+            self._preempt_requested = True
+
+        try:
+            previous = signal.signal(signal.SIGTERM, on_sigterm)
+        except ValueError:  # not the main thread: run unprotected
+            previous = None
+        try:
+            return self._train_epochs(epoch_start, epoch_length, resume_step, dirs,
+                                      visualizer or self.visualizer)
+        finally:
+            if previous is not None:
+                signal.signal(signal.SIGTERM, previous)
+            # a drain error must not mask an exception already in flight
+            unwinding = sys.exc_info()[0] is not None
+            try:
+                ckpt_io.wait_for_async_saves()
+            except Exception as err:
+                if not unwinding:
+                    raise
+                print(f"WARNING: an async checkpoint write failed while unwinding another "
+                      f"exception: {err}", flush=True)
+
+    def _train_epochs(self, epoch_start, epoch_length, resume_step, dirs, visualizer) -> Dict:
         cfg = self.cfg
         epoch_length = cfg.num_epochs if epoch_length is None else epoch_length
-        visualizer = visualizer or self.visualizer
+        # the curriculum and the cadence follow the configured total, never
+        # the loop bounds, so a resumed run sees the uninterrupted run's
         epoch_total = max(cfg.num_epochs, epoch_start + epoch_length)
+        # one process acts on SIGTERM after the step in flight; ranks only at
+        # an epoch's end, once they agree (acting alone would desynchronize
+        # their collectives)
+        single = self.plan.data_size <= 1
         if self._data_dev is None:
             self._data_dev = torch.from_numpy(self.dataset.data).to(self.device)
         last_metrics: Dict[str, float] = {}
         timed: List[tuple] = []  # (seconds, steps) per epoch
         checkpoints: List[str] = []
+        preempted = False
         for epoch in range(epoch_start, epoch_start + epoch_length):
             t_start = time.perf_counter()
             rng = np.random.default_rng([cfg.seed, epoch])
-            gen = torch.Generator().manual_seed(
-                fold_seed((cfg.seed + 1) * 1_000_003 + epoch, self.plan.rank))
             used = self.schedule.timesteps_for_epoch(
                 epoch, epoch_total, cfg.scheduler_num_scale_timesteps
             )
             self.timesteps_used_epoch = used
             step_fn = self._get_step_fn(used)
 
+            # the shuffle is drawn whole; a resumed epoch skips the batches
+            # its preempted run trained
             rows = list(self.dataset.epoch_index_batches(rng, cfg.batch_size))
+            first = resume_step if epoch == epoch_start else 0
+            carried = self._cut_epoch_losses if first else []
+            self._cut_epoch_losses = []
             losses = []
-            if rows:
+            if rows[first:]:
                 # one host->device transfer of the epoch's index rows, this
                 # rank's columns of each global batch
-                sel = np.stack(rows)[:, local_rows(cfg.batch_size, self.plan)]
+                sel = np.stack(rows[first:])[:, local_rows(cfg.batch_size, self.plan)]
                 sel = torch.as_tensor(sel, device=self.device)
-                for i in range(len(rows)):
-                    self._last_batch = self._data_dev[sel[i]]
-                    losses.append(step_fn(self.state, self._last_batch, gen))
+                for i in range(first, len(rows)):
+                    self._last_batch = self._data_dev[sel[i - first]]
+                    losses.append(step_fn(self.state, self._last_batch,
+                                          self._step_generator(epoch, i)))
                     self.global_step += 1
+                    if single and self._preempt_requested:
+                        break
+            stop = self._preempt_requested
+            if losses:
                 # host sync once per epoch, as ONE stacked transfer of the
-                # steps' metrics, their mean over the ranks (one collective)
+                # steps' metrics, their mean over the ranks with the
+                # preemption flag OR-ed in (one collective)
                 keys = list(losses[0].keys())
                 mat = torch.stack([torch.stack([m[k] for k in keys]) for m in losses])
-                mat = host.mean_over_ranks(mat).cpu()
-                losses = [{k: float(v) for k, v in zip(keys, row)} for row in mat.numpy()]
+                flat = torch.cat([mat.flatten(), mat.new_tensor([float(stop)])])
+                flat = host.mean_over_ranks(flat).cpu()
+                stop = bool(flat[-1] > 0)
+                losses = [{k: float(v) for k, v in zip(keys, row)}
+                          for row in flat[:-1].view(mat.shape).numpy()]
+            else:
+                stop = host.any_flag(stop)
             epoch_time = time.perf_counter() - t_start
             timed.append((epoch_time, len(losses)))
 
@@ -271,10 +393,26 @@ class Trainer:
                     f"non-finite train loss at epoch {epoch} "
                     f"(global step {self.global_step}); post-mortem checkpoint saved"
                 )
-            loss_mean = statistics.mean(m["train_loss"] for m in losses) if losses else 0.0
-            self.loss_mean_epoch.append(loss_mean)
+            step_losses = carried + [m["train_loss"] for m in losses]
+            self.loss_mean_epoch.append(statistics.mean(step_losses) if step_losses else 0.0)
             self.lr_list.extend(m.get("lr", 0.0) for m in losses)
             last_metrics = losses[-1] if losses else {}
+
+            if stop:
+                hist = self._history()
+                if self.global_step % max(1, len(rows)):
+                    # a cut epoch: the resumed run re-enters it and takes the
+                    # mean over all of its steps
+                    self.loss_mean_epoch.pop()
+                    hist = self._history(cut_epoch_losses=step_losses)
+                if dirs is not None:
+                    checkpoints.append(self._save_checkpoint(
+                        dirs, epoch, {"preempted": True}, hist, cfg.keep_last_checkpoints))
+                if host.is_main_process():
+                    print(f"SIGTERM: resumable checkpoint saved at epoch {epoch} (global step "
+                          f"{self.global_step}); exiting cleanly", flush=True)
+                preempted = True
+                break
 
             if visualizer is not None and losses:
                 visualizer.plot_current_losses(
@@ -293,14 +431,17 @@ class Trainer:
                 # rank runs them; the writes inside are rank 0's
                 if host.is_main_process():
                     self._save_learning_curve(dirs)
-                self._save_train_visuals(dirs, epoch, used, gen, visualizer)
+                self._save_train_visuals(dirs, epoch, used,
+                                         self._step_generator(epoch, VISUALS_INDEX), visualizer)
                 if cfg.use_ema:
                     # --sampling dispatch (trainer_masked_mean_shift.py:254-260)
                     if cfg.sampling == "base":
                         self._save_ema_sample(dirs, epoch, visualizer)
                     else:
                         self._save_ema_momentum_sample(dirs, epoch, visualizer)
-                checkpoints.append(self._save_checkpoint(dirs, epoch))
+                checkpoints.append(self._save_checkpoint(
+                    dirs, epoch, None, self._history(), cfg.keep_last_checkpoints,
+                    cfg.async_checkpoints))
 
         steady = timed[1:] if len(timed) > 1 else timed
         seconds = sum(t for t, _ in steady)
@@ -311,6 +452,7 @@ class Trainer:
             "ms_per_step": 1e3 * seconds / max(steps, 1),
             "images_per_sec": steps * cfg.batch_size / max(seconds, 1e-9),
             "checkpoints": checkpoints,
+            "preempted": preempted,
         }
 
     def _on_save_cadence(self, epoch: int, epoch_start: int, epoch_length: int) -> bool:
@@ -326,17 +468,29 @@ class Trainer:
         )
 
     # ------------------------------------------------------------------ artifacts
-    def _save_checkpoint(self, dirs, epoch: int, extra_meta: Optional[dict] = None) -> str:
-        """Rank 0 writes the checkpoint after a barrier; every rank returns
-        its path once it is on disk."""
+    def _history(self, **extra) -> dict:
+        """history.npz's curves, and `extra` keys."""
+        return {"loss_mean_epoch": self.loss_mean_epoch, "lr_list": self.lr_list, **extra}
+
+    def _optimizer_state(self):
+        """The optimizer's state for a checkpoint. Inside an accumulation
+        window under DDP each rank's gradient sum is its own (no_sync): they
+        are stacked by rank (collective), so that every rank resumes its
+        own."""
+        tensors, scalars = self.state.optimizer.state_dict()
+        if scalars["mini_step"] > 0 and self.plan.data_size > 1:
+            tensors = {k: host.gather(v[None]) if k.endswith(".grad") else v
+                       for k, v in tensors.items()}
+            scalars["grad_ranks"] = self.plan.data_size
+        return tensors, scalars
+
+    def _save_checkpoint(self, dirs, epoch: int, extra_meta: Optional[dict] = None,
+                         history: Optional[dict] = None, keep_last: int = 0,
+                         async_save: bool = False) -> str:
+        """Rank 0 writes the checkpoint (io/checkpoint.py) after a barrier;
+        every rank returns its path once it is on disk, or, async, once its
+        host copy is taken."""
         ema = self.state.ema_model
-        meta = {
-            "epoch": int(epoch),
-            "global_step": int(self.global_step),
-            "items": ["unet"] + (["unet_ema"] if ema is not None else []),
-            **self._ckpt_meta,
-            **(extra_meta or {}),
-        }
         config = diffusers_config_from_unet(self.model.config)
         ema_config = None
         if ema is not None:
@@ -344,16 +498,19 @@ class Trainer:
             # config.json (io/export_torch.py does the same)
             ema_config = {**config, "optimization_step": int(self.global_step),
                           **self._ckpt_meta.get("ema", {})}
-        path = os.path.join(dirs.list_dir["checkpoint"], f"checkpoint-epoch-{epoch}")
+        optimizer_state = self._optimizer_state()
+        checkpoint_dir = dirs.list_dir["checkpoint"]
         host.barrier()
         if host.is_main_process():
-            save_checkpoint(
-                path, _cpu_state_dict(self.model), config,
-                ema_sd=_cpu_state_dict(ema) if ema is not None else None,
-                ema_config=ema_config, meta=meta,
+            ckpt_io.save_checkpoint(
+                checkpoint_dir, epoch, self.global_step, self.model.state_dict(),
+                ema.state_dict() if ema is not None else None, optimizer_state,
+                extra_meta={**self._ckpt_meta, **(extra_meta or {})}, history=history,
+                keep_last=keep_last, async_save=async_save, config=config,
+                ema_config=ema_config,
             )
         host.barrier()
-        return path
+        return os.path.join(checkpoint_dir, f"checkpoint-epoch-{epoch}")
 
     def _save_learning_curve(self, dirs) -> None:
         """3-panel loss/lr/schedule PNG (trainer_masked.py:275-297); skipped

@@ -66,6 +66,17 @@ def mean_over_ranks(x: torch.Tensor) -> torch.Tensor:
     return (y / n).to(x.device)
 
 
+def any_flag(local: bool) -> bool:
+    """A host flag OR-ed over the ranks (collective when multi-process): the
+    preemption flag, which SIGTERM sets on each rank at its own moment, so
+    every rank acts on it at the same step."""
+    if process_count() <= 1:
+        return bool(local)
+    flag = torch.tensor([int(bool(local))], dtype=torch.int32, device=_comm_device())
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return bool(flag.item())
+
+
 def gather(x: torch.Tensor) -> torch.Tensor:
     """Every rank's rows of a batch-major tensor, concatenated in rank order,
     on every rank: x itself for one process, else on the collectives' device

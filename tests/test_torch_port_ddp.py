@@ -456,7 +456,7 @@ def test_only_rank_0_writes_and_the_ranks_agree_on_the_run(ddp):
 
 def test_ranks_share_the_data_order_and_draw_their_own_streams(ddp):
     from masked_diffusion_tpu_torch.data.datasets import get_dataset
-    from masked_diffusion_tpu_torch.ops.shard import fold_seed
+    from masked_diffusion_tpu_torch.ops.shard import fold_seed, step_seed
 
     cfg = ddp["spec"]["trainer_cfg"]
     data = get_dataset("", "synthetic", SIZE, data_subset=True, num_data=16, seed=cfg["seed"])
@@ -466,8 +466,8 @@ def test_ranks_share_the_data_order_and_draw_their_own_streams(ddp):
     for i, idx in enumerate(rows):
         both = torch.cat([t0["batches"][i], t1["batches"][i]]).numpy()
         np.testing.assert_array_equal(both, data.data[idx])
-    seed = (cfg["seed"] + 1) * 1_000_003
-    assert t0["seeds"] == [seed, seed] and t1["seeds"] == [fold_seed(seed, 1)] * 2
+    seeds = [step_seed(cfg["seed"], 0, i) for i in range(2)]  # (seed, epoch, step)
+    assert t0["seeds"] == seeds and t1["seeds"] == [fold_seed(s, 1) for s in seeds]
     assert t0["seeds"] != t1["seeds"]
 
 

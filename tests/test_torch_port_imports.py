@@ -4,8 +4,8 @@ neither triton nor nvcc (only a kernel launch needs them).
 
 Two checks: a subprocess (conftest.py imports jax into this process) that
 imports every module of the port and runs the CLI's main for --method
-mean_shift (with --sampling momentum and with the default sampling flags)
-and --method sample on the CPU at toy size (the default model and the zoo's
+mean_shift (with --sampling momentum, resumed from its checkpoint, and with
+the default sampling flags) and --method sample on the CPU at toy size (the default model and the zoo's
 unet1), then inspects sys.modules, and has each of two ranks under
 torch.distributed.run (gloo) train and serve data-parallel and inspect its
 own; and an AST scan of every .py of the port and of chip_smoke.py for an
@@ -36,7 +36,7 @@ for name in names:
 from masked_diffusion_tpu_torch.ops import build
 assert build._lib is None, "a kernel library was loaded at import"
 
-import contextlib, io, json, tempfile
+import contextlib, io, json, os, tempfile
 from masked_diffusion_tpu_torch.cli.main_train_masked import main
 with tempfile.TemporaryDirectory() as work:
     args = ["--data_name", "synthetic", "--data_size", "16", "--data_subset", "True",
@@ -53,6 +53,12 @@ with tempfile.TemporaryDirectory() as work:
     with contextlib.redirect_stdout(buf):
         main(["--method", "sample", "--test_model_path", ckpt] + args)
     assert "sample_stats " in buf.getvalue()
+    # a resumed run: one epoch more from that checkpoint
+    with contextlib.redirect_stdout(buf):
+        main(["--method", "mean_shift"] + args + [
+            "--num_epochs", "2", "--resume_from_checkpoint", "latest",
+            "--output_dir", os.path.dirname(ckpt), "--keep_last_checkpoints", "1"])
+    assert "Resuming from checkpoint" in buf.getvalue()
     # the default sampling flags: the cadence captures a trajectory
     i = args.index("--sampling")
     with contextlib.redirect_stdout(buf):

@@ -255,7 +255,9 @@ def test_cli_trains_on_cpu_then_serves_its_checkpoint(tmp_path, capsys):
     with open(os.path.join(ckpt, "meta.json")) as f:
         meta = json.load(f)
     assert meta["epoch"] == 1 and meta["global_step"] == 4
-    assert meta["items"] == ["unet", "unet_ema"] and meta["unet_config"]["block_out_channels"] == [32, 64]
+    assert meta["items"] == ["unet", "unet_ema", "optimizer"]
+    assert meta["unet_config"]["block_out_channels"] == [32, 64]
+    assert os.path.exists(os.path.join(ckpt, "history.npz"))
     grids = glob.glob(os.path.join(run, "train", "image", "ema_sample_img", "ema_sample_00001_*.png"))
     assert len(grids) == 2
 
@@ -303,8 +305,9 @@ def test_cli_trains_with_the_default_sampling_flags(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--keep_last_checkpoints", "2"], "--keep_last_checkpoints"),
-    (["--resume_from_checkpoint", "latest"], "--resume_from_checkpoint latest"),
+    (["--interpolation_shift", "0.5"], "--interpolation_shift"),
+    (["--profile_dir", "prof"], "--profile_dir"),
+    (["--attention_chunk", "64"], "--attention_chunk"),
     (["--mesh_model", "2"], "multi-GPU"),
     (["--epoch_scan", "true"], "--epoch_scan"),
     (["--tinyhead_attention", "false"], "--tinyhead_attention false"),
