@@ -89,9 +89,11 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      `--rank <dir>`; nccl on two cards, else gloo with both on cuda:0): a
      2-rank fp32 train step parity against one process (phase 8's
      tolerances), the flagship trained through the CLI with phase 10's
-     flags and --mesh_data 2 (8 steps) and served; the dist line, per-rank
-     launches (one sharded exact-k a train step, one sharded fused a reverse
-     step), bitwise-equal ranks and global_step 8 checked
+     flags and --mesh_data 2 (8 steps), served, and run through --method
+     test (a target of 1); the dist line, per-rank launches (one sharded
+     exact-k a train step, one sharded fused a reverse step), bitwise-equal
+     ranks, global_step 8, and the tester's ranks leaving in the same round
+     with the same unique count, rank 1 writing no image, checked
  19. the reverse loop's plain branch (the modes the fused kernel does not
      cover) at the flagship's width, 64x64, batch 2, 10 steps, fp32 with
      TF32 off: CUDA vs the CPU path on the same draws within SLICE_TOL in
@@ -126,18 +128,41 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      with --keep_last_checkpoints 1 --async_checkpoints true to
      global_step 24 with one complete checkpoint left, holding optimizer/
      and history.npz. Every run launches the GroupNorm and exact-k kernels
+ 22. the diversity tester (tester.py) at the flagship's width: (a) its dedup
+     and matching on the card against the same functions on the CPU, with
+     TF32 on in the process, on a fixed batch of 100 images with planted
+     near-copies at cosines 0.9 +- 1e-3: the same kept images, neighbour
+     indices, get_nearest_neighbor picks and buckets; (b) Tester.run(
+     max_rounds=3) with random flagship weights, sample_num 100, bf16, log +
+     indexing at T=200, on the fused branch (kernel 1 rounds x steps times)
+     and in dependent_prev (kernel 3 once a step), seconds a round, ms a
+     reverse step and images/s; (c) --method test through the CLI on phase
+     10's checkpoint: exit 0, a test_stats line, sample_page_0.png,
+     number_of_sample.png (with matplotlib), neighbor_*.png, final_sample.png
+ 23. interpolation sampling at the flagship's width: (a) the sampler on
+     CUDA against the CPU path on the same weights and injected shared
+     fields, fp32 with TF32 off, for base_momentum, momentum and boosting,
+     within SLICE_TOL; (b) the flagship trained through the CLI with
+     --interpolation_shift 0.5 (linear + thresholding at T=200, 2 epochs):
+     ema_interpolation_00001.png on the cadence and the interpolation
+     pass's ms a reverse step
 
-Phases 11 and 12 run first (the newest kernels fail fast), phase 19 after
-the slice phases; phases 5, 10, 20, 16, 17, 18 and 21, the main-path runs,
-come last, in one work directory. The kernels' `launches` are counted over
-those runs (phase 18's summed over its ranks, phase 21's over its five),
+Phases 11 and 12 run first (the newest kernels fail fast), phases 19,
+22a and 23a after the slice phases; phases 5, 10, 20, 22b, 22c, 23b, 16,
+17, 18 and 21, the main-path runs, come last, in one work directory. The
+kernels' `launches` are counted over those runs (phase 18's summed over its
+ranks, phase 21's over its five),
 with every count set to 0 just before each. Run phase 19 alone with `python3 -c "import chip_smoke as c;
 c.phase_env(); c.phase_sampling_modes()"`, phases 10 and 20 with `python3
 -c "import tempfile, chip_smoke as c; c.phase_env(); d =
 tempfile.mkdtemp(dir='build'); c.phase_default_cli(d,
 c.phase_train_cli(d)[1])"`, phase 21 with `python3 -c "import tempfile,
 chip_smoke as c; smi = c.phase_env(); d = tempfile.mkdtemp(dir='build');
-c.phase_preempt(d, smi)"`. `bound_ms` is the least
+c.phase_preempt(d, smi)"`, phases 22 and 23 with `python3 -c "import
+tempfile, chip_smoke as c; c.phase_env(); c.phase_tester_selection();
+c.phase_interpolation_parity(); d = tempfile.mkdtemp(dir='build');
+c.phase_train_cli(d); c.phase_tester_run(d); c.phase_tester_cli(d);
+c.phase_interpolation_cli(d)"`. `bound_ms` is the least
 time the card could take for the same work: the larger of the bytes moved
 over 3.35 TB/s, the fp32 operations over 67 TFLOP/s (outside the tensor
 cores) and the 32-bit integer operations at 64 a clock per SM times the SM
@@ -181,12 +206,14 @@ SLICE_TOL = 2e-3  # atol = rtol: cuDNN vs CPU conv sums over a 113.7M-param UNet
 GN_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
 GN_BWD_SUM_TOL = (1e-6, 1e-4)  # (atol per summed term, rtol)
 # (B, C, H, W, G) that reach every branch of ops/groupnorm.py:gn_plan: the
-# warp path's widths (2x2, 5x7 ragged, 8x8, 4x4 at 768 channels), one CTA a
+# warp path's widths (2x2, 5x7 ragged, 8x8, 4x4 at 768 channels) and its 1,
+# 2, 4 and 8 spans a CTA (batch 24, 64 and the tester's 100), one CTA a
 # span (45x45, ragged), clusters of 2, 4, 8 and 16, and a slice re-read from device
 # memory (fp32 backward at 256x256); tests/test_torch_port_groupnorm.py holds
 # the same list to that coverage on the CPU
 GN_BRANCH_SHAPES = ((2, 48, 5, 7, 16), (16, 512, 2, 2, 32), (16, 512, 8, 8, 32),
-                    (4, 768, 4, 4, 32),
+                    (4, 768, 4, 4, 32), (24, 512, 2, 2, 32), (64, 256, 8, 8, 32),
+                    (100, 512, 4, 4, 32),
                     (2, 48, 45, 45, 16), (8, 128, 128, 128, 32), (8, 256, 128, 128, 32),
                     (8, 256, 256, 256, 32))
 TRAIN_LOSS_RTOL = 2e-3  # losses, CUDA kernels vs CPU plain, fp32 with TF32 off
@@ -999,17 +1026,20 @@ def phase_groupnorm_branches():
                 p = gn._cuda_plan(b, c, h, w, groups, dtype, backward)
                 seen.add(("lane", p.per_lane) if p.per_lane else ("ctas", p.ctas))
                 seen.add(("on_chip", p.on_chip))
+                seen.add(("per_cta", p.spans_per_cta))
                 if p.ctas > 1:
                     clusters[(backward, name, p.ctas, p.threads, p.smem)] = \
                         gn.max_active_clusters(backward, dtype, p)
                 plans.append(f"{'backward' if backward else 'forward'} ctas={p.ctas} "
-                             f"per_lane={p.per_lane} threads={p.threads} smem={p.smem} "
+                             f"per_lane={p.per_lane} per_cta={p.spans_per_cta} "
+                             f"threads={p.threads} smem={p.smem} "
                              f"on_chip={p.on_chip}")
             log(f"[7] GN branch {(b, c, h, w)} G={groups} {name}: forward (contiguous and "
                 f"channels_last x), with grad and backward within tolerance, max |dx| err "
                 f"{err:.3g}; " + "; ".join(plans))
     want = {("lane", 2), ("lane", 8), ("lane", 32), ("ctas", 1), ("ctas", 2),
-            ("ctas", 4), ("ctas", 8), ("ctas", 16), ("on_chip", True), ("on_chip", False)}
+            ("ctas", 4), ("ctas", 8), ("ctas", 16), ("on_chip", True), ("on_chip", False),
+            ("per_cta", 1), ("per_cta", 2), ("per_cta", 4), ("per_cta", 8)}
     if seen != want:
         raise AssertionError(f"the GroupNorm branch shapes reached {sorted(seen)}, "
                              f"not every branch of the plan {sorted(want)}")
@@ -3119,15 +3149,16 @@ def _checksum(tensors: dict) -> str:
 
 def rank_main(workdir: str) -> int:
     """One rank of phase 18 under torch.distributed.run: the parity steps,
-    then the flagship through the CLI data-parallel (train, then serve what
-    it wrote), each with the launch counts set to 0 just before and read
-    just after; writes rank<r>.json (and rank 0 its parity tensors) to
-    workdir."""
+    then the flagship through the CLI data-parallel (train, serve what it
+    wrote, and --method test on it), each with the launch counts set to 0
+    just before and read just after; writes rank<r>.json (and rank 0 its
+    parity tensors) to workdir."""
     import torch
     import torch.distributed as dist
 
     sys.path.insert(0, ROOT)
     import masked_diffusion_tpu_torch.sample.generate as generate_mod
+    import masked_diffusion_tpu_torch.tester as tester_mod
     import masked_diffusion_tpu_torch.train.trainer as trainer_mod
     from masked_diffusion_tpu_torch.cli.main_train_masked import main
     from masked_diffusion_tpu_torch.parallel.mesh import init_distributed, make_mesh
@@ -3153,16 +3184,35 @@ def rank_main(workdir: str) -> int:
         seen["generate"] = generate(*a, **k)
         return seen["generate"]
 
+    run_tester = tester_mod.Tester.run
+
+    def run_and_keep(self, *a, **k):
+        seen["test"], seen["test_steps"] = run_tester(self, *a, **k), len(self.timesteps_used_epoch)
+        return seen["test"]
+
+    writes = {"n": 0}
+
+    def counted(write):
+        def wrapper(*a, **k):
+            writes["n"] += 1
+            return write(*a, **k)
+        return wrapper
+
     trainer_mod.Trainer.train = train_and_keep
     generate_mod.generate_images = generate_and_keep
+    tester_mod.Tester.run = run_and_keep
+    tester_mod.save_image_grid = counted(tester_mod.save_image_grid)
+    tester_mod.save_png = counted(tester_mod.save_png)
     argv, common = flagship_cli_args(os.path.join(workdir, "ddp"))
     argv, common = ([device_arg if a == "cuda" else a for a in args] for args in (argv, common))
     argv = argv + ["--mesh_data", str(DDP_RANKS)]
-    for what, args in (("train", argv), ("serve", None)):
-        if what == "serve":
-            args = ["--method", "sample", "--test_model_path", out["checkpoints"][0],
-                    "--mesh_data", str(DDP_RANKS), "--dir_work",
-                    os.path.join(workdir, "ddp", "serve"), *common]
+    for what, args in (("train", argv), ("serve", None), ("test", None)):
+        if what != "train":
+            # the tester's target: one round reaches it (phase 22c)
+            args = ["--method", "sample" if what == "serve" else "test", "--test_model_path",
+                    out["checkpoints"][0], "--mesh_data", str(DDP_RANKS), "--dir_work",
+                    os.path.join(workdir, "ddp", what), *common,
+                    *(["--data_subset_num", "1"] if what == "test" else [])]
         buf = io.StringIO()
         reset_counts()
         with contextlib.redirect_stdout(buf):
@@ -3180,6 +3230,11 @@ def rank_main(workdir: str) -> int:
                        cadence_steps=len(trainer.timesteps_used_epoch),
                        checkpoints=result["checkpoints"], train_ms=result["ms_per_step"],
                        train_ips=result["images_per_sec"])
+        elif what == "test":
+            t = seen["test"]
+            out.update(test_rounds=t["rounds"], test_unique=len(t["unique_images"]),
+                       test_history=t["num_unique_history"], test_steps=seen["test_steps"],
+                       test_writes=writes["n"])
         else:
             g = seen["generate"]
             out.update(serve_ms=g["ms_per_step"], serve_ips=g["images_per_sec"],
@@ -3229,7 +3284,7 @@ def phase_ddp(workdir: str, smi: str, single: dict):
     seconds = time.perf_counter() - t0
     sys.stdout.write("".join(f"[18|ranks] {ln}\n" for ln in output.splitlines()
                              if ln.startswith(("dist:", "train_stats", "sample_stats",
-                                               "sampled", "*****"))))
+                                               "test_stats", "sampled", "*****"))))
     if rc != 0:
         raise AssertionError(f"[18] torch.distributed.run: rc {rc}\n{output[-6000:]}")
     ranks = []
@@ -3295,7 +3350,13 @@ def phase_ddp(workdir: str, smi: str, single: dict):
                                  f"expected {want_train}, {want_serve}")
         if rank["global_step"] != 8 or rank["serve_images"] != 16 or not rank["serve_finite"]:
             raise AssertionError(f"[18] rank {rank['rank']}: {rank}")
-        for counts in (tc, sc):
+        xc, n_test = rank["test_counts"], rank["test_rounds"] * rank["test_steps"]
+        want_test = {"fused_degrade_update": n_test, "fused_degrade_update_sharded": n_test,
+                     "exact_count_masks": 0, "group_norm_silu_backward": 0}
+        if any(xc[k] != n for k, n in want_test.items()) or not xc["group_norm_silu"]:
+            raise AssertionError(f"[18] rank {rank['rank']}: --method test launches {xc}, "
+                                 f"expected {want_test}")
+        for counts in (tc, sc, xc):
             for k, n in counts.items():
                 total[k] = total.get(k, 0) + n
     if ranks[0]["checksum"] != ranks[1]["checksum"] or (
@@ -3312,6 +3373,16 @@ def phase_ddp(workdir: str, smi: str, single: dict):
     if (len(runs) != 1 or stats["global_step"] != 8 or stats["ranks"] != DDP_RANKS
             or len(pngs) != 16 + served["batches"]):
         raise AssertionError(f"[18] run trees {runs}, train_stats {stats}, {len(pngs)} PNGs")
+    # --method test: the ranks leave in the same round with the same count;
+    # only rank 0 writes and prints
+    tested = [ln for ln in output.splitlines() if ln.startswith("test_stats ")]
+    agreed = [(r["test_rounds"], r["test_unique"], r["test_history"]) for r in ranks]
+    if (len(tested) != 1 or agreed[0] != agreed[1] or not ranks[0]["test_writes"]
+            or ranks[1]["test_writes"]):
+        raise AssertionError(f"[18] --method test on {DDP_RANKS} ranks: rounds, unique, "
+                             f"history {agreed}, writes {[r['test_writes'] for r in ranks]}, "
+                             f"{len(tested)} test_stats lines")
+    tstats = json.loads(tested[0].split(" ", 1)[1])
     backend = f"{dist_info['backend']}, {dist_info['cards']}"
     log(f"[18] train CLI on {DDP_RANKS} ranks ({backend}; {smi}): global batch 64 (32 a "
         f"rank), 2 epochs x 4 steps, global_step 8 on every rank, final parameters and EMA "
@@ -3326,9 +3397,383 @@ def phase_ddp(workdir: str, smi: str, single: dict):
         f"(8 a rank), {served['steps']} steps x {served['batches']} batch(es); ms/step per rank "
         f"{[round(r['serve_ms'], 3) for r in ranks]}, {ranks[0]['serve_ips']:.3f} images/s "
         f"global (one process, phase 10: {single['serve_ms']:.3f} ms/step, "
-        f"{single['serve_ips']:.3f} images/s); {len(pngs)} PNGs written once; phase 18's "
-        f"ranks took {seconds:.1f} s")
+        f"{single['serve_ips']:.3f} images/s); {len(pngs)} PNGs written once")
+    log(f"[18] --method test on the 2-rank checkpoint on {DDP_RANKS} ranks: both ranks left "
+        f"after {agreed[0][0]} round(s) with {agreed[0][1]} unique (history {agreed[0][2]}), "
+        f"{tstats['ms_per_step']:.3f} ms a reverse step, {tstats['images_per_sec']:.2f} images/s; "
+        f"image writes rank 0 {ranks[0]['test_writes']}, rank 1 {ranks[1]['test_writes']}; "
+        f"launches per rank {[r['test_counts'] for r in ranks]}; phase 18's ranks took "
+        f"{seconds:.1f} s")
     return total
+
+
+# [22] the diversity tester at the flagship's width
+TESTER_SAMPLE_NUM = 100  # the reference tester's round (cfg.sample_num default)
+TESTER_ROUNDS = 3  # the first pays warm-up and is left out of the times
+TESTER_PLANTED = 100  # images in phase 22's fixed batch
+# cosines of 64x64x3 images, card vs CPU, both fp32: sums in another order,
+# 3.6e-7 on an H100. A TF32 product (10-bit mantissa) errs by ~4e-6 there,
+# which phase 22a measures alongside, so the limit tells the two apart
+TESTER_COS_TOL = 1.5e-6
+TESTER_MODES = (("fused", ["--sampling_mask_dependency", "independent"]),
+                ("dependent_prev", ["--sampling_mask_dependency", "dependent_prev"]))
+
+
+def _near_copy(rng, img, cos: float):
+    """An image whose cosine with img is `cos` (a random orthogonal part),
+    scaled by a random positive factor."""
+    import numpy as np
+
+    x = img.reshape(-1).astype(np.float64)
+    x = x / np.linalg.norm(x)
+    z = rng.normal(size=x.shape)
+    z -= (z @ x) * x
+    z /= np.linalg.norm(z)
+    y = cos * x + np.sqrt(1.0 - cos * cos) * z
+    return (y * rng.uniform(0.5, 2.0) * np.linalg.norm(img)).reshape(img.shape).astype(np.float32)
+
+
+def phase_tester_selection():
+    """[22a] The tester's dedup and matching on the card against the same
+    functions on the CPU, with TF32 on in the process (the functions turn
+    it off inside the call): a fixed batch of TESTER_PLANTED 64x64 images,
+    50 random bases, 49 near-copies of them at cosines 0.9 +- 1e-3 and a
+    zero image, shuffled. The kept images of greedy_dedup and dedup_against,
+    the nearest-neighbour indices, get_nearest_neighbor's picks (with and
+    without flips) and assign_similar_neighbor's buckets and changed set
+    must be equal."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from masked_diffusion_tpu_torch import tester as tmod
+
+    rng = np.random.default_rng(22)
+    bases = rng.uniform(-1, 1, (50, SIZE, SIZE, 3)).astype(np.float32)
+    copies = [_near_copy(rng, bases[i], tmod.COSINE_SIMILARITY_TH + (1e-3 if i % 2 else -1e-3))
+              for i in range(49)]
+    batch = np.concatenate([bases, np.stack(copies), np.zeros((1, SIZE, SIZE, 3), np.float32)])
+    batch = batch[rng.permutation(TESTER_PLANTED)]
+    train = rng.uniform(-1, 1, (64, SIZE, SIZE, 3)).astype(np.float32)
+    train[:10] = batch[:10] + 0.2 * rng.uniform(-1, 1, (10, SIZE, SIZE, 3))  # near matches
+    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    out = {}
+    try:
+        # what cosine_matrix would give if it kept the process's TF32
+        va, vb = (torch.from_numpy(tmod._flatten_normalize(x)).cuda() for x in (train, batch))
+        tf32 = (va @ vb.T).cpu().numpy()
+        for dev in ("cuda", "cpu"):
+            kept = tmod.greedy_dedup(batch, device=dev)
+            fresh = tmod.dedup_against(batch[50:], batch[:50], device=dev)
+            sim = tmod.cosine_matrix(train, batch, dev)
+            nn_idx = sim.argmax(axis=0)
+            picks = [tmod.get_nearest_neighbor(batch, train, 32, flip, device=dev)
+                     for flip in (True, False)]
+            buckets, changed = tmod.Tester.assign_similar_neighbor(
+                types.SimpleNamespace(device=torch.device(dev)), batch,
+                [np.empty((0, SIZE, SIZE, 3), np.float32) for _ in range(len(train))], nn_idx)
+            out[dev] = dict(kept=kept, fresh=fresh, sim=sim, nn_idx=nn_idx, picks=picks,
+                            buckets=buckets, changed=changed)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+    a, r = out["cuda"], out["cpu"]
+    same = {
+        "greedy_dedup": np.array_equal(a["kept"], r["kept"]),
+        "dedup_against": np.array_equal(a["fresh"], r["fresh"]),
+        "nearest_neighbor_idx": np.array_equal(a["nn_idx"], r["nn_idx"]),
+        "get_nearest_neighbor": all(np.array_equal(x, y) for x, y in zip(a["picks"], r["picks"])),
+        "assign_similar_neighbor": a["changed"] == r["changed"] and all(
+            np.array_equal(x, y) for x, y in zip(a["buckets"], r["buckets"])),
+    }
+    err = float(np.abs(a["sim"] - r["sim"]).max())
+    tf32_err = float(np.abs(tf32 - r["sim"]).max())
+    if not all(same.values()):
+        raise AssertionError(f"[22a] the card selects otherwise than the CPU: {same}, cosine "
+                             f"max |diff| {err}")
+    if not err <= TESTER_COS_TOL < tf32_err:
+        raise AssertionError(f"[22a] cosine max |diff| card vs CPU {err}, with TF32 {tf32_err}: "
+                             f"the limit {TESTER_COS_TOL} must hold the first and not the second")
+    # the planted pairs straddle the threshold: one of each of the 24 pairs
+    # at 0.901 drops out, the 25 at 0.899 stay
+    if len(r["kept"]) != TESTER_PLANTED - 24:
+        raise AssertionError(f"[22a] kept {len(r['kept'])} of {TESTER_PLANTED}: the planted "
+                             f"cosines are off")
+    log(f"[22a] tester selection, {TESTER_PLANTED} images at {SIZE}x{SIZE} with 49 planted "
+        f"near-copies at cosines 0.9 +- 1e-3 (TF32 on in the process): the card keeps the same "
+        f"{len(r['kept'])} (greedy_dedup) and {len(r['fresh'])} (dedup_against), the same "
+        f"nearest-neighbour indices and get_nearest_neighbor picks (flips on and off) and "
+        f"the same {len(r['changed'])} changed buckets as the CPU; cosine max |diff| {err:.3g} "
+        f"(limit {TESTER_COS_TOL}; a TF32 product's {tf32_err:.3g})")
+
+
+def phase_tester_kernels(calls):
+    """[22a] The kernels of phase 22b at its batch, TESTER_SAMPLE_NUM, on
+    the plans that batch takes: group_norm_silu at every norm shape of the
+    flagship, fp32 and bf16, against group_norm_silu_plain under GN_TOL
+    (the warp path's 8 spans a CTA is reached only from batch 66 on), and
+    kernels 1 and 3 at 64x64 as fused_branch_check and kmask_branch_check
+    hold them."""
+    import numpy as np
+    import torch
+
+    from masked_diffusion_tpu_torch.ops import groupnorm as gn
+
+    dev, b = torch.device("cuda"), TESTER_SAMPLE_NUM
+    gen = torch.Generator(device=dev).manual_seed(23)
+    worst, per_cta = {}, set()
+    with torch.inference_mode():
+        for (c, h, w), groups, silu in sorted(calls):
+            x, scale, bias = _gn_inputs(gen, b, c, h, w)
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype).split(".")[1]
+                xd, sd, bd = x.to(dtype), scale.to(dtype), bias.to(dtype)
+                out = gn.group_norm_silu(xd, sd, bd, groups, 1e-5, silu).float()
+                ref = gn.group_norm_silu_plain(xd, sd, bd, groups, 1e-5, silu).float()
+                atol, rtol = GN_TOL[name]
+                diff = (out - ref).abs()
+                if not bool((diff <= atol + rtol * ref.abs()).all()):
+                    raise AssertionError(
+                        f"[22a] group_norm_silu {name} {(b, c, h, w)} G={groups}: max err "
+                        f"{diff.max().item()} beyond atol {atol} rtol {rtol}")
+                worst[name] = max(worst.get(name, 0.0), diff.max().item())
+                per_cta.add(gn._cuda_plan(b, c, h, w, groups, dtype, False).spans_per_cta)
+    if 8 not in per_cta:
+        raise AssertionError(f"[22a] the flagship's norms at batch {b} took {per_cta} spans a "
+                             "CTA, not the warp path's 8")
+    rng = np.random.default_rng(24)
+    fused_err = fused_branch_check(rng, b, SIZE, SIZE)
+    kmask_branch_check(rng, b, SIZE, SIZE)
+    log(f"[22a] at batch {b}: group_norm_silu at the flagship's {len(calls)} norm shapes "
+        f"within GN_TOL, max err fp32 {worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g} "
+        f"(spans a CTA {sorted(per_cta)}); fused_degrade_update {b}x{SIZE}x{SIZE} (max "
+        f"|out - plain| {fused_err:.3g}) and exact_count_masks: bitwise masks, exact counts")
+
+
+def _flagship_dataset(n: int):
+    from masked_diffusion_tpu_torch.data.datasets import get_dataset
+
+    return get_dataset("", "synthetic", SIZE, data_subset=True, num_data=n)
+
+
+def phase_tester_run(workdir: str):
+    """[22b] Tester.run(max_rounds=TESTER_ROUNDS) at the flagship's width
+    (random weights, 64x64, bf16, log + indexing at T=200, sample_num 100,
+    a target of 256 that the rounds do not reach), on the fused branch and
+    in dependent_prev, each with the counts set to 0 just before: kernel 1
+    rounds x steps times on the fused branch, kernel 3 once a step in
+    dependent_prev, 71 GroupNorm launches a UNet forward. Returns (launches
+    of both runs, {mode: (seconds a round, ms a reverse step, images/s)})."""
+    import numpy as np
+    import torch
+
+    from masked_diffusion_tpu_torch.cli.main_train_masked import parse
+    from masked_diffusion_tpu_torch.data.histogram import compute_mean_histogram
+    from masked_diffusion_tpu_torch.tester import Tester
+    from masked_diffusion_tpu_torch.utils.dirs import Dir
+
+    data = _flagship_dataset(256)
+    hist = compute_mean_histogram(data.data, TESTER_SAMPLE_NUM, "image-wise")
+    model = _flagship_weights(22)
+    total, perf = {}, {}
+    for name, flags in TESTER_MODES:
+        cfg, _ = parse(["--method", "test", "--data_size", str(SIZE), "--ddpm_schedule", "log",
+                        "--ddpm_num_steps", "200", "--select_degrade_pixel", "indexing",
+                        "--mean_option", "degraded_area", "--shift_type", "1-d_constant",
+                        "--momentum_adaptive", "base_momentum", "--mixed_precision", "bf16",
+                        "--sample_num", str(TESTER_SAMPLE_NUM), "--data_subset_num", "256",
+                        *flags])
+        tester = Tester(cfg, data, model, dataset_hist=hist, device="cuda")
+        dirs = Dir("train", "tester", os.path.join(workdir, "tester", name),
+                   data_name="synthetic", method="test")
+        steps = len(tester.timesteps_used_epoch)
+        reset_counts()
+        result = tester.run(dirs, max_rounds=TESTER_ROUNDS,
+                            generator=torch.Generator().manual_seed(22))
+        counts = read_counts()
+        rounds = result["rounds"]
+        fused = name == "fused"
+        want = {"fused_degrade_update": rounds * steps if fused else 0,
+                "exact_count_masks": 0 if fused else rounds * steps,
+                "group_norm_silu": 71 * rounds * steps, "group_norm_silu_backward": 0,
+                "tinyhead_attention": 0}
+        if (rounds != TESTER_ROUNDS or any(counts[k] != n for k, n in want.items())
+                or not same_through_sharded(counts)):
+            raise AssertionError(f"[22b] {name}: {rounds} rounds, launches {counts}, "
+                                 f"expected {want}")
+        u = result["unique_images"]
+        if not (len(u) and u.shape[1:] == (SIZE, SIZE, 3) and np.isfinite(u).all()):
+            raise AssertionError(f"[22b] {name}: unique images {u.shape}")
+        timed = result["timed_rounds"]
+        perf[name] = (result["seconds"] / timed,
+                      1e3 * result["sample_seconds"] / (timed * steps),
+                      timed * TESTER_SAMPLE_NUM / result["sample_seconds"])
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        log(f"[22b] Tester.run at the flagship's width, {name}: {rounds} rounds of "
+            f"{TESTER_SAMPLE_NUM} images x {steps} reverse steps (bf16, log+indexing T=200), "
+            f"unique counts {result['num_unique_history']}; {perf[name][0]:.3f} s a round, "
+            f"{perf[name][1]:.3f} ms a reverse step, {perf[name][2]:.2f} images/s (rounds 2-"
+            f"{rounds}); launches {counts}")
+    return total, perf
+
+
+def phase_tester_cli(workdir: str):
+    """[22c] --method test through the CLI on the checkpoint phase 10's
+    trained flagship wrote (EMA weights), phase 10's flags with
+    --data_subset_num 1 (a target one round reaches: an untrained model's
+    near-constant samples have cosines near +-1 with one another). Checks
+    exit 0, the test_stats line, sample_page_0.png, number_of_sample.png
+    (where matplotlib is installed), neighbor_*.png and final_sample.png,
+    and kernel 1 once a reverse step. Returns the launches."""
+    import glob
+
+    (ckpt,) = glob.glob(os.path.join(workdir, "train", "**", "checkpoint-epoch-*"),
+                        recursive=True)
+    _, common = flagship_cli_args(workdir)
+    rc, stats, counts = _run_cli(["--method", "test", "--test_model_path", ckpt, "--dir_work",
+                                  os.path.join(workdir, "test"), *common,
+                                  "--data_subset_num", "1"], "test_stats")
+    root = os.path.dirname(stats["out_dir"])
+    files = sorted(f for _, _, names in os.walk(root) for f in names if f.endswith(".png"))
+    try:
+        import matplotlib  # noqa: F401
+
+        plot = ["number_of_sample.png"]
+    except ImportError:
+        plot = []
+    want_files = ["final_sample.png", "neighbor_0.png", "sample_page_0.png", *plot]
+    n = stats["rounds"] * stats["steps"]
+    want = {"fused_degrade_update": n, "exact_count_masks": 0,
+            "group_norm_silu": 71 * n, "group_norm_silu_backward": 0}
+    if (rc != 0 or not stats["ema"] or stats["unique"] < 1 or stats["device"] == "cpu"
+            or any(f not in files for f in want_files)
+            or any(counts[k] != v for k, v in want.items()) or not same_through_sharded(counts)):
+        raise AssertionError(f"[22c] --method test: rc {rc}, {stats}, files {files}, launches "
+                             f"{counts}, expected {want}")
+    log(f"[22c] --method test through the CLI on phase 10's checkpoint (EMA weights): "
+        f"{stats['rounds']} round(s) of {stats['sample_num']} images x {stats['steps']} steps, "
+        f"{stats['unique']} unique of a target of {stats['target']}, "
+        f"{stats['ms_per_step']:.3f} ms a reverse step, {stats['images_per_sec']:.2f} images/s "
+        f"on {stats['device']}; files {files}; launches {counts}")
+    return counts
+
+
+# [23] interpolation sampling at the flagship's width
+INTERP_STEPS = 6  # reverse steps of 23a: the CPU side runs the 113.7M-param UNet
+
+
+def phase_interpolation_parity():
+    """[23a] The interpolation sampler on CUDA against the CPU path, same
+    weights and injected shared fields, fp32 with TF32 off, 3 images at
+    64x64, linear + thresholding at T=INTERP_STEPS, shift 0.5, for
+    base_momentum, momentum and boosting: max |diff| within SLICE_TOL. The
+    CUDA runs are under set_sync_debug_mode("error") and launch the
+    GroupNorm kernel 71 times a step and no mask kernel."""
+    import numpy as np
+    import torch
+
+    from masked_diffusion_tpu_torch.cli.main_train_masked import parse
+    from masked_diffusion_tpu_torch.models.factory import build_unet
+    from masked_diffusion_tpu_torch.ops.schedule import build_schedule
+    from masked_diffusion_tpu_torch.sample.interpolation import RULES, make_interpolation_sample_fn
+    from masked_diffusion_tpu_torch.sample.loop import StepDraws
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref_model = _flagship_weights(23)
+    schedule = build_schedule("linear", INTERP_STEPS, SIZE, "thresholding")
+    used = schedule.timesteps_for_epoch(1, 10, 1)
+    rng = np.random.default_rng(23)
+    fields = torch.from_numpy(rng.uniform(size=(len(used), 1, 1, SIZE, SIZE)).astype(np.float32))
+    errs = {}
+    t0 = time.perf_counter()
+    for rule in RULES:
+        cfg, _ = parse(["--method", "mean_shift", "--data_size", str(SIZE), "--ddpm_schedule",
+                        "linear", "--ddpm_num_steps", str(INTERP_STEPS),
+                        "--select_degrade_pixel", "thresholding", "--mean_option",
+                        "degraded_area", "--momentum_adaptive", rule, "--sample_num", "3",
+                        "--interpolation_shift", "0.5", "--mixed_precision", "no"])
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            model = build_unet()
+            model.load_state_dict(ref_model.state_dict())
+            fn = make_interpolation_sample_fn(model, schedule, cfg, used, 0.5, device=dev)
+            f = fields.to(dev)
+            reset_counts()
+            if dev == "cuda":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out, mu = fn(draws=lambda i: StepDraws(mask_uniform=f[i]))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            counts = read_counts()
+            want = 71 * len(used) if dev == "cuda" else 0
+            if (counts["group_norm_silu"] != want or counts["fused_degrade_update"]
+                    or counts["exact_count_masks"]):
+                raise AssertionError(f"[23a] {rule} on {dev}: launches {counts}")
+            outs[dev] = out.cpu()
+        a, r = outs["cuda"], outs["cpu"]
+        if tuple(a.shape) != (3, SIZE, SIZE, 3) or not _close(a, r):
+            raise AssertionError(f"[23a] {rule}: CUDA vs CPU max err "
+                                 f"{(a - r).abs().max().item()}, shape {tuple(a.shape)}")
+        errs[rule] = (a - r).abs().max().item()
+    torch.backends.cudnn.allow_tf32 = True
+    log(f"[23a] interpolation sampler at the flagship's width, 3 images, {len(used)} steps, "
+        f"fp32 (TF32 off), shared fields injected: CUDA vs CPU max |diff| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (atol = rtol = {SLICE_TOL}); no host sync inside the loop, 71 GroupNorm launches "
+        f"a step; {time.perf_counter() - t0:.1f} s")
+
+
+def phase_interpolation_cli(workdir: str):
+    """[23b] The flagship trained through the CLI with --interpolation_shift
+    0.5, linear + thresholding at T=200, phase 10's flags otherwise (2
+    epochs of 4 steps, one save): the cadence writes
+    ema_interpolation_00001.png beside the EMA grids; no exact-k launch,
+    kernel 1 once a reverse step of the EMA cadence. Returns (launches, the
+    interpolation pass's ms a reverse step)."""
+    import masked_diffusion_tpu_torch.train.trainer as trainer_mod
+
+    argv, _ = flagship_cli_args(os.path.join(workdir, "interpolation"))
+    for flag, value in (("--ddpm_schedule", "linear"),
+                        ("--select_degrade_pixel", "thresholding")):
+        argv[argv.index(flag) + 1] = value
+    argv += ["--interpolation_shift", "0.5"]
+    real = trainer_mod.Trainer._save_interpolation_sample
+    record = {}
+
+    def timed(self, *a, **k):
+        t0 = time.perf_counter()
+        real(self, *a, **k)
+        record["seconds"] = record.get("seconds", 0.0) + time.perf_counter() - t0
+        record["steps"] = record.get("steps", 0) + len(self.timesteps_used_epoch)
+
+    trainer_mod.Trainer._save_interpolation_sample = timed
+    try:
+        rc, stats, counts = _run_cli(argv, "train_stats")
+    finally:
+        trainer_mod.Trainer._save_interpolation_sample = real
+    (ckpt,) = stats["checkpoints"]
+    grids = sorted(os.listdir(os.path.join(os.path.dirname(os.path.dirname(ckpt)), "train",
+                                           "image", "ema_sample_img")))
+    want_grids = ["ema_interpolation_00001.png", "ema_sample_00001_global.png",
+                  "ema_sample_00001_local.png"]
+    steps = record.get("steps", 0)
+    if (rc != 0 or stats["global_step"] != 8 or grids != want_grids or steps != 200
+            or counts["exact_count_masks"] or counts["fused_degrade_update"] != steps
+            or counts["group_norm_silu"] < 71 * 2 * steps or not counts["group_norm_silu_backward"]
+            or not same_through_sharded(counts)):
+        raise AssertionError(f"[23b] interpolation train CLI: rc {rc}, {stats}, grids {grids}, "
+                             f"interpolation {record}, launches {counts}")
+    ms = 1e3 * record["seconds"] / steps
+    log(f"[23b] train CLI with --interpolation_shift 0.5 (linear+thresholding T=200): 2 epochs "
+        f"x 4 steps, losses {[round(v, 5) for v in stats['loss_mean_epoch']]}, "
+        f"{stats['ms_per_step']:.3f} ms/step; grids {grids}; the interpolation pass: {steps} "
+        f"reverse steps of 16 images in {record['seconds']:.2f} s, {ms:.3f} ms a reverse step "
+        f"(its sampler and model copy built in the call); launches {counts}")
+    return counts, ms
 
 
 def _counted():
@@ -3380,6 +3825,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    t_start = time.perf_counter()
     smi = phase_env()
     tinyhead_err, tinyhead_bwd_err, tinyhead_times, tinyhead_bwd_times, _ = phase_tinyhead()
     large = phase_exact_k_large()
@@ -3390,6 +3836,11 @@ def main() -> int:
     phase_slice()
     phase_slice("[14]", 5, (("log", "indexing", 16, 4),))
     modes = phase_sampling_modes()
+    t_new = time.perf_counter()
+    phase_tester_selection()
+    phase_tester_kernels(calls)
+    phase_interpolation_parity()
+    new_seconds = time.perf_counter() - t_new
     kmask = phase_kmask()
     check_plan_coverage("kmask", kmask[4] | large[4])
     gn_bwd, _ = phase_groupnorm_train(calls, B_KERNEL)
@@ -3405,6 +3856,11 @@ def main() -> int:
         main_runs = [phase_serve(workdir)[0]]
         flagship_cli, flagship_perf = phase_train_cli(workdir)
         default_cli, captured_ms = phase_default_cli(workdir, flagship_perf)
+        t_new = time.perf_counter()
+        tester_runs, tester_perf = phase_tester_run(workdir)
+        interp_cli, interp_ms = phase_interpolation_cli(workdir)
+        main_runs += [tester_runs, phase_tester_cli(workdir), interp_cli]
+        new_seconds += time.perf_counter() - t_new
         main_runs += [flagship_cli, default_cli, phase_celeba_cli(workdir),
                       phase_unet6_cli(workdir),
                       phase_ddp(os.path.join(workdir, "ranks"), smi, flagship_perf),
@@ -3434,8 +3890,8 @@ def main() -> int:
     th, th_bound = per_step(tinyhead_times, "forward per UNet forward")
     thb, thb_bound = per_step(tinyhead_bwd_times, "backward per train step")
     log(f"[11] tinyhead backward launches per train step: CelebA-HQ "
-        f"{main_runs[3]['tinyhead_attention_backward'] // 4} (phase 16, 4 steps), unet6 256x256 "
-        f"{main_runs[4]['tinyhead_attention_backward'] // 4} (phase 17, 4 steps), at 128x128 "
+        f"{main_runs[6]['tinyhead_attention_backward'] // 4} (phase 16, 4 steps), unet6 256x256 "
+        f"{main_runs[7]['tinyhead_attention_backward'] // 4} (phase 17, 4 steps), at 128x128 "
         f"(phase 15) {zoo_backward}")
     kb2 = modes["kmask_b2"]
     log(f"[19/20] exact_count_masks on the main path: {launches('exact_count_masks')} launches, "
@@ -3445,6 +3901,13 @@ def main() -> int:
         f"{kb2[1]:.4f}, bound {kb2[2][0]:.5f}); flagship reverse step at batch "
         f"{SAMPLING_TIMED_BATCH}, bf16: "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in modes["reverse_ms"].items()))
+    log(f"[22/23] the tester at sample_num {TESTER_SAMPLE_NUM}, bf16: "
+        + "; ".join(f"{k} {v[0]:.3f} s a round, {v[1]:.3f} ms a reverse step, {v[2]:.2f} "
+                    f"images/s" for k, v in tester_perf.items())
+        + f"; the interpolation pass at the cadence: {interp_ms:.3f} ms a reverse step; "
+        f"{tester_runs['fused_degrade_update']} fused and {tester_runs['exact_count_masks']} "
+        f"exact-k launches in phase 22b; phases 22 and 23 took {new_seconds:.1f} s of the "
+        f"script's {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": [
         kernel_entry("fused_degrade_update", "cuda",

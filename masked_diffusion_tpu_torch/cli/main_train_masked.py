@@ -4,11 +4,13 @@
         --data_name synthetic --data_size 64 --mixed_precision bf16 ...
     python -m masked_diffusion_tpu_torch.cli.main_train_masked --method sample \
         --test_model_path <checkpoint-epoch-N> --data_name synthetic ...
+    python -m masked_diffusion_tpu_torch.cli.main_train_masked --method test \
+        --test_model_path <checkpoint-epoch-N> --data_name synthetic ...
 
 str2bool, build_parser and config_from_args are copies of
 masked_diffusion_tpu/cli/main_train_masked.py:23-208 (the port imports
 nothing of the JAX package; tests/test_torch_port_host.py holds them equal).
-The method dispatch mirrors that file's main (:232-327) without a mesh:
+The method dispatch mirrors that file's main (:232-350) without a mesh:
 
   base | mean_shift  train (train/trainer.py) and write checkpoints
                      (io/checkpoint.py: checkpoint-epoch-N/{unet,unet_ema,
@@ -32,6 +34,15 @@ The method dispatch mirrors that file's main (:232-327) without a mesh:
                      (--sampling_mask_dependency, --momentum_adaptive,
                      --degrade_channel, --mean_option, --mean_area) but
                      --encoder_reuse > 1; prints `sample_stats`
+  test               the diversity tester (tester.py): load --test_model_path
+                     as `sample` does, sample with its EMA weights whenever
+                     it has them, rounds of --sample_num images deduplicated
+                     by cosine similarity until --data_subset_num unique
+                     images (at most 1000 rounds), each matched to its
+                     nearest training image; writes under the run's test/
+                     tree (sample_page_N.png, final_sample.png,
+                     number_of_sample.png, neighbor_N.png) and prints
+                     `test_stats`
 
 --model picks the default factory (--num_attention) or a zoo name
 (unet1..unet6, models/zoo.py). Attention takes the tiny-head kernel wherever
@@ -39,7 +50,9 @@ it applies, which is what --tinyhead_attention unset or true asks for; false
 is refused.
 
 --device cuda (the default) without CUDA raises; nothing carries on on the
-CPU unless --device cpu asks for it. --method test is not ported yet.
+CPU unless --device cpu asks for it. --interpolation_shift renders the
+interpolation sweep on the training cadence (train/trainer.py). Any other
+--method is "unknown --method".
 
 Data-parallel, one process per rank (parallel/mesh.py):
 
@@ -97,7 +110,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--date", type=str, default="")
     p.add_argument("--time", type=str, default="")
     p.add_argument("--wandb_name", type=str, default="diffusion")
-    p.add_argument("--method", type=str, default="base")
+    p.add_argument("--method", type=str, default="base",
+                   help="base | mean_shift (train), sample (generate from "
+                   "--test_model_path), test (the diversity tester on "
+                   "--test_model_path)")
     p.add_argument("--test_method", type=str, default="base")
     p.add_argument("--title", type=str, default="")
     # ---- model / optim (:369-381)
@@ -380,15 +396,47 @@ def _sample(cfg: Config, plan, dirs, dataset_hist) -> None:
     }), flush=True)
 
 
+def _test(cfg: Config, plan, dirs, dataset, dataset_hist) -> None:
+    """--method test (main_train_masked.py:328-350): the tester on the
+    checkpoint's weights, its EMA whenever it has one (tester.py:121)."""
+    from masked_diffusion_tpu_torch.io.weights import load_checkpoint
+    from masked_diffusion_tpu_torch.models.factory import build_model_from_config
+    from masked_diffusion_tpu_torch.tester import Tester
+    from masked_diffusion_tpu_torch.utils import host
+
+    if not cfg.test_model_path:
+        raise SystemExit("--test_model_path is required for --method test")
+    unet_sd, ema_sd, _ = load_checkpoint(cfg.test_model_path)
+    model = build_model_from_config(cfg)
+    model.load_state_dict(unet_sd, strict=True)
+    tester = Tester(cfg, dataset, model, ema_sd, dataset_hist=dataset_hist,
+                    device=plan.device, plan=plan)
+    result = tester.run(dirs)
+    if not host.is_main_process():
+        return
+    rounds, timed = result["rounds"], result["timed_rounds"]
+    images = timed * cfg.sample_num
+    steps = timed * len(tester.timesteps_used_epoch)
+    print("test_stats " + json.dumps({
+        "rounds": rounds, "unique": len(result["unique_images"]),
+        "target": cfg.data_subset_num, "history": result["num_unique_history"],
+        "seconds_per_round": result["seconds"] / max(timed, 1),
+        "ms_per_step": 1e3 * result["sample_seconds"] / max(steps, 1),
+        "images_per_sec": images / max(result["sample_seconds"], 1e-9),
+        "steps": len(tester.timesteps_used_epoch), "sample_num": cfg.sample_num,
+        "device": _device_name(plan.device), "ranks": plan.data_size,
+        "ema": ema_sd is not None, "out_dir": dirs.list_dir["test_sample_img"],
+    }), flush=True)
+
+
 def main(argv=None) -> int:
     args = _parse_args(argv)
     cfg, device = config_from_args(args), torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {device}: CUDA is not available")
     method = cfg.method.lower()
-    if method not in ("base", "mean_shift", "sample"):
-        raise SystemExit(f"--method {cfg.method}: not yet ported "
-                         "(ported: base, mean_shift, sample)")
+    if method not in ("base", "mean_shift", "sample", "test"):
+        raise SystemExit(f"unknown --method {cfg.method!r}")
 
     from masked_diffusion_tpu_torch.data.datasets import get_dataset
     from masked_diffusion_tpu_torch.data.histogram import compute_mean_histogram, empty_histogram
@@ -437,6 +485,9 @@ def main(argv=None) -> int:
 
     if method == "sample":
         _sample(cfg, plan, dirs, dataset_hist)
+        return 0
+    if method == "test":
+        _test(cfg, plan, dirs, dataset, dataset_hist)
         return 0
     # always-on JSONL metrics sink (log/metrics.jsonl) on rank 0; wandb only if enabled
     visualizer = (Visualizer(cfg, dirs.list_dir["log"])

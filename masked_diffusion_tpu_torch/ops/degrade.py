@@ -1,9 +1,8 @@
 """Mask generation and mean-fill degradation, NCHW.
 
 Counterpart of masked_diffusion_tpu/ops/degrade.py: the parts the train step
-uses (:96-113, :186-301) and the sampling-time ops of the reverse loop's
-plain branch (:116-132, :304-441). The interpolation sampler's op (:444) is
-not ported.
+uses (:96-113, :186-301), the sampling-time ops of the reverse loop's plain
+branch (:116-132, :304-441) and the interpolation sampler's op (:444-471).
 
   'indexing'     exactly k degraded pixels per image (k from the schedule's
                  integer table): the exact-k mask kernel (ops/kmask.py) on
@@ -29,7 +28,9 @@ Degradation D(x) = (1-m)*mu + m*x (scheduler.py:319).
 
 Sampling-time ops (scheduler.py:326-598): the independent degrade returns
 the *binary* mask, unlike training; the dependent one thresholds one shared
-uniform field at two ratios (nested masks at t and t-1); the index ops
+uniform field at two ratios (nested masks at t and t-1); the interpolation
+op thresholds ONE (1, 1, H, W) field, shared by the whole batch, at each
+image's ratio; the index ops
 degrade a prefix of a fixed per-image pixel permutation, through a
 slot-of-pixel map built with one scatter on the device (the count stays a
 tensor: no host sync).
@@ -339,3 +340,35 @@ def degrade_dependent_momentum_sampling(
     noisy_img = (1.0 - mask) * mean_pixel + preserved
     mean_masks = (1.0 - mask) * mean_pixel
     return noisy_img, mean_masks, mean_pixel.expand(sample_t.shape)
+
+
+def degrade_interpolation_sampling(
+    img: torch.Tensor,
+    amount: torch.Tensor,
+    mean_option,
+    *,
+    uniforms: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One shared mask across the whole batch (scheduler.py:552-569), used by
+    the interpolation sampler so every latent sees the same degradation.
+    img (B, C, H, W); amount (B,) ratios; uniforms: the one (1, 1, H, W)
+    field in [0, 1) (the sampler draws it, one device generator a call, or
+    its caller injects it). A const mean fills with the
+    constant; every other option falls through to the image-wise mean of the
+    degraded area, as the reference does (:561-563). Returns (degrade_img,
+    masks, mean_mask), masks binary and broadcast to img."""
+    b, c, h, w = img.shape
+    u = _uniform_field((1, 1, h, w), img.device, None, uniforms)
+    masks = _above(u.expand(b, 1, h, w), amount).expand(img.shape)
+
+    mode, value = parse_mean_option(mean_option)
+    if mode == "const":
+        mean_pixel = torch.full((b, 1, 1, 1), value, dtype=img.dtype, device=img.device)
+    else:
+        inv = 1.0 - masks
+        sum_pixel = (img * inv).sum(dim=(1, 2, 3), keepdim=True)
+        count = inv.sum(dim=(1, 2, 3), keepdim=True)
+        mean_pixel = torch.where(count > 0, sum_pixel / count.clamp(min=1.0),
+                                 torch.zeros_like(sum_pixel))
+    degrade_img = (1.0 - masks) * mean_pixel + masks * img
+    return degrade_img, masks, mean_pixel.expand(img.shape)

@@ -13,6 +13,9 @@ The JAX package's deliberate divergences from the reference hold here too:
 channel counts come from the shape, 'noise_with_perturbation' discards its
 perturbation term unless combine_perturbation=True (scheduler.py:708 vs :713),
 and 'noise_std_reduction' is vectorised over the batch.
+
+The interpolation sampler's shift (schedule_shift_interpolation) draws
+nothing: a constant times the ratio, clamped around each latent's mean.
 """
 
 from __future__ import annotations
@@ -107,6 +110,23 @@ def schedule_shift(
         shift_type, ratios_t, shape, uniform, normal, noise_mean, dtype,
         combine_perturbation,
     )
+
+
+def schedule_shift_interpolation(
+    ratios_t: torch.Tensor,
+    mu: torch.Tensor,
+    interpolation_shift: float,
+    shape: Tuple[int, int, int, int],
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """Deterministic interpolation shift clamped around the latent mean
+    (scheduler.py:735-754): shift = c * ratio, clamped to [-mu-r, -mu+r],
+    broadcast to the NCHW `shape`. ratios_t, mu: (B,)."""
+    r = ratios_t.to(torch.float32)
+    shift = torch.full((shape[0],), float(interpolation_shift), device=r.device) * r
+    mu = mu.to(torch.float32).reshape(-1)
+    shift = torch.clamp(shift, -1.0 * mu - r, -1.0 * mu + r)
+    return shift[:, None, None, None].to(dtype).expand(shape)
 
 
 def perturb_shift(data: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:

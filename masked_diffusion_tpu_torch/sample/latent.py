@@ -1,15 +1,16 @@
 """Latent initialization for the reverse process (reference sampler.py:46-99).
 
-Counterpart of masked_diffusion_tpu/sample/latent.py:latent_initial. The
+Counterpart of masked_diffusion_tpu/sample/latent.py. latent_initial: the
 default 'data' mode inverse-CDF samples a per-image mean from the
 training-set mean histogram (masked_diffusion_tpu/data/histogram.py) and
 broadcasts it to a constant image. Draws come from a torch.Generator on the
-CPU; the latent is moved to `device`.
+CPU; the latent is moved to `device`. latent_initial_interpolation: the
+interpolation sampler's grid of constant images (no draws).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,3 +60,24 @@ def latent_initial(
 
     sample = sample_mean.to(torch.float32)[:, None, None, :]
     return sample.expand(sample_num, data_size, data_size, out_channel).contiguous().to(device)
+
+
+def latent_initial_interpolation(
+    sample_num: int,
+    out_channel: int,
+    data_size: int,
+    interpolation_shift: float,
+    device="cuda",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Grid of constant images spanning [-1, 1] adjusted by the interpolation
+    shift (sampler.py:86-99). Returns (latent (N, H, W, C), mu (N,)), float32
+    on `device`."""
+    if interpolation_shift > 0:
+        grid = torch.linspace(-1.0, 1.0 - interpolation_shift, sample_num)
+    elif interpolation_shift < 0:
+        grid = torch.linspace(-1.0 - interpolation_shift, 1.0, sample_num)
+    else:
+        grid = torch.linspace(-1.0, 1.0, sample_num)
+    grid = grid.to(torch.float32)
+    latent = grid[:, None, None, None].expand(sample_num, data_size, data_size, out_channel)
+    return latent.contiguous().to(device), grid.to(device)

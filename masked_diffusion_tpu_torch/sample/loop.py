@@ -31,8 +31,8 @@ on one of two branches, picked from the mode alone (fused_mode):
 The last step's state update is skipped for base_sampling and base_momentum
 (the reference's `if i > 0` guard, loop.py:288, :333-335), not for momentum
 and boosting. --encoder_reuse > 1 raises NotImplementedError naming it, an
-unknown mode ValueError; interpolation sampling is another entry point and
-is not ported.
+unknown mode ValueError; interpolation sampling is another entry point
+(sample/interpolation.py).
 
 Trajectory capture (capture_trajectory=True, JAX loop.py:340-383): the
 sampler returns (sample_0, trajectory). trajectory holds the 11

@@ -13,7 +13,11 @@ follows --sampling: 'base' (the default) samples with trajectory capture
 and writes the result grids, one trajectory grid per captured field and
 item (train/image/sample_all_t/) and the trajectory means (the metrics
 JSONL); 'momentum' writes the result grids, and the trajectory grids too
-under --capture_trajectory.
+under --capture_trajectory. With --interpolation_shift the cadence also
+renders the interpolation sweep (sample/interpolation.py, trainer.py:646-650,
+916-948), whether or not EMA is on: the EMA weights when --use_ema, else the
+raw ones, seeded from seed + epoch + 1, one `ema_interpolation_NNNNN.png`
+grid with global normalisation.
 
   shuffle     np.random.default_rng([seed, epoch]), as trainer.py:477, so
               batch membership equals the JAX trainer's; the same on every
@@ -63,9 +67,10 @@ factory or a zoo name (--model unet1..unet6). Its attention takes the
 tiny-head kernel wherever it applies; --tinyhead_attention false is refused.
 
 Not ported yet, and refused at construction when a flag asks for them:
-interpolation sampling, tensor and spatial parallelism, profiling, and the
-JAX-only switches (--epoch_scan, --remat, --attention_chunk); so are the
-sampling modes the cadence's sampler refuses (sample/loop.py:validate_modes).
+tensor and spatial parallelism, profiling, and the JAX-only switches
+(--epoch_scan, --remat, --attention_chunk); so are the sampling modes the
+cadence's samplers refuse (sample/loop.py:validate_modes,
+sample/interpolation.py:validate_interpolation_modes).
 """
 
 from __future__ import annotations
@@ -89,6 +94,10 @@ from masked_diffusion_tpu_torch.models.factory import build_model_from_config
 from masked_diffusion_tpu_torch.ops.schedule import MaskSchedule, build_schedule
 from masked_diffusion_tpu_torch.ops.shard import fold_seed, step_seed
 from masked_diffusion_tpu_torch.parallel.mesh import MeshPlan, local_rows, round_up
+from masked_diffusion_tpu_torch.sample.interpolation import (
+    make_interpolation_sample_fn,
+    validate_interpolation_modes,
+)
 from masked_diffusion_tpu_torch.sample.latent import latent_initial
 from masked_diffusion_tpu_torch.sample.loop import make_sample_fn, validate_modes
 from masked_diffusion_tpu_torch.train.optim import build_lr_schedule, build_optimizer
@@ -110,8 +119,6 @@ __all__ = ["Trainer", "build_model_from_config", "unported_options"]
 def unported_options(cfg: Config) -> List[str]:
     """The flags of cfg that ask for something the port has not yet."""
     asked = []
-    if cfg.interpolation_shift is not None:
-        asked.append("--interpolation_shift (interpolation sampling)")
     if cfg.mesh_model != 1 or cfg.mesh_spatial:
         asked.append("--mesh_model/--mesh_spatial (tensor/spatial parallelism over "
                      "multi-GPU)")
@@ -180,6 +187,8 @@ class Trainer:
             validate_modes(cfg)
         else:
             validate_sampling_modes(cfg)
+        if cfg.interpolation_shift is not None:
+            validate_interpolation_modes(cfg)
 
         self.cfg = cfg
         self.dataset = dataset
@@ -439,6 +448,9 @@ class Trainer:
                         self._save_ema_sample(dirs, epoch, visualizer)
                     else:
                         self._save_ema_momentum_sample(dirs, epoch, visualizer)
+                # independent of EMA: the raw weights when it is off
+                if cfg.interpolation_shift is not None:
+                    self._save_interpolation_sample(dirs, epoch, visualizer)
                 checkpoints.append(self._save_checkpoint(
                     dirs, epoch, None, self._history(), cfg.keep_last_checkpoints,
                     cfg.async_checkpoints))
@@ -673,3 +685,29 @@ class Trainer:
         self._save_result_grids(dirs, epoch, sample, visualizer)
         if visualizer is not None:
             visualizer.plot_current_losses(epoch, means, "value")
+
+    def _save_interpolation_sample(self, dirs, epoch: int, visualizer=None) -> None:
+        """--interpolation_shift: the interpolation sweep (sampler.py:102-106,
+        264-366) from the EMA weights (the raw ones with EMA off), one grid
+        with global normalisation (trainer.py:916-948). The sampler casts its
+        model to the compute dtype in place, so it gets a copy, built per
+        call as in sample_ema. The sample is gathered (collective) before
+        rank 0 writes."""
+        cfg = self.cfg
+        used = self.timesteps_used_epoch
+        if used is None:
+            used = self.schedule.timesteps_for_epoch(
+                0, cfg.num_epochs, cfg.scheduler_num_scale_timesteps
+            )
+        source = self.state.ema_model if cfg.use_ema else self.model
+        sample_fn = make_interpolation_sample_fn(
+            copy.deepcopy(source), self.schedule, cfg, used, float(cfg.interpolation_shift),
+            device=self.device, plan=self.plan)
+        sample, _mu = sample_fn(torch.Generator().manual_seed(cfg.seed + epoch + 1))
+        sample = sample.cpu().numpy()
+        if not host.is_main_process():
+            return
+        g = save_image_grid(sample, "global", dirs.list_dir["ema_sample_img"],
+                            f"ema_interpolation_{epoch:05d}.png")
+        if visualizer is not None:
+            visualizer.display_current_results(epoch, {"ema_interpolation_sample": g})

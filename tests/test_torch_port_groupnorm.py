@@ -251,14 +251,16 @@ def test_gn_plan_covers_every_main_path_shape(monkeypatch, name, size, batches, 
 
 # (B, C, H, W, G): as chip_smoke.GN_BRANCH_SHAPES
 GN_BRANCH_SHAPES = ((2, 48, 5, 7, 16), (16, 512, 2, 2, 32), (16, 512, 8, 8, 32),
-                    (4, 768, 4, 4, 32),
+                    (4, 768, 4, 4, 32), (24, 512, 2, 2, 32), (64, 256, 8, 8, 32),
+                    (100, 512, 4, 4, 32),
                     (2, 48, 45, 45, 16), (8, 128, 128, 128, 32), (8, 256, 128, 128, 32),
                     (8, 256, 256, 256, 32))
 
 
 def test_gn_plan_reaches_every_branch():
     """The shapes chip_smoke.py adds reach every cluster size, the warp
-    path's three widths, and a slice that does not stay on chip."""
+    path's three widths and its 1, 2, 4 and 8 spans a CTA, and a slice
+    that does not stay on chip."""
     seen = set()
     for (b, c, h, w, groups) in GN_BRANCH_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -266,9 +268,11 @@ def test_gn_plan_reaches_every_branch():
                 p = tgn.gn_plan(b, c, h, w, groups, dtype, backward)
                 seen.add(("lane", p.per_lane) if p.per_lane else ("ctas", p.ctas))
                 seen.add(("on_chip", p.on_chip))
+                seen.add(("per_cta", p.spans_per_cta))
     assert seen == {("lane", 2), ("lane", 8), ("lane", 32), ("ctas", 1), ("ctas", 2),
                     ("ctas", 4), ("ctas", 8), ("ctas", 16), ("on_chip", True),
-                    ("on_chip", False)}
+                    ("on_chip", False), ("per_cta", 1), ("per_cta", 2), ("per_cta", 4),
+                    ("per_cta", 8)}
     # a card that cannot schedule 16 CTAs a cluster: 8 at most, off chip where needed
     p = tgn.gn_plan(8, 256, 256, 256, 32, torch.bfloat16, True, max_cluster=8)
     assert p.ctas == 8 and not p.on_chip

@@ -4,8 +4,9 @@ neither triton nor nvcc (only a kernel launch needs them).
 
 Two checks: a subprocess (conftest.py imports jax into this process) that
 imports every module of the port and runs the CLI's main for --method
-mean_shift (with --sampling momentum, resumed from its checkpoint, and with
-the default sampling flags) and --method sample on the CPU at toy size (the default model and the zoo's
+mean_shift (with --sampling momentum, resumed from its checkpoint, with
+the default sampling flags, and with --interpolation_shift), --method sample
+and --method test on the CPU at toy size (the default model and the zoo's
 unet1), then inspects sys.modules, and has each of two ranks under
 torch.distributed.run (gloo) train and serve data-parallel and inspect its
 own; and an AST scan of every .py of the port and of chip_smoke.py for an
@@ -63,6 +64,18 @@ with tempfile.TemporaryDirectory() as work:
     i = args.index("--sampling")
     with contextlib.redirect_stdout(buf):
         main(["--method", "mean_shift"] + args[:i] + args[i + 2:])
+    # interpolation sampling on the training cadence, then the tester
+    # (--method test) on that run's checkpoint
+    interp = args + ["--ddpm_schedule", "linear", "--select_degrade_pixel", "thresholding",
+                     "--interpolation_shift", "0.5"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(["--method", "mean_shift"] + interp)
+    line = [l for l in buf.getvalue().splitlines() if l.startswith("train_stats ")][-1]
+    ckpt = json.loads(line.split(" ", 1)[1])["checkpoints"][-1]
+    with contextlib.redirect_stdout(buf):
+        main(["--method", "test", "--test_model_path", ckpt] + args + ["--data_subset_num", "1"])
+    assert "test_stats " in buf.getvalue()
     # a zoo model, through the tiny-head route's plain version
     zoo = args + ["--model", "unet1", "--data_size", "32", "--tinyhead_attention", "true"]
     buf = io.StringIO()

@@ -413,5 +413,5 @@ def test_cli_never_carries_on_without_cuda(unets, tmp_path):
         pytest.skip("this machine has CUDA; the refusal is for machines without it")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_cli.main(_cli_args(ckpt, tmp_path / "run", "cuda"))
-    with pytest.raises(SystemExit, match="not yet ported"):
-        port_cli.main(_cli_args(ckpt, tmp_path / "run", "cpu")[2:] + ["--method", "test"])
+    with pytest.raises(SystemExit, match="unknown --method"):
+        port_cli.main(_cli_args(ckpt, tmp_path / "run", "cpu")[2:] + ["--method", "bogus"])

@@ -304,8 +304,27 @@ def test_cli_trains_with_the_default_sampling_flags(tmp_path, capsys):
         assert np.isfinite(means[key]), key
 
 
+def test_cli_trains_with_interpolation_shift_and_renders_the_sweep(tmp_path, capsys):
+    """--interpolation_shift (refused before the interpolation sampler was
+    ported): the cadence renders ema_interpolation_NNNNN.png beside the EMA
+    grids; with indexing masks it is refused at construction, before a
+    metric or a checkpoint is written."""
+    thresholding = ["--ddpm_schedule", "linear", "--select_degrade_pixel", "thresholding"]
+    assert port_cli.main(_train_args(tmp_path / "ok", "cpu", *thresholding,
+                                     "--interpolation_shift", "0.5")) == 0
+    (ckpt,) = _stats(capsys.readouterr().out, "train_stats")["checkpoints"]
+    grids = sorted(os.listdir(os.path.join(os.path.dirname(os.path.dirname(ckpt)), "train",
+                                           "image", "ema_sample_img")))
+    assert grids == ["ema_interpolation_00001.png", "ema_sample_00001_global.png",
+                     "ema_sample_00001_local.png"]
+    with pytest.raises(ValueError, match="thresholding"):
+        port_cli.main(_train_args(tmp_path / "refused", "cpu", "--interpolation_shift", "0.5"))
+    assert not glob.glob(str(tmp_path / "refused" / "**" / "metrics.jsonl"), recursive=True)
+    assert not glob.glob(str(tmp_path / "refused" / "**" / "checkpoint-epoch-*"), recursive=True)
+
+
 @pytest.mark.parametrize("extra,match", [
-    (["--interpolation_shift", "0.5"], "--interpolation_shift"),
+    (["--remat", "true"], "--remat"),
     (["--profile_dir", "prof"], "--profile_dir"),
     (["--attention_chunk", "64"], "--attention_chunk"),
     (["--mesh_model", "2"], "multi-GPU"),
