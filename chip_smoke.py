@@ -89,11 +89,15 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      `--rank <dir>`; nccl on two cards, else gloo with both on cuda:0): a
      2-rank fp32 train step parity against one process (phase 8's
      tolerances), the flagship trained through the CLI with phase 10's
-     flags and --mesh_data 2 (8 steps), served, and run through --method
-     test (a target of 1); the dist line, per-rank launches (one sharded
-     exact-k a train step, one sharded fused a reverse step), bitwise-equal
-     ranks, global_step 8, and the tester's ranks leaving in the same round
-     with the same unique count, rank 1 writing no image, checked
+     flags, --mesh_data 2, 3 epochs (12 steps, the cadence at the last) and
+     --profile_dir, served, and run through --method test (a target of 1);
+     the dist line, per-rank launches (one sharded exact-k a train step, one
+     sharded fused a reverse step), bitwise-equal ranks, global_step 12,
+     each rank's trace of epoch 1 (its device idle share and the
+     all-reduce's time: NCCL kernels' device ms on two cards, gloo's host ms
+     with both ranks on cuda:0), ms/step from the untraced epoch 2, and the
+     tester's ranks leaving in the same round with the same unique count,
+     rank 1 writing no image, checked
  19. the reverse loop's plain branch (the modes the fused kernel does not
      cover) at the flagship's width, 64x64, batch 2, 10 steps, fp32 with
      TF32 off: CUDA vs the CPU path on the same draws within SLICE_TOL in
@@ -146,10 +150,29 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      --interpolation_shift 0.5 (linear + thresholding at T=200, 2 epochs):
      ema_interpolation_00001.png on the cadence and the interpolation
      pass's ms a reverse step
+ 24. the reference user's inputs at the flagship's width: (a) the port's
+     native preprocessing (g++, native/) builds, its single and batch entry
+     points within NATIVE_TOL of the numpy bilinear reference; (b) an LSUN
+     archive of 160 smooth JPEGs at 256x320x3 written with
+     tools/lmdb_write.py (overflow values, a branch page); (c) the flagship
+     trained on it through the CLI under MDT_NATIVE_PREPROCESS=1 with
+     --profile_dir (phase 10's flags, 128 images, batch 64, 3 epochs):
+     a (128, 64, 64, 3) dataset through backend native, global_step 6, one
+     trace_rank0.json of epoch 1's two steps naming the GroupNorm forward
+     and backward and the exact-k kernels, and its device busy ms, wall ms
+     and idle share; the load without native for comparison; (d) the final
+     checkpoint rewritten as the reference writes one (.bin, legacy
+     attention names, EMA hyperparameters in unet_ema/config.json, no
+     meta.json or optimizer/), served with phase 5's flags (linear +
+     thresholding, T=100, two requests of 16 images, kernel 1 once a reverse
+     step), converted by `python -m masked_diffusion_tpu_torch.io.import_torch`
+     (weights bitwise the original's, optimizer_imported false, a resume
+     from it refused), and the original served at the same seed: the same
+     images
 
 Phases 11 and 12 run first (the newest kernels fail fast), phases 19,
 22a and 23a after the slice phases; phases 5, 10, 20, 22b, 22c, 23b, 16,
-17, 18 and 21, the main-path runs, come last, in one work directory. The
+17, 18, 21 and 24, the main-path runs, come last, in one work directory. The
 kernels' `launches` are counted over those runs (phase 18's summed over its
 ranks, phase 21's over its five),
 with every count set to 0 just before each. Run phase 19 alone with `python3 -c "import chip_smoke as c;
@@ -162,7 +185,9 @@ c.phase_preempt(d, smi)"`, phases 22 and 23 with `python3 -c "import
 tempfile, chip_smoke as c; c.phase_env(); c.phase_tester_selection();
 c.phase_interpolation_parity(); d = tempfile.mkdtemp(dir='build');
 c.phase_train_cli(d); c.phase_tester_run(d); c.phase_tester_cli(d);
-c.phase_interpolation_cli(d)"`. `bound_ms` is the least
+c.phase_interpolation_cli(d)"`, phase 24 with `python3 -c "import tempfile,
+chip_smoke as c; smi = c.phase_env(); d = tempfile.mkdtemp(dir='build');
+c.phase_reference_inputs(d, smi)"`. `bound_ms` is the least
 time the card could take for the same work: the larger of the bytes moved
 over 3.35 TB/s, the fp32 operations over 67 TFLOP/s (outside the tensor
 cores) and the 32-bit integer operations at 64 a clock per SM times the SM
@@ -1313,6 +1338,22 @@ def phase_slice(tag: str = "[4]", num_attention: int = 1,
     torch.backends.cudnn.allow_tf32 = True
 
 
+def serve_argv(ckpt: str, sched: str, select: str, steps: int, dir_work: str):
+    """Phase 5's request: --method sample of ckpt, two requests (batches) of
+    16 images at 64x64 in bf16, the fused branch."""
+    return [
+        "--method", "sample", "--test_model_path", ckpt, "--data_name", "synthetic",
+        "--data_size", str(SIZE), "--data_subset", "True", "--data_subset_num", "256",
+        "--batch_size", "16", "--sample_num", "32", "--mixed_precision", "bf16",
+        "--ddpm_schedule", sched, "--ddpm_num_steps", str(steps),
+        "--select_degrade_pixel", select, "--degrade_channel", "1-channel",
+        "--mean_option", "degraded_area", "--mean_area", "image-wise",
+        "--shift_type", "1-d_constant", "--momentum_adaptive", "base_momentum",
+        "--sampling_mask_dependency", "independent", "--use_wandb", "False",
+        "--dir_work", dir_work, "--device", "cuda",
+    ]
+
+
 def phase_serve(workdir: str):
     import torch
 
@@ -1326,17 +1367,7 @@ def phase_serve(workdir: str):
     launches = {}
     runs = []
     for sched, select, steps in (("linear", "thresholding", 100), ("log", "indexing", 200)):
-        argv = [
-            "--method", "sample", "--test_model_path", ckpt, "--data_name", "synthetic",
-            "--data_size", str(SIZE), "--data_subset", "True", "--data_subset_num", "256",
-            "--batch_size", "16", "--sample_num", "32", "--mixed_precision", "bf16",
-            "--ddpm_schedule", sched, "--ddpm_num_steps", str(steps),
-            "--select_degrade_pixel", select, "--degrade_channel", "1-channel",
-            "--mean_option", "degraded_area", "--mean_area", "image-wise",
-            "--shift_type", "1-d_constant", "--momentum_adaptive", "base_momentum",
-            "--sampling_mask_dependency", "independent", "--use_wandb", "False",
-            "--dir_work", os.path.join(workdir, sched), "--device", "cuda",
-        ]
+        argv = serve_argv(ckpt, sched, select, steps, os.path.join(workdir, sched))
         buf = io.StringIO()
         reset_counts()
         with contextlib.redirect_stdout(buf):
@@ -2929,6 +2960,8 @@ def counted_main(counts_path: str, argv) -> int:
 DDP_RANKS = 2
 DDP_TIMEOUT = 600  # seconds for one torch.distributed.run of phase 18
 DDP_PARITY_BATCH = 4  # global; 2 rows a rank
+DDP_EPOCHS = 3  # of 4 steps: epoch 0 warms up, epoch 1 is traced, epoch 2 timed
+DDP_STEPS = 4 * DDP_EPOCHS
 
 
 def phase_sharded():
@@ -3205,7 +3238,11 @@ def rank_main(workdir: str) -> int:
     tester_mod.save_png = counted(tester_mod.save_png)
     argv, common = flagship_cli_args(os.path.join(workdir, "ddp"))
     argv, common = ([device_arg if a == "cuda" else a for a in args] for args in (argv, common))
-    argv = argv + ["--mesh_data", str(DDP_RANKS)]
+    # 3 epochs, the cadence at the last; --profile_dir traces epoch 1 on
+    # every rank, and the rates come from epoch 2
+    argv = _with(argv, "--mesh_data", str(DDP_RANKS), "--num_epochs", str(DDP_EPOCHS),
+                 "--save_images_epochs", str(DDP_EPOCHS), "--profile_dir",
+                 os.path.join(workdir, "prof"))
     for what, args in (("train", argv), ("serve", None), ("test", None)):
         if what != "train":
             # the tester's target: one round reaches it (phase 22c)
@@ -3268,11 +3305,12 @@ def phase_ddp(workdir: str, smi: str, single: dict):
     the machine has two cards, else gloo with both ranks on cuda:0): the
     parity steps against one process on the same global batch (phase 8's
     tolerances), then the flagship CLI trained (phase 10's flags plus
-    --mesh_data 2: global batch 64, 8 steps) and served on 2 ranks. Checks
-    the dist line, the per-rank launches (one sharded exact-k launch per
-    train step, one sharded fused launch per reverse step), bitwise-equal
-    ranks, global_step 8, one run tree. Returns the launches summed over the
-    ranks and both runs."""
+    --mesh_data 2 and --profile_dir: global batch 64, 3 epochs of 4 steps)
+    and served on 2 ranks. Checks the dist line, the per-rank launches (one
+    sharded exact-k launch per train step, one sharded fused launch per
+    reverse step), bitwise-equal ranks, global_step 12, one run tree, one
+    trace a rank of epoch 1, whose idle share and all-reduce time it prints.
+    Returns the launches summed over the ranks and both runs."""
     import numpy as np
     import torch
 
@@ -3337,7 +3375,8 @@ def phase_ddp(workdir: str, smi: str, single: dict):
         reverse = rank["cadence_steps"]  # one cadence sample, at the last epoch
         n_serve = rank["serve_steps"] * rank["serve_batches"]
         # a launch a train step, and one for the cadence's visuals pass
-        want_train = {"exact_count_masks": 9, "exact_count_masks_sharded": 9,
+        want_train = {"exact_count_masks": DDP_STEPS + 1,
+                      "exact_count_masks_sharded": DDP_STEPS + 1,
                       "fused_degrade_update": reverse, "fused_degrade_update_sharded": reverse,
                       "tinyhead_attention": 0, "tinyhead_attention_backward": 0}
         want_serve = {"exact_count_masks": 0, "exact_count_masks_sharded": 0,
@@ -3348,7 +3387,8 @@ def phase_ddp(workdir: str, smi: str, single: dict):
                 or any(sc[k] != n for k, n in want_serve.items()) or not sc["group_norm_silu"]):
             raise AssertionError(f"[18] rank {rank['rank']}: launches train {tc}, serve {sc}; "
                                  f"expected {want_train}, {want_serve}")
-        if rank["global_step"] != 8 or rank["serve_images"] != 16 or not rank["serve_finite"]:
+        if (rank["global_step"] != DDP_STEPS or rank["serve_images"] != 16
+                or not rank["serve_finite"]):
             raise AssertionError(f"[18] rank {rank['rank']}: {rank}")
         xc, n_test = rank["test_counts"], rank["test_rounds"] * rank["test_steps"]
         want_test = {"fused_degrade_update": n_test, "fused_degrade_update_sharded": n_test,
@@ -3370,7 +3410,7 @@ def phase_ddp(workdir: str, smi: str, single: dict):
     served = json.loads(next(ln for ln in output.splitlines() if ln.startswith("sample_stats "))
                         .split(" ", 1)[1])
     pngs = [f for f in os.listdir(served["out_dir"]) if f.endswith(".png")]
-    if (len(runs) != 1 or stats["global_step"] != 8 or stats["ranks"] != DDP_RANKS
+    if (len(runs) != 1 or stats["global_step"] != DDP_STEPS or stats["ranks"] != DDP_RANKS
             or len(pngs) != 16 + served["batches"]):
         raise AssertionError(f"[18] run trees {runs}, train_stats {stats}, {len(pngs)} PNGs")
     # --method test: the ranks leave in the same round with the same count;
@@ -3384,9 +3424,43 @@ def phase_ddp(workdir: str, smi: str, single: dict):
                              f"{len(tested)} test_stats lines")
     tstats = json.loads(tested[0].split(" ", 1)[1])
     backend = f"{dist_info['backend']}, {dist_info['cards']}"
+    # --profile_dir: each rank traced epoch 1 of the CLI run
+    prof = os.path.join(workdir, "prof")
+    traces = sorted(os.listdir(prof))
+    readings = [_trace_reading(os.path.join(prof, f"trace_rank{r}.json"))
+                for r in range(DDP_RANKS)]
+    want_steps = [(1, i) for i in range(DDP_STEPS // DDP_EPOCHS)]
+    if traces != [f"trace_rank{r}.json" for r in range(DDP_RANKS)] or any(
+            steps != want_steps for steps, _, _ in readings):
+        raise AssertionError(f"[18] --profile_dir: files {traces}, traced steps "
+                             f"{[r[0] for r in readings]}, expected {want_steps} on every rank")
+    per_rank = []
+    for r, (_, _, summary) in enumerate(readings):
+        if own:  # NCCL's all-reduce kernels on each rank's card
+            reduce = [v for k, v in summary["collectives_device_ms"].items()
+                      if "allreduce" in k.lower()]
+        else:  # gloo's all-reduce on the host, enqueue to completion
+            reduce = [v for k, v in summary["collectives_host_ms"].items()
+                      if "all_reduce" in k]
+        ms, calls = sum(v["ms"] for v in reduce), sum(v["calls"] for v in reduce)
+        if not calls:
+            raise AssertionError(f"[18] rank {r}: no all-reduce in the trace: {summary}")
+        # gloo's buckets queue behind each other: their spans overlap, so the
+        # time with one in flight is the reading; NCCL's kernels serialize
+        flight = ms if own else sum(v["in_flight_ms"] for v in reduce)
+        per_rank.append(f"rank {r}: window {summary['wall_ms']:.3f} ms wall, device busy "
+                        f"{summary['device_busy_ms']:.3f} ms, idle share "
+                        f"{summary['device_idle_share']:.4f}, all-reduce in flight "
+                        f"{flight:.3f} ms ({flight / len(want_steps):.3f} ms a step; {calls} "
+                        f"calls summing {ms:.3f} ms)")
+    log(f"[18] --profile_dir on {DDP_RANKS} ranks, epoch 1 ({len(want_steps)} steps), the "
+        f"all-reduce read as "
+        + ("NCCL kernels' device ms (one card a rank)" if own else
+           "gloo's host ms (both ranks on cuda:0)") + "; " + "; ".join(per_rank))
     log(f"[18] train CLI on {DDP_RANKS} ranks ({backend}; {smi}): global batch 64 (32 a "
-        f"rank), 2 epochs x 4 steps, global_step 8 on every rank, final parameters and EMA "
-        f"bitwise equal across ranks (checksum {ranks[0]['checksum'][:16]}); ms/step per rank "
+        f"rank), {DDP_EPOCHS} epochs x 4 steps, global_step {DDP_STEPS} on every rank, final "
+        f"parameters and EMA bitwise equal across ranks (checksum "
+        f"{ranks[0]['checksum'][:16]}); ms/step per rank (epoch 2, untraced) "
         f"{[round(r['train_ms'], 3) for r in ranks]}, {ranks[0]['train_ips']:.2f} images/s "
         f"global (one process, phase 10: {single['train_ms']:.3f} ms/step, "
         f"{single['train_ips']:.2f} images/s); per rank per train step 1 exact_count_masks_"
@@ -3776,6 +3850,284 @@ def phase_interpolation_cli(workdir: str):
     return counts, ms
 
 
+# [24] the reference user's inputs at the flagship's width
+LSUN_IMAGES = 160  # more nodes than one leaf page holds: a branch page over two
+LSUN_HW = (256, 320)  # LSUN's short side is 256
+LSUN_SUBSET = 128  # 2 train steps an epoch at batch 64
+NATIVE_TOL = 1e-5  # native (float32 coordinates) vs the numpy reference (float64)
+# kernel-name fragments the profiled epoch must hold (tools/profile_train.py:OWN)
+TRACED_KERNELS = {"GroupNorm forward": "gn_fwd_", "GroupNorm backward": "gn_bwd_",
+                  "exact-k masks": "kmask_kernel"}
+_LEGACY_NAMES = {"to_q": "query", "to_k": "key", "to_v": "value", "to_out.0": "proj_attn"}
+
+
+def phase_native():
+    """[24a] The port's native preprocessing library builds on the card's
+    host, and its single-image and batch entry points equal the numpy
+    bilinear reference (tests/test_native_preprocess.py's checks)."""
+    import numpy as np
+
+    from masked_diffusion_tpu_torch import native
+    from masked_diffusion_tpu_torch.data.datasets import _bilinear_resize
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("[24a] the native preprocessing library did not build (g++)")
+    seconds = time.perf_counter() - t0
+    rng = np.random.default_rng(24)
+    img = rng.integers(0, 255, (37, 53, 3), dtype=np.uint8)
+    one = native.resize_center_crop_native(img, 16)
+    errs = [float(np.abs(one - _bilinear_resize(img.astype(np.float32), 16, 23)[:, 3:19]
+                         / 255.0).max())]
+    batch = rng.integers(0, 255, (8, 48, 40, 1), dtype=np.uint8)
+    many = native.preprocess_batch_native(batch, 16)
+    errs += [float(np.abs(many[i] - _bilinear_resize(batch[i].astype(np.float32), 19, 16)[1:17]
+                          / 255.0).max()) for i in range(len(batch))]
+    if max(errs) > NATIVE_TOL or one.shape != (16, 16, 3) or many.shape != (8, 16, 16, 1):
+        raise AssertionError(f"[24a] native vs numpy: max |diff| {max(errs)} (tol {NATIVE_TOL})")
+    log(f"[24a] native preprocessing: built and loaded in {seconds:.2f} s (g++) -> "
+        f"{os.path.relpath(native.lib_path, ROOT)}; single (37,53,3) and "
+        f"batch (8,48,40,1) vs the numpy bilinear reference: max |diff| {max(errs):.3g} "
+        f"(tol {NATIVE_TOL})")
+
+
+def _smooth_jpeg(rng, h: int, w: int) -> bytes:
+    """A smooth random field (a few low-frequency waves a channel) as a
+    JPEG: JPEG keeps it near its source."""
+    import numpy as np
+    from PIL import Image
+
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.zeros((h, w, 3), np.float32)
+    for c in range(3):
+        for _ in range(3):
+            fy, fx = rng.uniform(0.5, 3.0, 2) * 2 * np.pi / np.array([h, w])
+            img[..., c] += np.sin(fy * ys + fx * xs + rng.uniform(0, 2 * np.pi))
+    img = 127.5 + 40.0 * img
+    buf = io.BytesIO()
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(buf, format="JPEG", quality=95)
+    return buf.getvalue()
+
+
+def lsun_archive(root: str) -> str:
+    """[24b] LSUN_IMAGES JPEGs of LSUN_HW x 3 from a seeded generator in
+    root/lsun/church_outdoor_train_lmdb/data.mdb (the torchvision-LSUN layout
+    the reference reads), written with tools/lmdb_write.py: every value
+    larger than a page (an overflow chain each) and a branch page over two
+    leaves. Returns root."""
+    import numpy as np
+
+    from masked_diffusion_tpu_torch.data.lmdb_reader import LMDBReader
+    from masked_diffusion_tpu_torch.tools.lmdb_write import PSIZE, write_lmdb
+
+    rng = np.random.default_rng(2024)
+    t0 = time.perf_counter()
+    items = {f"lsun{i:06d}".encode(): _smooth_jpeg(rng, *LSUN_HW) for i in range(LSUN_IMAGES)}
+    env = write_lmdb(os.path.join(root, "lsun", "church_outdoor_train_lmdb"), items,
+                     use_branch=True)
+    sizes = [len(v) for v in items.values()]
+    with LMDBReader(env) as r:
+        back = list(r.items())
+    if min(sizes) <= PSIZE or dict(back) != items or len(back) != LSUN_IMAGES:
+        raise AssertionError(f"[24b] LSUN archive: JPEG bytes {min(sizes)}..{max(sizes)}, "
+                             f"{len(back)} read back")
+    log(f"[24b] LSUN archive: {LSUN_IMAGES} JPEGs of {LSUN_HW[0]}x{LSUN_HW[1]}x3, "
+        f"{min(sizes)}..{max(sizes)} bytes each (page {PSIZE}: all overflow), "
+        f"{os.path.getsize(os.path.join(env, 'data.mdb'))} bytes in data.mdb, written and "
+        f"read back in {time.perf_counter() - t0:.2f} s")
+    return root
+
+
+def _trace_reading(path: str):
+    """(the train_step epochs and steps, kernel names, summary) of a trace
+    file of utils/profiling.trace."""
+    import re
+
+    from masked_diffusion_tpu_torch.utils.profiling import read_trace
+
+    tr = read_trace(path)
+    step = re.compile(r"^train_step epoch (\d+) step (\d+)$")
+    steps = sorted({tuple(int(g) for g in m.groups()) for e in tr["events"]
+                    if (m := step.match(str(e.get("name", ""))))})
+    kernels = {str(e.get("name", "")) for e in tr["events"] if e.get("cat") == "kernel"}
+    return steps, kernels, tr["summary"]
+
+
+def _legacy_reference(ckpt: str, out: str) -> str:
+    """ckpt (the port's checkpoint) rewritten as the reference writes one:
+    unet/ and unet_ema/ as diffusion_pytorch_model.bin (torch.save) under the
+    pre-0.15 attention names, the EMA hyperparameters in unet_ema/config.json
+    (the trainer merged them there), no meta.json and no optimizer/."""
+    import shutil
+
+    import torch
+
+    from masked_diffusion_tpu_torch.io.weights import load_diffusers_folder
+
+    for sub in ("unet", "unet_ema"):
+        sd, _ = load_diffusers_folder(os.path.join(ckpt, sub))
+        legacy = {}
+        for k, v in sd.items():
+            for new, old in _LEGACY_NAMES.items():
+                k = k.replace(f".{new}.", f".{old}.")
+            legacy[k] = v
+        os.makedirs(os.path.join(out, sub))
+        torch.save(legacy, os.path.join(out, sub, "diffusion_pytorch_model.bin"))
+        shutil.copy(os.path.join(ckpt, sub, "config.json"), os.path.join(out, sub))
+    return out
+
+
+def _serve_images(argv):
+    """main(argv) for --method sample through _run_cli, keeping the images
+    generate_images returned. Returns (rc, sample_stats, launches, images)."""
+    import masked_diffusion_tpu_torch.sample.generate as generate_mod
+
+    real, kept = generate_mod.generate_images, {}
+
+    def keep(*a, **k):
+        kept["out"] = real(*a, **k)
+        return kept["out"]
+
+    generate_mod.generate_images = keep
+    try:
+        rc, stats, counts = _run_cli(argv, "sample_stats")
+    finally:
+        generate_mod.generate_images = real
+    return rc, stats, counts, kept["out"]["images"]
+
+
+def phase_reference_inputs(workdir: str, smi: str) -> dict:
+    """[24] What a user of the reference brings, at the flagship's width:
+    (a) the native preprocessing, (b) an LSUN archive, (c) the flagship
+    trained on it through the CLI under MDT_NATIVE_PREPROCESS=1 with
+    --profile_dir (phase 10's flags, LSUN at 128 images, batch 64, 3 epochs):
+    one trace, of epoch 1's two steps, naming the GroupNorm and exact-k
+    kernels; (d) its final checkpoint rewritten into the reference's form
+    (.bin, legacy attention names, no meta.json or optimizer/), served
+    through --method sample with phase 5's flags (linear + thresholding,
+    T=100, two requests of 16 images, the fused branch) and converted by the
+    import tool: weights bitwise equal, a resume from it refused; the
+    original served at the same seed gives the same images. Returns the
+    launches of the CLI runs."""
+    import numpy as np
+    import torch
+
+    from masked_diffusion_tpu_torch.cli.main_train_masked import main
+    from masked_diffusion_tpu_torch.data.datasets import get_dataset
+    from masked_diffusion_tpu_torch.io.weights import load_checkpoint
+
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "reference_inputs")
+    phase_native()
+    data_root = lsun_archive(os.path.join(root, "data"))
+    prof = os.path.join(root, "prof")
+    argv, common = flagship_cli_args(root)
+    argv = _with(argv, "--data_name", "lsun", "--dir_dataset", data_root, "--data_set", "church",
+                 "--data_subset", "True", "--data_subset_num", str(LSUN_SUBSET),
+                 "--batch_size", "64", "--num_epochs", "3", "--profile_dir", prof)
+    os.environ["MDT_NATIVE_PREPROCESS"] = "1"
+    try:
+        buf = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        train = read_counts()
+    finally:
+        del os.environ["MDT_NATIVE_PREPROCESS"]
+    sys.stdout.write(buf.getvalue())
+    lines = buf.getvalue().splitlines()
+    data = json.loads(next(ln for ln in lines if ln.startswith("dataset_stats ")).split(" ", 1)[1])
+    stats = json.loads(next(ln for ln in lines if ln.startswith("train_stats ")).split(" ", 1)[1])
+    # 2 steps an epoch; the cadence at epochs 1 and 2, each a visuals pass
+    # (an exact-k launch) and a fused EMA sample
+    if (rc != 0 or data["shape"] != [LSUN_SUBSET, SIZE, SIZE, 3] or data["backend"] != "native"
+            or stats["global_step"] != 6 or len(stats["checkpoints"]) != 2
+            or not np.isfinite(stats["loss_mean_epoch"]).all()):
+        raise AssertionError(f"[24c] LSUN train CLI: rc {rc}, dataset {data}, stats {stats}")
+    off = ("tinyhead_attention", "tinyhead_attention_backward")
+    if (train["exact_count_masks"] != 6 + 2 or any(train[k] for k in off)
+            or not all(n for k, n in train.items() if k not in off)
+            or not same_through_sharded(train)):
+        raise AssertionError(f"[24c] LSUN train CLI: launches {train}")
+    traces = sorted(os.listdir(prof))
+    steps, kernels, summary = _trace_reading(os.path.join(prof, "trace_rank0.json"))
+    missing = [what for what, frag in TRACED_KERNELS.items()
+               if not any(frag in k for k in kernels)]
+    if traces != ["trace_rank0.json"] or steps != [(1, 0), (1, 1)] or missing:
+        raise AssertionError(f"[24c] --profile_dir: files {traces}, traced steps {steps}, "
+                             f"kernels missing {missing}")
+    t0 = time.perf_counter()
+    pil = get_dataset(data_root, "lsun", SIZE, "church", True, LSUN_SUBSET)
+    pil_s = time.perf_counter() - t0
+    if pil.backend != "pil" or pil.data.shape != (LSUN_SUBSET, SIZE, SIZE, 3):
+        raise AssertionError(f"[24c] LSUN without native: {pil.backend}, {pil.data.shape}")
+    log(f"[24c] LSUN train CLI (phase 10's flags, {LSUN_SUBSET} images, batch 64, 3 epochs x 2 "
+        f"steps): dataset {data['shape']} via {data['backend']} in {data['load_s']:.3f} s (PIL: "
+        f"{pil_s:.3f} s); losses {[round(v, 5) for v in stats['loss_mean_epoch']]}, "
+        f"{stats['ms_per_step']:.3f} ms/step (epoch 2, untraced) on {stats['device']}; launches "
+        f"{train}")
+    log(f"[24c] --profile_dir: {traces}, steps (epoch, step) {steps}; the traced window "
+        f"{summary['wall_ms']:.3f} ms wall, device busy {summary['device_busy_ms']:.3f} ms, "
+        f"idle share {summary['device_idle_share']:.4f}, {summary['device_kernels']} kernels; "
+        f"GroupNorm forward, backward and exact-k kernels named ({smi})")
+
+    # (d) the final checkpoint in the reference's form, served and imported
+    ckpt = stats["checkpoints"][-1]
+    reference = _legacy_reference(ckpt, os.path.join(root, "reference", os.path.basename(ckpt)))
+    runs, images = [train], {}
+    for name, path in (("reference", reference), ("original", ckpt)):
+        rc, served, counts, images[name] = _serve_images(
+            serve_argv(path, "linear", "thresholding", 100, os.path.join(root, name)))
+        n_steps = served["steps"] * served["batches"]
+        if (rc != 0 or not (served["finite"] and served["ema"]) or served["images"] != 32
+                or served["batches"] != 2 or counts["fused_degrade_update"] != n_steps
+                or counts["exact_count_masks"] or counts["group_norm_silu_backward"]
+                or not counts["group_norm_silu"] or not same_through_sharded(counts)):
+            raise AssertionError(f"[24d] serve the {name} checkpoint: rc {rc}, {served}, "
+                                 f"launches {counts}")
+        runs.append(counts)
+        log(f"[24d] served the {name} checkpoint ({os.path.relpath(path, root)}, EMA weights): "
+            f"{served['images']} images, {served['steps']} steps x {served['batches']} "
+            f"batches, {served['ms_per_step']:.3f} ms a reverse step; launches {counts}")
+    diff = float(np.abs(images["reference"] - images["original"]).max())
+    if diff != 0.0:
+        raise AssertionError(f"[24d] the reference-era and the original checkpoint served at "
+                             f"one seed differ: max |diff| {diff}")
+    t0 = time.perf_counter()
+    tool = subprocess.run(
+        [sys.executable, "-m", "masked_diffusion_tpu_torch.io.import_torch", reference,
+         os.path.join(root, "imported")], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    tool_s = time.perf_counter() - t0
+    if tool.returncode != 0:
+        raise AssertionError(f"[24d] import tool: rc {tool.returncode}\n{tool.stderr[-3000:]}")
+    imported = os.path.join(root, "imported", os.path.basename(ckpt))
+    with open(os.path.join(imported, "meta.json")) as f:
+        meta = json.load(f)
+    ours, theirs = load_checkpoint(ckpt), load_checkpoint(imported)
+    for i, sub in ((0, "unet"), (1, "unet_ema")):
+        if sorted(ours[i]) != sorted(theirs[i]) or not all(
+                torch.equal(ours[i][k], theirs[i][k]) for k in ours[i]):
+            raise AssertionError(f"[24d] import tool: {sub} weights differ from the original")
+    if meta["optimizer_imported"] is not False or meta["global_step"] != 6 or meta["epoch"] != 2:
+        raise AssertionError(f"[24d] import tool meta {meta}")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            main(_with(argv, "--profile_dir", "", "--resume_from_checkpoint", imported))
+    except ValueError as err:
+        if "missing ['optimizer']" not in str(err):
+            raise
+        refusal = str(err)
+    else:
+        raise AssertionError("[24d] a resume from the imported checkpoint was not refused")
+    seconds = time.perf_counter() - t_phase
+    log(f"[24d] import tool: {tool_s:.2f} s (a process of its own), "
+        f"{tool.stdout.strip().splitlines()[0]}; unet and unet_ema bitwise equal to the "
+        f"original, optimizer_imported false, global_step {meta['global_step']}; resume "
+        f"refused: {refusal[:90]}...; the reference-era and the original checkpoint served at "
+        f"one seed: max |diff| {diff}; phase 24 took {seconds:.1f} s")
+    return {k: sum(run[k] for run in runs) for k in train}, seconds
+
+
 def _counted():
     """The launch-counted wrappers of every kernel, by name."""
     from masked_diffusion_tpu_torch.ops.fused_degrade import (
@@ -3865,6 +4217,8 @@ def main() -> int:
                       phase_unet6_cli(workdir),
                       phase_ddp(os.path.join(workdir, "ranks"), smi, flagship_perf),
                       phase_preempt(workdir, smi)]
+        reference_runs, reference_seconds = phase_reference_inputs(workdir, smi)
+        main_runs.append(reference_runs)
     for mod in sorted(sys.modules):
         if mod.split(".")[0] in ("jax", "flax", "masked_diffusion_tpu"):
             raise AssertionError(f"{mod} was imported")
@@ -3908,6 +4262,8 @@ def main() -> int:
         f"{tester_runs['fused_degrade_update']} fused and {tester_runs['exact_count_masks']} "
         f"exact-k launches in phase 22b; phases 22 and 23 took {new_seconds:.1f} s of the "
         f"script's {time.perf_counter() - t_start:.1f} s")
+    log(f"[24] phase 24 (the reference user's inputs) took {reference_seconds:.1f} s of the "
+        f"script's {time.perf_counter() - t_start:.1f} s; its launches {reference_runs}")
     log(smi)
     print(json.dumps({"kernels": [
         kernel_entry("fused_degrade_update", "cuda",

@@ -49,6 +49,21 @@ The method dispatch mirrors that file's main (:232-350) without a mesh:
 it applies, which is what --tinyhead_attention unset or true asks for; false
 is refused.
 
+Data (data/datasets.py): mnist and cifar10 files, image folders, LSUN LMDB
+archives (--data_name lsun --data_set church|bedroom|tower reads
+<dir_dataset>/lsun/<class>_lmdb/data.mdb), scikit-learn's digits, synthetic
+blobs, and a --dir_dataset containing 'hugging' through the Hugging Face
+adapter (where `datasets` is installed). MDT_NATIVE_PREPROCESS=1 resizes
+with the port's C++ library (native/) instead of PIL. A `dataset_stats
+{json}` line names the shape, the preprocessing backend (native, pil or
+numpy) and the load seconds. --profile_dir traces one epoch of training
+(utils/profiling.py), one trace_rank<r>.json a rank. A reference-trained
+checkpoint (diffusers folders, safetensors or .bin, legacy attention names)
+is served as it is by --test_model_path, and converted into the port's
+layout by
+
+    python -m masked_diffusion_tpu_torch.io.import_torch <src> <out_dir>
+
 --device cuda (the default) without CUDA raises; nothing carries on on the
 CPU unless --device cpu asks for it. --interpolation_shift renders the
 interpolation sweep on the training cadence (train/trainer.py). Any other
@@ -76,6 +91,7 @@ import argparse
 import dataclasses
 import json
 import sys
+import time
 from typing import Optional
 
 import numpy as np
@@ -99,9 +115,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--task", type=str, choices=["train", "sample", "dataset"], default="train")
     p.add_argument("--content", type=str, default="test_code")
     p.add_argument("--dir_work", type=str, default="./")
-    p.add_argument("--dir_dataset", type=str, default="/nas2/dataset")
-    p.add_argument("--data_name", type=str, default="mnist")
-    p.add_argument("--data_set", type=str, default="train")
+    p.add_argument("--dir_dataset", type=str, default="/nas2/dataset",
+                   help="dataset root; a path containing 'hugging' loads --data_name "
+                   "(mnist, metfaces) through the Hugging Face adapter")
+    p.add_argument("--data_name", type=str, default="mnist",
+                   help="mnist | cifar10 | lsun (LMDB archives under <dir_dataset>/lsun/"
+                   "<class>_lmdb) | digits | synthetic | an image-folder name")
+    p.add_argument("--data_set", type=str, default="train",
+                   help="the split; for lsun: church | bedroom | tower | <class>_train")
     p.add_argument("--data_size", type=int, default=64)
     p.add_argument("--data_subset", type=str2bool, default=False)
     p.add_argument("--data_subset_num", type=int, default=1000)
@@ -245,7 +266,9 @@ def build_parser() -> argparse.ArgumentParser:
         "arXiv:2312.09608) — an approximation trading sample fidelity for "
         "per-step cost; 0/1 = exact sampling (default)",
     )
-    p.add_argument("--profile_dir", type=str, default=None)
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="trace one epoch (the second, or the only one) into "
+                   "<dir>/trace_rank<r>.json, one file a rank")
     p.add_argument(
         "--keep_last_checkpoints", type=int, default=0,
         help="keep only the N newest checkpoint-epoch-* dirs (0 = keep all, "
@@ -473,11 +496,16 @@ def main(argv=None) -> int:
     # the dataset is needed to train, or for the 'data' latent's histogram
     dataset = None
     if method != "sample" or cfg.sample_latent_shape.lower() == "data":
+        t0 = time.perf_counter()
         dataset = get_dataset(
             cfg.dir_dataset, cfg.data_name, cfg.data_size, cfg.data_set,
             cfg.data_subset, cfg.data_subset_num, seed=cfg.seed,
             label_filter=cfg.data_subset_label if cfg.data_subset else None,
         )
+        if main_process:
+            print("dataset_stats " + json.dumps({
+                "name": cfg.data_name, "shape": list(dataset.data.shape),
+                "backend": dataset.backend, "load_s": time.perf_counter() - t0}), flush=True)
     if cfg.sample_latent_shape.lower() == "data":
         dataset_hist = compute_mean_histogram(dataset.data, cfg.sample_num, cfg.mean_area)
     else:

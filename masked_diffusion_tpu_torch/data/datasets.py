@@ -1,8 +1,9 @@
 """In-memory datasets (NHWC numpy) and transforms.
 
 A copy of the parts of masked_diffusion_tpu/data/datasets.py that the CLI's
-data path reaches without a download; the port imports nothing of the JAX
-package. tests/test_torch_port_host.py holds it equal to the original.
+data path reaches; the port imports nothing of the JAX package.
+tests/test_torch_port_host.py, tests/test_torch_port_lmdb.py and
+tests/test_torch_port_native.py hold it equal to the original.
 
 The reference's live data path (utils/mydataset.py:235-278) preloads the whole
 dataset into RAM tensors and attaches a fixed per-item uniform random vector;
@@ -15,13 +16,26 @@ Dataset families (utils/mydataset.py:63-210):
   cifar10    : python pickles under {path}/CIFAR/cifar-10-batches-py.
   imagefolder: recursive PIL scan — covers celeba_hq / afhqv2 / metfaces /
                stanfordcars / flowers102 directory layouts.
+  lsun       : native LMDB archives ({path}/lsun/<class>_lmdb, the
+               torchvision-LSUN layout, mydataset.py:132-141) via the
+               pure-Python reader in data/lmdb_reader.py; an exported-images
+               directory falls back to the ImageFolder scan.
   synthetic  : deterministic procedural images (gaussian blobs); no files.
   digits     : scikit-learn's bundled handwritten-digit set (1797 8x8
                grayscale images, upscaled).
+  hugging    : a --dir_dataset containing 'hugging' routes through the
+               Hugging Face adapter (data/hugging.py; main_train_masked.py:
+               47-49), where the `datasets` package is installed.
 
-Not ported yet (they raise NotImplementedError): LSUN LMDB archives, the
-Hugging Face adapter (a --dir_dataset containing 'hugging') and the native
-C++ preprocessing (MDT_NATIVE_PREPROCESS).
+Preprocessing backends (preprocess_backend(), recorded on the dataset as
+`backend`): 'native', the C++ library of masked_diffusion_tpu_torch/native
+(plain bilinear, OpenMP), when MDT_NATIVE_PREPROCESS is truthy or PIL is
+missing and the library builds; else 'pil' (antialiased bilinear,
+torchvision-matching); else 'numpy' (plain bilinear). The synthetic family
+is generated at its final size and records 'numpy'.
+
+save_dataset / load_saved_dataset dump and reload the preloaded arrays as
+one .npz with the JAX package's keys, so each package reads the other's.
 
 Transforms mirror utils/mydataset.py:64-83: Resize(short side) + CenterCrop +
 ToTensor, then either global Normalize([0.5],[0.5]) ([-1,1]) or per-image
@@ -54,11 +68,15 @@ def _native_preprocess_enabled() -> bool:
     return os.environ.get("MDT_NATIVE_PREPROCESS", "").lower() in ("1", "true", "yes")
 
 
-def _refuse_native() -> None:
-    if _native_preprocess_enabled():
-        raise NotImplementedError(
-            "MDT_NATIVE_PREPROCESS: the native preprocessing is not yet ported"
-        )
+def preprocess_backend() -> str:
+    """The backend resize_center_crop and _preprocess_uniform_batch take in
+    this process: 'native', 'pil' or 'numpy' (the order of their dispatch)."""
+    if _native_preprocess_enabled() or not _HAS_PIL:
+        from masked_diffusion_tpu_torch import native
+
+        if native.available():
+            return "native"
+    return "pil" if _HAS_PIL else "numpy"
 
 
 # ---------------------------------------------------------------------------
@@ -69,9 +87,19 @@ def _refuse_native() -> None:
 def resize_center_crop(img: np.ndarray, size: int) -> np.ndarray:
     """Resize the short side to `size` (bilinear) then center-crop to
     size x size — torchvision Resize+CenterCrop semantics. img is HWC uint8
-    or float in [0,1]. PIL (antialiased bilinear, torchvision-matching), or
-    numpy where PIL is missing."""
-    _refuse_native()
+    or float in [0,1].
+
+    Backend order: the native C++ pipeline (masked_diffusion_tpu_torch.
+    native, OpenMP, classic pixel-center bilinear — identical algorithm to
+    the numpy fallback below) when MDT_NATIVE_PREPROCESS is truthy or PIL is
+    missing; else PIL (antialiased bilinear, torchvision-matching); else
+    numpy."""
+    if _native_preprocess_enabled() or not _HAS_PIL:
+        from masked_diffusion_tpu_torch import native
+
+        out = native.resize_center_crop_native(img, size)
+        if out is not None:
+            return out
     h, w = img.shape[:2]
     if h < w:
         nh, nw = size, max(size, int(round(w * size / h)))
@@ -198,12 +226,48 @@ def load_image_folder(root: str, limit: Optional[int] = None) -> Tuple[list, np.
     return paths, labels
 
 
-# the LSUN splits the reference reads (mydataset.py:132-141)
+# torchvision LSUN's split -> lmdb class mapping as the reference uses it
+# (mydataset.py:132-141: church/bedroom/tower -> <class>_train)
 _LSUN_CLASSES = {
     "church": "church_outdoor_train",
     "bedroom": "bedroom_train",
     "tower": "tower_train",
 }
+
+
+def load_lsun(
+    path: str, split: str, size: int, limit: Optional[int] = None
+) -> np.ndarray:
+    """Load an LSUN LMDB archive (reference mydataset.py:132-141 semantics:
+    split in {church, bedroom, tower} -> <path>/<class>_lmdb/data.mdb) via
+    the pure-Python reader in data/lmdb_reader.py. Values are JPEG/WebP
+    bytes; decoded + resize/center-cropped like every other image family.
+    """
+    import io as _io
+
+    from masked_diffusion_tpu_torch.data.lmdb_reader import LMDBReader
+
+    if not _HAS_PIL:
+        raise RuntimeError("PIL required for LSUN decoding")
+    cls = _LSUN_CLASSES.get(split, split if split.endswith("_train") else None)
+    if cls is None:
+        raise ValueError(
+            f"unknown LSUN split {split!r} (expected church/bedroom/tower or "
+            f"an explicit <class>_train name)"
+        )
+    env_dir = os.path.join(path, f"{cls}_lmdb")
+    imgs = []
+    with LMDBReader(env_dir) as reader:
+        for _key, val in reader.items():
+            img = np.asarray(
+                Image.open(_io.BytesIO(val)).convert("RGB"), dtype=np.uint8
+            )
+            imgs.append(resize_center_crop(img, size))
+            if limit is not None and len(imgs) >= limit:
+                break
+    if not imgs:
+        raise FileNotFoundError(f"no images in {env_dir}")
+    return np.stack(imgs)
 
 
 def load_digits_dataset(
@@ -270,6 +334,10 @@ class InMemoryDataset:
             np.float32
         )
 
+    #: the preprocessing backend get_dataset used ('native', 'pil' or
+    #: 'numpy'); None for arrays given directly or reloaded from a dump
+    backend: Optional[str] = None
+
     def __len__(self) -> int:
         return len(self.data)
 
@@ -325,8 +393,38 @@ class InMemoryDataset:
 
 
 def _preprocess_uniform_batch(raw: np.ndarray, size: int) -> np.ndarray:
-    """Resize+crop a same-sized uint8 batch to (N, size, size, C) float [0,1]."""
+    """Resize+crop a same-sized uint8 batch to (N, size, size, C) float [0,1].
+
+    Uses the native OpenMP batch pipeline under the same opt-in as the
+    per-image path (MDT_NATIVE_PREPROCESS, or PIL missing) — the default
+    stays PIL's antialiased, torchvision-matching filter so loader families
+    share transform semantics.
+    """
+    if _native_preprocess_enabled() or not _HAS_PIL:
+        from masked_diffusion_tpu_torch import native
+
+        out = native.preprocess_batch_native(np.asarray(raw), size)
+        if out is not None:
+            return out
     return np.stack([resize_center_crop(im, size) for im in raw])
+
+
+def save_dataset(dataset: "InMemoryDataset", path: str) -> str:
+    """Export the preloaded tensors to one .npz file — the analog of the
+    reference's per-run .pt dump (mydataset.save_dataset :213-232)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez_compressed(
+        path, data=dataset.data, labels=dataset.labels, random=dataset.random
+    )
+    return path
+
+
+def load_saved_dataset(path: str) -> "InMemoryDataset":
+    with np.load(path) as z:
+        ds = InMemoryDataset(z["data"], z["labels"])
+        if "random" in z:
+            ds.random = z["random"]
+    return ds
 
 
 def get_dataset(
@@ -343,11 +441,26 @@ def get_dataset(
     """Build an in-memory dataset (mydataset.get_dataset + MyDataset preload).
 
     label_filter keeps a single class — the reference's mnist label filter
-    (utils/datasetutils.py:223-243)."""
+    (utils/datasetutils.py:223-243). A --dir_dataset containing 'hugging'
+    routes through the HF adapter (main_train_masked.py:47-49). The
+    dataset's `backend` names the preprocessing backend."""
     if "hugging" in str(path):
-        raise NotImplementedError("the Hugging Face dataset adapter is not yet ported")
-    _refuse_native()
+        if label_filter is not None:
+            # the HF adapter slices the split before any filtering could run
+            # (datasetutilsHugging.py:103 semantics) — fail loudly instead of
+            # silently returning all classes
+            raise NotImplementedError(
+                "label_filter is not supported on the huggingface adapter path"
+            )
+        from masked_diffusion_tpu_torch.data.hugging import load_hf_dataset
+
+        ds = load_hf_dataset(
+            name, size, split, data_subset, num_data, use_augment, seed
+        )
+        ds.backend = preprocess_backend()
+        return ds
     name_l = name.lower()
+    backend = "numpy" if name_l == "synthetic" else preprocess_backend()
     if name_l == "synthetic":
         n = num_data if (data_subset and num_data) else 1024
         raw, labels = make_synthetic(n, size, channels=3, seed=seed)
@@ -369,7 +482,12 @@ def get_dataset(
     elif name_l == "lsun" and os.path.isdir(
         os.path.join(path, name_l, f"{_LSUN_CLASSES.get(split, split)}_lmdb")
     ):
-        raise NotImplementedError("LSUN LMDB archives are not yet ported")
+        # native LMDB archives (the torchvision-LSUN layout the reference
+        # reads, mydataset.py:132-141); an exported-images directory still
+        # falls through to the ImageFolder scan below
+        limit = num_data if (data_subset and num_data) else None
+        imgs = load_lsun(os.path.join(path, name_l), split, size, limit)
+        labels = np.zeros(len(imgs), dtype=np.int64)
     else:
         # ImageFolder-style datasets: celeba_hq/{split}, afhqv2/{split},
         # metfaces, stanfordcars, flowers102, exported lsun images
@@ -398,4 +516,6 @@ def get_dataset(
     else:
         imgs = normalize_global(imgs)
 
-    return InMemoryDataset(imgs.astype(np.float32), labels, seed=seed)
+    ds = InMemoryDataset(imgs.astype(np.float32), labels, seed=seed)
+    ds.backend = backend
+    return ds

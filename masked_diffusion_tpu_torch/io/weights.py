@@ -21,7 +21,13 @@ UNet2DModel tensor names — the names of the port's UNet2D parameters.
 - load_checkpoint / save_checkpoint: the export layout,
   checkpoint-epoch-N/{unet,unet_ema}/ (config.json and the safetensors
   file each) plus meta.json, which the port's trainer writes and its
-  `--method sample` reads. A data-parallel run saves the module that
+  `--method sample` reads. load_checkpoint also reads the reference's own
+  folders (load_diffusers_folder, as masked_diffusion_tpu/io/import_torch.py
+  reads them): the diffusion_pytorch_model.bin pickle where there is no
+  safetensors file, and the pre-0.15 diffusers attention names
+  query/key/value/proj_attn as to_q/to_k/to_v/to_out.0 (the port keeps
+  diffusers' to_out.0 index, which the JAX reader drops because its flax
+  tree has no Sequential). A data-parallel run saves the module that
   DistributedDataParallel wraps, never the wrapper: the names carry no
   `module.` prefix, so a checkpoint of N ranks loads in one process and
   in the JAX package's io/import_torch.py.
@@ -38,6 +44,10 @@ import numpy as np
 import torch
 
 WEIGHTS_NAME = "diffusion_pytorch_model.safetensors"
+BIN_NAME = "diffusion_pytorch_model.bin"  # the torch pickle older diffusers wrote
+
+# old (pre-0.15) diffusers AttentionBlock names -> the port's
+_LEGACY_ATTN = {"query": "to_q", "key": "to_k", "value": "to_v", "proj_attn": "to_out.0"}
 
 _DTYPES = {
     "F64": np.float64, "F32": np.float32, "F16": np.float16,
@@ -145,6 +155,18 @@ def diffusers_config_from_unet(ucfg) -> dict:
     }
 
 
+def unet_config_meta(ucfg) -> dict:
+    """meta.json's `unet_config`: the topology fields the JAX package's
+    checkpoints record (trainer.py:_unet_meta, io/import_torch.py), lists
+    for tuples."""
+    return {k: (list(v) if isinstance(v, tuple) else v) for k, v in (
+        ("sample_size", ucfg.sample_size), ("in_channels", ucfg.in_channels),
+        ("out_channels", ucfg.out_channels), ("block_out_channels", ucfg.block_out_channels),
+        ("layers_per_block", ucfg.layers_per_block), ("attn_down", ucfg.attn_down),
+        ("attn_up", ucfg.attn_up), ("attention_head_dim", ucfg.attention_head_dim),
+        ("norm_groups", ucfg.norm_groups))}
+
+
 # ------------------------------------------------------------------ safetensors
 
 
@@ -233,24 +255,49 @@ def save_checkpoint(
     return dirname
 
 
+def weights_file(folder: str) -> Optional[str]:
+    """The state dict file of a save_pretrained folder: the safetensors
+    file, else the .bin pickle, else None."""
+    for name in (WEIGHTS_NAME, BIN_NAME):
+        path = os.path.join(folder, name)
+        if os.path.exists(path):
+            return path
+    return None
+
+
+def load_diffusers_folder(folder: str) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """One save_pretrained folder -> (state dict under the port's names,
+    config.json or {}). Reads diffusion_pytorch_model.safetensors, else the
+    .bin pickle (torch.load with weights_only=True); renames the legacy
+    attention names (query/key/value/proj_attn)."""
+    config: dict = {}
+    if os.path.exists(os.path.join(folder, "config.json")):
+        with open(os.path.join(folder, "config.json")) as f:
+            config = json.load(f)
+    path = weights_file(folder)
+    if path is None:
+        raise FileNotFoundError(f"no diffusion_pytorch_model.(safetensors|bin) under {folder}")
+    if path.endswith(".bin"):
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+        raw = {k: v.detach().contiguous() for k, v in raw.items()}
+    else:
+        raw = {k: torch.from_numpy(np.array(v)) for k, v in read_safetensors(path).items()}
+    return {".".join(_LEGACY_ATTN.get(p, p) for p in k.split(".")): v
+            for k, v in raw.items()}, config
+
+
 def load_checkpoint(
     dirname: str,
 ) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, torch.Tensor]], dict]:
-    """Read the export layout. Returns (unet state dict, unet_ema state dict
-    or None, unet/config.json)."""
-
-    def folder(sub):
-        path = os.path.join(dirname, sub, WEIGHTS_NAME)
-        if not os.path.exists(path):
-            return None
-        return {k: torch.from_numpy(np.array(v)) for k, v in read_safetensors(path).items()}
-
-    unet = folder("unet")
-    if unet is None:
+    """Read the export layout, or a reference checkpoint folder. Returns
+    (unet state dict, unet_ema state dict or None, unet/config.json)."""
+    if weights_file(os.path.join(dirname, "unet")) is None:
         raise FileNotFoundError(
-            f"{dirname}: no unet/{WEIGHTS_NAME} (write one with "
+            f"{dirname}: no unet/{WEIGHTS_NAME} or unet/{BIN_NAME} (write one with "
             "python -m masked_diffusion_tpu.io.export_torch)"
         )
-    with open(os.path.join(dirname, "unet", "config.json")) as f:
-        config = json.load(f)
-    return unet, folder("unet_ema"), config
+    unet, config = load_diffusers_folder(os.path.join(dirname, "unet"))
+    ema = None
+    if weights_file(os.path.join(dirname, "unet_ema")) is not None:
+        ema, _ = load_diffusers_folder(os.path.join(dirname, "unet_ema"))
+    return unet, ema, config

@@ -36,6 +36,8 @@ import subprocess
 import sys
 import time
 
+from masked_diffusion_tpu_torch.utils.profiling import device_rows
+
 # kernel name fragments of the port's own kernels (the GroupNorm kernels'
 # CUDA names, and the Triton names they had before, for runs on older trees)
 OWN = {"gn_fwd": ("gn_fwd_", "gn_silu_kernel"), "gn_bwd": ("gn_bwd_", "gn_silu_bwd_kernel"),
@@ -48,24 +50,6 @@ CONFIGS = {
     "celeba_hq": ("default", 5, 64, 32, (("log", "indexing", 16),)),
     "unet6_256": ("unet6", 1, 256, 8, (("log", "indexing", 16),)),
 }
-
-
-def _device_rows(prof):
-    """[(name, device ms total, calls)] of the window's kernels and copies."""
-    from torch.autograd import DeviceType
-
-    rows = []
-    for e in prof.key_averages():
-        # a user annotation's device range (e.g. Optimizer.step#AdamW.step)
-        # covers kernels that are listed on their own
-        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False) \
-                or "#" in e.key:
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = e.self_cuda_time_total
-        rows.append((e.key, t / 1e3, e.count))
-    return sorted(rows, key=lambda r: -r[1])
 
 
 def _host_rows(prof, steps: int, top: int = 12):
@@ -162,7 +146,7 @@ def profile_mode(config: str, sched: str, select: str, t_steps: int, steps: int)
             step(state, data, gen)
         torch.cuda.synchronize()
         window_ms = 1e3 * (time.perf_counter() - t0) / steps
-    rows = _device_rows(prof)
+    rows = device_rows(prof)
     busy = sum(r[1] for r in rows) / steps
     own = {k: sum(r[1] for r in rows if any(f in r[0] for f in frags)) / steps
            for k, frags in OWN.items()}

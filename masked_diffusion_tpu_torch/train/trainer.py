@@ -66,15 +66,24 @@ The model comes from models/factory.build_model_from_config: the default
 factory or a zoo name (--model unet1..unet6). Its attention takes the
 tiny-head kernel wherever it applies; --tinyhead_attention false is refused.
 
+Profiling (--profile_dir, trainer.py:419-421, 533): one epoch is traced,
+epoch_start + 1 when the call trains more than one (epoch_start's compiles
+and autotuning stay out), else epoch_start; the window wraps that epoch's
+step loop only (utils/profiling.trace), each step inside a
+`train_step epoch E step I` range, so the metrics fetch, the save cadence
+and checkpoint writes stay outside. Every rank writes its own
+trace_rank{r}.json. The returned rates leave the traced epoch out.
+
 Not ported yet, and refused at construction when a flag asks for them:
-tensor and spatial parallelism, profiling, and the JAX-only switches
-(--epoch_scan, --remat, --attention_chunk); so are the sampling modes the
+tensor and spatial parallelism and the JAX-only switches (--epoch_scan,
+--remat, --attention_chunk); so are the sampling modes the
 cadence's samplers refuse (sample/loop.py:validate_modes,
 sample/interpolation.py:validate_interpolation_modes).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import signal
@@ -89,7 +98,7 @@ import torch
 from masked_diffusion_tpu_torch.config import Config, validate_sampling_modes
 from masked_diffusion_tpu_torch.data.datasets import InMemoryDataset
 from masked_diffusion_tpu_torch.io import checkpoint as ckpt_io
-from masked_diffusion_tpu_torch.io.weights import diffusers_config_from_unet
+from masked_diffusion_tpu_torch.io.weights import diffusers_config_from_unet, unet_config_meta
 from masked_diffusion_tpu_torch.models.factory import build_model_from_config
 from masked_diffusion_tpu_torch.ops.schedule import MaskSchedule, build_schedule
 from masked_diffusion_tpu_torch.ops.shard import fold_seed, step_seed
@@ -106,7 +115,7 @@ from masked_diffusion_tpu_torch.train.step import (
     make_train_step,
     make_train_visuals_fn,
 )
-from masked_diffusion_tpu_torch.utils import host
+from masked_diffusion_tpu_torch.utils import host, profiling
 from masked_diffusion_tpu_torch.utils.grids import (
     save_image_grid,
     save_multi_index_image_grid,
@@ -122,8 +131,6 @@ def unported_options(cfg: Config) -> List[str]:
     if cfg.mesh_model != 1 or cfg.mesh_spatial:
         asked.append("--mesh_model/--mesh_spatial (tensor/spatial parallelism over "
                      "multi-GPU)")
-    if cfg.profile_dir:
-        asked.append("--profile_dir")
     for flag in ("epoch_scan", "remat"):
         if getattr(cfg, flag):
             asked.append(f"--{flag}")
@@ -135,20 +142,7 @@ def unported_options(cfg: Config) -> List[str]:
 def _ckpt_meta(model, cfg: Config) -> dict:
     """meta.json's topology and EMA hyperparameters (trainer.py:_unet_meta),
     so masked_diffusion_tpu.io tooling reads the checkpoint as its own."""
-    ucfg = model.config
-    meta = {
-        "unet_config": {
-            "sample_size": ucfg.sample_size,
-            "in_channels": ucfg.in_channels,
-            "out_channels": ucfg.out_channels,
-            "block_out_channels": list(ucfg.block_out_channels),
-            "layers_per_block": ucfg.layers_per_block,
-            "attn_down": list(ucfg.attn_down),
-            "attn_up": list(ucfg.attn_up),
-            "attention_head_dim": ucfg.attention_head_dim,
-            "norm_groups": ucfg.norm_groups,
-        }
-    }
+    meta = {"unet_config": unet_config_meta(model.config)}
     if cfg.use_ema:
         meta["ema"] = {
             "decay": cfg.ema_max_decay,
@@ -303,8 +297,9 @@ class Trainer:
         global_step (default: this trainer's count). Returns
         {"loss_mean_epoch", "last_metrics", "ms_per_step", "images_per_sec",
         "checkpoints", "preempted"}; the rates leave out the first epoch
-        (compiles and autotuning) when there is more than one. SIGTERM
-        during the call preempts (the module docstring)."""
+        (compiles and autotuning) when there is more than one, and the
+        traced epoch of --profile_dir where another is left. SIGTERM during
+        the call preempts (the module docstring)."""
         if global_step is not None:
             self.global_step = global_step
         self._preempt_requested = False
@@ -342,10 +337,12 @@ class Trainer:
         # an epoch's end, once they agree (acting alone would desynchronize
         # their collectives)
         single = self.plan.data_size <= 1
+        # the first epoch after epoch_start's compiles (trainer.py:421)
+        profile_epoch = epoch_start + 1 if epoch_length > 1 else epoch_start
         if self._data_dev is None:
             self._data_dev = torch.from_numpy(self.dataset.data).to(self.device)
         last_metrics: Dict[str, float] = {}
-        timed: List[tuple] = []  # (seconds, steps) per epoch
+        timed: List[tuple] = []  # (seconds, steps, traced) per epoch
         checkpoints: List[str] = []
         preempted = False
         for epoch in range(epoch_start, epoch_start + epoch_length):
@@ -364,18 +361,22 @@ class Trainer:
             carried = self._cut_epoch_losses if first else []
             self._cut_epoch_losses = []
             losses = []
+            traced = cfg.profile_dir if epoch == profile_epoch else None
             if rows[first:]:
                 # one host->device transfer of the epoch's index rows, this
                 # rank's columns of each global batch
                 sel = np.stack(rows[first:])[:, local_rows(cfg.batch_size, self.plan)]
                 sel = torch.as_tensor(sel, device=self.device)
-                for i in range(first, len(rows)):
-                    self._last_batch = self._data_dev[sel[i - first]]
-                    losses.append(step_fn(self.state, self._last_batch,
-                                          self._step_generator(epoch, i)))
-                    self.global_step += 1
-                    if single and self._preempt_requested:
-                        break
+                with profiling.trace(traced, self.plan.rank, self.device):
+                    for i in range(first, len(rows)):
+                        with (torch.profiler.record_function(f"train_step epoch {epoch} step {i}")
+                              if traced else contextlib.nullcontext()):
+                            self._last_batch = self._data_dev[sel[i - first]]
+                            losses.append(step_fn(self.state, self._last_batch,
+                                                  self._step_generator(epoch, i)))
+                        self.global_step += 1
+                        if single and self._preempt_requested:
+                            break
             stop = self._preempt_requested
             if losses:
                 # host sync once per epoch, as ONE stacked transfer of the
@@ -391,7 +392,7 @@ class Trainer:
             else:
                 stop = host.any_flag(stop)
             epoch_time = time.perf_counter() - t_start
-            timed.append((epoch_time, len(losses)))
+            timed.append((epoch_time, len(losses), bool(traced)))
 
             # a non-finite loss poisons params, EMA and every later
             # checkpoint: save a post-mortem checkpoint and stop
@@ -456,8 +457,9 @@ class Trainer:
                     cfg.async_checkpoints))
 
         steady = timed[1:] if len(timed) > 1 else timed
-        seconds = sum(t for t, _ in steady)
-        steps = sum(n for _, n in steady)
+        steady = [t for t in steady if not t[2]] or steady
+        seconds = sum(t for t, _, _ in steady)
+        steps = sum(n for _, n, _ in steady)
         return {
             "loss_mean_epoch": self.loss_mean_epoch,
             "last_metrics": last_metrics,

@@ -20,7 +20,7 @@ port's parallel/mesh.init_distributed) run, at toy width (block_out_channels
   * the host collectives (fetch of unequal shards, the mean).
 
 Then the CLI under torch.distributed.run (2 processes, --device cpu) trains
-and serves; its one run tree and one checkpoint load in the single-process
+(with --profile_dir: one trace a rank) and serves; its one run tree and one checkpoint load in the single-process
 port and through the JAX package's io/import_torch. And --mesh_data 2 with
 no process group is refused before any file is written, and so is
 --multihost True without torchrun.
@@ -503,10 +503,24 @@ def _torchrun(args):
 
 
 def test_cli_trains_and_serves_on_two_ranks(tmp_path):
-    out = _torchrun(_cli_args(str(tmp_path / "train"), "mean_shift"))
+    prof = tmp_path / "prof"
+    out = _torchrun(_cli_args(str(tmp_path / "train"), "mean_shift")
+                    + ["--profile_dir", str(prof)])
     (line,) = [ln for ln in out.splitlines() if ln.startswith("train_stats ")]
     stats = json.loads(line.split(" ", 1)[1])
     assert stats["ranks"] == 2 and stats["global_step"] == 2 and stats["epochs"] == 1
+    # --profile_dir: each rank traces its own steps of the one epoch, with
+    # DDP's gloo all-reduce in it
+    from masked_diffusion_tpu_torch.utils.profiling import read_trace
+
+    assert sorted(os.listdir(prof)) == ["trace_rank0.json", "trace_rank1.json"]
+    for rank in (0, 1):
+        tr = read_trace(str(prof / f"trace_rank{rank}.json"))
+        steps = {e["name"] for e in tr["events"] if str(e.get("name", "")).startswith(
+            "train_step ")}
+        assert steps == {"train_step epoch 0 step 0", "train_step epoch 0 step 1"}
+        reduce = tr["summary"]["collectives_host_ms"]["gloo:all_reduce"]
+        assert reduce["calls"] >= 2 and 0 < reduce["in_flight_ms"] <= reduce["ms"] + 1e-9
     assert json.loads([ln for ln in out.splitlines() if ln.startswith("dist: ")][0][6:])[
         "backend"] == "gloo"
     assert len(glob.glob(str(tmp_path / "train" / "result" / "*" / "*" / "*" / "*"))) == 1

@@ -158,10 +158,3 @@ def test_visualizer_writes_the_same_files(tmp_path):
     png = "ema_sample_global_00001.png"
     assert (tmp_path / "j" / png).read_bytes() == (tmp_path / "t" / png).read_bytes()
 
-
-def test_unported_sources_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="Hugging Face"):
-        tdata.get_dataset("/data/hugging", "cifar10", 32)
-    monkeypatch.setenv("MDT_NATIVE_PREPROCESS", "1")
-    with pytest.raises(NotImplementedError, match="native"):
-        tdata.get_dataset("", "synthetic", 8, data_subset=True, num_data=2)

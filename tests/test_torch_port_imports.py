@@ -4,10 +4,12 @@ neither triton nor nvcc (only a kernel launch needs them).
 
 Two checks: a subprocess (conftest.py imports jax into this process) that
 imports every module of the port and runs the CLI's main for --method
-mean_shift (with --sampling momentum, resumed from its checkpoint, with
-the default sampling flags, and with --interpolation_shift), --method sample
-and --method test on the CPU at toy size (the default model and the zoo's
-unet1), then inspects sys.modules, and has each of two ranks under
+mean_shift (with --sampling momentum and --profile_dir, resumed from its
+checkpoint, with the default sampling flags, and with
+--interpolation_shift), --method sample and --method test on the CPU at toy
+size (the default model and the zoo's unet1), the checkpoint import tool,
+and an LSUN get_dataset under MDT_NATIVE_PREPROCESS=1, then inspects
+sys.modules, and has each of two ranks under
 torch.distributed.run (gloo) train and serve data-parallel and inspect its
 own; and an AST scan of every .py of the port and of chip_smoke.py for an
 import of masked_diffusion_tpu."""
@@ -48,12 +50,29 @@ with tempfile.TemporaryDirectory() as work:
             "--dir_work", work]
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        main(["--method", "mean_shift"] + args)
+        main(["--method", "mean_shift", "--profile_dir", os.path.join(work, "prof")] + args)
+    assert os.listdir(os.path.join(work, "prof")) == ["trace_rank0.json"]
     line = [l for l in buf.getvalue().splitlines() if l.startswith("train_stats ")][-1]
     ckpt = json.loads(line.split(" ", 1)[1])["checkpoints"][-1]
     with contextlib.redirect_stdout(buf):
         main(["--method", "sample", "--test_model_path", ckpt] + args)
     assert "sample_stats " in buf.getvalue()
+    # the import tool, and an LSUN archive under MDT_NATIVE_PREPROCESS
+    from masked_diffusion_tpu_torch.io import import_torch
+    with contextlib.redirect_stdout(buf):
+        import_torch.main([ckpt, os.path.join(work, "imported")])
+    from PIL import Image
+    from masked_diffusion_tpu_torch.data.datasets import get_dataset
+    from masked_diffusion_tpu_torch.tools.lmdb_write import write_lmdb
+    pngs = {}
+    for i in range(2):
+        png = io.BytesIO()
+        Image.new("RGB", (12, 10), (40 * i, 90, 200)).save(png, format="PNG")
+        pngs[b"k%d" % i] = png.getvalue()
+    write_lmdb(os.path.join(work, "lsun", "church_outdoor_train_lmdb"), pngs)
+    os.environ.update(MDT_NATIVE_PREPROCESS="1", MDT_NATIVE_CACHE=os.path.join(work, "native"))
+    assert get_dataset(work, "lsun", 8, split="church").data.shape == (2, 8, 8, 3)
+    del os.environ["MDT_NATIVE_PREPROCESS"]
     # a resumed run: one epoch more from that checkpoint
     with contextlib.redirect_stdout(buf):
         main(["--method", "mean_shift"] + args + [

@@ -325,7 +325,6 @@ def test_cli_trains_with_interpolation_shift_and_renders_the_sweep(tmp_path, cap
 
 @pytest.mark.parametrize("extra,match", [
     (["--remat", "true"], "--remat"),
-    (["--profile_dir", "prof"], "--profile_dir"),
     (["--attention_chunk", "64"], "--attention_chunk"),
     (["--mesh_model", "2"], "multi-GPU"),
     (["--epoch_scan", "true"], "--epoch_scan"),
