@@ -2341,121 +2341,146 @@ def _close(a, b) -> bool:
     return bool(torch.isfinite(a).all()) and torch.allclose(a, b, atol=SLICE_TOL, rtol=SLICE_TOL)
 
 
-def phase_sampling_modes(steps: int = 10):
-    """[19] The reverse loop's plain branch at the flagship's width, 64x64,
-    batch 2, `steps` reverse steps, fp32 with TF32 off: CUDA (the exact-k
-    kernel for indexing masks) against the CPU path (its plain version) on
-    the same injected draws, within SLICE_TOL, for SAMPLING_MODES; the
-    captured mode compares all 11 fields and the 4 means. Each CUDA run is
-    under set_sync_debug_mode("error") and launches kernel 3 (through its
-    sharded form) kmask_per_step times a step, kernel 1 never. Then the
-    captured mode on the kernel's own Philox draws: every captured mask at t
-    and t-1 degrades exactly the schedule's count. Then times, bf16: kernel
-    3 at batch 2, and a flagship reverse step at batch SAMPLING_TIMED_BATCH
-    on the fused branch, the plain one and the plain one captured."""
+def _mode_cfg(sched, select, flags, t_steps, *extra):
+    """(cfg, schedule) of a `--method sample` mode at the flagship's size."""
+    from masked_diffusion_tpu_torch.cli.main_train_masked import parse
+    from masked_diffusion_tpu_torch.ops.schedule import build_schedule
+
+    cfg, _ = parse(["--method", "sample", "--data_size", str(SIZE), "--ddpm_schedule", sched,
+                    "--ddpm_num_steps", str(t_steps), "--select_degrade_pixel", select,
+                    "--shift_type", "1-d_constant", *flags, *extra])
+    return cfg, build_schedule(sched, t_steps, SIZE, select)
+
+
+def _run_sampler(ref_model, cfg, schedule, used, dev, capture, lat, **kw):
+    """make_sample_fn of a fresh flagship with ref_model's weights, run on
+    `dev` (sync debug "error" on CUDA); returns (out, kernel launches)."""
+    import torch
+
+    from masked_diffusion_tpu_torch.models.factory import build_unet
+    from masked_diffusion_tpu_torch.sample.loop import make_sample_fn
+
+    model = build_unet()
+    model.load_state_dict(ref_model.state_dict())
+    fn = make_sample_fn(model, schedule, cfg, used, device=dev, capture_trajectory=capture,
+                        capture_items=lat.shape[0])
+    lat = lat.to(dev)
+    reset_counts()
+    if dev == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(lat, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, read_counts()
+
+
+def plain_branch_parity(ref_model, latent, what, sched, select, flags, capture, steps,
+                        tag="[19]", extra=()):
+    """One mode on the plain branch, `steps` reverse steps, fp32 with TF32
+    off: CUDA against the CPU path on the same injected draws within
+    SLICE_TOL (with capture: every field and mean), kernel 3 launched
+    kmask_per_step times a step on CUDA, kernel 1 never. Returns the max
+    |diff|."""
     import numpy as np
     import torch
 
-    from masked_diffusion_tpu_torch.cli.main_train_masked import parse
-    from masked_diffusion_tpu_torch.models.factory import build_unet
-    from masked_diffusion_tpu_torch.ops.kmask import exact_count_masks, exact_count_masks_plain
-    from masked_diffusion_tpu_torch.ops.schedule import build_schedule
     from masked_diffusion_tpu_torch.ops.shift import draw_shapes
-    from masked_diffusion_tpu_torch.sample.latent import latent_initial
     from masked_diffusion_tpu_torch.sample.loop import (
         TRAJECTORY_FIELDS,
         TRAJECTORY_MEANS,
         StepDraws,
-        make_sample_fn,
     )
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    batch, hw = latent.shape[0], SIZE * SIZE
+    cfg, schedule = _mode_cfg(sched, select, flags, steps, "--mixed_precision", "no", *extra)
+    used = schedule.timesteps_for_epoch(1, 10, 1)[-steps:]
+    channels = 3 if cfg.degrade_channel == "3-channel" else 1
+    rng = np.random.default_rng(19)
+    u_shape, _ = draw_shapes(cfg.shift_type, (batch, 3, SIZE, SIZE))
+    cpu_draws = [StepDraws(
+        bits=torch.from_numpy(rng.integers(0, 2**32, size=(2, batch, hw),
+                                           dtype=np.uint64).astype(np.int64)),
+        mask_uniform=torch.from_numpy(
+            rng.uniform(size=(2, batch, channels, SIZE, SIZE)).astype(np.float32)),
+        uniform=torch.from_numpy(rng.uniform(-1, 1, size=u_shape).astype(np.float32)),
+    ) for _ in used]
+    cuda_draws = [StepDraws(**{k: None if v is None else v.cuda()
+                               for k, v in vars(d).items()}) for d in cpu_draws]
+    outs = {}
+    for dev, draws in (("cuda", cuda_draws), ("cpu", cpu_draws)):
+        t0 = time.perf_counter()
+        outs[dev], counts = _run_sampler(ref_model, cfg, schedule, used, dev, capture, latent,
+                                         draws=lambda i, d=draws: d[i])
+        want = kmask_per_step(cfg) * len(used) if dev == "cuda" else 0
+        if (counts["exact_count_masks"] != want
+                or counts["exact_count_masks_sharded"] != want
+                or counts["fused_degrade_update"] or counts["fused_degrade_update_sharded"]):
+            raise AssertionError(f"{tag} {what} on {dev}: launches {counts}, expected "
+                                 f"{want} exact_count_masks and no fused launch")
+        log(f"{tag} {what} on {dev}: {len(used)} steps in {time.perf_counter() - t0:.2f} s"
+            + (f" with no host sync inside the loop, {want} exact_count_masks launches "
+               f"({kmask_per_step(cfg)} a step)" if dev == "cuda" else ""))
+    a, r = outs["cuda"], outs["cpu"]
+    pairs = [("sample_0", a, r)]
+    if capture:
+        (a, ta), (r, tr) = a, r
+        pairs = [("sample_0", a, r)] + [(name, ta[name], tr[name])
+                                        for name in TRAJECTORY_FIELDS]
+        pairs += [(f"mean {name}", ta["means"][name], tr["means"][name])
+                  for name in TRAJECTORY_MEANS]
+        for name in TRAJECTORY_FIELDS:
+            if tuple(ta[name].shape) != (len(used), batch, SIZE, SIZE, 3):
+                raise AssertionError(f"{tag} {what}: {name} {tuple(ta[name].shape)}")
+    if tuple(a.shape) != (batch, SIZE, SIZE, 3):
+        raise AssertionError(f"{tag} {what}: output {tuple(a.shape)}")
+    errs = {}
+    for name, x, y in pairs:
+        x = x.cpu()
+        errs[name] = (x - y).abs().max().item()
+        if not _close(x, y):
+            raise AssertionError(f"{tag} {what}: {name} CUDA vs CPU max err {errs[name]}")
+    log(f"{tag} {what}: CUDA vs CPU plain, max |diff| {max(errs.values()):.3g} over "
+        f"{len(pairs)} tensors (atol = rtol = {SLICE_TOL}); output std {r.std().item():.4f}")
+    return max(errs.values())
+
+
+def phase_sampling_modes(steps: int = 10):
+    """[19] The reverse loop's plain branch at the flagship's width, 64x64,
+    batch 2, `steps` reverse steps, fp32 with TF32 off: CUDA (the exact-k
+    kernel for indexing masks) against the CPU path (its plain version) on
+    the same injected draws, within SLICE_TOL, for SAMPLING_MODES
+    (plain_branch_parity); the captured mode compares all 11 fields and the
+    4 means. Each CUDA run is under set_sync_debug_mode("error") and
+    launches kernel 3 (through its sharded form) kmask_per_step times a
+    step, kernel 1 never. Then the captured mode on the kernel's own Philox
+    draws: every captured mask at t and t-1 degrades exactly the schedule's
+    count. Then times, bf16: kernel 3 at batch 2, and a flagship reverse
+    step at batch SAMPLING_TIMED_BATCH on the fused branch, the plain one
+    and the plain one captured."""
+    import numpy as np
+    import torch
+
+    from masked_diffusion_tpu_torch.models.factory import build_unet
+    from masked_diffusion_tpu_torch.ops.kmask import exact_count_masks, exact_count_masks_plain
+    from masked_diffusion_tpu_torch.sample.latent import latent_initial
+    from masked_diffusion_tpu_torch.sample.loop import make_sample_fn
+
     batch, hw = 2, SIZE * SIZE
     ref_model = _flagship_weights(19)
     latent = latent_initial(torch.Generator().manual_seed(3), batch, 3, SIZE, "uniform",
                             device="cpu")
-
-    def mode_cfg(sched, select, flags, t_steps=steps, *extra):
-        cfg, _ = parse(["--method", "sample", "--data_size", str(SIZE), "--ddpm_schedule", sched,
-                        "--ddpm_num_steps", str(t_steps), "--select_degrade_pixel", select,
-                        "--shift_type", "1-d_constant", *flags, *extra])
-        return cfg, build_schedule(sched, t_steps, SIZE, select)
-
-    def run(cfg, schedule, used, dev, capture, lat, **kw):
-        """fn(lat) on `dev` (sync debug "error" on CUDA); returns (out,
-        kernel launches of the run)."""
-        model = build_unet()
-        model.load_state_dict(ref_model.state_dict())
-        fn = make_sample_fn(model, schedule, cfg, used, device=dev, capture_trajectory=capture,
-                            capture_items=batch)
-        lat = lat.to(dev)
-        reset_counts()
-        if dev == "cuda":
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            out = fn(lat, **kw)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        return out, read_counts()
-
-    for what, sched, select, flags, capture in SAMPLING_MODES:
-        cfg, schedule = mode_cfg(sched, select, flags, steps, "--mixed_precision", "no")
-        used = schedule.timesteps_for_epoch(1, 10, 1)[-steps:]
-        channels = 3 if cfg.degrade_channel == "3-channel" else 1
-        rng = np.random.default_rng(19)
-        u_shape, _ = draw_shapes(cfg.shift_type, (batch, 3, SIZE, SIZE))
-        cpu_draws = [StepDraws(
-            bits=torch.from_numpy(rng.integers(0, 2**32, size=(2, batch, hw),
-                                               dtype=np.uint64).astype(np.int64)),
-            mask_uniform=torch.from_numpy(
-                rng.uniform(size=(2, batch, channels, SIZE, SIZE)).astype(np.float32)),
-            uniform=torch.from_numpy(rng.uniform(-1, 1, size=u_shape).astype(np.float32)),
-        ) for _ in used]
-        cuda_draws = [StepDraws(**{k: None if v is None else v.cuda()
-                                   for k, v in vars(d).items()}) for d in cpu_draws]
-        outs = {}
-        for dev, draws in (("cuda", cuda_draws), ("cpu", cpu_draws)):
-            t0 = time.perf_counter()
-            outs[dev], counts = run(cfg, schedule, used, dev, capture, latent,
-                                    draws=lambda i, d=draws: d[i])
-            want = kmask_per_step(cfg) * len(used) if dev == "cuda" else 0
-            if (counts["exact_count_masks"] != want
-                    or counts["exact_count_masks_sharded"] != want
-                    or counts["fused_degrade_update"] or counts["fused_degrade_update_sharded"]):
-                raise AssertionError(f"[19] {what} on {dev}: launches {counts}, expected "
-                                     f"{want} exact_count_masks and no fused launch")
-            log(f"[19] {what} on {dev}: {len(used)} steps in {time.perf_counter() - t0:.2f} s"
-                + (f" with no host sync inside the loop, {want} exact_count_masks launches "
-                   f"({kmask_per_step(cfg)} a step)" if dev == "cuda" else ""))
-        a, r = outs["cuda"], outs["cpu"]
-        pairs = [("sample_0", a, r)]
-        if capture:
-            (a, ta), (r, tr) = a, r
-            pairs = [("sample_0", a, r)] + [(name, ta[name], tr[name])
-                                            for name in TRAJECTORY_FIELDS]
-            pairs += [(f"mean {name}", ta["means"][name], tr["means"][name])
-                      for name in TRAJECTORY_MEANS]
-            for name in TRAJECTORY_FIELDS:
-                if tuple(ta[name].shape) != (len(used), batch, SIZE, SIZE, 3):
-                    raise AssertionError(f"[19] {what}: {name} {tuple(ta[name].shape)}")
-        if tuple(a.shape) != (batch, SIZE, SIZE, 3):
-            raise AssertionError(f"[19] {what}: output {tuple(a.shape)}")
-        errs = {}
-        for name, x, y in pairs:
-            x = x.cpu()
-            errs[name] = (x - y).abs().max().item()
-            if not _close(x, y):
-                raise AssertionError(f"[19] {what}: {name} CUDA vs CPU max err {errs[name]}")
-        log(f"[19] {what}: CUDA vs CPU plain, max |diff| {max(errs.values()):.3g} over "
-            f"{len(pairs)} tensors (atol = rtol = {SLICE_TOL}); output std {r.std().item():.4f}")
+    for mode in SAMPLING_MODES:
+        plain_branch_parity(ref_model, latent, *mode, steps)
 
     # the captured mode on the kernel's own Philox draws: exact counts
     what, sched, select, flags, _ = SAMPLING_MODES[-1]
-    cfg, schedule = mode_cfg(sched, select, flags, steps, "--mixed_precision", "no")
+    cfg, schedule = _mode_cfg(sched, select, flags, steps, "--mixed_precision", "no")
     used = schedule.timesteps_for_epoch(1, 10, 1)[-steps:]
-    (out, traj), counts = run(cfg, schedule, used, "cuda", True, latent,
-                              generator=torch.Generator().manual_seed(5))
+    (out, traj), counts = _run_sampler(ref_model, cfg, schedule, used, "cuda", True, latent,
+                                       generator=torch.Generator().manual_seed(5))
     walk = used[::-1].copy()  # capture row j is reverse step j
     nxt = np.where(np.arange(len(walk)) == len(walk) - 1, walk, walk - 1)
     for field, ts in (("degrade_mask_t", walk), ("degrade_mask_next_t", nxt)):
@@ -2493,8 +2518,8 @@ def phase_sampling_modes(steps: int = 10):
     for name, rule, capture in (("fused", "base_momentum", False),
                                 ("plain (momentum rule)", "momentum", False),
                                 ("plain, captured", "base_momentum", True)):
-        cfg, schedule = mode_cfg("log", "indexing", base + ["--momentum_adaptive", rule], 200,
-                                 "--mixed_precision", "bf16")
+        cfg, schedule = _mode_cfg("log", "indexing", base + ["--momentum_adaptive", rule], 200,
+                                  "--mixed_precision", "bf16")
         used = schedule.timesteps_for_epoch(1, 10, 1)[-SAMPLING_TIMED_STEPS:]
         model = build_unet()
         model.load_state_dict(ref_model.state_dict())
@@ -3483,7 +3508,7 @@ def phase_ddp(workdir: str, smi: str, single: dict):
 
 # [22] the diversity tester at the flagship's width
 TESTER_SAMPLE_NUM = 100  # the reference tester's round (cfg.sample_num default)
-TESTER_ROUNDS = 3  # the first pays warm-up and is left out of the times
+TESTER_ROUNDS = 2  # the first pays warm-up and is left out of the times
 TESTER_PLANTED = 100  # images in phase 22's fixed batch
 # cosines of 64x64x3 images, card vs CPU, both fp32: sums in another order,
 # 3.6e-7 on an H100. A TF32 product (10-bit mantissa) errs by ~4e-6 there,
@@ -4128,6 +4153,314 @@ def phase_reference_inputs(workdir: str, smi: str) -> dict:
     return {k: sum(run[k] for run in runs) for k in train}, seconds
 
 
+# [25] the model and sampler switches. The six cells of models/unet.py's
+# attention table, (--tinyhead_attention, --attention_chunk), on unet1 at
+# 128x128: 11 attention blocks at S = 4096 (16 heads) and S = 1024 (32 heads)
+ROUTE_CELLS = ((None, None), (None, 512), (True, None), (True, 512), (False, None),
+               (False, 512))
+ROUTE_SIZE = 128
+ROUTE_BATCH = 8  # the forward's; the forward + backward runs at batch 2
+REMAT_STEPS_TIMED = 10
+REUSE_K = 2
+
+
+def phase_remat(smi: str) -> dict:
+    """[25a] One flagship train step (bf16, batch 64, log + indexing, AdamW,
+    EMA) with and without --remat from the same weights, batch and draws:
+    the loss and the clipped gradient within phase 9's limits; launches a
+    step: GroupNorm forward 71 + 60 recomputed (30 ResnetBlocks of the down
+    and up paths, two norms each) against 71, backward 71 and 71, exact-k 1
+    and 1; the peak device memory of each first step, and ms/step over
+    REMAT_STEPS_TIMED steps after 2 of warm-up. Returns {remat: (ms, peak
+    bytes)}."""
+    import numpy as np
+    import torch
+
+    from masked_diffusion_tpu_torch.models.factory import build_unet
+    from masked_diffusion_tpu_torch.models.unet import GroupNormAct
+    from masked_diffusion_tpu_torch.ops.schedule import build_schedule
+    from masked_diffusion_tpu_torch.train.optim import build_lr_schedule, build_optimizer
+    from masked_diffusion_tpu_torch.train.step import (
+        TrainDraws,
+        create_train_state,
+        make_train_step,
+    )
+
+    sched, select, t_steps = MODES[1]
+    batch, hw = B_KERNEL, SIZE * SIZE
+    ref_model = _flagship_weights(25)
+    norms = sum(isinstance(m, GroupNormAct) for m in ref_model.modules())
+    resnets = sum(len(b.resnets) for b in (*ref_model.down_blocks, *ref_model.up_blocks))
+    schedule = build_schedule(sched, t_steps, SIZE, select)
+    used = schedule.timesteps_for_epoch(0, 10, 1)
+    cfg = _train_cfg(sched, select, t_steps, "--mixed_precision", "bf16")
+    rng = np.random.default_rng(25)
+    img = torch.from_numpy(rng.uniform(-1, 1, (batch, SIZE, SIZE, 3)).astype(np.float32)).cuda()
+    draws = TrainDraws(
+        timeindex=torch.from_numpy(rng.integers(0, len(used), batch)).cuda(),
+        bits=torch.from_numpy(rng.integers(0, 2**32, (batch, hw), dtype=np.uint64)
+                              .astype(np.int64)).cuda(),
+        uniform=torch.from_numpy(rng.uniform(-1, 1, batch).astype(np.float32)).cuda(),
+    )
+    torch.backends.cudnn.allow_tf32 = True
+    runs = {}
+    for remat in (False, True):
+        model = build_unet(remat=remat)
+        model.load_state_dict(ref_model.state_dict())
+        model.cuda()
+        lr = build_lr_schedule("cosine", 1e-4, 0, 1000)
+        opt = build_optimizer("adamw", model.parameters(), lr, 1.0, 1)
+        state = create_train_state(model, opt, use_ema=True)
+        step = make_train_step(model, schedule, cfg, opt, used, lr, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        loss = step(state, img, draws=draws)["train_loss"].item()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        grads = [p.grad.detach().float().clone() for p in model.parameters()]
+        want = dict.fromkeys(counts, 0)
+        want.update(group_norm_silu=norms + (2 * resnets if remat else 0),
+                    group_norm_silu_backward=norms, exact_count_masks=1,
+                    exact_count_masks_sharded=1)
+        if counts != want:
+            raise AssertionError(f"[25a] remat {remat}: launches {counts}, expected {want}")
+        gen = torch.Generator().manual_seed(1)
+        for _ in range(2):
+            step(state, img, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REMAT_STEPS_TIMED):
+            step(state, img, gen)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / REMAT_STEPS_TIMED
+        runs[remat] = (loss, grads, peak, ms, counts)
+        del model, opt, state, step
+        torch.cuda.empty_cache()
+    (l0, g0, p0, ms0, c0), (l1, g1, p1, ms1, c1) = runs[False], runs[True]
+    loss_diff = abs(l1 - l0) / abs(l0)
+    grad_diff = (sum(float((a - b).square().sum()) for a, b in zip(g1, g0))
+                 / sum(float(b.square().sum()) for b in g0)) ** 0.5
+    max_diff = max(float((a - b).abs().max()) for a, b in zip(g1, g0))
+    log(f"[25a] flagship train step, bf16, batch {batch}, {sched}+{select} ({smi}): remat vs "
+        f"none, loss {l1:.6f} vs {l0:.6f} (rel diff {loss_diff:.3g}, tol {BF16_LOSS_RTOL}), "
+        f"gradient rel L2 diff {grad_diff:.3g} (tol {BF16_GRAD_RTOL}), max |diff| {max_diff:.3g}; "
+        f"GroupNorm forward launches a step {c1['group_norm_silu']} vs {c0['group_norm_silu']}, "
+        f"backward {c1['group_norm_silu_backward']} vs {c0['group_norm_silu_backward']}, exact-k "
+        f"{c1['exact_count_masks']} vs {c0['exact_count_masks']}; peak device memory "
+        f"{p1 / 2**30:.3f} vs {p0 / 2**30:.3f} GiB; {ms1:.3f} vs {ms0:.3f} ms/step over "
+        f"{REMAT_STEPS_TIMED} steps after 2 of warm-up")
+    if not (np.isfinite(l1) and loss_diff <= BF16_LOSS_RTOL and grad_diff <= BF16_GRAD_RTOL):
+        raise AssertionError(f"[25a] remat: loss rel diff {loss_diff}, gradient {grad_diff}")
+    if p1 >= p0:
+        raise AssertionError(f"[25a] remat's peak {p1} bytes is not below {p0}")
+    return {False: (ms0, p0), True: (ms1, p1)}
+
+
+def phase_attention_routes() -> dict:
+    """[25b] unet1 at 128x128 through each cell of the attention table from
+    the same weights: one bf16 forward at batch ROUTE_BATCH, its output
+    against the kernel route's and its peak device memory above the weights;
+    then a forward and backward at batch 2, every gradient against the
+    kernel route's. Limits: relative L2 BF16_GRAD_RTOL (phase 9's gradient
+    limit): the routes differ in where bf16 rounds the probabilities (the
+    kernel's online softmax, the plain version's fp32 softmax cast once),
+    carried through 11 blocks. Tiny-head launches 11 a forward (and 11
+    backward launches) where the table says kernel, else 0. The chunked
+    routes' peak must sit below the unchunked plain route's. Returns {cell:
+    peak bytes}."""
+    import torch
+
+    from masked_diffusion_tpu_torch.models.unet import attention_route
+    from masked_diffusion_tpu_torch.models.zoo import Model
+
+    dev = torch.device("cuda")
+    torch.manual_seed(0)
+    ref = Model("unet1", 3, ROUTE_SIZE, ROUTE_SIZE)
+    ref.conv_out.reset_parameters()  # random, not zero: the output must depend on it
+    per_forward = tinyhead_per_forward(ref.config)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    x = torch.randn((ROUTE_BATCH, 3, ROUTE_SIZE, ROUTE_SIZE), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    t = torch.full((ROUTE_BATCH,), 10.0, device=dev)
+    outs, grads, peaks = {}, {}, {}
+
+    def rel_l2(a, b):
+        return (sum(float((x_ - y).square().sum()) for x_, y in zip(a, b))
+                / sum(float(y.square().sum()) for y in b)) ** 0.5
+
+    for tiny, chunk in ROUTE_CELLS:
+        cell = f"tinyhead {tiny}, chunk {chunk}"
+        model = Model("unet1", 3, ROUTE_SIZE, ROUTE_SIZE, attention_chunk=chunk,
+                      tinyhead_attention=tiny)
+        model.load_state_dict(ref.state_dict())
+        model = model.to(device=dev, dtype=torch.bfloat16)
+        route = attention_route(model.config, 64 * 64, 8)
+        want = per_forward if route == "kernel" else 0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = model(x, t).float()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peaks[(tiny, chunk)] = torch.cuda.max_memory_allocated() - base
+        forward = read_counts()["tinyhead_attention"]
+        model.zero_grad(set_to_none=True)
+        reset_counts()
+        model(x[:2], t[:2]).float().square().mean().backward()
+        torch.cuda.synchronize()
+        c = read_counts()
+        if (forward, c["tinyhead_attention"], c["tinyhead_attention_backward"]) != (want,) * 3:
+            raise AssertionError(f"[25b] {cell}: tinyhead launches forward {forward}, with grad "
+                                 f"{c['tinyhead_attention']} and {c['tinyhead_attention_backward']}"
+                                 f", expected {want} each (S=4096 route {route})")
+        outs[(tiny, chunk)] = out
+        grads[(tiny, chunk)] = [p.grad.float() for p in model.parameters()]
+        key = ROUTE_CELLS[0]
+        out_diff = rel_l2([out], [outs[key]])
+        grad_diff = rel_l2(grads[(tiny, chunk)], grads[key])
+        log(f"[25b] unet1 {ROUTE_SIZE}x{ROUTE_SIZE} bf16, {cell}: route at S=4096 {route}, "
+            f"at S=1024 {attention_route(model.config, 32 * 32, 8)}; forward at batch "
+            f"{ROUTE_BATCH} {seconds:.3f} s (first call), peak device memory above the weights "
+            f"{peaks[(tiny, chunk)] / 2**30:.3f} GiB; tinyhead launches {want} forward and "
+            f"backward; against the kernel route: output rel L2 {out_diff:.3g}, max |diff| "
+            f"{float((out - outs[key]).abs().max()):.3g}, gradient rel L2 {grad_diff:.3g} "
+            f"(limit {BF16_GRAD_RTOL})")
+        if not bool(torch.isfinite(out).all()) or out_diff > BF16_GRAD_RTOL or (
+                grad_diff > BF16_GRAD_RTOL):
+            raise AssertionError(f"[25b] {cell}: output rel L2 {out_diff}, gradient {grad_diff}")
+        del model, out
+    plain = peaks[(False, None)]
+    for cell in ((None, 512), (False, 512)):
+        if peaks[cell] >= plain:
+            raise AssertionError(f"[25b] chunked {cell} peak {peaks[cell]} bytes is not below "
+                                 f"the unchunked plain route's {plain}")
+    del outs, grads
+    torch.cuda.empty_cache()
+    return peaks
+
+
+def phase_encoder_reuse(workdir: str) -> dict:
+    """[25c] --method sample --encoder_reuse REUSE_K through the CLI on phase
+    10's checkpoint (batch 16, log + indexing, T = 200), then the same
+    request without reuse: kernel 1 once a reverse step, GroupNorm forward
+    71 on a refreshing step and 40 on a replaying one (18 up ResnetBlocks x
+    2, 3 attention blocks, norm_out), so 71*ceil(n/2) + 40*floor(n/2) over
+    n steps. Then the plain branch with K = 2 on CUDA against the CPU path
+    (phase 19's harness: batch 2, 10 steps, dependent_prev + boosting +
+    indexing). Returns the CLI runs' launches."""
+    import glob
+
+    import torch
+
+    from masked_diffusion_tpu_torch.sample.latent import latent_initial
+
+    (ckpt,) = glob.glob(os.path.join(workdir, "train", "**", "checkpoint-epoch-*"),
+                        recursive=True)
+    _, common = flagship_cli_args(workdir)
+    ms, total = {}, {}
+    for k in (REUSE_K, 0):
+        rc, served, counts = _run_cli(["--method", "sample", "--test_model_path", ckpt,
+                                       "--dir_work", os.path.join(workdir, f"reuse{k}"),
+                                       *common, "--encoder_reuse", str(k)], "sample_stats")
+        n, batches = served["steps"], served["batches"]
+        refresh = -(-n // k) if k > 1 else n
+        want = {"fused_degrade_update": n * batches, "exact_count_masks": 0,
+                "group_norm_silu": batches * (71 * refresh + 40 * (n - refresh)),
+                "group_norm_silu_backward": 0, "tinyhead_attention": 0}
+        if rc != 0 or not (served["finite"] and served["ema"]) or any(
+                counts[key] != v for key, v in want.items()) or not same_through_sharded(counts):
+            raise AssertionError(f"[25c] --encoder_reuse {k}: rc {rc}, {served}, launches "
+                                 f"{counts}, expected {want}")
+        ms[k] = served["ms_per_step"]
+        total = {key: total.get(key, 0) + v for key, v in counts.items()}
+        log(f"[25c] served phase 10's checkpoint with --encoder_reuse {k}: {served['images']} "
+            f"images, {n} steps x {batches} batches, {ms[k]:.3f} ms a reverse step; GroupNorm "
+            f"forward launches {counts['group_norm_silu']} (expected "
+            f"{want['group_norm_silu']}), fused {counts['fused_degrade_update']}")
+    log(f"[25c] --encoder_reuse {REUSE_K}: {ms[REUSE_K]:.3f} ms a reverse step against "
+        f"{ms[0]:.3f} exact, the same request in turn")
+    latent = latent_initial(torch.Generator().manual_seed(3), 2, 3, SIZE, "uniform",
+                            device="cpu")
+    what, sched, select, flags = SAMPLING_MODES[1][:4]
+    plain_branch_parity(_flagship_weights(19), latent, f"{what}, --encoder_reuse {REUSE_K}",
+                        sched, select, flags, False, 10, "[25c]",
+                        ("--encoder_reuse", str(REUSE_K)))
+    torch.backends.cudnn.allow_tf32 = True
+    return total
+
+
+def phase_switches_cli(workdir: str) -> dict:
+    """[25d] unet1 at 128x128, bf16, through the CLI with --remat true
+    --tinyhead_attention false --attention_chunk 512 --encoder_reuse 2: one
+    epoch of 2 steps, the cadence's sampler at T = 16: exit 0, no tiny-head
+    launch, the recomputed norms and the reuse counted, a checkpoint; then
+    that checkpoint served without the switches: 11 tiny-head launches a
+    reverse step. Returns the launches of both runs."""
+    import numpy as np
+    import torch
+
+    from masked_diffusion_tpu_torch.models.unet import GroupNormAct
+    from masked_diffusion_tpu_torch.models.zoo import Model
+
+    common = [
+        "--model", "unet1", "--data_name", "synthetic", "--data_size", str(ROUTE_SIZE),
+        "--data_subset", "True", "--data_subset_num", "4", "--batch_size", "2",
+        "--sample_num", "2", "--mixed_precision", "bf16", "--ddpm_schedule", "log",
+        "--ddpm_num_steps", "16", "--select_degrade_pixel", "indexing",
+        "--mean_option", "degraded_area", "--mean_area", "image-wise",
+        "--shift_type", "1-d_constant", "--momentum_adaptive", "base_momentum",
+        "--sampling_mask_dependency", "independent", "--use_wandb", "False",
+        "--device", "cuda", "--dir_work", os.path.join(workdir, "switches"),
+    ]
+    switches = ["--remat", "true", "--tinyhead_attention", "false", "--attention_chunk", "512",
+                "--encoder_reuse", str(REUSE_K)]
+    rc, stats, train = _run_cli(
+        ["--method", "mean_shift", "--num_epochs", "1", "--save_images_epochs", "1",
+         "--sampling", "momentum", "--optim", "adamw", "--lr", "1e-4", "--lr_scheduler",
+         "cosine", "--lr_warmup_steps", "0", "--use_ema", "True", *switches, *common],
+        "train_stats")
+    with torch.device("meta"):
+        model = Model("unet1", 3, ROUTE_SIZE, ROUTE_SIZE)
+    norms = sum(isinstance(m, GroupNormAct) for m in model.modules())
+    decode = sum(isinstance(m, GroupNormAct) for m in model.up_blocks.modules()) + 1
+    resnets = sum(len(b.resnets) for b in (*model.down_blocks, *model.up_blocks))
+    n = train["fused_degrade_update"]  # the cadence's reverse steps
+    refresh = -(-n // REUSE_K)
+    want = {"tinyhead_attention": 0, "tinyhead_attention_backward": 0,
+            "group_norm_silu_backward": 2 * norms, "exact_count_masks": 2 + 1,
+            "group_norm_silu": 2 * (norms + 2 * resnets) + norms + refresh * norms
+            + (n - refresh) * decode}
+    if (rc != 0 or stats["global_step"] != 2 or len(stats["checkpoints"]) != 1 or not n
+            or not np.isfinite(stats["loss_mean_epoch"]).all()
+            or any(train[k] != v for k, v in want.items()) or not same_through_sharded(train)):
+        raise AssertionError(f"[25d] train CLI with the switches: rc {rc}, {stats}, launches "
+                             f"{train}, expected {want}")
+    (ckpt,) = stats["checkpoints"]
+    log(f"[25d] unet1 {ROUTE_SIZE}x{ROUTE_SIZE} trained through the CLI with "
+        f"{' '.join(switches)}: losses {[round(v, 5) for v in stats['loss_mean_epoch']]}, "
+        f"{stats['ms_per_step']:.3f} ms/step; launches {train} (GroupNorm forward {norms} + "
+        f"{2 * resnets} recomputed a step; the cadence {refresh} full and {n - refresh} decode "
+        f"forwards)")
+    rc, served, serve = _run_cli(["--method", "sample", "--test_model_path", ckpt, *common],
+                                 "sample_stats")
+    n_steps = served["steps"] * served["batches"]
+    per_forward = tinyhead_per_forward(model.config)
+    if rc != 0 or not (served["finite"] and served["ema"]) or (
+            serve["tinyhead_attention"] != per_forward * n_steps
+            or serve["fused_degrade_update"] != n_steps):
+        raise AssertionError(f"[25d] served without the switches: rc {rc}, {served}, launches "
+                             f"{serve}")
+    log(f"[25d] its checkpoint served without the switches: {served['images']} images, "
+        f"{served['steps']} steps, {served['ms_per_step']:.3f} ms a reverse step; launches "
+        f"{serve} ({per_forward} tinyhead launches a forward)")
+    return {k: train[k] + serve[k] for k in train}
+
+
 def _counted():
     """The launch-counted wrappers of every kernel, by name."""
     from masked_diffusion_tpu_torch.ops.fused_degrade import (
@@ -4163,6 +4496,19 @@ def same_through_sharded(counts: dict) -> bool:
             and counts["exact_count_masks"] == counts["exact_count_masks_sharded"])
 
 
+PHASE_SECONDS = {}
+
+
+def timed_phase(tag: str, fn, *args, **kwargs):
+    """fn(*args, **kwargs), its seconds logged on a line of their own and kept
+    in PHASE_SECONDS under `tag`."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    PHASE_SECONDS[tag] = PHASE_SECONDS.get(tag, 0.0) + time.perf_counter() - t0
+    log(f"[seconds] {tag}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def kernel_entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
     return {"name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -4178,47 +4524,56 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     t_start = time.perf_counter()
-    smi = phase_env()
-    tinyhead_err, tinyhead_bwd_err, tinyhead_times, tinyhead_bwd_times, _ = phase_tinyhead()
-    large = phase_exact_k_large()
-    fused_err, fused_times, fused_bnd, fused_taken = phase_fused()
+    smi = timed_phase("[1] environment and build", phase_env)
+    tinyhead_err, tinyhead_bwd_err, tinyhead_times, tinyhead_bwd_times, _ = timed_phase(
+        "[11] tiny-head kernels", phase_tinyhead)
+    large = timed_phase("[12] exact-k at 256x256", phase_exact_k_large)
+    fused_err, fused_times, fused_bnd, fused_taken = timed_phase("[2] fused degrade",
+                                                                 phase_fused)
     check_plan_coverage("fused", fused_taken | large[3])
     calls = norm_shapes(16)
-    gn = phase_groupnorm(calls, 16)
-    phase_slice()
-    phase_slice("[14]", 5, (("log", "indexing", 16, 4),))
-    modes = phase_sampling_modes()
-    t_new = time.perf_counter()
-    phase_tester_selection()
-    phase_tester_kernels(calls)
-    phase_interpolation_parity()
-    new_seconds = time.perf_counter() - t_new
-    kmask = phase_kmask()
+    gn = timed_phase("[3] GroupNorm forward", phase_groupnorm, calls, 16)
+    timed_phase("[4] sampling slice", phase_slice)
+    timed_phase("[14] sampling slice, CelebA-HQ topology", phase_slice, "[14]", 5,
+                (("log", "indexing", 16, 4),))
+    modes = timed_phase("[19] plain branch", phase_sampling_modes)
+    timed_phase("[22a] tester selection", phase_tester_selection)
+    timed_phase("[22a] tester kernels", phase_tester_kernels, calls)
+    timed_phase("[23a] interpolation parity", phase_interpolation_parity)
+    kmask = timed_phase("[6] exact-k masks", phase_kmask)
     check_plan_coverage("kmask", kmask[4] | large[4])
-    gn_bwd, _ = phase_groupnorm_train(calls, B_KERNEL)
-    phase_groupnorm_branches()
-    phase_groupnorm_train(norm_shapes(8, "unet6", 256, "[13]"), 8, "[13]", timed=False)
-    phase_train_parity()
-    phase_train_bf16_parity()
-    phase_train_throughput(smi)
-    zoo_backward = phase_zoo()
+    gn_bwd, _ = timed_phase("[7] GroupNorm training", phase_groupnorm_train, calls, B_KERNEL)
+    timed_phase("[7] GroupNorm branches", phase_groupnorm_branches)
+    timed_phase("[13] GroupNorm at unet6 256x256", phase_groupnorm_train,
+                norm_shapes(8, "unet6", 256, "[13]"), 8, "[13]", timed=False)
+    timed_phase("[8] train parity", phase_train_parity)
+    timed_phase("[9] bf16 train parity", phase_train_bf16_parity)
+    timed_phase("[9] train throughput", phase_train_throughput, smi)
+    zoo_backward = timed_phase("[15] zoo", phase_zoo)
+    remat = timed_phase("[25a] remat", phase_remat, smi)
+    route_peaks = timed_phase("[25b] attention routes", phase_attention_routes)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    sharded = phase_sharded()
+    sharded = timed_phase("[18a] sharded kernels", phase_sharded)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
-        main_runs = [phase_serve(workdir)[0]]
-        flagship_cli, flagship_perf = phase_train_cli(workdir)
-        default_cli, captured_ms = phase_default_cli(workdir, flagship_perf)
-        t_new = time.perf_counter()
-        tester_runs, tester_perf = phase_tester_run(workdir)
-        interp_cli, interp_ms = phase_interpolation_cli(workdir)
-        main_runs += [tester_runs, phase_tester_cli(workdir), interp_cli]
-        new_seconds += time.perf_counter() - t_new
-        main_runs += [flagship_cli, default_cli, phase_celeba_cli(workdir),
-                      phase_unet6_cli(workdir),
-                      phase_ddp(os.path.join(workdir, "ranks"), smi, flagship_perf),
-                      phase_preempt(workdir, smi)]
-        reference_runs, reference_seconds = phase_reference_inputs(workdir, smi)
-        main_runs.append(reference_runs)
+        runs = {"serve": timed_phase("[5] serve", phase_serve, workdir)[0]}
+        runs["flagship"], flagship_perf = timed_phase("[10] train CLI", phase_train_cli,
+                                                      workdir)
+        runs["default"], captured_ms = timed_phase("[20] default flags CLI", phase_default_cli,
+                                                   workdir, flagship_perf)
+        runs["tester"], tester_perf = timed_phase("[22b] tester run", phase_tester_run, workdir)
+        runs["tester_cli"] = timed_phase("[22c] tester CLI", phase_tester_cli, workdir)
+        runs["interp"], interp_ms = timed_phase("[23b] interpolation CLI",
+                                                phase_interpolation_cli, workdir)
+        runs["reuse"] = timed_phase("[25c] encoder reuse", phase_encoder_reuse, workdir)
+        runs["switches"] = timed_phase("[25d] switches CLI", phase_switches_cli, workdir)
+        runs["celeba"] = timed_phase("[16] CelebA-HQ CLI", phase_celeba_cli, workdir)
+        runs["unet6"] = timed_phase("[17] unet6 CLI", phase_unet6_cli, workdir)
+        runs["ddp"] = timed_phase("[18] two ranks", phase_ddp, os.path.join(workdir, "ranks"),
+                                  smi, flagship_perf)
+        runs["preempt"] = timed_phase("[21] preemption", phase_preempt, workdir, smi)
+        runs["reference"], reference_seconds = timed_phase("[24] reference inputs",
+                                                           phase_reference_inputs, workdir, smi)
+    main_runs = list(runs.values())
     for mod in sorted(sys.modules):
         if mod.split(".")[0] in ("jax", "flax", "masked_diffusion_tpu"):
             raise AssertionError(f"{mod} was imported")
@@ -4244,12 +4599,12 @@ def main() -> int:
     th, th_bound = per_step(tinyhead_times, "forward per UNet forward")
     thb, thb_bound = per_step(tinyhead_bwd_times, "backward per train step")
     log(f"[11] tinyhead backward launches per train step: CelebA-HQ "
-        f"{main_runs[6]['tinyhead_attention_backward'] // 4} (phase 16, 4 steps), unet6 256x256 "
-        f"{main_runs[7]['tinyhead_attention_backward'] // 4} (phase 17, 4 steps), at 128x128 "
-        f"(phase 15) {zoo_backward}")
+        f"{runs['celeba']['tinyhead_attention_backward'] // 4} (phase 16, 4 steps), unet6 "
+        f"256x256 {runs['unet6']['tinyhead_attention_backward'] // 4} (phase 17, 4 steps), at "
+        f"128x128 (phase 15) {zoo_backward}")
     kb2 = modes["kmask_b2"]
     log(f"[19/20] exact_count_masks on the main path: {launches('exact_count_masks')} launches, "
-        f"{default_cli['exact_count_masks']} of them in phase 20 (its captured cadence "
+        f"{runs['default']['exact_count_masks']} of them in phase 20 (its captured cadence "
         f"{captured_ms:.3f} ms a reverse step, phase 10's fused "
         f"{flagship_perf['cadence_ms']:.3f}); at batch 2, 64x64: {kb2[0]:.4f} ms (plain "
         f"{kb2[1]:.4f}, bound {kb2[2][0]:.5f}); flagship reverse step at batch "
@@ -4259,11 +4614,19 @@ def main() -> int:
         + "; ".join(f"{k} {v[0]:.3f} s a round, {v[1]:.3f} ms a reverse step, {v[2]:.2f} "
                     f"images/s" for k, v in tester_perf.items())
         + f"; the interpolation pass at the cadence: {interp_ms:.3f} ms a reverse step; "
-        f"{tester_runs['fused_degrade_update']} fused and {tester_runs['exact_count_masks']} "
-        f"exact-k launches in phase 22b; phases 22 and 23 took {new_seconds:.1f} s of the "
-        f"script's {time.perf_counter() - t_start:.1f} s")
-    log(f"[24] phase 24 (the reference user's inputs) took {reference_seconds:.1f} s of the "
-        f"script's {time.perf_counter() - t_start:.1f} s; its launches {reference_runs}")
+        f"{runs['tester']['fused_degrade_update']} fused and "
+        f"{runs['tester']['exact_count_masks']} exact-k launches in phase 22b")
+    log(f"[24] phase 24 (the reference user's inputs) took {reference_seconds:.1f} s; its "
+        f"launches {runs['reference']}")
+    log(f"[25] remat: {remat[True][0]:.3f} vs {remat[False][0]:.3f} ms/step, peak "
+        f"{remat[True][1] / 2**30:.3f} vs {remat[False][1] / 2**30:.3f} GiB; the attention "
+        f"routes' peak GiB above the weights at batch {ROUTE_BATCH}: "
+        + ", ".join(f"{c}: {v / 2**30:.3f}" for c, v in route_peaks.items())
+        + f"; the switches' main-path launches {runs['reuse']} (25c) and {runs['switches']} "
+        f"(25d); phase 25 took "
+        f"{sum(v for k, v in PHASE_SECONDS.items() if k.startswith('[25')):.1f} s")
+    log("[seconds] " + json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})
+        + f"; the script {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": [
         kernel_entry("fused_degrade_update", "cuda",

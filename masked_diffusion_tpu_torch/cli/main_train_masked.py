@@ -32,8 +32,8 @@ The method dispatch mirrors that file's main (:232-350) without a mesh:
                      the newest checkpoint of --output_dir, and generate
                      --sample_num images in any sampling mode
                      (--sampling_mask_dependency, --momentum_adaptive,
-                     --degrade_channel, --mean_option, --mean_area) but
-                     --encoder_reuse > 1; prints `sample_stats`
+                     --degrade_channel, --mean_option, --mean_area,
+                     --encoder_reuse); prints `sample_stats`
   test               the diversity tester (tester.py): load --test_model_path
                      as `sample` does, sample with its EMA weights whenever
                      it has them, rounds of --sample_num images deduplicated
@@ -46,8 +46,10 @@ The method dispatch mirrors that file's main (:232-350) without a mesh:
 
 --model picks the default factory (--num_attention) or a zoo name
 (unet1..unet6, models/zoo.py). Attention takes the tiny-head kernel wherever
-it applies, which is what --tinyhead_attention unset or true asks for; false
-is refused.
+it applies unless --tinyhead_attention false or --attention_chunk N asks for
+the plain or the chunked version (models/unet.py); --remat recomputes the
+down and up paths' ResnetBlocks in the backward. None of the three changes
+a parameter, so a checkpoint trained with them serves without them.
 
 Data (data/datasets.py): mnist and cifar10 files, image folders, LSUN LMDB
 archives (--data_name lsun --data_set church|bedroom|tower reads
@@ -233,38 +235,37 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--layers_per_block", type=int, default=2)
     p.add_argument(
         "--remat", type=str2bool, default=False,
-        help="rematerialize UNet blocks on backward (flax nn.remat): ~11% "
-        "slower steps for a large activation-memory cut — for memory-bound "
-        "configs (docs/PERFORMANCE.md)",
+        help="recompute the down and up paths' ResnetBlocks in the backward "
+        "(torch.utils.checkpoint) instead of keeping their activations: less "
+        "device memory a train step, a second forward of those blocks",
     )
     p.add_argument(
         "--attention_chunk", type=int, default=None,
-        help="exact chunked attention: lax.map over query blocks of this "
-        "size bounds live scores to (B, heads, chunk, S) — escape hatch for "
-        "placements whose full (S, S) scores don't fit HBM (0/unset = "
-        "materialized-scores einsum, the measured-faster path at S <= 1024)",
+        help="exact attention one block of this many query rows at a time: "
+        "the live scores are (B, heads, chunk, S), not (B, heads, S, S), for "
+        "placements whose full scores do not fit (0/unset = off)",
     )
     p.add_argument(
         "--tinyhead_attention", type=str2bool, default=None,
         help="the tiny-head attention kernel for the family's 8-wide heads "
         "(ops/tinyhead_attention.py, csrc/tinyhead_attention.cu): exact, the "
         "scores never written to device memory; the plain version at S < 128. "
-        "The port takes it wherever it applies: unset or true; false is refused",
+        "unset: the kernel wherever it applies unless --attention_chunk is "
+        "given; true: wherever it applies; false: never",
     )
     p.add_argument(
         "--epoch_scan", type=str2bool, default=None,
-        help="train each epoch as ONE compiled lax.scan over its batches "
-        "(device-resident data required; removes the per-step host dispatch "
-        "between roofline-saturated device steps). Unset = AUTO (on for TPU "
-        "when device data is in use); true/false forces. Single-host SIGTERM "
-        "preemption coarsens to epoch granularity while on",
+        help="the JAX package's whole-epoch scan; the port trains step by "
+        "step and refuses true (its CUDA counterpart would be a graphed "
+        "step); unset or false = step by step",
     )
     p.add_argument(
         "--encoder_reuse", type=int, default=0,
         help="sampling-only: run the UNet encoder every K-th reverse step "
-        "and replay its cached activations between (Faster Diffusion, "
-        "arXiv:2312.09608) — an approximation trading sample fidelity for "
-        "per-step cost; 0/1 = exact sampling (default)",
+        "and replay its cached activations through the up path between "
+        "(Faster Diffusion, arXiv:2312.09608); an approximation that can "
+        "destroy sample fidelity on long schedules; 0/1 = exact sampling "
+        "(default)",
     )
     p.add_argument("--profile_dir", type=str, default=None,
                    help="trace one epoch (the second, or the only one) into "

@@ -123,13 +123,11 @@ class Config:
     mesh_spatial: bool = False
     capture_trajectory: bool = False  # sampler keeps per-step buffers (HBM-heavy)
     # sampling-only encoder reuse ("Faster Diffusion", arXiv:2312.09608;
-    # PAPERS.md): run the UNet encoder every K-th reverse step and replay its
-    # cached activations between — an opt-in approximation trading sample
-    # fidelity for the encoder's share of per-step FLOPs/bytes; 0/1 = exact.
-    # MEASURED quality-destroying at long-T masked sampling (trained model,
-    # T=1421: K=2 −10% time but samples anti-correlated with exact —
-    # docs/PERFORMANCE.md "encoder reuse" fidelity verdict). Leave at 0
-    # unless the schedule is very short and you re-verify quality.
+    # PAPERS.md): the reverse loop runs the UNet's encoder (conv_in, the
+    # down path, the middle) on every K-th step and replays its cached
+    # activations through the up path on the steps between
+    # (sample/loop.py). An approximation: the JAX package measured it to
+    # destroy sample fidelity at T=1421 with K=2. 0/1 = exact sampling.
     encoder_reuse: int = 0
     # route to the interpolation sampler (Sampler.sample's 3rd arg,
     # sampler.py:102-106,264-366 — dead in the reference, live here): when
@@ -137,29 +135,25 @@ class Config:
     interpolation_shift: Optional[float] = None
     block_out_channels: Optional[tuple] = None  # override UNet widths (tests/bench)
     layers_per_block: int = 2
-    # rematerialize UNet blocks on backward (flax nn.remat): ~11% step time
-    # bought back as activation memory — for memory-bound configs
-    # (docs/PERFORMANCE.md "measured dead ends" remat row)
+    # recompute the down and up paths' ResnetBlocks in the backward
+    # (torch.utils.checkpoint, models/unet.py): their activations are not
+    # kept, at the price of a second forward of those blocks a step
     remat: bool = False
-    # exact chunked attention (UNetConfig.attention_chunk): lax.map over query
-    # blocks of this size bounds live scores to (B, heads, chunk, S) — the
-    # pure-XLA escape hatch for placements whose full (S, S) scores don't fit
-    # HBM (S=4096 needs 8.6 GB f32); None/0 = materialized-scores einsum
+    # exact attention one block of this many query rows at a time
+    # (models/unet.py, ops/tinyhead_attention.chunked_attention_plain): the
+    # live scores are (B, heads, chunk, S) instead of (B, heads, S, S), for
+    # placements whose full scores do not fit; None/0 = off
     attention_chunk: Optional[int] = None
     # the tiny-head attention kernel (ops/tinyhead_attention.py) for the
-    # family's 8-wide heads; exact, the plain version at S < 128. The port's
-    # attention takes it wherever it applies: None or True; False is refused
-    # (models/factory.py). The JAX package's MDT_TINYHEAD override has no
+    # family's 8-wide heads at S >= 128; exact, the plain version elsewhere.
+    # None: the kernel wherever it applies, unless attention_chunk is set;
+    # True: the kernel wherever it applies; False: never (the plain or the
+    # chunked version). The JAX package's MDT_TINYHEAD override has no
     # counterpart.
     tinyhead_attention: Optional[bool] = None
-    # whole-epoch lax.scan training (train/step.py:make_train_epoch): one
-    # compiled program per epoch scans the step over the epoch's batch-index
-    # rows with in-scan device gathers, removing the per-step host dispatch
-    # the r4 trace showed sitting between the device's 100%-of-roofline step
-    # executions. Requires the device-resident data path; single-host SIGTERM
-    # preemption coarsens from per-batch to per-epoch while it's on.
-    # None = AUTO (on for TPU when device data is in use; MDT_EPOCH_SCAN=1/0
-    # forces), True/False = explicit.
+    # the JAX package's whole-epoch scan: the port trains step by step and
+    # refuses True (train/trainer.py:unported_options); its CUDA counterpart
+    # would be a graphed step
     epoch_scan: Optional[bool] = None
     profile_dir: Optional[str] = None  # jax.profiler trace output
     # checkpoint retention: keep only the N newest checkpoint-epoch-* dirs

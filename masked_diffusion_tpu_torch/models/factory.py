@@ -10,7 +10,6 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 from masked_diffusion_tpu_torch.models.unet import UNet2D, UNetConfig
-from masked_diffusion_tpu_torch.models.zoo import Model as zoo_model
 
 _PLACEMENTS = {
     # num_attention: (down flags, up flags) over 6 levels (utils/model.py:6-20)
@@ -50,9 +49,13 @@ def build_unet(
     num_attention: int = 1,
     block_out_channels: Optional[Tuple[int, ...]] = None,
     layers_per_block: int = 2,
+    remat: bool = False,
+    attention_chunk: Optional[int] = None,
+    tinyhead_attention: Optional[bool] = None,
 ) -> UNet2D:
     """Equivalent of the reference's utils/model.MyModel (utils/model.py:3-33),
-    in fp32; the sampler casts it to its compute dtype."""
+    in fp32; the sampler casts it to its compute dtype. The switches pass
+    through to UNetConfig, attention_chunk 0 as None (off)."""
     channels = tuple(block_out_channels or DEFAULT_BLOCK_OUT_CHANNELS)
     attn_down, attn_up = attention_placement(num_attention, len(channels))
     cfg = UNetConfig(
@@ -63,6 +66,9 @@ def build_unet(
         layers_per_block=layers_per_block,
         attn_down=attn_down,
         attn_up=attn_up,
+        remat=remat,
+        attention_chunk=attention_chunk or None,
+        tinyhead_attention=tinyhead_attention,
     )
     return UNet2D(cfg)
 
@@ -71,20 +77,15 @@ def build_model_from_config(cfg) -> UNet2D:
     """Model dispatch of the trainer and of --method sample
     (masked_diffusion_tpu/train/trainer.py:47-74): the default diffusers-style
     factory (--num_attention), or a named zoo architecture (--model
-    unet1..unet6, models/zoo.py).
-
-    --tinyhead_attention unset or true is what the port does: attention
-    takes the tiny-head kernel wherever it applies (models/unet.py). false,
-    the JAX package's einsum at those shapes, is refused."""
-    if cfg.tinyhead_attention is False:
-        raise NotImplementedError(
-            "not yet ported: --tinyhead_attention false (the port's attention takes the "
-            "tiny-head kernel wherever it applies)")
+    unet1..unet6, models/zoo.py). Both arms take --remat, --attention_chunk
+    and --tinyhead_attention (models/unet.py routes the attention by them)."""
+    switches = dict(remat=cfg.remat, attention_chunk=cfg.attention_chunk,
+                    tinyhead_attention=cfg.tinyhead_attention)
     if cfg.model != "default":
-        return zoo_model(
-            cfg.model, cfg.in_channel, cfg.data_size, cfg.data_size, cfg.out_channel,
-            remat=cfg.remat, attention_chunk=cfg.attention_chunk,
-        )
+        from masked_diffusion_tpu_torch.models.zoo import Model as zoo_model
+
+        return zoo_model(cfg.model, cfg.in_channel, cfg.data_size, cfg.data_size,
+                         cfg.out_channel, **switches)
     return build_unet(
         dim_channel=cfg.in_channel,
         dim_height=cfg.data_size,
@@ -92,4 +93,5 @@ def build_model_from_config(cfg) -> UNet2D:
         num_attention=cfg.num_attention,
         block_out_channels=cfg.block_out_channels,
         layers_per_block=cfg.layers_per_block,
+        **switches,
     )

@@ -12,26 +12,52 @@ exported checkpoint loads with strict=True.
 
 Every GroupNorm runs through the fused kernel wrapper
 (ops/groupnorm.py:group_norm_silu): norm1/norm2 and norm_out with SiLU, the
-attention group_norm without. Attention routes by shape, as the JAX
-AttentionBlock does with tiny_flash on (models/unet.py:237-255): at the
-shapes the tiny-head kernel takes (head_dim <= 8, S >= 128) through its
-wrapper (ops/tinyhead_attention.py: the kernel on CUDA, its plain version
-on the CPU), elsewhere through the plain version (einsum -> fp32 softmax ->
-einsum).
+attention group_norm without. Attention routes as the JAX AttentionBlock
+does (models/unet.py:437-449), by UNetConfig.tinyhead_attention and
+attention_chunk (attention_route):
+
+  tinyhead_attention  attention_chunk  S >= 128, D <= 8  elsewhere
+  None                None/0           kernel            plain
+  None                N                chunked           chunked
+  True                None/0           kernel            plain
+  True                N                kernel            chunked
+  False               None/0           plain             plain
+  False               N                chunked           chunked
+
+"kernel" is the tiny-head wrapper (ops/tinyhead_attention.py: the kernel on
+CUDA, its plain version on the CPU), "plain" its plain version (einsum ->
+fp32 softmax -> einsum), "chunked" the plain version over blocks of N query
+rows (chunked_attention_plain).
+
+Switches that change no parameter (UNetConfig.remat, attention_chunk,
+tinyhead_attention; io/weights.unet_config_meta leaves them out):
+
+  remat     the down and up paths' ResnetBlocks run under
+            torch.utils.checkpoint when a gradient is being recorded (JAX
+            nn.remat at :458-459); the middle and the attention blocks keep
+            their activations
+  forward(..., cached=, return_cached=)
+            the encoder cache of --encoder_reuse (JAX :391-407): with
+            return_cached the call also returns (h after the middle, the
+            skips); given that back as `cached`, conv_in, the down path and
+            the middle are skipped and only the up path runs, with the
+            current t's embedding
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from masked_diffusion_tpu_torch.ops.groupnorm import group_norm_silu
 from masked_diffusion_tpu_torch.ops.tinyhead_attention import (
+    chunked_attention_plain,
     tinyhead_attention,
     tinyhead_attention_plain,
     tinyhead_supported,
@@ -70,8 +96,12 @@ def timestep_embedding(
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
-    """The topology fields of the JAX package's UNetConfig; its kernel
-    switches have no counterpart here."""
+    """The topology fields of the JAX package's UNetConfig, and its switches
+    remat, attention_chunk (None or 0: off) and tinyhead_attention (None:
+    the kernel wherever it applies unless attention_chunk is set; True,
+    False: forced). Its pallas_norm and pallas_attention have no
+    counterpart: GroupNorm always takes the kernel, and the TPU's stock
+    flash attention has none."""
 
     sample_size: int = 64
     in_channels: int = 3
@@ -87,6 +117,9 @@ class UNetConfig:
     norm_eps: float = 1e-5
     flip_sin_to_cos: bool = True
     freq_shift: float = 0.0
+    remat: bool = False
+    attention_chunk: Optional[int] = None
+    tinyhead_attention: Optional[bool] = None
 
     def __post_init__(self):
         n = len(self.block_out_channels)
@@ -127,11 +160,23 @@ class ResnetBlock(nn.Module):
         return x + h
 
 
+def attention_route(cfg: UNetConfig, s: int, d: int) -> str:
+    """"kernel", "chunked" or "plain": the route of attention over S tokens
+    in heads of D channels (the module docstring's table)."""
+    tiny = cfg.tinyhead_attention
+    if tiny is None:  # auto never overrides an asked-for chunk (JAX :437-443)
+        tiny = not cfg.attention_chunk
+    if tiny and tinyhead_supported(s, d):
+        return "kernel"
+    return "chunked" if cfg.attention_chunk else "plain"
+
+
 class AttentionBlock(nn.Module):
     """Spatial self-attention over H*W tokens, heads of head_dim channels."""
 
     def __init__(self, channels: int, cfg: UNetConfig):
         super().__init__()
+        self.cfg = cfg
         self.heads = max(1, channels // cfg.attention_head_dim)
         self.group_norm = GroupNormAct(
             _norm_groups(channels, cfg.norm_groups), channels, cfg.norm_eps, False
@@ -152,8 +197,11 @@ class AttentionBlock(nn.Module):
         k = split_heads(self.to_k(hidden))
         v = split_heads(self.to_v(hidden))
         scale = 1.0 / math.sqrt(c // self.heads)
-        if tinyhead_supported(h * w, c // self.heads):
+        route = attention_route(self.cfg, h * w, c // self.heads)
+        if route == "kernel":
             out = tinyhead_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale)
+        elif route == "chunked":
+            out = chunked_attention_plain(q, k, v, scale, self.cfg.attention_chunk)
         else:
             out = tinyhead_attention_plain(q, k, v, scale)
         out = out.transpose(1, 2).reshape(b, h * w, c)
@@ -263,7 +311,20 @@ class UNet2D(nn.Module):
         nn.init.zeros_(self.conv_out.weight)  # the residual starts at zero
         nn.init.zeros_(self.conv_out.bias)
 
-    def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+    def _resnet(self, res: ResnetBlock, h: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        """A down or up path ResnetBlock, rematerialised in the backward when
+        remat is on and a gradient is being recorded. The non-reentrant form
+        replays autocast and works under DDP; nothing in the block draws a
+        random number, so the RNG state is not saved and restored."""
+        if self.config.remat and torch.is_grad_enabled():
+            return checkpoint(res, h, temb, use_reentrant=False, preserve_rng_state=False)
+        return res(h, temb)
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, cached=None,
+                return_cached: bool = False):
+        """The residual; with return_cached, (residual, cache). Given a cache
+        from an earlier call, x is not read: the up path runs on the cached
+        encoder state with timesteps' embedding."""
         dtype = self.conv_in.weight.dtype
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(x.shape[0])
@@ -273,28 +334,36 @@ class UNet2D(nn.Module):
         ).to(dtype)
         temb = self.time_embedding(temb)
 
-        h = self.conv_in(x.to(dtype))
-        skips = [h]
-        for blk in self.down_blocks:
-            for j, res in enumerate(blk.resnets):
-                h = res(h, temb)
-                if len(blk.attentions):
-                    h = blk.attentions[j](h)
-                skips.append(h)
-            for down in blk.downsamplers:
-                h = down(h)
-                skips.append(h)
+        if cached is None:
+            h = self.conv_in(x.to(dtype))
+            skips = [h]
+            for blk in self.down_blocks:
+                for j, res in enumerate(blk.resnets):
+                    h = self._resnet(res, h, temb)
+                    if len(blk.attentions):
+                        h = blk.attentions[j](h)
+                    skips.append(h)
+                for down in blk.downsamplers:
+                    h = down(h)
+                    skips.append(h)
 
-        h = self.mid_block.resnets[0](h, temb)
-        h = self.mid_block.attentions[0](h)
-        h = self.mid_block.resnets[1](h, temb)
+            h = self.mid_block.resnets[0](h, temb)
+            h = self.mid_block.attentions[0](h)
+            h = self.mid_block.resnets[1](h, temb)
+            new_cached = (h, tuple(skips))
+        else:
+            h, cached_skips = cached
+            h = h.to(dtype)
+            skips = [s.to(dtype) for s in cached_skips]
+            new_cached = cached
 
         for blk in self.up_blocks:
             for j, res in enumerate(blk.resnets):
-                h = res(torch.cat([h, skips.pop()], dim=1), temb)
+                h = self._resnet(res, torch.cat([h, skips.pop()], dim=1), temb)
                 if len(blk.attentions):
                     h = blk.attentions[j](h)
             for up in blk.upsamplers:
                 h = up(h)
 
-        return self.conv_out(self.conv_norm_out(h))
+        out = self.conv_out(self.conv_norm_out(h))
+        return (out, new_cached) if return_cached else out

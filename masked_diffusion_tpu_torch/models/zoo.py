@@ -28,23 +28,24 @@ configuration of the one UNet2D family covering the same architecture point:
                  mults [1,2,2,2] + attention at level 2; 128/256 ->
                  mults [1,1,2,2,4,4] + attention at level 4.
 
-The default model (utils/model.py MyModel, --num_attention) is built in one
-place, models/factory.build_unet; Model takes the zoo names only.
+Model("default", ..., num_attention=n) is the default model (utils/model.py
+MyModel), built by models/factory.build_unet, as in the JAX package.
 
 Attention-at-resolution specs (unet4/unet5) convert to per-level flags via
 level i having feature resolution image_size // 2**i.
 
 Not carried over: the compute dtype arguments (the port's models are fp32
-modules; bf16 comes from autocast in training and from the sampler's cast),
-the tinyhead_attention switch (attention routes by shape,
-models/unet.py), and `remat` and `attention_chunk`, which Model refuses when
-they are asked for.
+modules; bf16 comes from autocast in training and from the sampler's cast).
+The switches remat, attention_chunk (0 as None) and tinyhead_attention pass
+through to UNetConfig.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
+from masked_diffusion_tpu_torch.models.factory import build_unet
 from masked_diffusion_tpu_torch.models.unet import UNet2D, UNetConfig
 
 ZOO_NAMES = ("unet", "unet1", "unet2", "unet3", "unet4", "unet5", "unet6")
@@ -130,15 +131,20 @@ def Model(
     data_height: int,
     data_width: int,
     out_channel: Optional[int] = None,
+    num_attention: int = 1,
     remat: bool = False,
     attention_chunk: Optional[int] = None,
+    tinyhead_attention: Optional[bool] = None,
 ) -> UNet2D:
     """Zoo dispatch with the reference signature (models_Unet.py:17), in
-    fp32."""
+    fp32; "default" is models/factory.build_unet."""
     if data_height != data_width:
         raise ValueError("zoo models are square-image models")
-    asked = [f for f, on in (("remat", remat), ("attention_chunk", attention_chunk)) if on]
-    if asked:
-        raise NotImplementedError(f"not yet ported: {', '.join(asked)}")
     out_channel = out_channel if out_channel is not None else data_channel
-    return UNet2D(_zoo_config(name, data_channel, data_height, out_channel))
+    switches = dict(remat=remat, attention_chunk=attention_chunk or None,
+                    tinyhead_attention=tinyhead_attention)
+    if name == "default":
+        return build_unet(dim_channel=data_channel, dim_height=data_height,
+                          dim_width=data_width, num_attention=num_attention, **switches)
+    return UNet2D(dataclasses.replace(
+        _zoo_config(name, data_channel, data_height, out_channel), **switches))

@@ -11,7 +11,12 @@ out in q's dtype.
   tinyhead_supported           the JAX predicate: D <= 8 and S >= 128
   tinyhead_attention_plain     the JAX _einsum_reference: fp32 scores, fp32
                                softmax cast to v's dtype, then the second
-                               product
+                               product, with autocast off (the JAX einsum's
+                               preferred_element_type=float32)
+  chunked_attention_plain      the same math one block of query rows at a
+                               time (JAX models/unet.py AttentionBlock
+                               chunk_q, --attention_chunk): the live scores
+                               are (B, heads, chunk, S), not (B, heads, S, S)
   tinyhead_forward_plain       the same out, and the base-2 log-sum-exp of
                                each row's scaled scores (fp32, (B, heads, S))
   tinyhead_backward_plain      (dq, dk, dv) from out and that log-sum-exp, in
@@ -30,6 +35,7 @@ raise on what they do not take. Each wrapper counts its launches.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -47,24 +53,44 @@ def tinyhead_supported(s: int, d: int) -> bool:
     return d <= HEAD_DIM_MAX and s >= SEQ_MIN
 
 
+def _autocast_off(device: torch.device):
+    """Autocast turned off on the CPU and CUDA, where a caller may have it
+    on; other devices (the meta device that counts shapes) have none."""
+    if device.type in ("cpu", "cuda"):
+        return torch.autocast(device.type, enabled=False)
+    return contextlib.nullcontext()
+
+
 def tinyhead_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              scale: float) -> torch.Tensor:
     """softmax(q k^T * scale) v with fp32 scores and softmax, the
-    probabilities cast to v's dtype for the second product."""
-    a = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float())
-    a = torch.softmax(a * scale, dim=-1).to(v.dtype)
-    return torch.einsum("bhst,bhtd->bhsd", a, v)
+    probabilities cast to v's dtype for the second product. Autocast is off
+    inside: under it the fp32 score product would come out in bf16."""
+    with _autocast_off(q.device):
+        a = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float())
+        a = torch.softmax(a * scale, dim=-1).to(v.dtype)
+        return torch.einsum("bhst,bhtd->bhsd", a, v)
+
+
+def chunked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            scale: float, chunk: int) -> torch.Tensor:
+    """tinyhead_attention_plain over blocks of `chunk` query rows, each
+    against all keys. Rows are independent, so the last, shorter block gives
+    what the JAX zero-padded and trimmed block gives."""
+    return torch.cat([tinyhead_attention_plain(q[:, :, i:i + chunk], k, v, scale)
+                      for i in range(0, q.shape[2], int(chunk))], dim=2)
 
 
 def tinyhead_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            scale: float):
     """(out, lse): out exactly as tinyhead_attention_plain, and lse =
     log2 sum_j 2^(scale log2(e) q k_j^T), fp32 (B, heads, S), what the
-    backward rebuilds the probabilities from."""
-    a = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
-    lse = torch.logsumexp(a, dim=-1) * LOG2E
-    a = torch.softmax(a, dim=-1).to(v.dtype)
-    return torch.einsum("bhst,bhtd->bhsd", a, v), lse
+    backward rebuilds the probabilities from. Autocast is off inside."""
+    with _autocast_off(q.device):
+        a = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
+        lse = torch.logsumexp(a, dim=-1) * LOG2E
+        a = torch.softmax(a, dim=-1).to(v.dtype)
+        return torch.einsum("bhst,bhtd->bhsd", a, v), lse
 
 
 def tinyhead_backward_plain(q, k, v, out, lse, g, scale: float):

@@ -63,8 +63,11 @@ gradient sum (DDP has not reduced them yet), and a restore gives each rank
 its own.
 
 The model comes from models/factory.build_model_from_config: the default
-factory or a zoo name (--model unet1..unet6). Its attention takes the
-tiny-head kernel wherever it applies; --tinyhead_attention false is refused.
+factory or a zoo name (--model unet1..unet6), with the switches --remat
+(the down and up paths' ResnetBlocks recomputed in the backward),
+--attention_chunk and --tinyhead_attention (the attention's route,
+models/unet.py). The cadence's sampler takes --encoder_reuse
+(sample/loop.py); the interpolation sweep ignores it, as JAX's does.
 
 Profiling (--profile_dir, trainer.py:419-421, 533): one epoch is traced,
 epoch_start + 1 when the call trains more than one (epoch_start's compiles
@@ -75,9 +78,9 @@ and checkpoint writes stay outside. Every rank writes its own
 trace_rank{r}.json. The returned rates leave the traced epoch out.
 
 Not ported yet, and refused at construction when a flag asks for them:
-tensor and spatial parallelism and the JAX-only switches (--epoch_scan,
---remat, --attention_chunk); so are the sampling modes the
-cadence's samplers refuse (sample/loop.py:validate_modes,
+tensor and spatial parallelism and --epoch_scan true (the TPU's whole-epoch
+lax.scan; its CUDA counterpart would be a graphed step); so are the
+sampling modes the cadence's samplers refuse (sample/loop.py:validate_modes,
 sample/interpolation.py:validate_interpolation_modes).
 """
 
@@ -131,11 +134,8 @@ def unported_options(cfg: Config) -> List[str]:
     if cfg.mesh_model != 1 or cfg.mesh_spatial:
         asked.append("--mesh_model/--mesh_spatial (tensor/spatial parallelism over "
                      "multi-GPU)")
-    for flag in ("epoch_scan", "remat"):
-        if getattr(cfg, flag):
-            asked.append(f"--{flag}")
-    if cfg.attention_chunk:
-        asked.append("--attention_chunk")
+    if cfg.epoch_scan:
+        asked.append("--epoch_scan")
     return asked
 
 

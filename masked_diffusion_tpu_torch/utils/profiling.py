@@ -52,14 +52,24 @@ def trace(profile_dir: Optional[str], rank: int = 0, device="cpu"):
         wall_s = time.perf_counter() - t0
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, f"trace_rank{rank}.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        data = json.load(f)
-    data[SUMMARY_KEY] = summarize(prof, wall_s, cuda)
     tmp = f"{path}.tmp.{os.getpid()}"
-    with open(tmp, "w") as f:
-        json.dump(data, f)
+    prof.export_chrome_trace(tmp)
+    _append_key(tmp, SUMMARY_KEY, summarize(prof, wall_s, cuda))
     os.replace(tmp, path)
+
+
+def _append_key(path: str, key: str, value) -> None:
+    """Add key: value to the JSON object in the file, in place: the object's
+    closing brace is rewritten, the trace events before it are not parsed."""
+    with open(path, "r+b") as f:
+        f.seek(0, os.SEEK_END)
+        end = f.tell()
+        f.seek(max(0, end - 4096))
+        tail = f.read()
+        close = tail.rindex(b"}")
+        f.seek(end - len(tail) + close)
+        f.truncate()
+        f.write(b", " + json.dumps(key).encode() + b": " + json.dumps(value).encode() + b"}\n")
 
 
 def device_rows(prof):

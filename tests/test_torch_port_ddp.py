@@ -538,8 +538,9 @@ def test_cli_trains_and_serves_on_two_ranks(tmp_path):
     jparams = import_torch.map_state_dict(sd, import_torch.unet_config_from_diffusers(config))
     assert "conv_in" in jparams["params"] and config["block_out_channels"] == [16, 32]
 
+    # served with --encoder_reuse 2: each rank caches its own rows' encoder
     out = _torchrun(_cli_args(str(tmp_path / "serve"), "sample")
-                    + ["--test_model_path", ckpts[0], "--batch_size", "4"])
+                    + ["--test_model_path", ckpts[0], "--batch_size", "4", "--encoder_reuse", "2"])
     (line,) = [ln for ln in out.splitlines() if ln.startswith("sample_stats ")]
     served = json.loads(line.split(" ", 1)[1])
     assert served["ranks"] == 2 and served["images"] == 3 and served["finite"] and served["ema"]

@@ -21,6 +21,7 @@ from masked_diffusion_tpu.utils import profiling as jprofiling
 from masked_diffusion_tpu_torch.cli import main_train_masked as port_cli
 from masked_diffusion_tpu_torch.utils import profiling
 from tests.test_torch_port_train import _train_args
+from tests.test_torch_port_unet import two_torch_threads  # noqa: F401
 
 _STEP = re.compile(r"^train_step epoch (\d+) step (\d+)$")
 

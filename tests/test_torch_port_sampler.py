@@ -42,6 +42,7 @@ from masked_diffusion_tpu.ops.pallas import fused_degrade as jfd
 from masked_diffusion_tpu.ops.schedule import build_schedule as jax_build_schedule
 from masked_diffusion_tpu.sample import make_sample_fn as jax_make_sample_fn
 from masked_diffusion_tpu_torch.cli import main_train_masked as port_cli
+from masked_diffusion_tpu_torch.models.unet import UNet2D
 from masked_diffusion_tpu_torch.ops.schedule import build_schedule
 from masked_diffusion_tpu_torch.sample.loop import (
     TRAJECTORY_FIELDS,
@@ -357,19 +358,103 @@ def test_plain_branch_draws_from_its_generators(unets, select):
     (dict(encoder_reuse=2), "encoder_reuse=2"),
 ])
 def test_unported_modes_raise_naming_the_mode(unets, override, mode):
+    """The mode once refused (--encoder_reuse 2) now builds on both branches
+    and under capture; a negative K and an unknown rule still raise."""
     _, jcfg, variables = unets
     cfg = Config(data_size=SIZE, ddpm_schedule="linear", ddpm_num_steps=T,
                  select_degrade_pixel="thresholding", mean_option="degraded_area")
     sched = build_schedule("linear", T, SIZE, "thresholding")
     model = port_unet(jcfg, variables)
     used = np.arange(1, T + 1)
-    with pytest.raises(NotImplementedError, match=mode):
-        make_sample_fn(model, sched, cfg.replace(**override), used, device="cpu")
-    with pytest.raises(NotImplementedError, match=mode):
-        make_sample_fn(model, sched, cfg.replace(**override), used, device="cpu",
-                       capture_trajectory=True)
+    latent = torch.zeros(N, SIZE, SIZE, C)
+    for capture in (False, True):
+        fn = make_sample_fn(model, sched, cfg.replace(**override), used, device="cpu",
+                            capture_trajectory=capture)
+        out = fn(latent)
+        assert torch.isfinite(out[0] if capture else out).all(), mode
+    with pytest.raises(ValueError, match="encoder_reuse"):
+        make_sample_fn(model, sched, cfg.replace(encoder_reuse=-1), used, device="cpu")
     with pytest.raises(ValueError, match="momentum_adaptive"):
         make_sample_fn(model, sched, cfg.replace(momentum_adaptive="bogus"), used, device="cpu")
+
+
+def _fused_cell(unets, monkeypatch, **modes):
+    """test_reverse_loop_matches_jax_fused_branch's cell (log + indexing,
+    base_momentum) with cfg overrides: (JAX sample_0, port sample_0, latent)."""
+    jmodel, jcfg, variables = unets
+    cfg = Config(
+        method="sample", data_size=SIZE, ddpm_schedule="log", ddpm_num_steps=T,
+        select_degrade_pixel="indexing", degrade_channel="1-channel",
+        mean_option="degraded_area", mean_area="image-wise",
+        shift_type="noise_with_perturbation", noise_mean=0.1,
+        momentum_adaptive="base_momentum", sampling_mask_dependency="independent",
+        mixed_precision="no", out_channel=C, **modes,
+    )
+    jsched = jax_build_schedule("log", T, SIZE, "indexing")
+    used = jsched.timesteps_for_epoch(1, 10, 1)
+    latent = np.broadcast_to(
+        np.asarray([0.2, -0.3], np.float32)[:, None, None, None], (N, SIZE, SIZE, C)
+    ).copy()
+    with monkeypatch.context() as m:
+        m.setenv("MDT_PALLAS_FUSED", "1")
+        m.setattr(jfd, "fused_degrade_update", fake_fused_degrade_update)
+        m.setattr(jshift, "schedule_shift", fixture_shift)
+        jfn = jax_make_sample_fn(jmodel, jsched, cfg, used)
+        j_out = np.asarray(jfn(jax.tree.map(jnp.asarray, variables), jnp.asarray(latent),
+                               jax.random.PRNGKey(0)))
+    fn = make_sample_fn(port_unet(jcfg, variables), build_schedule("log", T, SIZE, "indexing"),
+                        cfg, used, device="cpu")
+    return j_out, fn(torch.from_numpy(latent), draws=port_draws), latent
+
+
+@pytest.mark.parametrize("branch", ["fused", "plain", "capture"])
+def test_encoder_reuse_matches_jax(unets, monkeypatch, branch):
+    """--encoder_reuse 2 against the JAX loop with the same K on the same
+    draws: the fused branch, a plain-branch mode (dependent_prev + boosting,
+    indexing) and trajectory capture, each also differing from exact
+    sampling (the cache was replayed)."""
+    if branch == "fused":
+        j2, t2, latent = _fused_cell(unets, monkeypatch, encoder_reuse=2)
+        j1, t1, _ = _fused_cell(unets, monkeypatch)
+    else:
+        modes = dict(sampling_mask_dependency="dependent_prev", momentum_adaptive="boosting",
+                     select_degrade_pixel="indexing")
+        items = 1 if branch == "capture" else 0
+        j2, t2, latent = _plain_cell(unets, monkeypatch, capture_items=items, encoder_reuse=2,
+                                     **modes)
+        j1, t1, _ = _plain_cell(unets, monkeypatch, capture_items=items, **modes)
+        if branch == "capture":
+            (j2, jtraj), (t2, ttraj), (j1, _), (t1, _) = j2, t2, j1, t1
+            for name in TRAJECTORY_FIELDS:
+                np.testing.assert_allclose(ttraj[name].numpy(),
+                                           trajectory_images(jtraj[name], SIZE, SIZE, C),
+                                           atol=2e-3, rtol=2e-3, err_msg=name)
+    _assert_samples_close(j2, t2, latent)
+    assert np.abs(t2.numpy() - t1.numpy()).max() > 1e-4
+    assert np.abs(j2 - j1).max() > 1e-4
+
+
+def test_encoder_reuse_exact_fixed_point_and_deterministic(unets):
+    """tests/test_sampler.py:92-128 on the port: K = 1 is exact sampling
+    bitwise; with the zero-init model (residual 0) K = 2 keeps a constant
+    latent fixed; K = 2 repeats under one seed."""
+    _, jcfg, variables = unets
+    cfg = Config(method="sample", data_size=SIZE, ddpm_schedule="log", ddpm_num_steps=T,
+                 select_degrade_pixel="indexing", mean_option="degraded_area",
+                 shift_type="non_shift", out_channel=C, mixed_precision="no")
+    sched = build_schedule("log", T, SIZE, "indexing")
+    used = sched.timesteps_for_epoch(1, 10, 1)
+    model = port_unet(jcfg, variables)
+    latent = torch.full((N, SIZE, SIZE, C), 0.37)
+
+    def run(m, k, seed):
+        return make_sample_fn(m, sched, cfg.replace(encoder_reuse=k), used, device="cpu")(
+            latent, torch.Generator().manual_seed(seed))
+
+    assert torch.equal(run(model, 1, 3), run(model, 0, 3))
+    assert torch.equal(run(model, 2, 3), run(model, 2, 3))
+    zero = UNet2D(model.config)  # conv_out starts at zero: a zero residual
+    torch.testing.assert_close(run(zero, 2, 1), latent, rtol=1e-5, atol=0)
 
 
 def _export_checkpoint(tmp_path, variables, jcfg):

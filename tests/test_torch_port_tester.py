@@ -288,6 +288,28 @@ def test_cli_test_method_on_cpu(tmp_path, capsys):
             "neighbor_0.png"} <= names, names
 
 
+def test_cli_test_method_with_encoder_reuse(tmp_path, capsys, monkeypatch):
+    """--method test --encoder_reuse 2: every other reverse step of a round
+    replays the encoder cache (a decode-only forward), as the JAX tester's
+    make_sample_fn does with the flag."""
+    from masked_diffusion_tpu_torch.models.unet import UNet2D
+
+    real, calls = UNet2D.forward, []
+
+    def spy(self, x, t, cached=None, return_cached=False):
+        calls.append(cached is not None)
+        return real(self, x, t, cached=cached, return_cached=return_cached)
+
+    monkeypatch.setattr(UNet2D, "forward", spy)
+    ckpt = _checkpoint(tmp_path)
+    assert port_cli.main(_cli_args(tmp_path / "run", "cpu", "--test_model_path", ckpt,
+                                   "--encoder_reuse", "2")) == 0
+    line = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("test_stats ")]
+    stats = json.loads(line[-1].split(" ", 1)[1])
+    assert stats["unique"] >= stats["target"] == 1
+    assert calls == [False, True] * (3 * stats["rounds"])
+
+
 def test_cli_test_method_needs_a_checkpoint_and_refuses_cuda_without_it(tmp_path):
     with pytest.raises(SystemExit, match="--test_model_path is required for --method test"):
         port_cli.main(_cli_args(tmp_path / "run", "cpu"))

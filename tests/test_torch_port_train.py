@@ -325,16 +325,40 @@ def test_cli_trains_with_interpolation_shift_and_renders_the_sweep(tmp_path, cap
 
 @pytest.mark.parametrize("extra,match", [
     (["--remat", "true"], "--remat"),
-    (["--attention_chunk", "64"], "--attention_chunk"),
+    (["--attention_chunk", "16"], "--attention_chunk"),
     (["--mesh_model", "2"], "multi-GPU"),
     (["--epoch_scan", "true"], "--epoch_scan"),
     (["--tinyhead_attention", "false"], "--tinyhead_attention false"),
 ])
-def test_unported_flags_raise_at_construction(tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        port_cli.main(_train_args(tmp_path, "cpu", *extra))
-    assert not glob.glob(str(tmp_path / "**" / "metrics.jsonl"), recursive=True)
-    assert not glob.glob(str(tmp_path / "**" / "checkpoint-epoch-*"), recursive=True)
+def test_unported_flags_raise_at_construction(tmp_path, capsys, extra, match):
+    """The flags the port refused. Tensor/spatial parallelism and
+    --epoch_scan true still raise before any file is written. The three
+    model switches now train through the CLI: --remat, --attention_chunk 16
+    (a quarter of the toy model's S = 64) and --tinyhead_attention false,
+    the last with --encoder_reuse 2 on the cadence's sampler; each writes a
+    checkpoint whose meta.json has no switch, served by --method sample
+    without the switch."""
+    if match in ("multi-GPU", "--epoch_scan"):
+        with pytest.raises(NotImplementedError, match=match):
+            port_cli.main(_train_args(tmp_path, "cpu", *extra))
+        assert not glob.glob(str(tmp_path / "**" / "metrics.jsonl"), recursive=True)
+        assert not glob.glob(str(tmp_path / "**" / "checkpoint-epoch-*"), recursive=True)
+        return
+    if match == "--tinyhead_attention false":
+        extra = extra + ["--encoder_reuse", "2"]
+    args = _train_args(tmp_path / "train", "cpu", "--num_epochs", "1", "--save_images_epochs",
+                       "1", *extra)
+    assert port_cli.main(args) == 0
+    stats = _stats(capsys.readouterr().out, "train_stats")
+    assert stats["global_step"] == 2 and all(np.isfinite(stats["loss_mean_epoch"]))
+    (ckpt,) = stats["checkpoints"]
+    with open(os.path.join(ckpt, "meta.json")) as f:
+        meta = json.load(f)["unet_config"]
+    assert {"remat", "attention_chunk", "tinyhead_attention"}.isdisjoint(meta)
+    serve = _train_args(tmp_path / "serve", "cpu")
+    serve[serve.index("mean_shift")] = "sample"
+    assert port_cli.main(serve + ["--test_model_path", ckpt]) == 0
+    assert _stats(capsys.readouterr().out, "sample_stats")["finite"]
 
 
 def test_cli_training_refuses_cuda_without_cuda(tmp_path):

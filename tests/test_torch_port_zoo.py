@@ -126,22 +126,25 @@ def test_forward_matches_jax(monkeypatch, name, div, tinyhead_calls):
 
 
 def test_model_errors_and_passthrough():
-    for name in ("unet7", "default"):  # the default model is the factory's
-        with pytest.raises(NotImplementedError, match="model selection error"):
-            tzoo.Model(name, 3, 32, 32)
+    with pytest.raises(NotImplementedError, match="model selection error"):
+        tzoo.Model("unet7", 3, 32, 32)
     with pytest.raises(ValueError, match="square"):
         tzoo.Model("unet1", 3, 32, 64)
-    for kw in ({"remat": True}, {"attention_chunk": 64}):
-        with pytest.raises(NotImplementedError, match=next(iter(kw))):
-            tzoo.Model("unet6", 3, 32, 32, **kw)
+    with torch.device("meta"):  # "default" is the factory's model, as in JAX
+        assert tzoo.Model("default", 3, 32, 32, num_attention=5).config.attn_down == (
+            False, True, True, True, True, True)
+        for kw in ({"remat": True}, {"attention_chunk": 64}, {"tinyhead_attention": False}):
+            assert getattr(tzoo.Model("unet6", 3, 32, 32, **kw).config, next(iter(kw))) == \
+                next(iter(kw.values()))
     cfg, _ = port_cli.parse(["--model", "unet6", "--data_size", "32", "--tinyhead_attention", "true"])
     with torch.device("meta"):
         zoo = build_model_from_config(cfg)
         default = build_model_from_config(dataclasses.replace(cfg, model="default", num_attention=5))
-    assert zoo.config == tzoo._zoo_config("unet6", 3, 32, 3)
+        off = build_model_from_config(dataclasses.replace(cfg, tinyhead_attention=False))
+    assert zoo.config == dataclasses.replace(tzoo._zoo_config("unet6", 3, 32, 3),
+                                             tinyhead_attention=True)
     assert default.config.attn_down == (False, True, True, True, True, True)
-    with pytest.raises(NotImplementedError, match="--tinyhead_attention false"):
-        build_model_from_config(dataclasses.replace(cfg, tinyhead_attention=False))
+    assert off.config.tinyhead_attention is False
 
 
 def _cli_args(workdir, method, *extra):
