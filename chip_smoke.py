@@ -170,9 +170,23 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      from it refused), and the original served at the same seed: the same
      images
 
+ 26. the legacy GAN/EBM path (cli/main_train.py), which launches none of
+     the kernels (all eight counts 0 over the phase): (a) one GANTrainer
+     step at the CLI's widths (batch 128, 32x32x3, Langevin 3) on the card
+     and on the CPU from the same weights and draws, fp32 with TF32 off,
+     losses, gradients and updates within GAN_*_RTOL, then ms/step; (b)
+     the EBGAN models and the saliency stack (width 32, 256x256, batch 4)
+     card vs CPU within LEGACY_FWD_RTOL, each forward's device ms; (c) the
+     legacy CLI on the card (synthetic 32x32, batch 128, 2 epochs,
+     --langevin_length 5): exit 0, finite losses, two sample grids, ms/step.
+     Alone: `python3 -c "import tempfile, chip_smoke as c; smi = 'H100';
+     c.phase_gan_step(smi); c.phase_legacy_forwards(smi);
+     c.phase_legacy_cli(tempfile.mkdtemp(dir='build'), smi)"`
+
 Phases 11 and 12 run first (the newest kernels fail fast), phases 19,
-22a and 23a after the slice phases; phases 5, 10, 20, 22b, 22c, 23b, 16,
-17, 18, 21 and 24, the main-path runs, come last, in one work directory. The
+22a and 23a after the slice phases; phases 26, 5, 10, 20, 22b, 22c, 23b,
+16, 17, 18, 21 and 24, the main-path runs, come last, in one work
+directory. The
 kernels' `launches` are counted over those runs (phase 18's summed over its
 ranks, phase 21's over its five),
 with every count set to 0 just before each. Run phase 19 alone with `python3 -c "import chip_smoke as c;
@@ -211,6 +225,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4461,6 +4476,201 @@ def phase_switches_cli(workdir: str) -> dict:
     return {k: train[k] + serve[k] for k in train}
 
 
+# phase 26: the legacy GAN/EBM path (cli/main_train.py) ------------------
+
+LEGACY_BATCH = 128  # the legacy CLI's default --batch_size
+LEGACY_LANGEVIN = dict(langevin_length=3, langevin_lr=0.01, langevin_noise_lr=0.001)
+# one GAN step, card vs CPU, fp32 with TF32 off, from the same weights and
+# draws. Losses: fp32 sums in another order through 3 Langevin steps
+# (relative). Gradients and parameter updates, relative L2 over each
+# network: the generator's gradient is taken through the updated
+# discriminator, where Adam's first step moves each coordinate by about
+# +-lr whatever its gradient's size, so coordinates whose gradient is near
+# zero may move the other way on the other device; each parameter stays
+# within 2 lr of the CPU's.
+GAN_LR = 2e-4  # the CLI's --lr_generator_max and --lr_discriminator_max
+GAN_LOSS_RTOL = 1e-4
+GAN_GRAD_RTOL = 1e-3
+GAN_UPDATE_RTOL = 1e-2
+LEGACY_FWD_RTOL = 1e-5  # forwards, card vs CPU, fp32 with TF32 off, relative L2
+LEGACY_WIDTH, LEGACY_SIZE, LEGACY_FWD_BATCH = 32, 256, 4  # the saliency stack's
+
+
+def _rel_l2(a, b) -> float:
+    import torch
+
+    a, b = (torch.cat([t.detach().float().cpu().reshape(-1) for t in x]) for x in (a, b))
+    return float((a - b).norm() / b.norm())
+
+
+def phase_gan_step(smi: str) -> dict:
+    """[26a] One GANTrainer step at the legacy CLI's full widths (dim_feature
+    32, dim_latent 100, batch 128, 32x32x3, Adam, 3 Langevin steps,
+    weight_reg 0.01) on the card and on the CPU from the same weights,
+    batch and injected draws, fp32 with TF32 off: both losses, each
+    network's gradient and update; then ms/step on the card over 10 steps
+    after 2 of warm-up, and a profiled window of 3 steps (device busy ms,
+    idle share, kernels a step). Returns {"ms": ms/step, "profile": ...}."""
+    import torch
+
+    from masked_diffusion_tpu_torch.train.gan_trainer import GANTrainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(dim_latent=100, dim_features=32, out_channels=3, total_steps=100,
+              lr_g=GAN_LR, lr_d=GAN_LR, weight_reg=0.01, optim_name="adam", seed=26,
+              **LEGACY_LANGEVIN)
+    cpu, dev = GANTrainer(device="cpu", **kw), GANTrainer(device="cuda", **kw)
+    init = {n: {k: v.clone() for k, v in net.state_dict().items()}
+            for n, net in (("G", cpu.G), ("D", cpu.D))}
+    if _rel_l2(dev.G.parameters(), cpu.G.parameters()) or _rel_l2(dev.D.parameters(),
+                                                                  cpu.D.parameters()):
+        raise AssertionError("[26a] the same seed made other weights on the card")
+    gen = torch.Generator().manual_seed(26)
+    real = torch.rand(LEGACY_BATCH, 3, 32, 32, generator=gen)
+    z, noise = cpu.draws(LEGACY_BATCH, gen)
+    m_dev = dev.step(real.cuda(), z.cuda(), noise.cuda())
+    torch.cuda.synchronize()
+    m_cpu = cpu.step(real, z, noise)
+    losses = {k: (float(m_dev[k]), float(m_cpu[k])) for k in m_cpu}
+    loss_diff = max(abs(a - b) / abs(b) for a, b in losses.values())
+    out = {}
+    for name, a, b in (("G", dev.G, cpu.G), ("D", dev.D, cpu.D)):
+        grad = _rel_l2([p.grad for p in a.parameters()], [p.grad for p in b.parameters()])
+        upd = _rel_l2([p.detach().cpu() - init[name][k] for k, p in a.named_parameters()],
+                      [p.detach() - init[name][k] for k, p in b.named_parameters()])
+        far = max(float((p.detach().cpu() - q.detach()).abs().max())
+                  for p, q in zip(a.parameters(), b.parameters()))
+        out[name] = (grad, upd, far)
+    log(f"[26a] GAN step at the legacy CLI's widths (dim_feature 32, dim_latent 100, batch "
+        f"{LEGACY_BATCH}, 32x32x3, adam, Langevin {LEGACY_LANGEVIN['langevin_length']}), card "
+        f"vs CPU, fp32 TF32 off: losses (card, CPU) {losses}, max rel diff {loss_diff:.3g} "
+        f"(tol {GAN_LOSS_RTOL}); gradient / update rel L2 and max |param diff|: "
+        + ", ".join(f"{n} {g:.3g} / {u:.3g} / {f:.3g}" for n, (g, u, f) in out.items())
+        + f" (tol {GAN_GRAD_RTOL} / {GAN_UPDATE_RTOL} / 2 lr = {2 * GAN_LR:g})")
+    if not all(map(math.isfinite, sum(losses.values(), ()))) or loss_diff > GAN_LOSS_RTOL:
+        raise AssertionError(f"[26a] losses {losses}")
+    for name, (grad, upd, far) in out.items():
+        if grad > GAN_GRAD_RTOL or upd > GAN_UPDATE_RTOL or far > 2 * GAN_LR:
+            raise AssertionError(f"[26a] {name}: gradient {grad}, update {upd}, max {far}")
+    torch.backends.cudnn.allow_tf32 = True
+    for _ in range(2):
+        dev.step(real.cuda())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        dev.step(real.cuda())
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 10
+    from masked_diffusion_tpu_torch.utils.profiling import summarize
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            dev.step(real.cuda())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof_sum = summarize(prof, wall, True)
+    top = ", ".join(f"{r['name'][:60]} {r['ms'] / 3:.3f} ms" for r in prof_sum["top_device"][:4])
+    log(f"[26a] GAN step on the card ({smi}): {ms:.3f} ms/step over 10 steps after 2 of "
+        f"warm-up, batch {LEGACY_BATCH}, TF32 on in cuDNN, the trainer's own draws; a "
+        f"profiled window of 3 steps: {prof_sum['wall_ms'] / 3:.3f} ms wall, "
+        f"{prof_sum['device_busy_ms'] / 3:.3f} ms device busy a step (idle share "
+        f"{prof_sum['device_idle_share']:.4f}), {prof_sum['device_kernels'] / 3:.1f} device "
+        f"kernels a step; largest: {top}")
+    return {"ms": ms, "profile": prof_sum}
+
+
+def phase_legacy_forwards(smi: str) -> dict:
+    """[26b] The EBGAN models at their sizes (EBGenerator and EBDiscriminator
+    at 32x32x1, AutoEncoder at 28x28x1) and the saliency stack at width 32,
+    256x256x3 (GeneratorLatent with an 8-d latent, GeneratorBaseLine,
+    Descriptor, holistic_attention), batch 4, weights from init_like_flax
+    and every PAM/CAM gamma set to 0.5: each forward on the card against
+    the CPU, fp32 with TF32 off, within LEGACY_FWD_RTOL relative L2, and
+    each forward's device ms (cuda_ms). Returns {name: (rel L2, ms)}."""
+    import torch
+
+    from masked_diffusion_tpu_torch.models import ebgan, saliency
+    from masked_diffusion_tpu_torch.models.gan import init_like_flax
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(26)
+    b, w, s = LEGACY_FWD_BATCH, LEGACY_WIDTH, LEGACY_SIZE
+    img = torch.rand(b, 3, s, s, generator=gen) * 2 - 1
+    seg = torch.rand(b, 1, s, s, generator=gen)
+    cases = {
+        "EBGenerator": (ebgan.EBGenerator(), (torch.randn(b, 62, generator=gen),)),
+        "EBDiscriminator": (ebgan.EBDiscriminator(),
+                            (torch.rand(b, 1, 32, 32, generator=gen) * 2 - 1,)),
+        "AutoEncoder": (ebgan.AutoEncoder(), (torch.rand(b, 1, 28, 28, generator=gen),)),
+        "GeneratorLatent": (saliency.SaliencyModel("generator", "from_latent", w, 8),
+                            (img, torch.randn(b, 8, generator=gen))),
+        "GeneratorBaseLine": (saliency.SaliencyModel("generator", "from_image", w), (img,)),
+        "Descriptor": (saliency.SaliencyModel("descriptor", width=w), (img, seg)),
+    }
+    out = {}
+    for name, (model, args) in cases.items():
+        init_like_flax(model, gen).eval()
+        with torch.no_grad():
+            for m in model.modules():
+                if hasattr(m, "gamma"):
+                    m.gamma.fill_(0.5)
+            want = model(*args)
+            model.cuda()
+            dargs = tuple(a.cuda() for a in args)
+            got = model(*dargs)
+            torch.cuda.synchronize()
+            ms = cuda_ms(lambda: model(*dargs))[0]
+        pairs = list(zip(got, want)) if isinstance(want, tuple) else [(got, want)]
+        err = max(_rel_l2([g], [w_]) for g, w_ in pairs)
+        out[name] = (err, ms)
+    attn, feat = seg, img
+    want = saliency.holistic_attention(attn, feat)
+    dattn, dfeat = attn.cuda(), feat.cuda()
+    got = saliency.holistic_attention(dattn, dfeat)
+    out["holistic_attention"] = (_rel_l2([got], [want]), cuda_ms(
+        lambda: saliency.holistic_attention(dattn, dfeat))[0])
+    log(f"[26b] legacy forwards, batch {b}, card vs CPU, fp32 TF32 off ({smi}), rel L2 and "
+        f"device ms: " + ", ".join(f"{k} {e:.3g} {t:.4f} ms" for k, (e, t) in out.items())
+        + f" (saliency at width {w}, {s}x{s}; tol {LEGACY_FWD_RTOL})")
+    bad = {k: e for k, (e, _) in out.items() if not e <= LEGACY_FWD_RTOL}
+    if bad:
+        raise AssertionError(f"[26b] forwards off: {bad}")
+    torch.backends.cudnn.allow_tf32 = True
+    return out
+
+
+def phase_legacy_cli(workdir: str, smi: str) -> dict:
+    """[26c] The legacy entry point on the card (cli/main_train.main):
+    synthetic 32x32 (1024 images), batch 128, 2 epochs (16 steps),
+    --langevin_length 5, --save_every 1: exit 0, finite losses, two sample
+    grids, ms/step from its gan_stats line."""
+    from masked_diffusion_tpu_torch.cli.main_train import main
+
+    argv = ["--device", "cuda", "--data_name", "synthetic", "--data_size", "32",
+            "--batch_size", str(LEGACY_BATCH), "--epoch_length", "2", "--save_every", "1",
+            "--langevin_length", "5", "--langevin_lr", "0.01", "--langevin_noise_lr", "0.001",
+            "--dir_work", os.path.join(workdir, "legacy")]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    sys.stdout.write(buf.getvalue())
+    line = next(ln for ln in buf.getvalue().splitlines() if ln.startswith("gan_stats "))
+    stats = json.loads(line.split(" ", 1)[1])
+    pngs = [os.path.basename(p) for p in stats["samples"] if os.path.exists(p)]
+    if (rc != 0 or stats["steps"] != 16 or pngs != ["gan_sample_00000.png",
+                                                   "gan_sample_00001.png"]
+            or not all(map(math.isfinite, stats["loss_g"] + stats["loss_d"]))):
+        raise AssertionError(f"[26c] legacy CLI: rc {rc}, {stats}")
+    log(f"[26c] legacy CLI on the card ({smi}): {stats['steps']} steps in 2 epochs, "
+        f"{stats['ms_per_step']:.3f} ms/step (host clock, first step's warm-up included), "
+        f"losses G {stats['loss_g']} D {stats['loss_d']}, grids {pngs}")
+    return stats
+
+
 def _counted():
     """The launch-counted wrappers of every kernel, by name."""
     from masked_diffusion_tpu_torch.ops.fused_degrade import (
@@ -4555,7 +4765,16 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     sharded = timed_phase("[18a] sharded kernels", phase_sharded)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
-        runs = {"serve": timed_phase("[5] serve", phase_serve, workdir)[0]}
+        # the legacy GAN/EBM path launches none of the kernels: its norms are
+        # plain nn.GroupNorm without SiLU, its attentions einsums
+        reset_counts()
+        gan_step = timed_phase("[26a] GAN step", phase_gan_step, smi)
+        legacy_fwd = timed_phase("[26b] legacy forwards", phase_legacy_forwards, smi)
+        legacy_cli = timed_phase("[26c] legacy CLI", phase_legacy_cli, workdir, smi)
+        runs = {"legacy": read_counts()}
+        if any(runs["legacy"].values()):
+            raise AssertionError(f"[26] the legacy path launched kernels: {runs['legacy']}")
+        runs["serve"] = timed_phase("[5] serve", phase_serve, workdir)[0]
         runs["flagship"], flagship_perf = timed_phase("[10] train CLI", phase_train_cli,
                                                       workdir)
         runs["default"], captured_ms = timed_phase("[20] default flags CLI", phase_default_cli,
@@ -4625,6 +4844,13 @@ def main() -> int:
         + f"; the switches' main-path launches {runs['reuse']} (25c) and {runs['switches']} "
         f"(25d); phase 25 took "
         f"{sum(v for k, v in PHASE_SECONDS.items() if k.startswith('[25')):.1f} s")
+    log(f"[26] the legacy GAN/EBM path: launches {runs['legacy']}; GAN step "
+        f"{gan_step['ms']:.3f} ms at batch {LEGACY_BATCH} (device idle share "
+        f"{gan_step['profile']['device_idle_share']:.4f}), the CLI "
+        f"{legacy_cli['ms_per_step']:.3f} "
+        f"ms/step; GeneratorLatent forward at {LEGACY_SIZE}x{LEGACY_SIZE} "
+        f"{legacy_fwd['GeneratorLatent'][1]:.4f} ms; phase 26 took "
+        f"{sum(v for k, v in PHASE_SECONDS.items() if k.startswith('[26')):.1f} s")
     log("[seconds] " + json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})
         + f"; the script {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -36,6 +36,8 @@ is generated at its final size and records 'numpy'.
 
 save_dataset / load_saved_dataset dump and reload the preloaded arrays as
 one .npz with the JAX package's keys, so each package reads the other's.
+SaliencyPairDataset / load_saliency_pairs load (image, mask) pairs matched
+by file stem for the saliency stack (models/saliency.py).
 
 Transforms mirror utils/mydataset.py:64-83: Resize(short side) + CenterCrop +
 ToTensor, then either global Normalize([0.5],[0.5]) ([-1,1]) or per-image
@@ -425,6 +427,65 @@ def load_saved_dataset(path: str) -> "InMemoryDataset":
         if "random" in z:
             ds.random = z["random"]
     return ds
+
+
+class SaliencyPairDataset:
+    """Image + ground-truth-mask pairs for the saliency stack
+    (utils/datasetutils.py:30-177: cat2000 / DUTS / synthetic pair layouts —
+    an images directory and a masks directory matched by filename stem)."""
+
+    def __init__(self, images: np.ndarray, masks: np.ndarray):
+        assert len(images) == len(masks)
+        self.images = images
+        self.masks = masks
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def __getitem__(self, idx):
+        return self.images[idx], self.masks[idx]
+
+    def epoch_batches(self, rng: np.random.Generator, batch_size: int):
+        idx = np.arange(len(self))
+        rng.shuffle(idx)
+        for i in range(len(self) // batch_size):
+            sel = idx[i * batch_size : (i + 1) * batch_size]
+            yield self.images[sel], self.masks[sel]
+
+
+def load_saliency_pairs(
+    image_dir: str, mask_dir: str, size: int, limit: Optional[int] = None
+) -> SaliencyPairDataset:
+    """Load (image, mask) pairs matched by filename stem (datasetutils.py's
+    cat2000/DUTS directory convention: Stimuli/ vs FIXATIONMAPS/, image/ vs
+    GT/)."""
+    if not _HAS_PIL:
+        raise RuntimeError("PIL required for saliency-pair datasets")
+    img_paths = sorted(
+        p for p in glob.glob(os.path.join(image_dir, "*")) if p.lower().endswith(IMG_EXTENSIONS)
+    )
+    if limit:
+        img_paths = img_paths[:limit]
+    mask_by_stem = {
+        os.path.splitext(os.path.basename(p))[0]: p
+        for p in glob.glob(os.path.join(mask_dir, "*"))
+        if p.lower().endswith(IMG_EXTENSIONS)
+    }
+    imgs, masks = [], []
+    for p in img_paths:
+        stem = os.path.splitext(os.path.basename(p))[0]
+        mp = mask_by_stem.get(stem)
+        if mp is None:
+            continue
+        img = np.asarray(Image.open(p).convert("RGB"), dtype=np.uint8)
+        mask = np.asarray(Image.open(mp).convert("L"), dtype=np.uint8)[..., None]
+        imgs.append(normalize_global(resize_center_crop(img, size)))
+        masks.append(resize_center_crop(mask, size))
+    if not imgs:
+        raise FileNotFoundError(f"no (image, mask) pairs under {image_dir} / {mask_dir}")
+    return SaliencyPairDataset(
+        np.stack(imgs).astype(np.float32), np.stack(masks).astype(np.float32)
+    )
 
 
 def get_dataset(

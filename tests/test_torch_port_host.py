@@ -158,3 +158,82 @@ def test_visualizer_writes_the_same_files(tmp_path):
     png = "ema_sample_global_00001.png"
     assert (tmp_path / "j" / png).read_bytes() == (tmp_path / "t" / png).read_bytes()
 
+
+
+# ------------------------------------------------- the legacy path's helpers
+
+
+@pytest.fixture
+def moment_batches():
+    """tests/test_transforms_imaging.py's batches."""
+    rng = np.random.default_rng(0)
+    return (rng.normal(0.3, 1.5, size=(4, 8, 8, 3)).astype(np.float32),
+            rng.normal(-0.2, 0.5, size=(4, 8, 8, 3)).astype(np.float32))
+
+
+def test_transforms_equal(moment_batches):
+    from masked_diffusion_tpu.data import transforms as jT
+    from masked_diffusion_tpu_torch.data import transforms as tT
+
+    a, b = moment_batches
+    for name in ("normalize_mean", "normalize_mean_channel", "normalize", "normalize_channel"):
+        np.testing.assert_array_equal(getattr(tT, name)(a, b), getattr(jT, name)(a, b), name)
+    for name in ("make_mean_zero", "whiten", "normalize01", "normalize01_global"):
+        np.testing.assert_array_equal(getattr(tT, name)(a), getattr(jT, name)(a), name)
+
+
+def test_imaging_equal(tmp_path):
+    import torch
+
+    from masked_diffusion_tpu.utils import imaging as jim
+    from masked_diffusion_tpu_torch.utils import imaging as tim
+
+    batch = np.random.default_rng(1).uniform(-1, 1, (4, 8, 8, 3)).astype(np.float32)
+    for args in ((batch,), (batch[0],), (batch, False), (batch[:3, ..., :1],)):
+        np.testing.assert_array_equal(tim.tensor2im(*args), jim.tensor2im(*args))
+    tree = {"a": np.ones((2, 2)), "b": {"c": 3.0 * np.ones((4,))}}
+    assert tim.diagnose_network(tree) == jim.diagnose_network(tree) == pytest.approx(2.0)
+    assert tim.diagnose_network({}) == jim.diagnose_network({}) == 0.0
+    # a module's parameters, and tensors in a list, reduce as the same arrays do
+    net = torch.nn.Sequential(torch.nn.Conv2d(3, 4, 3), torch.nn.Linear(4, 2))
+    named = {k: v.detach().numpy() for k, v in net.named_parameters()}
+    want = jim.diagnose_network(named)
+    assert tim.diagnose_network(net) == pytest.approx(want, rel=1e-6)
+    assert tim.diagnose_network(list(net.parameters())) == pytest.approx(want, rel=1e-6)
+    batches = [np.full((4, 4, 4, 3), i, dtype=np.float32) for i in range(3)]
+    for nrow in (None, 2):
+        np.testing.assert_array_equal(tim.make_multi_grid(batches, nrow=nrow),
+                                      jim.make_multi_grid(batches, nrow=nrow))
+    img = jim.tensor2im(batch)
+    for size in (None, 20):
+        jim.save_image(img, str(tmp_path / "j" / f"{size}.png"), size)
+        tim.save_image(img, str(tmp_path / "t" / f"{size}.png"), size)
+        assert (tmp_path / "j" / f"{size}.png").read_bytes() == \
+            (tmp_path / "t" / f"{size}.png").read_bytes()
+
+
+def test_saliency_pairs_equal(tmp_path):
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    img_dir, mask_dir = tmp_path / "Stimuli", tmp_path / "GT"
+    img_dir.mkdir()
+    mask_dir.mkdir()
+    for i in range(5):
+        Image.fromarray(rng.integers(0, 255, (12, 14, 3), dtype=np.uint8)).save(
+            img_dir / f"im{i}.png")
+        Image.fromarray(rng.integers(0, 255, (12, 14), dtype=np.uint8)).save(
+            mask_dir / f"im{i}.png")
+    Image.fromarray(np.zeros((12, 12, 3), dtype=np.uint8)).save(img_dir / "orphan.png")
+    for limit in (None, 4):
+        jd = jdata.load_saliency_pairs(str(img_dir), str(mask_dir), 8, limit)
+        td = tdata.load_saliency_pairs(str(img_dir), str(mask_dir), 8, limit)
+        assert len(td) == len(jd) == (5 if limit is None else 4)
+        np.testing.assert_array_equal(td.images, jd.images)
+        np.testing.assert_array_equal(td.masks, jd.masks)
+        for (ji, jm), (ti, tm) in zip(jd.epoch_batches(np.random.default_rng(3), 2),
+                                      td.epoch_batches(np.random.default_rng(3), 2)):
+            np.testing.assert_array_equal(ti, ji)
+            np.testing.assert_array_equal(tm, jm)
+    with pytest.raises(FileNotFoundError):
+        tdata.load_saliency_pairs(str(img_dir), str(tmp_path), 8)

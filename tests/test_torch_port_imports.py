@@ -8,8 +8,9 @@ mean_shift (with --sampling momentum and --profile_dir, resumed from its
 checkpoint, with the default sampling flags, and with
 --interpolation_shift), --method sample and --method test on the CPU at toy
 size (the default model and the zoo's unet1), the checkpoint import tool,
-and an LSUN get_dataset under MDT_NATIVE_PREPROCESS=1, then inspects
-sys.modules, and has each of two ranks under
+an LSUN get_dataset under MDT_NATIVE_PREPROCESS=1 and the legacy GAN entry
+point (cli/main_train.py), then inspects sys.modules, and has each of two
+ranks under
 torch.distributed.run (gloo) train and serve data-parallel and inspect its
 own; and an AST scan of every .py of the port and of chip_smoke.py for an
 import of masked_diffusion_tpu."""
@@ -105,6 +106,16 @@ with tempfile.TemporaryDirectory() as work:
     with contextlib.redirect_stdout(buf):
         main(["--method", "sample", "--test_model_path", ckpt] + zoo)
     assert "sample_stats " in buf.getvalue()
+    # the legacy GAN/EBM entry point, with a Langevin step
+    from masked_diffusion_tpu_torch.cli.main_train import main as legacy_main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert legacy_main(["--device", "cpu", "--data_name", "synthetic", "--data_size", "32",
+                            "--data_subset_use", "True", "--data_subset_num", "8",
+                            "--batch_size", "4", "--dim_feature", "4", "--dim_latent", "8",
+                            "--epoch_length", "1", "--save_every", "1", "--langevin_length",
+                            "1", "--dir_work", work]) == 0
+    assert "final losses: G=" in buf.getvalue()
 
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "flax", "triton", "masked_diffusion_tpu"))

@@ -30,6 +30,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -215,6 +216,104 @@ def test_train_step_matches_jax(unets, monkeypatch, case):
         assert upd2 > 0  # the optimizer moved the parameters
         assert (diff2 / upd2) ** 0.5 <= RTOL, f"{name}: update norm differs by {(diff2 / upd2) ** 0.5}"
         assert loose <= 1e-3 * total, f"{name}: {loose} of {total} entries off"
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(np.ravel(a) - np.ravel(b)) / np.linalg.norm(np.ravel(b)))
+
+
+def _first_step_jax(jmodel, jcfg, variables, cfg, fx, used, monkeypatch):
+    """(loss, gradients in the port's names) of the JAX step's first step."""
+    grads = []
+    tx = joptim.build_optimizer(cfg.optim, lambda count: cfg.lr, None)
+
+    def update(g, st, params=None):
+        jax.debug.callback(lambda t: grads.append(jax.tree.map(np.array, t)), g)
+        return tx.update(g, st, params)
+
+    rec = optax.GradientTransformation(tx.init, update)
+    params = jax.tree.map(jnp.asarray, variables)
+    state = jstep.TrainState(step=jnp.zeros((), jnp.int32), params=params, ema_params=None,
+                             opt_state=rec.init(params))
+    jsched = jax_build_schedule(cfg.ddpm_schedule, cfg.ddpm_num_steps, SIZE,
+                                cfg.select_degrade_pixel)
+    split, randint, degrade, shift = _jax_fakes(fx)
+    with monkeypatch.context() as m:
+        m.setattr(jax.random, "split", split)
+        m.setattr(jax.random, "randint", randint)
+        m.setattr(jdeg, "degrade_training", degrade)
+        m.setattr(jshift, "schedule_shift", shift)
+        fn = jax.jit(jstep._make_step_impl(jmodel, jsched, cfg, rec, used))
+        _, mt = fn(state, jnp.asarray(fx["images"][0]), jax.random.PRNGKey(0))
+        jax.effects_barrier()
+    (g,) = grads
+    return float(mt["train_loss"]), {k: v.numpy() for k, v in
+                                     weights.state_dict_from_flax(g, jcfg).items()}
+
+
+def _first_step_port(jcfg, variables, cfg, fx, used):
+    model = port_unet(jcfg, variables).train()
+    opt = build_optimizer(cfg.optim, model.parameters(), lambda count: cfg.lr, None)
+    state = create_train_state(model, opt, use_ema=False)
+    step = make_train_step(model, build_schedule(cfg.ddpm_schedule, cfg.ddpm_num_steps, SIZE,
+                                                 cfg.select_degrade_pixel),
+                           cfg, opt, used, None, device="cpu")
+    mt = step(state, torch.from_numpy(fx["images"][0]), draws=_port_draws(fx, 0, 1))
+    return float(mt["train_loss"]), {k: p.grad.numpy().copy()
+                                     for k, p in model.named_parameters()}
+
+
+def test_train_step_bf16_matches_jax(unets, monkeypatch):
+    """--mixed_precision bf16: the JAX UNet casts per op (compute dtype bf16,
+    fp32 params), the port runs under autocast. The first step's loss and
+    every parameter's gradient (no clipping), port bf16 against JAX bf16, in
+    relative L2, within 2x the larger of the two sides' own bf16-vs-fp32
+    distances. That bound alone cannot fail (the triangle inequality through
+    the two fp32 steps, which agree to ~1e-6), so the JAX side's own
+    distance is a yardstick too: for the loss and each gradient the port's
+    bf16 may stray from its fp32 by at most 2x what JAX's bf16 strays from
+    JAX's fp32, and over all gradients together the port's bf16 may stray
+    from JAX's bf16 by at most 2x that too. (On the CPU at these shapes:
+    1.56e-2 against JAX's own 1.24e-2 and the port's own 1.27e-2 over all
+    gradients; per tensor the port's own distance is at most 1.55x JAX's.)
+    Whole-model bounds catch casts that degrade much of the model; a cast
+    confined to one op (the plain attention's scores, repaired earlier) is
+    held at that op, in tests/test_torch_port_switches.py."""
+    from masked_diffusion_tpu.models.unet import UNet2D as JaxUNet2D
+
+    jmodel, jcfg, variables = unets
+    case = dict(CASES["mean_shift-indexing-adamw-cosine-ema-lossweight"], use_ema=False)
+    jsched = jax_build_schedule(case["ddpm_schedule"], 20, SIZE, case["select_degrade_pixel"])
+    used = jsched.timesteps_for_epoch(0, 10, 1)
+    fx = _fixtures(len(used), seed=5)
+    out = {}
+    for mp in ("no", "bf16"):
+        cfg = Config(data_size=SIZE, ddpm_num_steps=20, mean_option="degraded_area", lr=1e-3,
+                     mixed_precision=mp, out_channel=C, **case)
+        jm = jmodel if mp == "no" else JaxUNet2D(config=jcfg, dtype=jnp.bfloat16)
+        out["jax", mp] = _first_step_jax(jm, jcfg, variables, cfg, fx, used, monkeypatch)
+        out["port", mp] = _first_step_port(jcfg, variables, cfg, fx, used)
+    np.testing.assert_allclose(out["port", "no"][0], out["jax", "no"][0], rtol=RTOL)
+
+    def distances(i, key=None):
+        get = (lambda side, mp: out[side, mp][i]) if key is None else (
+            lambda side, mp: out[side, mp][i][key])
+        return (_rel(get("port", "bf16"), get("jax", "bf16")),
+                _rel(get("jax", "bf16"), get("jax", "no")),
+                _rel(get("port", "bf16"), get("port", "no")))
+
+    names = list(out["jax", "no"][1])
+    whole = {k: (v[0], np.concatenate([v[1][n].ravel() for n in names]))
+             for k, v in out.items()}
+    rows = [("loss",) + distances(0)] + [(n,) + distances(1, n) for n in names]
+    for name, cross, own_jax, own_port in rows:
+        assert own_jax > 0, name  # bf16 changed the JAX step
+        assert cross <= 2 * max(own_jax, own_port), (name, cross, own_jax, own_port)
+        assert own_port <= 2 * own_jax, (name, cross, own_jax, own_port)
+    cross, own_jax, own_port = (_rel(whole["port", "bf16"][1], whole["jax", "bf16"][1]),
+                                _rel(whole["jax", "bf16"][1], whole["jax", "no"][1]),
+                                _rel(whole["port", "bf16"][1], whole["port", "no"][1]))
+    assert cross <= 2 * own_jax, (cross, own_jax, own_port)
 
 
 # ------------------------------------------------------ trainer and CLI, CPU

@@ -66,6 +66,29 @@ def jax_unet(channels=(32, 64), layers=1, num_attention=1, in_ch=3, seed=0, jit_
     return model, cfg, variables
 
 
+def jax_unet_random(num_attention=1, seed=0):
+    """As jax_unet, but every variable is seeded numpy values in the tree
+    the init makes, its shapes by jax.eval_shape (the init compiles for ~8
+    s on the CPU): kernels N(0, 1/fan_in), norm scales 1 + N(0, 0.05^2),
+    biases N(0, 0.05^2)."""
+    down, up = attention_placement(num_attention, 2)
+    cfg = JaxUNetConfig(sample_size=SIZE, in_channels=3, out_channels=3,
+                        block_out_channels=(32, 64), layers_per_block=1, attn_down=down,
+                        attn_up=up)
+    model = JaxUNet2D(config=cfg)
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)),
+                            jnp.zeros((1,)))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name, shape = path[-1].key, leaf.shape
+        if name == "kernel":
+            return rng.normal(0, 1 / np.sqrt(np.prod(shape[:-1])), shape).astype(np.float32)
+        return ((name == "scale") + rng.normal(0, 0.05, shape)).astype(np.float32)
+
+    return model, cfg, _numpy_tree(jax.tree_util.tree_map_with_path(fill, shapes))
+
+
 def port_unet(jcfg, variables):
     model = UNet2D(UNetConfig(
         sample_size=jcfg.sample_size, in_channels=jcfg.in_channels,
@@ -92,6 +115,40 @@ def test_forward_matches_jax(num_attention, in_ch):
     t_out = t_out.permute(0, 2, 3, 1).numpy()
     assert np.abs(j_out).max() > 1e-3  # the output depends on the weights
     np.testing.assert_allclose(t_out, j_out, atol=2e-4, rtol=2e-3)
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def test_bf16_forward_matches_jax():
+    """bf16: the JAX UNet with compute dtype bf16 (per-op casts, fp32
+    params) against the port under autocast, as the train step runs it.
+    The two bf16 outputs agree within 2x the larger of the two sides' own
+    bf16-vs-fp32 distances (relative L2), and, since that bound alone
+    cannot fail (the triangle inequality through the fp32 outputs), within
+    2x JAX's own distance, as does the port's own. (Measured on the CPU at
+    these shapes: 1.76e-2 apart, own distances 1.27e-2 JAX and 1.41e-2
+    port. The timestep embedding's phase rounded to bf16 under autocast
+    gives 2.91e-2 apart and fails.)"""
+    jmodel, jcfg, variables = jax_unet_random(num_attention=2, seed=4)
+    jbf16 = JaxUNet2D(config=jcfg, dtype=jnp.bfloat16)
+    tmodel = port_unet(jcfg, variables)
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(2, SIZE, SIZE, 3)).astype(np.float32)
+    t = np.asarray([3.0, 700.0], np.float32)
+    j32, j16 = (np.asarray(jax.jit(m.apply)(variables, jnp.asarray(x), jnp.asarray(t)),
+                           np.float32) for m in (jmodel, jbf16))
+    xt, tt = torch.from_numpy(x.transpose(0, 3, 1, 2).copy()), torch.from_numpy(t)
+    with torch.inference_mode():
+        t32 = tmodel(xt, tt).permute(0, 2, 3, 1).numpy()
+        with torch.autocast("cpu", dtype=torch.bfloat16):
+            t16 = tmodel(xt, tt).float().permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(t32, j32, atol=2e-4, rtol=2e-3)
+    cross, own_jax, own_port = _rel(t16, j16), _rel(j16, j32), _rel(t16, t32)
+    assert own_jax > 1e-3 and own_port > 1e-3  # both really ran in bf16
+    assert cross <= 2 * max(own_jax, own_port), (cross, own_jax, own_port)
+    assert cross <= 2 * own_jax and own_port <= 2 * own_jax, (cross, own_jax, own_port)
 
 
 def test_converter_equals_exporter_bitwise():
