@@ -127,10 +127,10 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      printed, the ops that warned named; (d) the host-blocking time of a
      sync and an async save of the full state, its bytes on disk and the
      restore time; (c) the CLI as a subprocess (this script with
-     `--counted <file>`, 6 epochs) SIGTERM'd once log/metrics.jsonl has
+     `--counted <file>`, 3 epochs) SIGTERM'd once log/metrics.jsonl has
      epoch 0's line, exit 0 with a preemption checkpoint, then resumed
      with --keep_last_checkpoints 1 --async_checkpoints true to
-     global_step 24 with one complete checkpoint left, holding optimizer/
+     global_step 12 with one complete checkpoint left, holding optimizer/
      and history.npz. Every run launches the GroupNorm and exact-k kernels
  22. the diversity tester (tester.py) at the flagship's width: (a) its dedup
      and matching on the card against the same functions on the CPU, with
@@ -182,13 +182,32 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      Alone: `python3 -c "import tempfile, chip_smoke as c; smi = 'H100';
      c.phase_gan_step(smi); c.phase_legacy_forwards(smi);
      c.phase_legacy_cli(tempfile.mkdtemp(dir='build'), smi)"`
+ 27. tensor and spatial parallelism (parallel/tp.py, parallel/sp.py): 2
+     ranks under torch.distributed.run (this script with `--grid <dir>`),
+     data 1 x model 2, both on cuda:0 over gloo. (a) TP at the flagship's
+     width (--tp_min_features 256) and (b) SP (every level split at M = 2):
+     2 fp32 AdamW steps at batch 8 on injected draws (TF32 off) against
+     one process on the card (losses, the last step's clipped gradient,
+     the updates of parameters and EMA), each rank's bytes of parameters +
+     AdamW state + EMA, its peak device memory and ms a step beside one
+     process's, TP's sharded_fraction; unet6 at 256x256 under SP, one bf16
+     forward and backward at batch 2, each rank's peak memory above the
+     weights beside one process's, kernel 4 on the gathered attention
+     blocks; the gloo all-gather and all-reduce of a (8, 512, 8, 8)
+     activation; (c) the flagship through the CLI with --mesh_model 2 and
+     with --mesh_spatial true (one epoch of 2 steps at batch 8, the
+     cadence's fused sampler at T=20), per-rank launches checked, each
+     checkpoint served by one process. Alone (~2 min with the build):
+     `python3 -c "import tempfile, chip_smoke as c; smi = c.phase_env();
+     c.phase_grid(tempfile.mkdtemp(dir='build'), smi)"` (needs `mkdir -p
+     build`)
 
 Phases 11 and 12 run first (the newest kernels fail fast), phases 19,
 22a and 23a after the slice phases; phases 26, 5, 10, 20, 22b, 22c, 23b,
-16, 17, 18, 21 and 24, the main-path runs, come last, in one work
+16, 17, 18, 27, 21 and 24, the main-path runs, come last, in one work
 directory. The
-kernels' `launches` are counted over those runs (phase 18's summed over its
-ranks, phase 21's over its five),
+kernels' `launches` are counted over those runs (phases 18's and 27's summed
+over their ranks, phase 21's over its five),
 with every count set to 0 just before each. Run phase 19 alone with `python3 -c "import chip_smoke as c;
 c.phase_env(); c.phase_sampling_modes()"`, phases 10 and 20 with `python3
 -c "import tempfile, chip_smoke as c; c.phase_env(); d =
@@ -2679,7 +2698,7 @@ def phase_default_cli(workdir: str, flagship_perf: dict):
 # [21] checkpoints, resume and preemption at the flagship's width
 RESUME_EPOCHS = 3  # (a)/(b): 3 epochs of 4 steps
 PREEMPT_AT = 6  # (b): SIGTERM in the step that makes global step 6 (epoch 1, step 2)
-CLI_EPOCHS = 6  # (c): 24 steps
+CLI_EPOCHS = 3  # (c): 12 steps (24 before phase 27 took the time)
 CLI_TIMEOUT = 600  # seconds for (c)'s preempted CLI subprocess
 
 
@@ -3518,6 +3537,396 @@ def phase_ddp(workdir: str, smi: str, single: dict):
         f"image writes rank 0 {ranks[0]['test_writes']}, rank 1 {ranks[1]['test_writes']}; "
         f"launches per rank {[r['test_counts'] for r in ranks]}; phase 18's ranks took "
         f"{seconds:.1f} s")
+    return total
+
+
+# [27] tensor and spatial parallelism: 2 ranks sharing the card over gloo
+GRID_RANKS = 2  # data 1 x model 2
+GRID_TIMEOUT = 900  # seconds for the torch.distributed.run of phase 27
+GRID_BATCH = 8  # every rank holds all 8 rows (one data rank)
+GRID_LOSS_RTOL = 1e-4  # tests/test_torch_port_parallel.py's
+# The last step's clipped gradient, grid vs one process, relative L2: the
+# gathers, halos and split statistics change no term, but cuDNN picks other
+# algorithms for the ranks' convolutions (half the output channels under TP,
+# half the rows under SP), which sum in another order
+GRID_GRAD_RTOL = 1e-4
+# Parameters and EMA after 2 AdamW steps, relative L2 of the update. AdamW's
+# first steps move a coordinate by about lr * g / (|g| + eps), so among 113.7M
+# coordinates those whose gradient nearly cancels turn the convolutions'
+# summation-order noise into moves up to lr: the CPU tests' elementwise atol
+# of 2e-5 (a toy model) is reported here beside the bound, not asserted
+GRID_UPDATE_RTOL = 1e-3
+# ... and no coordinate further apart than AdamW can move two runs apart in
+# 2 steps: at most ~1 lr in the first step and ~1.4 lr in the second each
+GRID_MOVE_BOUND = 5
+GRID_UNET6_BATCH = 2
+GRID_SAMPLE_NUM = 4
+GRID_T = 20  # the CLI runs' --ddpm_num_steps (log + indexing)
+
+
+def _grid_data(used_len: int):
+    """The global batch and draws of phase 27's parity steps (numpy, seeded)."""
+    import numpy as np
+
+    rng = np.random.default_rng(271)
+    n, hw = GRID_BATCH, SIZE * SIZE
+    return [dict(
+        img=rng.uniform(-1, 1, (n, SIZE, SIZE, 3)).astype(np.float32),
+        timeindex=rng.integers(0, used_len, n),
+        bits=rng.integers(0, 2**32, (n, hw), dtype=np.uint64).astype(np.int64),
+        uniform=rng.uniform(-1, 1, n).astype(np.float32)) for _ in range(2)]
+
+
+def grid_parity(plan, dev):
+    """2 fp32 flagship train steps (TF32 off, log + indexing, AdamW, EMA) at
+    batch 8 on `dev`, the model placed on `plan`'s model axis (None: one
+    process). Returns the losses, each step's ms (host clock, synchronised),
+    the peak device memory above what was allocated before, the bytes of
+    parameters + AdamW state + EMA this process holds, the flagship's
+    sharded_fraction at M = 2, and on the CPU the one-process layout of the
+    parameters ("p"), EMA ("e") and the last step's clipped gradient ("g")."""
+    import torch
+
+    from masked_diffusion_tpu_torch.ops.schedule import build_schedule
+    from masked_diffusion_tpu_torch.parallel import tp as tp_mod
+    from masked_diffusion_tpu_torch.parallel.mesh import place_model
+    from masked_diffusion_tpu_torch.train.optim import build_lr_schedule, build_optimizer
+    from masked_diffusion_tpu_torch.train.step import (
+        TrainDraws,
+        create_train_state,
+        make_train_step,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sched, select, t_steps = MODES[1]
+    cfg = _train_cfg(sched, select, t_steps, "--mixed_precision", "no")
+    schedule = build_schedule(sched, t_steps, SIZE, select)
+    used = schedule.timesteps_for_epoch(0, 10, 1)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = _flagship_weights(27).to(dev)
+    fraction = tp_mod.sharded_fraction(model.state_dict().values(), GRID_RANKS,
+                                       cfg.tp_min_features)
+    if plan is not None:
+        place_model(model, plan, cfg.tp_min_features)
+    names, params = zip(*model.named_parameters())
+    lr = build_lr_schedule("cosine", 1e-4, 0, 100)
+    opt = build_optimizer("adamw", params, lr, 1.0, 1, names=names)
+    if getattr(model, "tp_sharded", ()):
+        opt.set_tensor_parallel(model.tp_sharded, plan.model_group)
+    state = create_train_state(model, opt, use_ema=True, plan=plan)
+    step = make_train_step(model, schedule, cfg, opt, used, lr, device=dev, plan=plan)
+    losses, ms = [], []
+    for d in _grid_data(len(used)):
+        draws = TrainDraws(**{k: torch.from_numpy(v).to(dev) for k, v in d.items() if k != "img"})
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        losses.append(float(step(state, torch.from_numpy(d["img"]).to(dev),
+                                 draws=draws)["train_loss"]))
+        torch.cuda.synchronize(dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    moments = [v for s in opt.base.state.values() for v in s.values() if torch.is_tensor(v)]
+    held = sum(t.numel() * t.element_size()
+               for t in (*params, *moments, *state.ema_model.parameters()))
+
+    def whole(sd):
+        sd = tp_mod.gather_state(sd, model, plan) if plan is not None else sd
+        return {k: v.detach().cpu().clone() for k, v in sd.items()}
+
+    out = {"losses": losses, "ms": ms, "peak": peak, "held": held, "fraction": fraction,
+           "p": whole(model.state_dict()), "e": whole(state.ema_model.state_dict()),
+           "g": whole({n: p.grad for n, p in zip(names, params)})}
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return out
+
+
+def grid_unet6_peak(plan, dev, size: int = 256) -> dict:
+    """One bf16 forward and backward of unet6 at size x size (256), batch 2,
+    placed on `plan` (None: one process): the peak device memory above the
+    weights, the output's finiteness and the ms (host clock, synchronised)."""
+    import torch
+
+    from masked_diffusion_tpu_torch.models.zoo import Model
+    from masked_diffusion_tpu_torch.parallel.mesh import place_model
+
+    torch.manual_seed(6)
+    model = Model("unet6", 3, size, size, 3).to(dev)
+    if plan is not None:
+        place_model(model, plan)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(GRID_UNET6_BATCH, 3, size, size, generator=gen, device=dev)
+    t = torch.full((GRID_UNET6_BATCH,), 10.0, device=dev)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        out = model(x, t)
+    out.float().square().mean().backward()
+    torch.cuda.synchronize(dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    return {"peak": torch.cuda.max_memory_allocated(dev) - base, "ms": ms,
+            "finite": bool(torch.isfinite(out).all()), "shape": list(out.shape)}
+
+
+def grid_collective_ms(plan, dev) -> dict:
+    """ms of the model group's all-gather (along channels) and all-reduce of
+    a (8, 512, 8, 8) fp32 activation on the card: under gloo both go
+    through host memory."""
+    import torch
+
+    from masked_diffusion_tpu_torch.parallel.mesh import all_gather_rows, all_reduce_sum
+
+    x = torch.randn(8, 512, 8, 8, device=dev)
+    out = {}
+    for name, fn in (("all_gather", lambda: all_gather_rows(x, 1, plan.model_group,
+                                                            plan.model_size)),
+                     ("all_reduce", lambda: all_reduce_sum(x, plan.model_group))):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize(dev)
+        out[name] = 1e3 * (time.perf_counter() - t0) / 20
+    return out
+
+
+def grid_cli_args(workdir: str, mode: str):
+    """(training argv, flags shared with serving) of the flagship through the
+    CLI on phase 27's grid: batch 8, one epoch of 2 steps, the cadence's
+    fused sampler at T=20, --mesh_model 2 (and --mesh_spatial true for SP),
+    both ranks on cuda:0."""
+    argv, common = flagship_cli_args(os.path.join(workdir, mode))
+    pairs = ("--batch_size", "8", "--data_subset_num", "16", "--sample_num",
+             str(GRID_SAMPLE_NUM), "--ddpm_num_steps", str(GRID_T))
+    common = _with([a if a != "cuda" else "cuda:0" for a in common], *pairs)
+    argv = _with([a if a != "cuda" else "cuda:0" for a in argv], *pairs, "--num_epochs", "1",
+                 "--save_images_epochs", "1", "--mesh_data", "1", "--mesh_model",
+                 str(GRID_RANKS), "--mesh_spatial", str(mode == "sp"))
+    return argv, common
+
+
+def grid_rank_main(workdir: str) -> int:
+    """One rank of phase 27 under torch.distributed.run: the TP and SP
+    parity steps, the unet6 forward and backward under SP, the collectives'
+    times, then the flagship through the CLI with --mesh_model 2 and with
+    --mesh_spatial true, each CLI run with the launch counts set to 0 just
+    before and read just after; writes grid_rank<r>.json (and rank 0 its
+    parity tensors) to workdir."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    import masked_diffusion_tpu_torch.train.trainer as trainer_mod
+    from masked_diffusion_tpu_torch.cli.main_train_masked import main
+    from masked_diffusion_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    device = init_distributed("cuda:0")
+    rank = dist.get_rank()
+    out = {"rank": rank, "device": str(device), "backend": dist.get_backend()}
+    for mode in ("tp", "sp"):
+        plan = make_mesh(1, GRID_RANKS, device, spatial=mode == "sp")
+        reset_counts()
+        res = grid_parity(plan, device)
+        res["launches"] = read_counts()
+        tensors = {k: res.pop(k) for k in ("p", "e", "g")}
+        if rank == 0:
+            torch.save(tensors, os.path.join(workdir, f"{mode}_rank0.pt"))
+        del tensors
+        out[mode] = res
+        _release()
+    plan = make_mesh(1, GRID_RANKS, device, spatial=True)
+    reset_counts()
+    out["unet6"] = grid_unet6_peak(plan, device)
+    out["unet6"]["launches"] = read_counts()
+    _release()
+    out["collectives"] = grid_collective_ms(plan, device)
+
+    seen = {}
+    train = trainer_mod.Trainer.train
+
+    def train_and_keep(self, *a, **k):
+        seen["steps"] = None
+        result = train(self, *a, **k)
+        seen["steps"] = len(self.timesteps_used_epoch)
+        return result
+
+    trainer_mod.Trainer.train = train_and_keep
+    for mode in ("tp", "sp"):
+        argv, _ = grid_cli_args(workdir, mode)
+        buf = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        counts = read_counts()
+        sys.stdout.write(buf.getvalue())
+        if rc != 0:
+            raise AssertionError(f"[27] rank {rank} CLI {mode}: rc {rc}")
+        out[f"cli_{mode}"] = {"counts": counts, "cadence_steps": seen["steps"]}
+        _release()
+    with open(os.path.join(workdir, f"grid_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _rel(a: dict, b: dict, base: dict = None) -> float:
+    """Relative L2 of a against b over every tensor; with base, of the
+    updates a - base against b - base."""
+    num = den = 0.0
+    for k, ref in b.items():
+        num += float((a[k].double() - ref.double()).square().sum())
+        d = ref.double() - (base[k].double() if base is not None else 0.0)
+        den += float(d.square().sum())
+    return (num / den) ** 0.5
+
+
+def phase_grid(workdir: str, smi: str) -> dict:
+    """[27] Tensor and spatial parallelism on 2 ranks sharing cuda:0 over
+    gloo (data 1 x model 2) through torch.distributed.run (this script with
+    `--grid <dir>`): (a) TP and (b) SP parity steps at the flagship's width
+    against one process on the card, each rank's bytes of state and peak
+    memory; unet6 at 256x256 under SP, each rank's peak memory above the
+    weights against one process; the gloo collectives' ms; (c) the flagship
+    trained through the CLI with --mesh_model 2 and with --mesh_spatial
+    true (one epoch of 2 steps and the cadence's sampler), each checkpoint
+    served by one process with --method sample. Checks per-rank launches
+    and returns them summed over the ranks, with the serves'."""
+    import numpy as np
+    import torch
+
+    os.makedirs(workdir, exist_ok=True)
+    t0 = time.perf_counter()
+    rc, output = _run_group(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         str(GRID_RANKS), os.path.join(ROOT, "chip_smoke.py"), "--grid", workdir], GRID_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    sys.stdout.write("".join(f"[27|ranks] {ln}\n" for ln in output.splitlines()
+                             if ln.startswith(("dist:", "sp:", "train_stats", "*****"))))
+    if rc != 0:
+        raise AssertionError(f"[27] torch.distributed.run: rc {rc}\n{output[-6000:]}")
+    ranks = []
+    for r in range(GRID_RANKS):
+        with open(os.path.join(workdir, f"grid_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    sp_lines = [json.loads(ln[4:]) for ln in output.splitlines() if ln.startswith("sp: ")]
+    if not sp_lines or not all(all(lv["split"] for lv in ln["levels"]) for ln in sp_lines):
+        raise AssertionError(f"[27] expected every level split at M = 2: {sp_lines}")
+
+    # (a), (b): the grid's parity steps against one process on the card
+    one = grid_parity(None, torch.device("cuda"))
+    init = _flagship_weights(27).state_dict()
+    lr = 1e-4
+    readings = {}
+    for mode in ("tp", "sp"):
+        got = torch.load(os.path.join(workdir, f"{mode}_rank0.pt"))
+        losses = [r[mode]["losses"] for r in ranks]
+        loss_diff = float(np.abs(np.array(losses[0]) / np.array(one["losses"]) - 1).max())
+        grad = _rel(got["g"], one["g"])
+        upd = [_rel(got[k], one[k], init) for k in ("p", "e")]
+        worst = max(float((got[k][n] - one[k][n]).abs().max()) for k in ("p", "e")
+                    for n in one[k])
+        above = sum(int(((got[k][n] - one[k][n]).abs() > 2e-5).sum()) for k in ("p", "e")
+                    for n in one[k])
+        if (losses[0] != losses[1] or loss_diff > GRID_LOSS_RTOL or grad > GRID_GRAD_RTOL
+                or max(upd) > GRID_UPDATE_RTOL or worst > GRID_MOVE_BOUND * lr):
+            raise AssertionError(
+                f"[27] {mode} parity: losses {losses} vs {one['losses']} (rel {loss_diff:.3g}), "
+                f"gradient rel L2 {grad:.3g}, update rel L2 params/EMA {upd}, max |diff| "
+                f"{worst:.3g} ({above} entries above 2e-5)")
+        readings[mode] = (loss_diff, grad, upd, worst, above)
+        for r in ranks:
+            n = r[mode]["launches"]
+            if not (n["group_norm_silu"] and n["group_norm_silu_backward"]) or any(
+                    n[k] for k in ("tinyhead_attention", "tinyhead_attention_backward")):
+                raise AssertionError(f"[27] {mode} parity launches rank {r['rank']}: {n}")
+    tp_held = [r["tp"]["held"] for r in ranks]
+    frac = one["fraction"]
+    expect = one["held"] * (1 - frac / 2)
+    if any(abs(h - expect) > 1e-6 * one["held"] for h in tp_held) or any(
+            r["sp"]["held"] != one["held"] for r in ranks):
+        raise AssertionError(f"[27] state bytes: TP ranks {tp_held}, SP ranks "
+                             f"{[r['sp']['held'] for r in ranks]}, one process {one['held']}, "
+                             f"sharded fraction {frac}")
+    for mode, (loss_diff, grad, upd, worst, above) in readings.items():
+        log(f"[27{'a' if mode == 'tp' else 'b'}] {mode.upper()} data 1 x model 2 (gloo, both "
+            f"ranks on cuda:0; {smi}): flagship fp32 (TF32 off), log+indexing, batch 8, 2 AdamW "
+            f"steps vs one process: losses {[round(v, 6) for v in one['losses']]}, max rel "
+            f"diff {loss_diff:.3g} (rtol {GRID_LOSS_RTOL}); the last step's clipped gradient "
+            f"rel L2 {grad:.3g} (tol {GRID_GRAD_RTOL}); update rel L2 params {upd[0]:.3g}, EMA "
+            f"{upd[1]:.3g} (tol {GRID_UPDATE_RTOL}); max |param or EMA diff| {worst:.3g}, "
+            f"{above} entries above 2e-5; ms a step per rank (step 2) "
+            f"{[round(r[mode]['ms'][1], 3) for r in ranks]} vs one process "
+            f"{one['ms'][1]:.3f}; peak memory per rank "
+            f"{[round(r[mode]['peak'] / 2**30, 3) for r in ranks]} GiB vs one process "
+            f"{one['peak'] / 2**30:.3f}; parameters + AdamW state + EMA per rank "
+            f"{[r[mode]['held'] for r in ranks]} bytes vs one process {one['held']}; launches "
+            f"per rank {[r[mode]['launches'] for r in ranks]}")
+    log(f"[27a] TP sharded_fraction {frac:.4f} at M = 2 (--tp_min_features 256): a rank holds "
+        f"{tp_held[0] / one['held']:.4f} of one process's state")
+
+    # unet6 at 256x256 under SP: the activations' memory per rank
+    one6 = grid_unet6_peak(None, torch.device("cuda"))
+    for r in ranks:
+        u = r["unet6"]
+        if not (u["finite"] and one6["finite"]) or u["shape"] != one6["shape"] or not (
+                u["launches"]["tinyhead_attention"]
+                and u["launches"]["tinyhead_attention_backward"]):
+            raise AssertionError(f"[27] unet6 SP rank {r['rank']}: {u}, one process {one6}")
+    coll = ranks[0]["collectives"]
+    log(f"[27b] unet6 256x256 bf16 forward + backward at batch {GRID_UNET6_BATCH} under SP "
+        f"(every level split): peak memory above the weights per rank "
+        f"{[round(r['unet6']['peak'] / 2**30, 3) for r in ranks]} GiB vs one process "
+        f"{one6['peak'] / 2**30:.3f} GiB; ms per rank {[round(r['unet6']['ms'], 1) for r in ranks]}"
+        f" vs {one6['ms']:.1f} (one call, host clock); kernel 4 on the gathered blocks, "
+        f"launches per rank {[r['unet6']['launches'] for r in ranks]}; gloo through host "
+        f"memory, a (8, 512, 8, 8) fp32 activation: all-gather {coll['all_gather']:.3f} ms, "
+        f"all-reduce {coll['all_reduce']:.3f} ms")
+
+    # (c) the CLI runs, per rank, and each checkpoint served by one process
+    total = {}
+    for mode in ("tp", "sp"):
+        stats = [json.loads(ln.split(" ", 1)[1]) for ln in output.splitlines()
+                 if ln.startswith("train_stats ") and f'"spatial": {str(mode == "sp").lower()}'
+                 in ln]
+        if len(stats) != 1 or stats[0]["global_step"] != 2 or stats[0]["ranks"] != GRID_RANKS:
+            raise AssertionError(f"[27] CLI {mode}: train_stats {stats}")
+        for r in ranks:
+            c, steps = r[f"cli_{mode}"]["counts"], r[f"cli_{mode}"]["cadence_steps"]
+            want = {"exact_count_masks": 3, "exact_count_masks_sharded": 3,
+                    "fused_degrade_update": steps, "fused_degrade_update_sharded": steps}
+            if any(c[k] != n for k, n in want.items()) or not (
+                    c["group_norm_silu"] and c["group_norm_silu_backward"]):
+                raise AssertionError(f"[27] CLI {mode} rank {r['rank']}: launches {c}, "
+                                     f"expected {want}")
+            for k, n in c.items():
+                total[k] = total.get(k, 0) + n
+        (ckpt,) = stats[0]["checkpoints"]
+        _, common = grid_cli_args(workdir, mode)
+        common = [a if a != "cuda:0" else "cuda" for a in common]
+        rc, served, counts = _run_cli(["--method", "sample", "--test_model_path", ckpt,
+                                       "--dir_work", os.path.join(workdir, f"serve_{mode}"),
+                                       *common], "sample_stats")
+        n_serve = served["steps"] * served["batches"]
+        if rc != 0 or not (served["finite"] and served["ema"]) or (
+                served["images"] != GRID_SAMPLE_NUM or counts["fused_degrade_update"] != n_serve
+                or not same_through_sharded(counts)):
+            raise AssertionError(f"[27] serve the {mode} checkpoint: rc {rc}, {served}, {counts}")
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        log(f"[27c] CLI --mesh_model 2{' --mesh_spatial true' if mode == 'sp' else ''} on "
+            f"{GRID_RANKS} ranks: 1 epoch of 2 steps at batch 8 ({stats[0]['ms_per_step']:.3f} "
+            f"ms/step with warm-up), the cadence's {ranks[0][f'cli_{mode}']['cadence_steps']} "
+            f"reverse steps; launches per rank {[r[f'cli_{mode}']['counts'] for r in ranks]}; its "
+            f"checkpoint served by one process: {served['images']} images, "
+            f"{served['ms_per_step']:.3f} ms/step, launches {counts}")
+    log(f"[27] phase 27's ranks took {seconds:.1f} s")
     return total
 
 
@@ -4789,6 +5198,8 @@ def main() -> int:
         runs["unet6"] = timed_phase("[17] unet6 CLI", phase_unet6_cli, workdir)
         runs["ddp"] = timed_phase("[18] two ranks", phase_ddp, os.path.join(workdir, "ranks"),
                                   smi, flagship_perf)
+        runs["grid"] = timed_phase("[27] tensor and spatial parallelism", phase_grid,
+                                   os.path.join(workdir, "grid"), smi)
         runs["preempt"] = timed_phase("[21] preemption", phase_preempt, workdir, smi)
         runs["reference"], reference_seconds = timed_phase("[24] reference inputs",
                                                            phase_reference_inputs, workdir, smi)
@@ -4898,9 +5309,12 @@ def main() -> int:
 
 if __name__ == "__main__":
     # `--rank <dir>` is one rank of phase 18 under torch.distributed.run;
-    # `--counted <file> <CLI flags>` is phase 21's CLI subprocess
+    # `--counted <file> <CLI flags>` is phase 21's CLI subprocess; `--grid
+    # <dir>` one rank of phase 27
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--counted"]:
         sys.exit(counted_main(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--grid"]:
+        sys.exit(grid_rank_main(sys.argv[2]))
     sys.exit(main())

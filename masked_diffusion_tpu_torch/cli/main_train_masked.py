@@ -84,7 +84,24 @@ others load it, --batch_size is the global batch, and only rank 0 writes
 files and prints the stats lines. --mesh_data must equal WORLD_SIZE (-1:
 whatever it is). --multihost True is the same setup across nodes
 (torchrun --nnodes), and raises without torchrun's WORLD_SIZE.
---mesh_model > 1 and --mesh_spatial are refused.
+
+Tensor and spatial parallelism, a data x model grid of D x M ranks
+(parallel/tp.py, parallel/sp.py):
+
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \
+        -m masked_diffusion_tpu_torch.cli.main_train_masked \
+        --mesh_data 2 --mesh_model 2 [--mesh_spatial true] ...
+
+--mesh_model M channel-shards every parameter at least --tp_min_features
+wide (with its AdamW moments and EMA) over the M ranks of a model group;
+with --mesh_spatial true the state stays replicated and each UNet
+activation is split along image height over them. --mesh_data D x
+--mesh_model M must equal WORLD_SIZE (D = -1: WORLD_SIZE / M), and a bad
+topology (--mesh_model 2 in one process, --mesh_spatial with --mesh_model
+1, a height M does not divide) raises before any file is written. The
+backend rule is data parallelism's; rank 0 prints an `sp:` line of the
+levels it splits. Training, --method sample and --method test all run on
+the grid; checkpoints keep the one-process layout.
 """
 
 from __future__ import annotations
@@ -211,14 +228,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--tp_min_features", type=int, default=256,
         help="narrowest output-feature width that channel-shards over the "
-        "'model' axis when --mesh_model > 1 (parallel/tp.py)",
+        "model group's ranks when --mesh_model > 1 (parallel/tp.py)",
     )
     p.add_argument(
         "--mesh_spatial", type=str2bool, default=False,
-        help="shard activations along image height over the 'model' axis "
-        "(parallel/sp.py spatial partitioning, for images too large for one "
-        "chip's HBM) instead of channel-sharding params; needs "
-        "--mesh_model > 1",
+        help="split UNet activations along image height over the model "
+        "group's ranks (parallel/sp.py spatial partitioning, for images too "
+        "large for one card's memory) instead of channel-sharding params; "
+        "needs --mesh_model > 1",
     )
     p.add_argument("--multihost", type=str2bool, default=False)
     p.add_argument("--capture_trajectory", type=str2bool, default=False)
@@ -312,6 +329,10 @@ def _device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
 
+def _mesh(plan) -> dict:
+    return {"data": plan.data_size, "model": plan.model_size, "spatial": plan.spatial}
+
+
 def _resume_path(cfg: Config, dirs) -> Optional[str]:
     """The checkpoint --resume_from_checkpoint names: in --output_dir, or
     else in the run's checkpoint directory. None for 'latest' when there is
@@ -350,7 +371,7 @@ def _train(cfg: Config, plan, dirs, dataset, dataset_hist, visualizer) -> None:
             f"  Num examples = {len(dataset)}\n"
             f"  Num epochs = {cfg.num_epochs}\n"
             f"  Batch size per step = {cfg.batch_size} (x{plan.data_size} data-parallel "
-            f"ranks)\n"
+            f"ranks, x{plan.model_size} model ranks{' spatial' if plan.spatial else ''})\n"
             f"  Gradient accumulation = {cfg.gradient_accumulation_steps}\n"
             f"  Device = {_device_name(device)}",
             flush=True,
@@ -368,7 +389,8 @@ def _train(cfg: Config, plan, dirs, dataset, dataset_hist, visualizer) -> None:
         "ms_per_step": result["ms_per_step"],
         "images_per_sec": result["images_per_sec"],
         "device": _device_name(device),
-        "ranks": plan.data_size,
+        "ranks": plan.world_size,
+        "mesh": _mesh(plan),
         "checkpoints": result["checkpoints"],
         "preempted": result["preempted"],
     }), flush=True)
@@ -414,7 +436,8 @@ def _sample(cfg: Config, plan, dirs, dataset_hist) -> None:
     print("sample_stats " + json.dumps({
         "images": len(stats["images"]), "batches": stats["batches"],
         "steps": stats["steps"], "images_per_sec": stats["images_per_sec"],
-        "ms_per_step": stats["ms_per_step"], "device": name, "ranks": plan.data_size,
+        "ms_per_step": stats["ms_per_step"], "device": name, "ranks": plan.world_size,
+        "mesh": _mesh(plan),
         "ema": use_ema, "out_dir": out_dir,
         "finite": bool(np.isfinite(stats["images"]).all()),
     }), flush=True)
@@ -448,7 +471,7 @@ def _test(cfg: Config, plan, dirs, dataset, dataset_hist) -> None:
         "ms_per_step": 1e3 * result["sample_seconds"] / max(steps, 1),
         "images_per_sec": images / max(result["sample_seconds"], 1e-9),
         "steps": len(tester.timesteps_used_epoch), "sample_num": cfg.sample_num,
-        "device": _device_name(plan.device), "ranks": plan.data_size,
+        "device": _device_name(plan.device), "ranks": plan.world_size, "mesh": _mesh(plan),
         "ema": ema_sd is not None, "out_dir": dirs.list_dir["test_sample_img"],
     }), flush=True)
 
@@ -466,15 +489,18 @@ def main(argv=None) -> int:
     from masked_diffusion_tpu_torch.data.histogram import compute_mean_histogram, empty_histogram
     from masked_diffusion_tpu_torch.ops import build
     from masked_diffusion_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from masked_diffusion_tpu_torch.parallel.sp import validate_spatial
     from masked_diffusion_tpu_torch.utils import host
     from masked_diffusion_tpu_torch.utils.dirs import Dir
     from masked_diffusion_tpu_torch.utils.visualizer import Visualizer
 
     # WORLD_SIZE > 1: before the card is touched
     device = init_distributed(device, multihost=args.multihost)
-    plan = make_mesh(cfg.mesh_data, cfg.mesh_model, device)
+    plan = make_mesh(cfg.mesh_data, cfg.mesh_model, device, spatial=cfg.mesh_spatial)
+    if cfg.mesh_spatial:
+        validate_spatial(plan, cfg.data_size)
     main_process = host.is_main_process()
-    if plan.data_size > 1:
+    if plan.world_size > 1:
         if plan.device.type == "cuda":
             # rank 0 builds the kernel library; the others load what it built
             if main_process:

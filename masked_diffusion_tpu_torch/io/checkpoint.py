@@ -36,7 +36,11 @@ caller may then mutate the parameters in place) and writes, commits and
 prunes in a background thread. Every save first waits for the one before;
 `wait_for_async_saves` drains the last before the process exits.
 
-Only one process writes (the trainer calls this on rank 0).
+Only one process writes (the trainer calls this on rank 0), and always the
+one-process layout: under tensor parallelism the trainer gathers the
+sharded tensors over the model group first (parallel/tp.py:gather_state),
+and a restore cuts each rank's slices from these files (scatter_state), so
+a checkpoint of any mesh restores under any other.
 """
 
 from __future__ import annotations

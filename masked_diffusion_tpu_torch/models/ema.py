@@ -9,7 +9,9 @@ starts as a copy of the online parameters).
 
 The decay is a host float (the step counter lives on the host), so the
 update launches no transfer; the update itself is two in-place foreach
-kernels over the parameter lists, in the EMA's dtype (fp32).
+kernels over the parameter lists, in the EMA's dtype (fp32). Under tensor
+parallelism (parallel/tp.py) the EMA copy holds the same slices as the
+model, so the elementwise update runs on each rank's slices.
 """
 
 from __future__ import annotations

@@ -42,6 +42,13 @@ tinyhead_attention; io/weights.unet_config_meta leaves them out):
             skips); given that back as `cached`, conv_in, the down path and
             the middle are skipped and only the up path runs, with the
             current t's embedding
+
+Tensor and spatial parallelism convert a built UNet2D in place, swapping
+module classes for subclasses and keeping every parameter name:
+parallel/tp.py:shard_module (column-parallel Conv2d/Linear, GroupNormAct
+with its weight and bias gathered) and parallel/sp.py:split_module (halo
+convolutions, GroupNorm with all-reduced statistics, attention on the
+gathered block, conv_in and conv_out reading and gathering whole images).
 """
 
 from __future__ import annotations

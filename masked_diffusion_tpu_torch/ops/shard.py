@@ -15,6 +15,10 @@ duties become:
   * the global batch must divide the number of ranks, with the JAX
     harness's error message (parallel/mesh.py:local_rows).
 
+On a data x model grid (parallel/mesh.py) "the rank" is the DATA rank: the
+M ranks of a model group hold the same rows and draw the same masks, as the
+JAX harness's shard_map over 'data' replicates over 'model'.
+
 Used by ops/fused_degrade.py:fused_degrade_update_sharded and
 ops/kmask.py:exact_count_masks_sharded, each a per-rank launch of the
 single-device kernel (csrc/fused_degrade.cu, csrc/kmask.cu) on the folded
@@ -77,7 +81,7 @@ def data_parallel_kernel(fn, plan: MeshPlan, fold=fold_seed):
     rank of `plan`: `batch` is the global batch, which must divide the
     ranks; every arg (None passes through) holds this rank's batch // N
     rows; fn gets fold(key, rank), the key (a seed, or a generator with
-    fold_generator) folded with the rank."""
+    fold_generator) folded with the plan's data rank."""
 
     def call(batch: int, key, *args):
         rows = local_rows(batch, plan)
@@ -85,8 +89,8 @@ def data_parallel_kernel(fn, plan: MeshPlan, fold=fold_seed):
         for a in args:
             if a is not None and a.shape[0] != per:
                 raise ValueError(
-                    f"rank {plan.rank} of {plan.data_size}: an argument has {a.shape[0]} "
-                    f"rows, not this rank's {per} of the global batch {batch}")
-        return fn(fold(key, plan.rank), *args)
+                    f"data rank {plan.data_rank} of {plan.data_size}: an argument has "
+                    f"{a.shape[0]} rows, not this rank's {per} of the global batch {batch}")
+        return fn(fold(key, plan.data_rank), *args)
 
     return call

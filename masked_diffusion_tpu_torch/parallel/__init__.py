@@ -1,1 +1,1 @@
-"""Data parallelism on torch.distributed (counterpart of masked_diffusion_tpu/parallel)."""
+"""Data, tensor and spatial parallelism on torch.distributed (counterpart of masked_diffusion_tpu/parallel)."""

@@ -9,7 +9,11 @@ Data-parallel (a parallel/mesh.MeshPlan of N > 1 ranks, as JAX :54-66): the
 batch rounds up to a multiple of N; every rank draws the same global latents
 from the shared generator, samples its rows, and `fetch` (collective)
 gathers the batch on every rank; only rank 0 writes files. Throughput is
-global images per second.
+global images per second. With a model axis (--mesh_model M, as JAX
+:62-82) the sampler places the model first (parallel/mesh.py:place_model:
+channel-sharded, or split over image height under --mesh_spatial) and the
+M ranks of a model group sample the same rows, gathered over the data
+group.
 """
 
 from __future__ import annotations
@@ -67,7 +71,7 @@ def generate_images(
             gen, batch, cfg.out_channel, cfg.data_size, cfg.sample_latent_shape,
             cfg.mean_area, dataset_hist, device=device,
         )
-        chunks.append(host.fetch(sample_fn(latent[rows], gen)))  # the copy syncs
+        chunks.append(host.fetch(sample_fn(latent[rows], gen), plan.data_group))  # syncs
         if t_first is None:
             t_first = time.perf_counter() - t0
     elapsed = time.perf_counter() - t0

@@ -42,7 +42,7 @@ from masked_diffusion_tpu_torch.config import validate_sampling_modes
 from masked_diffusion_tpu_torch.ops import degrade as degrade_ops
 from masked_diffusion_tpu_torch.ops import shift as shift_ops
 from masked_diffusion_tpu_torch.ops.schedule import MaskSchedule
-from masked_diffusion_tpu_torch.parallel.mesh import MeshPlan, local_rows, round_up
+from masked_diffusion_tpu_torch.parallel.mesh import MeshPlan, local_rows, place_model, round_up
 from masked_diffusion_tpu_torch.sample.latent import latent_initial_interpolation
 from masked_diffusion_tpu_torch.sample.loop import StepDraws
 from masked_diffusion_tpu_torch.utils import host
@@ -87,6 +87,7 @@ def make_interpolation_sample_fn(
     plan = plan or MeshPlan(device=device)
     rule = cfg.momentum_adaptive
     compute_dtype = torch.bfloat16 if cfg.weight_dtype == "bfloat16" else torch.float32
+    model = place_model(model.to(device), plan, cfg.tp_min_features)
     model = model.to(device=device, dtype=compute_dtype).eval()
     shift_c = float(interpolation_shift)
 
@@ -155,6 +156,6 @@ def make_interpolation_sample_fn(
                 if i > 0:  # the reference updates state only when i > 0 (sampler.py:316)
                     sample_t, mask_prev = new_sample_t, mask_next
             result = sample_0.permute(0, 2, 3, 1)
-        return host.gather(result)[:num].to(device), mu[:num]
+        return host.gather(result, plan.data_group)[:num].to(device), mu[:num]
 
     return sample

@@ -71,6 +71,15 @@ k rows of rank 0, the global batch's first k, when k is at most the rows a
 rank; otherwise every rank's rows are gathered (collective). The means are
 the mean over the ranks (utils/host.mean_over_ranks, collective).
 
+Tensor and spatial parallelism (a plan with model_size M > 1): the model is
+placed on the model axis first (parallel/mesh.py:place_model, a no-op for a
+model placed already). "The rank" above is the data rank: the M ranks of a
+model group hold the same rows, draw the same masks and shifts, and gather
+over the data group. Under SP the UNet splits each call's input over image
+height and gathers its output (parallel/sp.py), on both branches and on the
+encoder cache (its skips stay split); every carry, mask and captured
+trajectory stays whole on each rank.
+
 `draws=` is the one injection point: a callable step -> StepDraws giving a
 step's mask draws for t and t-1 and its shift draws, so the tests and the
 smoke check can feed both sides the same random numbers.
@@ -90,7 +99,7 @@ from masked_diffusion_tpu_torch.ops import shift as shift_ops
 from masked_diffusion_tpu_torch.ops.fused_degrade import fused_degrade_update_sharded
 from masked_diffusion_tpu_torch.ops.schedule import MaskSchedule
 from masked_diffusion_tpu_torch.ops.shard import fold_seed
-from masked_diffusion_tpu_torch.parallel.mesh import MeshPlan
+from masked_diffusion_tpu_torch.parallel.mesh import MeshPlan, place_model
 from masked_diffusion_tpu_torch.utils import host
 
 #: The captured fields, in the JAX package's order (loop.py:41).
@@ -185,6 +194,7 @@ def make_sample_fn(
     plan = plan or MeshPlan(device=device)
     fused = fused_mode(cfg, capture_trajectory)
     compute_dtype = torch.bfloat16 if cfg.weight_dtype == "bfloat16" else torch.float32
+    model = place_model(model.to(device), plan, cfg.tp_min_features)
     model = model.to(device=device, dtype=compute_dtype).eval()
     dependency, rule = cfg.sampling_mask_dependency, cfg.momentum_adaptive
     select = cfg.select_degrade_pixel
@@ -207,14 +217,15 @@ def make_sample_fn(
         if generator is None:
             generator = torch.Generator().manual_seed(int(cfg.seed))
         seeds = torch.randint(0, 2**62, (2,), generator=generator).tolist()
-        shift_gen = torch.Generator(device=device).manual_seed(fold_seed(seeds[1], plan.rank))
+        shift_gen = torch.Generator(device=device).manual_seed(
+            fold_seed(seeds[1], plan.data_rank))
         # the plain branch's masks: the exact-k kernel's Philox seeds (CPU
         # draws), and the thresholding field's generator on the device
         mask_gen = torch.Generator().manual_seed(seeds[0])
         field_gen = None
         if fused is None and select == "thresholding" and draws is None:
             field_gen = torch.Generator(device=device).manual_seed(
-                fold_seed(seeds[0], plan.rank))
+                fold_seed(seeds[0], plan.data_rank))
 
         sample_t = latent.to(device=device, dtype=torch.float32).permute(0, 3, 1, 2).contiguous()
         b, c, h, w = sample_t.shape
@@ -333,9 +344,9 @@ def make_sample_fn(
             if not capture_trajectory:
                 return result
             if k > k_local:  # rank 0's rows are not all of the first k: gather
-                traj = {name: host.gather(buf.transpose(0, 1))[:k].transpose(0, 1).to(device)
-                        for name, buf in traj.items()}
-            means = host.mean_over_ranks(means)
+                traj = {name: host.gather(buf.transpose(0, 1), plan.data_group)[:k]
+                        .transpose(0, 1).to(device) for name, buf in traj.items()}
+            means = host.mean_over_ranks(means, plan.data_group)
             traj["means"] = dict(zip(TRAJECTORY_MEANS, means))
         return result, traj
 

@@ -21,7 +21,11 @@ round's batch is sampled on every rank's rows and gathered to every rank
 (utils/host.fetch, collective), so every rank dedups the same images; the
 stop test is agreed across the ranks each round (utils/host.any_flag), so
 every rank leaves the loop in the same round and none waits in a gather;
-only rank 0 writes files.
+only rank 0 writes files. With a model axis (--mesh_model M, as JAX
+:129-143) the sampler places the model (parallel/mesh.py:place_model:
+channel-sharded, or split over image height under --mesh_spatial), the M
+ranks of a model group sample the same rows, and the fetch gathers over the
+data group.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import torch.nn.functional as F
 from masked_diffusion_tpu_torch.config import Config
 from masked_diffusion_tpu_torch.data.datasets import InMemoryDataset
 from masked_diffusion_tpu_torch.ops.schedule import MaskSchedule, build_schedule
+from masked_diffusion_tpu_torch.parallel import tp
 from masked_diffusion_tpu_torch.parallel.mesh import MeshPlan, local_rows, round_up
 from masked_diffusion_tpu_torch.sample.latent import latent_initial
 from masked_diffusion_tpu_torch.sample.loop import make_sample_fn
@@ -164,7 +169,8 @@ class Tester:
         self.plan = plan or MeshPlan(device=self.device)
         if ema_state_dict is not None:
             model = copy.deepcopy(model)
-            model.load_state_dict(ema_state_dict, strict=True)
+            # a model placed under TP already holds its slices
+            model.load_state_dict(tp.scatter_state(ema_state_dict, model, self.plan), strict=True)
         self.model = model
         self.schedule = schedule or build_schedule(
             cfg.ddpm_schedule, cfg.ddpm_num_steps, cfg.data_size,
@@ -192,7 +198,7 @@ class Tester:
             cfg.sample_latent_shape, cfg.mean_area, self.dataset_hist, device=self.device,
         )
         out = self._sample_fn(latent[local_rows(padded, self.plan)], generator)
-        return host.fetch(out)[:num]
+        return host.fetch(out, self.plan.data_group)[:num]
 
     def run(self, dirs=None, max_rounds: int = 1000,
             generator: Optional[torch.Generator] = None) -> dict:

@@ -26,7 +26,8 @@ reference's get_optimizer / get_lr_scheduler (main_train_masked.py:134-165):
     evaluates it, so it advances once per update.
 
 The LR and every count are host numbers: a step makes no host-device
-transfer.
+transfer. Under tensor parallelism the clip's norm is the whole logical
+gradient's (Optimizer.set_tensor_parallel), so it scales as in one process.
 
 `Optimizer.state_dict` is what a checkpoint keeps of it (optax keeps the
 same in MultiSteps' opt_state): the base optimizer's per-parameter state
@@ -81,10 +82,23 @@ def build_lr_schedule(
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         sharded: Optional[Sequence[bool]] = None, group=None) -> torch.Tensor:
     """Scale grads in place by min(1, max_norm/||g||) (optax's rule: kept
-    as they are below the norm). Returns the global norm (a device scalar)."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    as they are below the norm). Returns the global norm (a device scalar).
+    Under tensor parallelism (parallel/tp.py) `sharded` marks the gradients
+    that are this rank's slices: their squared norms are summed over the
+    model `group` (collective), the replicated ones count once, so the norm
+    is the whole logical gradient's."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if sharded is None or not any(sharded):
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        from masked_diffusion_tpu_torch.parallel.mesh import all_reduce_sum
+
+        mask = torch.tensor(list(sharded), device=norms.device)
+        sq = norms.square()
+        norm = (sq[~mask].sum() + all_reduce_sum(sq[mask].sum(), group)).sqrt()
     scale = torch.clamp(max_norm / norm, max=1.0)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -111,6 +125,9 @@ class Optimizer:
         names: Optional[Sequence[str]] = None,
     ):
         self.params = list(params)
+        # tensor parallelism (set_tensor_parallel): which gradients are slices
+        self.sharded: Optional[List[bool]] = None
+        self.model_group = None
         self.names = list(names) if names is not None else None
         if self.names is not None and len(self.names) != len(self.params):
             raise ValueError(f"{len(self.names)} names for {len(self.params)} parameters")
@@ -120,6 +137,36 @@ class Optimizer:
         self.every_k = max(1, int(gradient_accumulation_steps))
         self.count = 0
         self.mini_step = 0
+
+    def set_tensor_parallel(self, sharded_names: Sequence[str], model_group) -> None:
+        """The updates of a model that parallel/tp.py:shard_module converted:
+        `sharded_names` are its sharded parameters (needs names=),
+        `model_group` the plan's. The clip then takes the whole logical
+        gradient's norm, and the replicated parameters' gradients are
+        averaged over the model group first: every rank computes them from
+        the same values, but a card's nondeterministic backward kernels (cuDNN
+        weight gradients) may round them apart, and replicated parameters
+        must stay equal on every rank of the group."""
+        if self.names is None:
+            raise ValueError("set_tensor_parallel needs the parameter names (names=)")
+        names = set(sharded_names)
+        self.sharded = [n in names for n in self.names]
+        self.model_group = model_group
+
+    def _average_replicated(self, grads: List[torch.Tensor]) -> None:
+        """grads of the replicated parameters, in place: their mean over the
+        model group, in one all-reduce of them packed flat (collective)."""
+        import torch.distributed as dist
+
+        from masked_diffusion_tpu_torch.parallel.mesh import all_reduce_sum
+
+        repl = [g for g, s in zip(grads, self.sharded) if not s]
+        if not repl:
+            return
+        flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in repl]), self.model_group)
+        flat /= dist.get_world_size(self.model_group)
+        for g, part in zip(repl, flat.split([g.numel() for g in repl])):
+            g.copy_(part.view_as(g))
 
     def zero_grad(self) -> None:
         """Clear .grad where an accumulation window starts (on every call
@@ -138,8 +185,10 @@ class Optimizer:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         if self.every_k > 1:
             torch._foreach_div_(grads, float(self.every_k))
+        if self.sharded is not None:
+            self._average_replicated(grads)
         if self.grad_clip_norm is not None:
-            clip_by_global_norm_(grads, self.grad_clip_norm)
+            clip_by_global_norm_(grads, self.grad_clip_norm, self.sharded, self.model_group)
         for p, g in zip(self.params, grads):
             p.grad = g
         lr = self.schedule(self.count)

@@ -32,6 +32,20 @@ no_sync on every micro step but the window's last), so the clip at 1.0 and
 the update see the global batch's gradient and every rank makes the same
 update; the EMA follows the unwrapped module. Masks go through the sharded kernel form (ops/degrade.py), and
 the caller's generator is the rank's own (train/trainer.py folds its seed).
+
+Tensor and spatial parallelism (a plan with model_size M > 1; the model
+placed by parallel/mesh.py:place_model before the optimizer is built): the
+M ranks of a model group take the same rows and draws (the data rank's).
+Under TP, DDP wraps the model over the data group only (a sharded
+gradient is the rank's slice and may not be averaged across the model
+group), and the optimizer averages the replicated gradients over the model
+group and takes the clip's norm over the whole logical gradient
+(train/optim.py:Optimizer.set_tensor_parallel). Under SP (plan.spatial) the UNet
+splits its input and gathers its output itself (parallel/sp.py), so the
+degrade, shift and loss run on whole images on every rank; DDP wraps the
+model over all D x M ranks, each rank's gradient is its rows' share, and
+the loss is scaled by M before the backward so that DDP's average over D x M
+ranks is the mean over the D data ranks.
 """
 
 from __future__ import annotations
@@ -84,17 +98,21 @@ class TrainState:
 
 def create_train_state(model: torch.nn.Module, optimizer: Optimizer,
                        use_ema: bool = True, plan=None) -> TrainState:
-    """The state of a fresh run. With a plan of more than one rank the model
-    (already on the rank's device) is wrapped in DistributedDataParallel,
-    which gives every rank rank 0's parameters, before the EMA copy."""
+    """The state of a fresh run. With a plan of more than one data rank, or
+    spatial partitioning, the model (already on the rank's device, and
+    placed on the plan's model axis) is wrapped in DistributedDataParallel,
+    which gives every rank of its group that group's first rank's
+    parameters, before the EMA copy (sharded like the model under TP)."""
     ddp = None
-    if plan is not None and plan.data_size > 1:
+    spatial = plan is not None and plan.model_size > 1 and plan.spatial
+    if plan is not None and (plan.data_size > 1 or spatial):
         from torch.nn.parallel import DistributedDataParallel
 
         dev = next(model.parameters()).device
+        # SP: every rank (the default group); DP and TP: the data group
         ddp = DistributedDataParallel(
             model, device_ids=[dev] if dev.type == "cuda" else None,
-            find_unused_parameters=False)
+            find_unused_parameters=False, process_group=None if spatial else plan.data_group)
     ema = None
     if use_ema:
         ema = copy.deepcopy(model).requires_grad_(False)
@@ -122,6 +140,8 @@ def make_train_step(
     copy, move to `device` (in place)."""
     device = torch.device(device)
     ranks = plan.data_size if plan is not None else 1
+    # SP: each rank's gradient is its rows' share; DDP averages D x M of them
+    loss_scale = plan.model_size if plan is not None and plan.spatial else 1
     model.to(device)
     prepare = _make_prepare(schedule, cfg, used_timesteps, device, plan)
     weight_table = (
@@ -162,7 +182,7 @@ def make_train_step(
                 # indexed by timeindex, the reference's quirk (step.py:169)
                 per_px = weight_table[timeindex][:, None, None, None] * per_px
             loss = per_px.mean()
-            loss.backward()
+            (loss * loss_scale).backward()
         opt.update()
 
         # --- EMA, only on sync boundaries (trainer_masked.py:151-153)

@@ -77,10 +77,25 @@ step loop only (utils/profiling.trace), each step inside a
 and checkpoint writes stay outside. Every rank writes its own
 trace_rank{r}.json. The returned rates leave the traced epoch out.
 
-Not ported yet, and refused at construction when a flag asks for them:
-tensor and spatial parallelism and --epoch_scan true (the TPU's whole-epoch
-lax.scan; its CUDA counterpart would be a graphed step); so are the
-sampling modes the cadence's samplers refuse (sample/loop.py:validate_modes,
+Tensor and spatial parallelism (a plan with model_size M > 1, the JAX
+trainer's _place_state and _batch_sharding): the model is placed on the
+model axis at construction (parallel/mesh.py:place_model: channel-sharded,
+or split over image height with --mesh_spatial, which validate_spatial
+checks first), before the optimizer is built, so AdamW's moments and the
+EMA copy follow it. The M ranks of a model group train on the same rows
+with the same draws (the data rank's), and the cadence samples them alike.
+Checkpoints hold the one-process layout: the sharded tensors are gathered
+over the model group before rank 0 writes (parallel/tp.py:gather_state, a
+collective every rank makes, async saves too), and a restore cuts each
+rank's slices from the files (scatter_state), so a checkpoint of any mesh
+restores under any other. Inside an accumulation window the gradient sums
+are stacked by data rank, as under data parallelism (under SP each rank's
+share is summed over its model group first).
+
+Not ported yet, and refused at construction when a flag asks for it:
+--epoch_scan true (the TPU's whole-epoch lax.scan; its CUDA counterpart
+would be a graphed step); so are the sampling modes the cadence's samplers
+refuse (sample/loop.py:validate_modes,
 sample/interpolation.py:validate_interpolation_modes).
 """
 
@@ -88,6 +103,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import os
 import signal
 import statistics
@@ -105,7 +121,15 @@ from masked_diffusion_tpu_torch.io.weights import diffusers_config_from_unet, un
 from masked_diffusion_tpu_torch.models.factory import build_model_from_config
 from masked_diffusion_tpu_torch.ops.schedule import MaskSchedule, build_schedule
 from masked_diffusion_tpu_torch.ops.shard import fold_seed, step_seed
-from masked_diffusion_tpu_torch.parallel.mesh import MeshPlan, local_rows, round_up
+from masked_diffusion_tpu_torch.parallel import tp
+from masked_diffusion_tpu_torch.parallel.mesh import (
+    MeshPlan,
+    all_reduce_sum,
+    local_rows,
+    place_model,
+    round_up,
+)
+from masked_diffusion_tpu_torch.parallel.sp import validate_spatial
 from masked_diffusion_tpu_torch.sample.interpolation import (
     make_interpolation_sample_fn,
     validate_interpolation_modes,
@@ -131,9 +155,6 @@ __all__ = ["Trainer", "build_model_from_config", "unported_options"]
 def unported_options(cfg: Config) -> List[str]:
     """The flags of cfg that ask for something the port has not yet."""
     asked = []
-    if cfg.mesh_model != 1 or cfg.mesh_spatial:
-        asked.append("--mesh_model/--mesh_spatial (tensor/spatial parallelism over "
-                     "multi-GPU)")
     if cfg.epoch_scan:
         asked.append("--epoch_scan")
     return asked
@@ -190,6 +211,9 @@ class Trainer:
         self.visualizer = visualizer
         self.device = torch.device(device)
         self.plan = plan or MeshPlan(device=self.device)
+        if cfg.mesh_spatial:
+            validate_spatial(self.plan, cfg.data_size)
+            self.plan = dataclasses.replace(self.plan, spatial=True)
         local_rows(cfg.batch_size, self.plan)  # the global batch divides the ranks
         self.schedule = schedule or build_schedule(
             cfg.ddpm_schedule, cfg.ddpm_num_steps, cfg.data_size,
@@ -199,7 +223,7 @@ class Trainer:
         if model is None:
             torch.manual_seed(cfg.seed)
             model = build_model_from_config(cfg)
-        self.model = model.to(self.device)
+        self.model = place_model(model.to(self.device), self.plan, cfg.tp_min_features)
         self._ckpt_meta = _ckpt_meta(self.model, cfg)
 
         steps_per_epoch = dataset.num_batches(cfg.batch_size)
@@ -212,6 +236,8 @@ class Trainer:
         names, params = zip(*self.model.named_parameters())
         optimizer = build_optimizer(cfg.optim, params, self.lr_schedule, 1.0,
                                     cfg.gradient_accumulation_steps, names=names)
+        if getattr(self.model, "tp_sharded", ()):
+            optimizer.set_tensor_parallel(self.model.tp_sharded, self.plan.model_group)
         self.state = create_train_state(self.model, optimizer, use_ema=cfg.use_ema,
                                         plan=self.plan)
         self._step_cache: Dict[tuple, callable] = {}
@@ -249,15 +275,21 @@ class Trainer:
             if ranks != self.plan.data_size:
                 raise ValueError(
                     f"checkpoint {path} was taken inside an accumulation window on {ranks} "
-                    f"rank(s); its gradient sums resume only on as many, not "
+                    f"data rank(s); its gradient sums resume only on as many, not "
                     f"{self.plan.data_size}")
-            if ranks > 1:  # every rank's own sum, stacked by rank
-                tensors = {k: v[self.plan.rank] if k.endswith(".grad") else v
+            if ranks > 1:  # every data rank's own sum, stacked by data rank
+                tensors = {k: v[self.plan.data_rank] if k.endswith(".grad") else v
                            for k, v in tensors.items()}
-        self.model.load_state_dict(model_sd)
+            if self.plan.spatial:  # the model group's first rank carries the sum
+                m = self.plan.model_size
+                tensors = {k: (v * m if self.plan.model_rank == 0 else torch.zeros_like(v))
+                           if k.endswith(".grad") else v for k, v in tensors.items()}
+        self.model.load_state_dict(tp.scatter_state(model_sd, self.model, self.plan))
         if self.state.ema_model is not None:
-            self.state.ema_model.load_state_dict(ema_sd)
-        self.state.optimizer.load_state_dict(tensors, scalars)
+            self.state.ema_model.load_state_dict(
+                tp.scatter_state(ema_sd, self.model, self.plan))
+        self.state.optimizer.load_state_dict(
+            tp.scatter_state(tensors, self.model, self.plan), scalars)
         global_step = int(meta.get("global_step", 0))
         self.state.step = global_step
         self.global_step = global_step
@@ -287,7 +319,7 @@ class Trainer:
     def _step_generator(self, epoch: int, index: int) -> torch.Generator:
         """The CPU generator of draw stream `index` of `epoch` on this rank."""
         seed = step_seed(self.cfg.seed, epoch, index)
-        return torch.Generator().manual_seed(fold_seed(seed, self.plan.rank))
+        return torch.Generator().manual_seed(fold_seed(seed, self.plan.data_rank))
 
     def train(self, epoch_start: int = 0, epoch_length: Optional[int] = None,
               resume_step: int = 0, global_step: Optional[int] = None, dirs=None,
@@ -336,7 +368,7 @@ class Trainer:
         # one process acts on SIGTERM after the step in flight; ranks only at
         # an epoch's end, once they agree (acting alone would desynchronize
         # their collectives)
-        single = self.plan.data_size <= 1
+        single = self.plan.world_size <= 1
         # the first epoch after epoch_start's compiles (trainer.py:421)
         profile_epoch = epoch_start + 1 if epoch_length > 1 else epoch_start
         if self._data_dev is None:
@@ -487,15 +519,22 @@ class Trainer:
         return {"loss_mean_epoch": self.loss_mean_epoch, "lr_list": self.lr_list, **extra}
 
     def _optimizer_state(self):
-        """The optimizer's state for a checkpoint. Inside an accumulation
-        window under DDP each rank's gradient sum is its own (no_sync): they
-        are stacked by rank (collective), so that every rank resumes its
-        own."""
+        """The optimizer's state for a checkpoint, in the one-process layout
+        (TP's slices gathered; collective). Inside an accumulation window
+        under DDP each data rank's gradient sum is its own (no_sync): they
+        are stacked by data rank (collective), so that every rank resumes
+        its own; under SP a data rank's sum is its model group's shares
+        summed (each scaled by the loss's M)."""
+        plan = self.plan
         tensors, scalars = self.state.optimizer.state_dict()
-        if scalars["mini_step"] > 0 and self.plan.data_size > 1:
-            tensors = {k: host.gather(v[None]) if k.endswith(".grad") else v
+        tensors = tp.gather_state(tensors, self.model, plan)
+        if scalars["mini_step"] > 0 and plan.spatial:
+            tensors = {k: all_reduce_sum(v, plan.model_group) / plan.model_size
+                       if k.endswith(".grad") else v for k, v in tensors.items()}
+        if scalars["mini_step"] > 0 and plan.data_size > 1:
+            tensors = {k: host.gather(v[None], plan.data_group) if k.endswith(".grad") else v
                        for k, v in tensors.items()}
-            scalars["grad_ranks"] = self.plan.data_size
+            scalars["grad_ranks"] = plan.data_size
         return tensors, scalars
 
     def _save_checkpoint(self, dirs, epoch: int, extra_meta: Optional[dict] = None,
@@ -513,12 +552,15 @@ class Trainer:
             ema_config = {**config, "optimization_step": int(self.global_step),
                           **self._ckpt_meta.get("ema", {})}
         optimizer_state = self._optimizer_state()
+        # the one-process layout: TP's slices gathered on every rank (collective)
+        model_sd = tp.gather_state(self.model.state_dict(), self.model, self.plan)
+        ema_sd = (tp.gather_state(ema.state_dict(), self.model, self.plan)
+                  if ema is not None else None)
         checkpoint_dir = dirs.list_dir["checkpoint"]
         host.barrier()
         if host.is_main_process():
             ckpt_io.save_checkpoint(
-                checkpoint_dir, epoch, self.global_step, self.model.state_dict(),
-                ema.state_dict() if ema is not None else None, optimizer_state,
+                checkpoint_dir, epoch, self.global_step, model_sd, ema_sd, optimizer_state,
                 extra_meta={**self._ckpt_meta, **(extra_meta or {})}, history=history,
                 keep_last=keep_last, async_save=async_save, config=config,
                 ema_config=ema_config,
@@ -577,7 +619,7 @@ class Trainer:
         if self._last_batch is None:
             return
         out = self._get_visuals_fn(used)(self._last_batch, generator)
-        out = {name: host.fetch(tensor) for name, tensor in out.items()}
+        out = {name: host.fetch(tensor, self.plan.data_group) for name, tensor in out.items()}
         if not host.is_main_process():
             return
         display = {}
@@ -622,8 +664,8 @@ class Trainer:
         )
         out = sample_fn(latent[local_rows(padded, self.plan)], generator)
         if capture:
-            return host.fetch(out[0])[:num], out[1]
-        return host.fetch(out)[:num]
+            return host.fetch(out[0], self.plan.data_group)[:num], out[1]
+        return host.fetch(out, self.plan.data_group)[:num]
 
     @staticmethod
     def _fetch_trajectory(trajectory: dict, n_items: int = 4) -> dict:

@@ -13,6 +13,12 @@ artifact write behind `accelerator.is_main_process`
   * the run timestamp is rank 0's clock, broadcast (`synced_timestamp`), so
     every rank agrees on the result-tree path.
 
+On a data x model grid (parallel/mesh.py) "rank 0" is the global rank 0,
+and `gather`, `fetch` and `mean_over_ranks` take the plan's data group
+(`group=plan.data_group`): the M ranks of a model group hold the same rows,
+so the global batch is one rank of each model group, concatenated in data
+rank order.
+
 Without a process group every function is its single-process self.
 """
 
@@ -55,14 +61,18 @@ def _comm_device() -> torch.device:
     return torch.device("cpu")
 
 
-def mean_over_ranks(x: torch.Tensor) -> torch.Tensor:
-    """The elementwise mean of x over the ranks, on x's device (collective
-    when multi-process)."""
-    n = process_count()
+def _group_size(group) -> int:
+    return dist.get_world_size(group) if _live() else 1
+
+
+def mean_over_ranks(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise mean of x over the ranks of `group` (None: every
+    rank), on x's device (collective when multi-process)."""
+    n = _group_size(group)
     if n <= 1:
         return x
     y = x.detach().to(_comm_device(), copy=True)
-    dist.all_reduce(y)  # SUM: gloo has no AVG
+    dist.all_reduce(y, group=group)  # SUM: gloo has no AVG
     return (y / n).to(x.device)
 
 
@@ -77,19 +87,19 @@ def any_flag(local: bool) -> bool:
     return bool(flag.item())
 
 
-def gather(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's rows of a batch-major tensor, concatenated in rank order,
-    on every rank: x itself for one process, else on the collectives' device
-    (the CPU under gloo). Shards may differ in length: each is padded to the
-    longest for one all_gather of equal tensors, then trimmed. COLLECTIVE
-    when multi-process."""
-    if process_count() <= 1:
+def gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's rows of a batch-major tensor, concatenated in the order
+    of the ranks of `group` (None: every rank), on every rank: x itself for
+    one rank, else on the collectives' device (the CPU under gloo). Shards
+    may differ in length: each is padded to the longest for one all_gather
+    of equal tensors, then trimmed. COLLECTIVE over the group."""
+    n = _group_size(group)
+    if n <= 1:
         return x
     dev = _comm_device()
-    n = process_count()
     rows = torch.tensor([x.shape[0]], dtype=torch.int64, device=dev)
     sizes = [torch.empty_like(rows) for _ in range(n)]
-    dist.all_gather(sizes, rows)
+    dist.all_gather(sizes, rows, group=group)
     sizes = [int(s.item()) for s in sizes]
     longest = max(sizes)
     local = x.detach().to(dev).contiguous()
@@ -97,13 +107,13 @@ def gather(x: torch.Tensor) -> torch.Tensor:
         pad = local.new_zeros((longest - local.shape[0],) + tuple(local.shape[1:]))
         local = torch.cat([local, pad])
     parts = [torch.empty_like(local) for _ in range(n)]
-    dist.all_gather(parts, local)
+    dist.all_gather(parts, local, group=group)
     return torch.cat([p[:s] for p, s in zip(parts, sizes)])
 
 
-def fetch(x: torch.Tensor) -> np.ndarray:
-    """gather(x) as numpy on every rank. COLLECTIVE when multi-process."""
-    return gather(x).detach().cpu().numpy()
+def fetch(x: torch.Tensor, group=None) -> np.ndarray:
+    """gather(x, group) as numpy on every rank. COLLECTIVE over the group."""
+    return gather(x, group).detach().cpu().numpy()
 
 
 def synced_timestamp() -> Tuple[str, str]:

@@ -242,8 +242,8 @@ def test_make_mesh_without_a_process_group():
     assert tmesh.make_mesh(1, 1, CPU).data_size == 1
     with pytest.raises(ValueError, match="--mesh_data 2 but WORLD_SIZE is 1"):
         tmesh.make_mesh(2, 1, CPU)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tmesh.make_mesh(-1, 2, CPU)
+    with pytest.raises(ValueError, match="--mesh_model 2 .* WORLD_SIZE is 1"):
+        tmesh.make_mesh(-1, 2, CPU)  # tensor parallelism needs a group of ranks
     assert tmesh.init_distributed("cpu") == CPU  # WORLD_SIZE unset
     # --multihost is torchrun across nodes: one process without it is refused
     with pytest.raises(RuntimeError, match="--multihost True but WORLD_SIZE is 1.*--nnodes"):

@@ -425,21 +425,27 @@ def test_cli_trains_with_interpolation_shift_and_renders_the_sweep(tmp_path, cap
 @pytest.mark.parametrize("extra,match", [
     (["--remat", "true"], "--remat"),
     (["--attention_chunk", "16"], "--attention_chunk"),
-    (["--mesh_model", "2"], "multi-GPU"),
+    (["--mesh_model", "2"], "WORLD_SIZE is 1"),
     (["--epoch_scan", "true"], "--epoch_scan"),
     (["--tinyhead_attention", "false"], "--tinyhead_attention false"),
 ])
 def test_unported_flags_raise_at_construction(tmp_path, capsys, extra, match):
-    """The flags the port refused. Tensor/spatial parallelism and
-    --epoch_scan true still raise before any file is written. The three
-    model switches now train through the CLI: --remat, --attention_chunk 16
-    (a quarter of the toy model's S = 64) and --tinyhead_attention false,
-    the last with --encoder_reuse 2 on the cadence's sampler; each writes a
-    checkpoint whose meta.json has no switch, served by --method sample
-    without the switch."""
-    if match in ("multi-GPU", "--epoch_scan"):
-        with pytest.raises(NotImplementedError, match=match):
+    """The flags the port refused. --epoch_scan true still raises
+    NotImplementedError before any file is written. Tensor parallelism is
+    ported: --mesh_model 2 in one process (no process group of 2 ranks)
+    raises the ValueError that names WORLD_SIZE, before any file is
+    written (tests/test_torch_port_parallel.py runs it on 4 ranks). The
+    three model switches now train through the CLI: --remat,
+    --attention_chunk 16 (a quarter of the toy model's S = 64) and
+    --tinyhead_attention false, the last with --encoder_reuse 2 on the
+    cadence's sampler; each writes a checkpoint whose meta.json has no
+    switch, served by --method sample without the switch."""
+    if match in ("WORLD_SIZE is 1", "--epoch_scan"):
+        error = ValueError if match == "WORLD_SIZE is 1" else NotImplementedError
+        with pytest.raises(error, match=match):
             port_cli.main(_train_args(tmp_path, "cpu", *extra))
+        if match == "WORLD_SIZE is 1":
+            assert not any(tmp_path.iterdir())  # refused before the run tree exists
         assert not glob.glob(str(tmp_path / "**" / "metrics.jsonl"), recursive=True)
         assert not glob.glob(str(tmp_path / "**" / "checkpoint-epoch-*"), recursive=True)
         return
