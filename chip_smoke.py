@@ -202,12 +202,34 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      c.phase_grid(tempfile.mkdtemp(dir='build'), smi)"` (needs `mkdir -p
      build`)
 
+ 28. --epoch_scan true, the train step as CUDA graphs replayed once a
+     batch (train/step.py:make_train_epoch), at the flagship's width: (f)
+     first, before any capture, the GroupNorm backward on two streams at
+     once, each launch bitwise the same launch alone and near its plain
+     version; under deterministic(): (a) one epoch of 8 steps at batch 64
+     eagerly and graphed from the same state, log + indexing and linear +
+     thresholding, step losses, params, EMA and AdamW state bitwise equal,
+     the replays' kmask launches (probed into device buffers) the eager
+     run's, new each step, exactly k an image; (b) accumulation 2 likewise,
+     then 4 curricula of 2 steps, each recaptured, peak and reserved memory
+     flat; (c) CelebA-HQ 4 steps with the tiny-head kernels in the graph,
+     bitwise; (d) a graphed run SIGTERM'd at step 6, restored, resumed
+     mid-epoch: bitwise the uninterrupted one; (e) the CLI with
+     --epoch_scan true, 2 epochs, then served; (g) a torch.profiler window
+     of 4 eager and 4 replayed steps: host calls a step by name (one
+     cudaGraphLaunch), ms a step and idle share, capture seconds and the
+     graph pool's bytes. Alone (~2.5 min with the build): `python3 -c
+     "import tempfile, chip_smoke as c; smi = c.phase_env(); d =
+     tempfile.mkdtemp(dir='build'); c.phase_graphed_epoch(d, smi)"` (needs
+     `mkdir -p build`)
+
 Phases 11 and 12 run first (the newest kernels fail fast), phases 19,
 22a and 23a after the slice phases; phases 26, 5, 10, 20, 22b, 22c, 23b,
-16, 17, 18, 27, 21 and 24, the main-path runs, come last, in one work
+16, 17, 18, 27, 21, 24 and 28, the main-path runs, come last, in one work
 directory. The
 kernels' `launches` are counted over those runs (phases 18's and 27's summed
-over their ranks, phase 21's over its five),
+over their ranks, phase 21's over its five, phase 28's with each graph
+replay adding what its capture launched),
 with every count set to 0 just before each. Run phase 19 alone with `python3 -c "import chip_smoke as c;
 c.phase_env(); c.phase_sampling_modes()"`, phases 10 and 20 with `python3
 -c "import tempfile, chip_smoke as c; c.phase_env(); d =
@@ -381,7 +403,7 @@ def _event_ms(run, iters: int) -> float:
 def cuda_ms(fn, reps: int = 20, iters: int = 10):
     """(device ms, eager ms) of one fn() call. Device: `reps` calls captured
     in a CUDA graph and replayed `iters` times, so no host launch cost
-    enters; eager: back-to-back calls, host launch cost included."""
+    enters; eager: `reps` back-to-back calls, host launch cost included."""
     import torch
 
     side = torch.cuda.Stream()
@@ -392,13 +414,14 @@ def cuda_ms(fn, reps: int = 20, iters: int = 10):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # captured on the warm-up's stream, whose GroupNorm counters it made
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     graph.replay()
     torch.cuda.synchronize()
     device = _event_ms(graph.replay, iters) / reps
-    return device, _event_ms(fn, reps * iters)
+    return device, _event_ms(fn, reps)
 
 
 def bound(nbytes: float, ops: float, int_ops: float = 0.0):
@@ -496,9 +519,11 @@ def fused_branch_check(rng, b: int, h: int, w: int, launch_plan=None, c: int = 3
 
 def kmask_branch_check(rng, b: int, h: int, w: int, launch_plan=None) -> None:
     """Kernel 3 at one shape and plan: with explicit bits (ties, k = 0, 1,
-    HW - 1, HW) and on the Philox route against exact_count_masks_plain on
-    the same bits (the route's from the plain Philox at the generator's seed
-    and offset): masks bitwise equal, exact counts."""
+    HW - 1, HW), on the Philox route and on its device-seed entry (the
+    seed and offset read from a tensor, as the train step's graphs launch
+    it) against exact_count_masks_plain on the same bits (each Philox
+    route's from the plain Philox at its seed and offset): masks bitwise
+    equal, exact counts."""
     import torch
 
     from masked_diffusion_tpu_torch.ops.fused_degrade import philox_kmask_bits
@@ -515,10 +540,13 @@ def kmask_branch_check(rng, b: int, h: int, w: int, launch_plan=None) -> None:
     counts = torch.from_numpy(counts_np[0].astype("int32")).to(dev)
     gen_seed = int(rng.integers(0, 2**62))
     seed, offset = philox_seed(torch.Generator().manual_seed(gen_seed))
+    dseed, doffset = (int(v) for v in rng.integers(0, 2**62, 2))
     for name, kw, ref_bits in (
             ("bits", dict(bits=bits), bits),
             ("Philox", dict(generator=torch.Generator().manual_seed(gen_seed)),
-             philox_kmask_bits(seed, offset, b, hw, dev))):
+             philox_kmask_bits(seed, offset, b, hw, dev)),
+            ("seeds", dict(seeds=torch.tensor([dseed, doffset], dtype=torch.int64, device=dev)),
+             philox_kmask_bits(dseed, doffset, b, hw, dev))):
         mask = exact_count_masks(b, h, w, counts, launch_plan=launch_plan, **kw)
         ref = exact_count_masks_plain(ref_bits, counts).reshape(mask.shape)
         torch.cuda.synchronize()
@@ -556,8 +584,10 @@ def exact_k_branches(kind: str, shapes, tag: str, seed: int):
         worst = max(worst, check(rng, b, h, w, forced) or 0.0)
         lines.append(f"{b}x{h}x{w} {'forced' if forced else 'plan'} cs={plan.cs} "
                      f"threads={plan.threads} per_thread={plan.per_thread} vec={plan.vec}")
-    log(f"[{tag}] {kind}: explicit bits and the Philox route against the plain version on "
-        f"the plain Philox's bits, bitwise masks and exact counts at: " + "; ".join(lines))
+    routes = ("explicit bits and the Philox route" if kind == "fused" else
+              "explicit bits, the Philox route and its device-seed entry (seeds=)")
+    log(f"[{tag}] {kind}: {routes} against the plain version on the plain Philox's bits, "
+        f"bitwise masks and exact counts at: " + "; ".join(lines))
     lib = build.load_library()
     query = lib.mdt_fused_degrade_max_clusters if kind == "fused" else lib.mdt_kmask_max_clusters
     for plan in sorted({p for *_, p in runs if p} | taken):
@@ -667,6 +697,8 @@ def phase_env():
     for line in build.build_log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"[1]   ptxas: {line.strip()}")
+        elif line.startswith("nvcc ") and line.endswith(" s"):
+            log(f"[1]   {line}")  # a source's compile seconds
     return smi
 
 
@@ -2699,6 +2731,7 @@ def phase_default_cli(workdir: str, flagship_perf: dict):
 RESUME_EPOCHS = 3  # (a)/(b): 3 epochs of 4 steps
 PREEMPT_AT = 6  # (b): SIGTERM in the step that makes global step 6 (epoch 1, step 2)
 CLI_EPOCHS = 3  # (c): 12 steps (24 before phase 27 took the time)
+RESUME_T = 20  # --ddpm_num_steps of (a)-(c): a cadence of 20 reverse steps keeps it short
 CLI_TIMEOUT = 600  # seconds for (c)'s preempted CLI subprocess
 
 
@@ -2741,7 +2774,8 @@ def _resume_setup(workdir: str):
     from masked_diffusion_tpu_torch.data.histogram import compute_mean_histogram
 
     argv, _ = flagship_cli_args(workdir)
-    argv = _with(argv, "--num_epochs", str(RESUME_EPOCHS), "--save_images_epochs", "3")
+    argv = _with(argv, "--num_epochs", str(RESUME_EPOCHS), "--save_images_epochs", "3",
+                 "--ddpm_num_steps", str(RESUME_T))
     cfg, device = parse(argv)
     data = get_dataset(cfg.dir_dataset, cfg.data_name, cfg.data_size, cfg.data_set,
                        cfg.data_subset, cfg.data_subset_num, seed=cfg.seed)
@@ -2809,8 +2843,8 @@ def _check_counts(what: str, counts: dict) -> None:
 
 def phase_preempt(workdir: str, smi: str) -> dict:
     """[21] Checkpoints, resume and preemption, the flagship at full width
-    (113.7M parameters, 64x64x3, bf16, batch 64, log + indexing at T=200,
-    phase 10's flags, 4 steps an epoch).
+    (113.7M parameters, 64x64x3, bf16, batch 64, log + indexing at
+    T=RESUME_T, phase 10's other flags, 4 steps an epoch).
     (a) 3 epochs uninterrupted, through the Trainer API; (b) the same run
     SIGTERM'd in-process inside the step that makes global step 6 (epoch
     1, step 2), restored into a fresh Trainer and finished: params and EMA
@@ -2929,7 +2963,7 @@ def phase_preempt(workdir: str, smi: str) -> dict:
     # (c) the CLI: preempted from outside, then resumed with retention and async saves
     argv, _ = flagship_cli_args(os.path.join(work, "cli"))
     argv = _with(argv, "--num_epochs", str(CLI_EPOCHS), "--save_images_epochs", "3",
-                 "--date", "preempt", "--time", "run")
+                 "--date", "preempt", "--time", "run", "--ddpm_num_steps", str(RESUME_T))
     run_dirs = _run_dirs_of(parse(argv)[0])
     metrics = os.path.join(run_dirs["log"], "metrics.jsonl")
     counts_path = os.path.join(work, "cli_counts.json")
@@ -3021,6 +3055,7 @@ DDP_TIMEOUT = 600  # seconds for one torch.distributed.run of phase 18
 DDP_PARITY_BATCH = 4  # global; 2 rows a rank
 DDP_EPOCHS = 3  # of 4 steps: epoch 0 warms up, epoch 1 is traced, epoch 2 timed
 DDP_STEPS = 4 * DDP_EPOCHS
+DDP_T = 20  # --ddpm_num_steps of the CLI runs: 20 reverse steps a cadence, serve and test
 
 
 def phase_sharded():
@@ -3296,7 +3331,9 @@ def rank_main(workdir: str) -> int:
     tester_mod.save_image_grid = counted(tester_mod.save_image_grid)
     tester_mod.save_png = counted(tester_mod.save_png)
     argv, common = flagship_cli_args(os.path.join(workdir, "ddp"))
-    argv, common = ([device_arg if a == "cuda" else a for a in args] for args in (argv, common))
+    argv, common = ([device_arg if a == "cuda" else a
+                     for a in _with(args, "--ddpm_num_steps", str(DDP_T))]
+                    for args in (argv, common))
     # 3 epochs, the cadence at the last; --profile_dir traces epoch 1 on
     # every rank, and the rates come from epoch 2
     argv = _with(argv, "--mesh_data", str(DDP_RANKS), "--num_epochs", str(DDP_EPOCHS),
@@ -3363,8 +3400,9 @@ def phase_ddp(workdir: str, smi: str, single: dict):
     """[18] Data-parallel on 2 ranks through torch.distributed.run (nccl when
     the machine has two cards, else gloo with both ranks on cuda:0): the
     parity steps against one process on the same global batch (phase 8's
-    tolerances), then the flagship CLI trained (phase 10's flags plus
-    --mesh_data 2 and --profile_dir: global batch 64, 3 epochs of 4 steps)
+    tolerances), then the flagship CLI trained (phase 10's flags at
+    T=DDP_T plus --mesh_data 2 and --profile_dir: global batch 64, 3 epochs
+    of 4 steps)
     and served on 2 ranks. Checks the dist line, the per-rank launches (one
     sharded exact-k launch per train step, one sharded fused launch per
     reverse step), bitwise-equal ranks, global_step 12, one run tree, one
@@ -4184,7 +4222,7 @@ def phase_tester_cli(workdir: str):
 
 
 # [23] interpolation sampling at the flagship's width
-INTERP_STEPS = 6  # reverse steps of 23a: the CPU side runs the 113.7M-param UNet
+INTERP_STEPS = 4  # reverse steps of 23a: the CPU side runs the 113.7M-param UNet (6 before phase 28 took the time)
 
 
 def phase_interpolation_parity():
@@ -5080,32 +5118,478 @@ def phase_legacy_cli(workdir: str, smi: str) -> dict:
     return stats
 
 
-def _counted():
-    """The launch-counted wrappers of every kernel, by name."""
-    from masked_diffusion_tpu_torch.ops.fused_degrade import (
-        fused_degrade_update,
-        fused_degrade_update_sharded,
-    )
-    from masked_diffusion_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_backward
-    from masked_diffusion_tpu_torch.ops.kmask import exact_count_masks, exact_count_masks_sharded
-    from masked_diffusion_tpu_torch.ops.tinyhead_attention import (
-        tinyhead_attention,
-        tinyhead_attention_backward,
-    )
+SCAN_STEPS = 8  # (a): one epoch of 8 steps at batch 64 (512 images)
+SCAN_CURRICULA = 4  # (b): 4 epochs of 2 steps, each on its own curriculum (3 changes)
+SCAN_MEMORY_SLACK = 1.02  # (b): a recapture's peak and reserved bytes within 2% of the first's
+SCAN_PROFILED = 4  # (g): steps in each profiled window
+SCAN_STREAM_REPS = 8  # (f): backward launches on each of two streams
+# the host's calls that put work on the card, by the prefix of their names
+HOST_LAUNCHES = ("cudaGraphLaunch", "cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
 
-    return {f.__name__: f for f in (fused_degrade_update, group_norm_silu,
-                                    group_norm_silu_backward, exact_count_masks,
-                                    tinyhead_attention, tinyhead_attention_backward,
-                                    fused_degrade_update_sharded, exact_count_masks_sharded)}
+
+class _MaskProbe:
+    """exact_count_masks wrapped so that every launch also copies its masks
+    and counts into row `i` of device buffers and advances `i` (device ops,
+    so a CUDA graph replays them too). The wrapper's launch count carries
+    over both ways."""
+
+    def __init__(self, steps: int, batch: int, hw: int):
+        import torch
+
+        from masked_diffusion_tpu_torch.ops import kmask
+
+        self.kmask, self.orig = kmask, kmask.exact_count_masks
+        self.masks = torch.zeros((steps, batch, hw), dtype=torch.float32, device="cuda")
+        self.counts = torch.zeros((steps, batch), dtype=torch.int32, device="cuda")
+        self.i = torch.zeros(1, dtype=torch.int64, device="cuda")
+        orig, probe = self.orig, self
+
+        def recorded(batch, height, width, counts, **kw):
+            out = orig(batch, height, width, counts, **kw)
+            probe.masks.index_copy_(0, probe.i, out.reshape(1, batch, height * width))
+            probe.counts.index_copy_(0, probe.i, counts.reshape(1, batch))
+            probe.i.add_(1)
+            return out
+
+        self.recorded = recorded
+
+    def __enter__(self):
+        self.recorded.launches = self.orig.launches
+        self.recorded.__name__ = self.orig.__name__
+        self.kmask.exact_count_masks = self.recorded
+        self.i.zero_()
+        return self
+
+    def __exit__(self, *exc):
+        self.orig.launches = self.recorded.launches
+        self.kmask.exact_count_masks = self.orig
+
+    def read(self):
+        n = int(self.i)
+        return self.masks[:n].clone(), self.counts[:n].clone()
+
+
+def _scan_setup(workdir: str, sched: str, select: str, steps: int, images: int, *extra):
+    """(cfg, device, dataset, histogram) of the flagship (phase 10's flags) in
+    one schedule mode, one epoch over `images` images, no cadence."""
+    from masked_diffusion_tpu_torch.cli.main_train_masked import parse
+    from masked_diffusion_tpu_torch.data.datasets import get_dataset
+    from masked_diffusion_tpu_torch.data.histogram import compute_mean_histogram
+
+    argv, _ = flagship_cli_args(workdir)
+    argv = _with(argv, "--ddpm_schedule", sched, "--select_degrade_pixel", select,
+                 "--ddpm_num_steps", str(steps), "--data_subset_num", str(images),
+                 "--num_epochs", "1", "--save_images_epochs", "1000", *extra)
+    cfg, device = parse(argv)
+    data = get_dataset(cfg.dir_dataset, cfg.data_name, cfg.data_size, cfg.data_set,
+                       cfg.data_subset, cfg.data_subset_num, seed=cfg.seed)
+    return cfg, device, data, compute_mean_histogram(data.data, cfg.sample_num, cfg.mean_area)
+
+
+_SCAN_MODELS = {}  # the model fields of a config -> its seeded model on the card
+
+
+def _scan_trainer(cfg, data, hist, device, **changes):
+    """A Trainer of cfg with `changes`, on a copy of the model a fresh one
+    would build (seeded with cfg.seed): each model is built once a phase."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from masked_diffusion_tpu_torch.models.factory import build_model_from_config
+    from masked_diffusion_tpu_torch.train.trainer import Trainer
+
+    key = (cfg.seed, cfg.model, cfg.in_channel, cfg.out_channel, cfg.data_size,
+           cfg.num_attention, tuple(cfg.block_out_channels or ()), cfg.layers_per_block,
+           cfg.remat, cfg.attention_chunk, cfg.tinyhead_attention)
+    if key not in _SCAN_MODELS:
+        torch.manual_seed(cfg.seed)
+        _SCAN_MODELS[key] = build_model_from_config(cfg).to(device)
+    return Trainer(dataclasses.replace(cfg, **changes), data, hist,
+                   model=copy.deepcopy(_SCAN_MODELS[key]), device=device)
+
+
+def _full_state(trainer) -> dict:
+    """Params, EMA and the optimizer's tensors (AdamW's moments and steps,
+    a window's gradient sums) of a trainer, copied to the host."""
+    out = _host_state(trainer)
+    tensors, _ = trainer.state.optimizer.state_dict()
+    out.update({f"o.{k}": v.detach().cpu().clone() for k, v in tensors.items()})
+    return out
+
+
+def _step_losses(trainer) -> list:
+    """Wrap the trainer's step and epoch functions so that every step's
+    loss is kept (device tensors, read after the run)."""
+    kept = []
+    get_step, get_epoch = trainer._get_step_fn, trainer._get_epoch_fn
+
+    def step_fn(used):
+        fn = get_step(used)
+
+        def step(*a, **k):
+            out = fn(*a, **k)
+            kept.append(out["train_loss"])
+            return out
+        return step
+
+    def epoch_fn(used):
+        fn = get_epoch(used)
+
+        def epoch(*a, **k):
+            keys, mat = fn(*a, **k)
+            kept.extend(mat[:, keys.index("train_loss")])
+            return keys, mat
+        return epoch
+
+    trainer._get_step_fn, trainer._get_epoch_fn = step_fn, epoch_fn
+    return kept
+
+
+def _scan_pair(cfg, device, data, hist, what: str, epochs: int = 1, probe=None):
+    """The same run eagerly and with --epoch_scan true from the same initial
+    state (a fresh Trainer each, seeded alike): (eager, scan), each a dict
+    of the full state, the step losses, the probed masks and counts, the
+    launches and the trainer's epoch function (scan)."""
+    import torch
+
+    out = []
+    for scan in (False, True):
+        reset_counts()
+        t = _scan_trainer(cfg, data, hist, device, epoch_scan=scan)
+        losses = _step_losses(t)
+        with probe if probe is not None else contextlib.nullcontext():
+            t.train(0, epochs)
+            masks = probe.read() if probe is not None else None
+        torch.cuda.synchronize()
+        out.append({"state": _full_state(t), "losses": [float(v) for v in losses],
+                    "means": list(t.loss_mean_epoch), "masks": masks, "counts": read_counts(),
+                    "epoch_fn": t._epoch_fn[1] if t._epoch_fn else None,
+                    "global_step": t.global_step})
+        del t
+        _release()
+    eager, scan = out
+    same = (eager["losses"] == scan["losses"] and eager["means"] == scan["means"]
+            and eager["global_step"] == scan["global_step"]
+            and all(torch.equal(eager["state"][k], scan["state"][k]) for k in eager["state"]))
+    if not same:
+        diff = _max_diff(eager["state"], scan["state"])
+        raise AssertionError(
+            f"[28] {what}: the graphed epoch differs from the eager one: losses "
+            f"{eager['losses']} vs {scan['losses']}, max |diff| of the state {diff:.3g}")
+    return eager, scan
+
+
+def _check_masks(what: str, eager, scan, hw: int) -> str:
+    """Masks of the replayed kmask launches: the eager run's bit for bit,
+    new each step, exactly clip(k, 0, HW) zeros an image."""
+    import torch
+
+    (m_e, k_e), (m_s, k_s) = eager["masks"], scan["masks"]
+    if m_s.shape[0] < 2 or not (torch.equal(m_e, m_s) and torch.equal(k_e, k_s)):
+        raise AssertionError(f"[28] {what}: the replays' masks differ from the eager run's "
+                             f"({m_e.shape[0]} vs {m_s.shape[0]} launches)")
+    repeats = [j for j in range(m_s.shape[0] - 1) if torch.equal(m_s[j], m_s[j + 1])]
+    zeros = (m_s == 0).sum(dim=2)
+    want = k_s.to(torch.int64).clamp(0, hw)
+    if repeats or not torch.equal(zeros, want):
+        raise AssertionError(f"[28] {what}: replays {repeats} repeat the step before, or the "
+                             f"zero counts {zeros.tolist()} are not k {want.tolist()}")
+    return (f"{m_s.shape[0]} kmask launches, each new, {int(zeros.sum())} degraded pixels "
+            f"= sum of k")
+
+
+def _gn_two_streams() -> float:
+    """(f) The GroupNorm backward launched on two streams at once: each
+    result bitwise the same call launched alone (the kernel is deterministic),
+    and within GN_BWD_TOL (dx) and GN_BWD_SUM_TOL (dscale, dbias) of the
+    plain version; each stream's launches use their own arrival counters.
+    Returns the largest |dx diff| against the plain version."""
+    import torch
+
+    from masked_diffusion_tpu_torch.ops import groupnorm
+
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    shapes = ((B_KERNEL, 128, 64, 64, 32), (B_KERNEL, 512, 8, 8, 32))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    worst = 0.0
+    for b, c, h, w, g in shapes:
+        cases = []
+        for _ in streams:
+            x = torch.randn((b, c, h, w), generator=gen, device="cuda")
+            scale = 1 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
+            bias = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+            gy = torch.randn((b, c, h, w), generator=gen, device="cuda")
+            mean, rstd = groupnorm.group_norm_stats_plain(x, g)
+            cases.append((x, scale, bias, gy, mean.contiguous(), rstd.contiguous()))
+        alone = [groupnorm.group_norm_silu_backward(*case, g, True) for case in cases]
+        torch.cuda.synchronize()
+        outs = [[] for _ in streams]
+        for _ in range(SCAN_STREAM_REPS):  # both streams' launches in flight together
+            for s, case, got in zip(streams, cases, outs):
+                s.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(s):
+                    got.append(groupnorm.group_norm_silu_backward(*case, g, True))
+        torch.cuda.synchronize()
+        for case, ref_k, got in zip(cases, alone, outs):
+            if not all(torch.equal(a, r) for run in got for a, r in zip(run, ref_k)):
+                raise AssertionError(f"[28] (f) {(b, c, h, w, g)}: a launch on one of two "
+                                     "streams differs from the same launch alone")
+            ref = groupnorm.group_norm_silu_backward_plain(*case, g, True)
+            atol, rtol = GN_BWD_TOL["float32"]
+            sum_atol = GN_BWD_SUM_TOL[0] * b * h * w
+            for a, r, tol in zip(ref_k, ref, ((atol, rtol), (sum_atol, GN_BWD_SUM_TOL[1]),
+                                                (sum_atol, GN_BWD_SUM_TOL[1]))):
+                if not torch.allclose(a, r, atol=tol[0], rtol=tol[1]):
+                    raise AssertionError(f"[28] (f) {(b, c, h, w, g)}: off the plain version "
+                                         f"by {float((a - r).abs().max()):.3g}")
+            worst = max(worst, float((ref_k[0] - ref[0]).abs().max()))
+    return worst
+
+
+def _profile_window(trainer, epoch: int) -> dict:
+    """One epoch of `trainer` under torch.profiler (its first steps warm or
+    replayed before): ms a step, the device idle share, and the host's
+    launch calls a step by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from masked_diffusion_tpu_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        trainer.train(epoch, 1)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    summary = profiling.summarize(prof, wall_s, True)
+    calls = {}
+    for e in prof.events():
+        if e.name.startswith(HOST_LAUNCHES):
+            calls[e.name] = calls.get(e.name, 0) + 1
+    steps = SCAN_PROFILED
+    return {"ms": 1e3 * wall_s / steps, "idle": summary["device_idle_share"],
+            "busy_ms": summary["device_busy_ms"] / steps,
+            "calls": {k: v / steps for k, v in sorted(calls.items())}}
+
+
+def phase_graphed_epoch(workdir: str, smi: str) -> dict:
+    """[28] --epoch_scan true: the train step captured as CUDA graphs and
+    replayed once a batch (train/step.py:make_train_epoch), at the
+    flagship's width (113.7M parameters, 64x64x3, bf16, batch 64, phase 10's
+    flags), held against the eager loop. (f) first, before any capture: the
+    GroupNorm backward on two streams at once against its plain version.
+    Under deterministic(): (a) one epoch of SCAN_STEPS steps eagerly and
+    graphed from the same initial state, in log + indexing (T=4096) and
+    linear + thresholding (T=1000): step losses, parameters, EMA and AdamW
+    moments bitwise equal; the kmask launches of the replays (probed into
+    device buffers) the eager run's bit for bit, each step's new, exactly k
+    pixels an image. (b) --gradient_accumulation_steps 2 likewise (two
+    graphs: the window's first and closing steps); then 4 epochs of 2 steps
+    with --scheduler_num_scale_timesteps 4, a curriculum each: each epoch
+    recaptures, and its peak and reserved device memory stay within
+    SCAN_MEMORY_SLACK of the first's. (c) the CelebA-HQ config
+    (--num_attention 5, batch 32, T=16): 4 steps, the tiny-head forward and
+    backward captured, bitwise equal (both kernels deterministic: no
+    atomics). (d) 2 epochs of 4 steps graphed (no cadence), uninterrupted
+    and SIGTERM'd in-process at global step 6, restored and resumed
+    mid-epoch: bitwise equal. Each model is built once and copied
+    (_scan_trainer). (e) the CLI with --epoch_scan true, 2 epochs of 4 steps (T=20),
+    then its checkpoint served; launches checked. (g) a torch.profiler window of
+    SCAN_PROFILED steps eagerly and replayed: host launch calls a step by
+    name (one cudaGraphLaunch a replayed step), ms a step and the device's
+    idle share, the capture's seconds and the graph pool's bytes. Returns
+    the launches of its main-path runs ((a)-(e))."""
+    import signal as signals
+
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    work = os.path.join(workdir, "graphed")
+    runs = []
+    worst = _gn_two_streams()
+    log(f"[28] (f) GroupNorm backward, {SCAN_STREAM_REPS} launches on each of two streams in "
+        f"flight together (flagship shapes at batch {B_KERNEL}, fp32): within GN_BWD_TOL of "
+        f"the plain version, max |dx diff| {worst:.3g}; each stream's counters its own")
+
+    with deterministic():
+        # (a) both schedule modes
+        for sched, select, steps in MODES:
+            cfg, device, data, hist = _scan_setup(work, sched, select, steps,
+                                                  B_KERNEL * SCAN_STEPS)
+            probe = _MaskProbe(SCAN_STEPS, B_KERNEL, SIZE * SIZE) if select == "indexing" else None
+            eager, scan = _scan_pair(cfg, device, data, hist, f"(a) {select}", probe=probe)
+            runs.append(scan["counts"])
+            fn = scan["epoch_fn"]
+            masks = _check_masks(f"(a) {select}", eager, scan, SIZE * SIZE) if probe else (
+                "thresholding: no kmask")
+            log(f"[28] (a) {sched} + {select} (T={steps}), {SCAN_STEPS} steps: graphed == eager "
+                f"BITWISE (step losses, params, EMA, AdamW moments); {len(fn.graphs)} graph(s) "
+                f"captured in {fn.capture_seconds:.3f} s, pool {fn.pool_bytes / 2**20:.1f} MiB; "
+                f"{masks}; launches graphed {scan['counts']} vs eager {eager['counts']}")
+            if scan["counts"] != eager["counts"]:
+                raise AssertionError(f"[28] (a) {select}: launches graphed {scan['counts']} "
+                                     f"vs eager {eager['counts']}")
+
+        # (b) accumulation 2, then curriculum changes
+        cfg, device, data, hist = _scan_setup(work, "log", "indexing", 4096,
+                                              B_KERNEL * SCAN_STEPS,
+                                              "--gradient_accumulation_steps", "2")
+        eager, scan = _scan_pair(cfg, device, data, hist, "(b) accumulation 2")
+        runs.append(scan["counts"])
+        kinds = sorted(tuple(int(x) for x in k) for k in scan["epoch_fn"].graphs)
+        log(f"[28] (b) --gradient_accumulation_steps 2, {SCAN_STEPS} steps: graphed == eager "
+            f"BITWISE; graphs (starts, closes, ema) {kinds}")
+        if len(kinds) < 2:
+            raise AssertionError(f"[28] (b) accumulation 2 captured {kinds}")
+        cfg, device, data, hist = _scan_setup(
+            work, "log", "indexing", 4096, B_KERNEL * 2, "--num_epochs", str(SCAN_CURRICULA),
+            "--scheduler_num_scale_timesteps", str(SCAN_CURRICULA))
+        reset_counts()
+        t = _scan_trainer(cfg, data, hist, device, epoch_scan=True)
+        peaks, reserved, keys = [], [], []
+        for epoch in range(SCAN_CURRICULA):
+            torch.cuda.reset_peak_memory_stats()
+            t.train(epoch, 1)
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+            reserved.append(torch.cuda.memory_reserved())
+            keys.append(len(t._epoch_fn[0]))
+            if not t._epoch_fn[1].graphs:
+                raise AssertionError(f"[28] (b) epoch {epoch} captured no graph")
+        runs.append(read_counts())
+        del t
+        _release()
+        log(f"[28] (b) {SCAN_CURRICULA} curricula (used timesteps {keys}), each recaptured: "
+            f"peak device memory {[round(p / 2**30, 3) for p in peaks]} GiB, reserved "
+            f"{[round(r / 2**30, 3) for r in reserved]} GiB ({smi})")
+        # a new curriculum makes a new epoch function (Trainer._get_epoch_fn),
+        # whose graphs this epoch captured
+        if (len(set(keys)) != SCAN_CURRICULA
+                or max(peaks[1:]) > SCAN_MEMORY_SLACK * peaks[0]
+                or max(reserved[1:]) > SCAN_MEMORY_SLACK * reserved[0]):
+            raise AssertionError(f"[28] (b) recaptures: curricula {keys}, peaks {peaks}, "
+                                 f"reserved {reserved}")
+
+        # (c) the CelebA-HQ config: the tiny-head kernels inside the graph
+        cfg, device, data, hist = _scan_setup(work, "log", "indexing", 16, 32 * 4,
+                                              "--num_attention", "5", "--batch_size", "32")
+        eager, scan = _scan_pair(cfg, device, data, hist, "(c) CelebA-HQ")
+        runs.append(scan["counts"])
+        th = (scan["counts"]["tinyhead_attention"], scan["counts"]["tinyhead_attention_backward"])
+        if th != (40, 40) or scan["counts"] != eager["counts"]:
+            raise AssertionError(f"[28] (c) tiny-head launches {scan['counts']} vs eager "
+                                 f"{eager['counts']}, expected 10 forward and 10 backward a step")
+        log(f"[28] (c) CelebA-HQ (--num_attention 5, batch 32), 4 steps: graphed == eager "
+            f"BITWISE (the tiny-head kernels are deterministic); tiny-head launches {th}")
+
+        # (d) mid-epoch resume of a graphed run
+        # no cadence (dirs only where the preemption writes its checkpoint):
+        # (e) runs the cadence with the scan on
+        cfg, device, data, hist = _scan_setup(work, "log", "indexing", 200, B_KERNEL * 4,
+                                              "--num_epochs", "2", "--epoch_scan", "true")
+        reset_counts()
+        ref_t = _scan_trainer(cfg, data, hist, device)
+        ref_t.train(0, 2)
+        ref = _full_state(ref_t)
+        ref_losses = list(ref_t.loss_mean_epoch)
+        runs.append(read_counts())
+        del ref_t
+        _release()
+        reset_counts()
+        pre = _scan_trainer(cfg, data, hist, device)
+        done = pre._step_done
+
+        def step_done(single):
+            if pre.global_step + 1 == PREEMPT_AT:
+                signals.raise_signal(signals.SIGTERM)
+            return done(single)
+
+        pre._step_done = step_done
+        result = pre.train(0, 2, dirs=_run_dirs(cfg, work, "d"))
+        if not result["preempted"] or pre.global_step != PREEMPT_AT:
+            raise AssertionError(f"[28] (d) SIGTERM at step {PREEMPT_AT}: {result}")
+        (path,) = result["checkpoints"]
+        del pre, done
+        _release()
+        res = _scan_trainer(cfg, data, hist, device)
+        gs = res.restore(path)
+        first, skip = divmod(gs, data.num_batches(cfg.batch_size))
+        res.train(first, 2 - first, skip, gs)
+        runs.append(read_counts())
+        got = _full_state(res)
+        if not (all(torch.equal(ref[k], got[k]) for k in ref)
+                and res.loss_mean_epoch == ref_losses):
+            raise AssertionError(f"[28] (d) resumed graphed run differs: max |diff| "
+                                 f"{_max_diff(ref, got):.3g}, losses {res.loss_mean_epoch} vs "
+                                 f"{ref_losses}")
+        del res
+        _release()
+        log(f"[28] (d) graphed, 2 epochs of 4 steps: SIGTERM'd at global step {PREEMPT_AT}, "
+            f"restored and resumed at epoch {first} step {skip}: BITWISE equal to the "
+            f"uninterrupted graphed run (params, EMA, AdamW state, epoch means)")
+
+    # (e) the CLI, at T=20 (the cadence's sampler and the serve: 20 reverse steps)
+    argv, common = flagship_cli_args(os.path.join(work, "cli"))
+    argv, common = (_with(a, "--ddpm_num_steps", "20") for a in (argv, common))
+    rc, stats, counts = _run_cli(argv + ["--epoch_scan", "true"], "train_stats")
+    (ckpt,) = stats["checkpoints"]
+    if (rc != 0 or stats["global_step"] != 8 or counts["exact_count_masks"] != 8 + 1
+            or not np.isfinite(stats["loss_mean_epoch"]).all()):
+        raise AssertionError(f"[28] (e) CLI --epoch_scan true: rc {rc}, {stats}, {counts}")
+    runs.append(counts)
+    rc, served, counts = _run_cli(["--method", "sample", "--test_model_path", ckpt,
+                                   "--dir_work", os.path.join(work, "serve"), *common],
+                                  "sample_stats")
+    if rc != 0 or not (served["finite"] and served["images"] == 16):
+        raise AssertionError(f"[28] (e) serve the graphed run's checkpoint: rc {rc}, {served}")
+    runs.append(counts)
+    log(f"[28] (e) CLI --epoch_scan true (T=20): 2 epochs x 4 steps, losses "
+        f"{[round(v, 5) for v in stats['loss_mean_epoch']]}, {stats['ms_per_step']:.3f} ms/step "
+        f"(epoch 1, replayed); served {served['images']} images from "
+        f"{os.path.basename(ckpt)}")
+
+    # (g) profile: eager and replayed steps
+    cfg, device, data, hist = _scan_setup(work, "log", "indexing", 200,
+                                          B_KERNEL * SCAN_PROFILED, "--num_epochs", "3")
+    prof = {}
+    for scan in (False, True):
+        t = _scan_trainer(cfg, data, hist, device, epoch_scan=scan)
+        t.train(0, 1)  # warm-up and, graphed, the captures
+        prof[scan] = _profile_window(t, 1)
+        if scan:
+            fn = t._epoch_fn[1]
+            prof["capture_s"], prof["pool"] = fn.capture_seconds, fn.pool_bytes
+        del t
+        _release()
+    graph_launches = prof[True]["calls"].get("cudaGraphLaunch", 0)
+    log(f"[28] (g) a step of the flagship (batch {B_KERNEL}, bf16, log + indexing), "
+        f"{SCAN_PROFILED} steps a window, {smi}: eager {prof[False]['ms']:.3f} ms (device busy "
+        f"{prof[False]['busy_ms']:.3f} ms, idle share {prof[False]['idle']:.4f}), host calls a "
+        f"step {prof[False]['calls']}; graphed {prof[True]['ms']:.3f} ms (device busy "
+        f"{prof[True]['busy_ms']:.3f} ms, idle share {prof[True]['idle']:.4f}), host calls a "
+        f"step {prof[True]['calls']}; capture {prof['capture_s']:.3f} s, graph pool "
+        f"{prof['pool'] / 2**20:.1f} MiB")
+    if graph_launches != 1:
+        raise AssertionError(f"[28] (g) {graph_launches} cudaGraphLaunch a replayed step")
+    _SCAN_MODELS.clear()
+    log(f"[28] phase 28 took {time.perf_counter() - t_phase:.1f} s")
+    return {k: sum(c[k] for c in runs) for k in runs[0]}
 
 
 def reset_counts() -> None:
-    for fn in _counted().values():
-        fn.launches = 0
+    from masked_diffusion_tpu_torch.ops import launches
+
+    launches.set_to({name: 0 for name in launches.wrappers()})
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in _counted().items()}
+    from masked_diffusion_tpu_torch.ops import launches
+
+    return launches.snapshot()
 
 
 def same_through_sharded(counts: dict) -> bool:
@@ -5203,6 +5687,7 @@ def main() -> int:
         runs["preempt"] = timed_phase("[21] preemption", phase_preempt, workdir, smi)
         runs["reference"], reference_seconds = timed_phase("[24] reference inputs",
                                                            phase_reference_inputs, workdir, smi)
+        runs["graphed"] = timed_phase("[28] graphed epoch", phase_graphed_epoch, workdir, smi)
     main_runs = list(runs.values())
     for mod in sorted(sys.modules):
         if mod.split(".")[0] in ("jax", "flax", "masked_diffusion_tpu"):

@@ -272,9 +272,13 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--epoch_scan", type=str2bool, default=None,
-        help="the JAX package's whole-epoch scan; the port trains step by "
-        "step and refuses true (its CUDA counterpart would be a graphed "
-        "step); unset or false = step by step",
+        help="the JAX package's whole-epoch scan: true runs each epoch "
+        "through train/step.py:make_train_epoch (on a card the train step "
+        "captured as CUDA graphs and replayed once a batch; on the CPU the "
+        "same step body eagerly), equal bit for bit to the step-by-step "
+        "loop; one process only (a plan of more ranks is refused). false: "
+        "step by step. unset: MDT_EPOCH_SCAN=1/0 decides, else off (JAX's "
+        "auto rule is a TPU backend, which the port never has)",
     )
     p.add_argument(
         "--encoder_reuse", type=int, default=0,
@@ -499,6 +503,12 @@ def main(argv=None) -> int:
     plan = make_mesh(cfg.mesh_data, cfg.mesh_model, device, spatial=cfg.mesh_spatial)
     if cfg.mesh_spatial:
         validate_spatial(plan, cfg.data_size)
+    if method in ("base", "mean_shift"):
+        from masked_diffusion_tpu_torch.train.trainer import unported_options
+
+        asked = unported_options(cfg, plan)
+        if asked:  # before any file is written
+            raise NotImplementedError(f"not yet ported: {', '.join(asked)}")
     main_process = host.is_main_process()
     if plan.world_size > 1:
         if plan.device.type == "cuda":

@@ -151,9 +151,11 @@ class Config:
     # chunked version). The JAX package's MDT_TINYHEAD override has no
     # counterpart.
     tinyhead_attention: Optional[bool] = None
-    # the JAX package's whole-epoch scan: the port trains step by step and
-    # refuses True (train/trainer.py:unported_options); its CUDA counterpart
-    # would be a graphed step
+    # the JAX package's whole-epoch scan: True runs each epoch through
+    # train/step.py:make_train_epoch (on a card the step as CUDA graphs
+    # replayed once a batch), bit for bit the step-by-step loop, one process
+    # only; None: MDT_EPOCH_SCAN=1/0, else off (JAX's auto rule is a TPU
+    # backend, which the port never has; train/trainer.py:use_epoch_scan)
     epoch_scan: Optional[bool] = None
     profile_dir: Optional[str] = None  # jax.profiler trace output
     # checkpoint retention: keep only the N newest checkpoint-epoch-* dirs

@@ -933,7 +933,79 @@ GnArgs make_args(int batch, int channels, int hw, int groups, long long xsb, lon
   return a;
 }
 
+// One dtype's work behind the C entry points: the arguments of
+// mdt_group_norm_fwd / _bwd without the dtype.
+#define MDT_GN_FWD_PARAMS                                                                    \
+  const void *x, const void *scale, const void *bias, void *y, void *mean, void *rstd,       \
+      int batch, int channels, int hw, int groups, long long xsb, long long xsc,             \
+      long long xsp, float eps, int silu, int pdtype, int ctas, int per_lane, int threads,   \
+      int smem, int staged, void *stream
+#define MDT_GN_FWD_ARGS                                                                      \
+  x, scale, bias, y, mean, rstd, batch, channels, hw, groups, xsb, xsc, xsp, eps, silu,      \
+      pdtype, ctas, per_lane, threads, smem, staged, stream
+#define MDT_GN_BWD_PARAMS                                                                    \
+  const void *x, const void *g, const void *scale, const void *bias, const void *mean,       \
+      const void *rstd, void *dx, void *dscale, void *dbias, void *parts, void *counters,    \
+      int batch, int channels, int hw, int groups, long long xsb, long long xsc,             \
+      long long xsp, long long gsb, long long gsc, long long gsp, int silu, int pdtype,      \
+      int ctas, int per_lane, int threads, int smem, int staged, void *stream
+#define MDT_GN_BWD_ARGS                                                                      \
+  x, g, scale, bias, mean, rstd, dx, dscale, dbias, parts, counters, batch, channels, hw,    \
+      groups, xsb, xsc, xsp, gsb, gsc, gsp, silu, pdtype, ctas, per_lane, threads, smem,     \
+      staged, stream
+
+template <typename T>
+int fwd_entry(MDT_GN_FWD_PARAMS) {
+  GnArgs a = make_args(batch, channels, hw, groups, xsb, xsc, xsp, ctas, staged, silu, pdtype,
+                       eps);
+  if ((mean == nullptr) != (rstd == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(fwd<T>(x, scale, bias, y, mean, rstd, a, per_lane, threads, smem,
+                                 static_cast<cudaStream_t>(stream)));
+}
+
+template <typename T>
+int bwd_entry(MDT_GN_BWD_PARAMS) {
+  GnArgs a = make_args(batch, channels, hw, groups, xsb, xsc, xsp, ctas, staged, silu, pdtype,
+                       0.f);
+  a.gsb = gsb;
+  a.gsc = gsc;
+  a.gsp = gsp;
+  return static_cast<int>(bwd<T>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, parts,
+                                 counters, a, per_lane, threads, smem,
+                                 static_cast<cudaStream_t>(stream)));
+}
+
+template <typename T>
+int max_clusters_entry(int backward, int ctas, int threads, int smem, int* out) {
+  const void* fn = backward ? reinterpret_cast<const void*>(gn_bwd_block_kernel<T>)
+                            : reinterpret_cast<const void*>(gn_fwd_block_kernel<T>);
+  return static_cast<int>(mdt::max_active_clusters(fn, kMaxSmem, ctas, threads, smem, out));
+}
+
 }  // namespace
+
+// The C entry points of dtype T, suffixed S. A template is compiled only for
+// the dtypes it is used with, so each translation unit that expands this
+// compiles one dtype's kernels: this file fp32's, groupnorm_bf16.cu and
+// groupnorm_f16.cu (which include this file) theirs, and the build runs the
+// three nvcc processes at once.
+#define MDT_GN_ENTRIES(T, S)                                                                 \
+  extern "C" int mdt_gn_fwd_##S(MDT_GN_FWD_PARAMS) { return fwd_entry<T>(MDT_GN_FWD_ARGS); } \
+  extern "C" int mdt_gn_bwd_##S(MDT_GN_BWD_PARAMS) { return bwd_entry<T>(MDT_GN_BWD_ARGS); } \
+  extern "C" int mdt_gn_max_clusters_##S(int backward, int ctas, int threads, int smem,      \
+                                         int* out) {                                         \
+    return max_clusters_entry<T>(backward, ctas, threads, smem, out);                        \
+  }
+
+#ifndef MDT_GN_ONE_DTYPE  // this file compiled on its own
+
+MDT_GN_ENTRIES(float, f32)
+extern "C" int mdt_gn_fwd_bf16(MDT_GN_FWD_PARAMS);
+extern "C" int mdt_gn_bwd_bf16(MDT_GN_BWD_PARAMS);
+extern "C" int mdt_gn_max_clusters_bf16(int backward, int ctas, int threads, int smem, int* out);
+extern "C" int mdt_gn_fwd_f16(MDT_GN_FWD_PARAMS);
+extern "C" int mdt_gn_bwd_f16(MDT_GN_BWD_PARAMS);
+extern "C" int mdt_gn_max_clusters_f16(int backward, int ctas, int threads, int smem, int* out);
 
 // x: (batch, channels, hw) with strides (xsb, xsc, xsp) in elements; y: the
 // same shape, contiguous; mean, rstd: (batch * groups) fp32, or null when no
@@ -946,21 +1018,10 @@ extern "C" int mdt_group_norm_fwd(const void* x, const void* scale, const void* 
                                   int groups, long long xsb, long long xsc, long long xsp,
                                   float eps, int silu, int dtype, int pdtype, int ctas,
                                   int per_lane, int threads, int smem, int staged, void* stream) {
-  GnArgs a = make_args(batch, channels, hw, groups, xsb, xsc, xsp, ctas, staged, silu, pdtype,
-                       eps);
-  if ((mean == nullptr) != (rstd == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = fwd<float>(x, scale, bias, y, mean, rstd, a, per_lane, threads, smem, st);
-  } else if (dtype == 1) {
-    err = fwd<__nv_bfloat16>(x, scale, bias, y, mean, rstd, a, per_lane, threads, smem, st);
-  } else if (dtype == 2) {
-    err = fwd<__half>(x, scale, bias, y, mean, rstd, a, per_lane, threads, smem, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  if (dtype == 0) return mdt_gn_fwd_f32(MDT_GN_FWD_ARGS);
+  if (dtype == 1) return mdt_gn_fwd_bf16(MDT_GN_FWD_ARGS);
+  if (dtype == 2) return mdt_gn_fwd_f16(MDT_GN_FWD_ARGS);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // g: the incoming gradient, strides (gsb, gsc, gsp); dx: contiguous, x's
@@ -975,26 +1036,10 @@ extern "C" int mdt_group_norm_bwd(const void* x, const void* g, const void* scal
                                   long long gsc, long long gsp, int silu, int dtype, int pdtype,
                                   int ctas, int per_lane, int threads, int smem, int staged,
                                   void* stream) {
-  GnArgs a = make_args(batch, channels, hw, groups, xsb, xsc, xsp, ctas, staged, silu, pdtype,
-                       0.f);
-  a.gsb = gsb;
-  a.gsc = gsc;
-  a.gsp = gsp;
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = bwd<float>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, parts, counters, a,
-                     per_lane, threads, smem, st);
-  } else if (dtype == 1) {
-    err = bwd<__nv_bfloat16>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, parts, counters,
-                             a, per_lane, threads, smem, st);
-  } else if (dtype == 2) {
-    err = bwd<__half>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, parts, counters, a,
-                      per_lane, threads, smem, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  if (dtype == 0) return mdt_gn_bwd_f32(MDT_GN_BWD_ARGS);
+  if (dtype == 1) return mdt_gn_bwd_bf16(MDT_GN_BWD_ARGS);
+  if (dtype == 2) return mdt_gn_bwd_f16(MDT_GN_BWD_ARGS);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // How many clusters of ctas CTAs (threads threads, smem bytes each) of the
@@ -1002,16 +1047,9 @@ extern "C" int mdt_group_norm_bwd(const void* x, const void* g, const void* scal
 // scheduled on this card.
 extern "C" int mdt_group_norm_max_clusters(int backward, int dtype, int ctas, int threads,
                                            int smem, int* out) {
-  const void* fn;
-  if (dtype == 0) {
-    fn = backward ? reinterpret_cast<const void*>(gn_bwd_block_kernel<float>)
-                  : reinterpret_cast<const void*>(gn_fwd_block_kernel<float>);
-  } else if (dtype == 1) {
-    fn = backward ? reinterpret_cast<const void*>(gn_bwd_block_kernel<__nv_bfloat16>)
-                  : reinterpret_cast<const void*>(gn_fwd_block_kernel<__nv_bfloat16>);
-  } else {
-    fn = backward ? reinterpret_cast<const void*>(gn_bwd_block_kernel<__half>)
-                  : reinterpret_cast<const void*>(gn_fwd_block_kernel<__half>);
-  }
-  return static_cast<int>(mdt::max_active_clusters(fn, kMaxSmem, ctas, threads, smem, out));
+  if (dtype == 0) return mdt_gn_max_clusters_f32(backward, ctas, threads, smem, out);
+  if (dtype == 1) return mdt_gn_max_clusters_bf16(backward, ctas, threads, smem, out);
+  return mdt_gn_max_clusters_f16(backward, ctas, threads, smem, out);
 }
+
+#endif  // MDT_GN_ONE_DTYPE

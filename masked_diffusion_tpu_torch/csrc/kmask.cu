@@ -9,7 +9,9 @@
 //
 //   draws  <- Philox4x32-10 at counter (pixel, image, 0x80000000 | offset_hi,
 //             offset_lo) keyed by seed, or given bits (the tests' and the
-//             smoke check's path)
+//             smoke check's path); seed and offset come by value
+//             (mdt_kmask) or from a device buffer (mdt_kmask_seeded), which
+//             a CUDA graph's replays rewrite between launches
 //   keys   <- each draw with its low ceil(log2 HW) bits replaced by the pixel
 //             index: unique, so ties cannot shorten the count
 //   mask   <- 0 where key < T, T the k-th smallest key (the maximum T with
@@ -52,6 +54,7 @@ struct KmaskArgs {
   const int* counts;
   const uint32_t* bits;  // (batch, hw), or null: Philox
   uint64_t seed, offset;
+  const uint64_t* seeds;  // {seed, offset} on the device, or null: the two above
   float* out;
   int hw, cs, slice;
 };
@@ -66,10 +69,12 @@ __global__ void __launch_bounds__(kMaxThreads) kmask_kernel(const KmaskArgs a) {
   const int end = min(hw, start + a.slice);
   const int k = a.counts[img];
   const uint32_t hi_mask = mdt::key_high_mask(hw);
-  const uint32_t k0 = static_cast<uint32_t>(a.seed);
-  const uint32_t k1 = static_cast<uint32_t>(a.seed >> 32);
-  const uint32_t off_lo = static_cast<uint32_t>(a.offset);
-  const uint32_t tag = 0x80000000u | static_cast<uint32_t>(a.offset >> 32);
+  const uint64_t seed = a.seeds != nullptr ? a.seeds[0] : a.seed;
+  const uint64_t offset = a.seeds != nullptr ? a.seeds[1] : a.offset;
+  const uint32_t k0 = static_cast<uint32_t>(seed);
+  const uint32_t k1 = static_cast<uint32_t>(seed >> 32);
+  const uint32_t off_lo = static_cast<uint32_t>(offset);
+  const uint32_t tag = 0x80000000u | static_cast<uint32_t>(offset >> 32);
 
   uint32_t valid = 0;  // bit i: key i of this thread is a pixel of the image
   uint32_t keys[1][P];
@@ -112,15 +117,9 @@ const void* instance_of(const mdt::Plan& p) {
   });
 }
 
-}  // namespace
-
-// counts: (batch,) int32; bits: (batch, hw) u32 or null (Philox at seed,
-// offset); out: (batch, hw) f32. The plan as mdt_fused_degrade's (out
-// 16-byte aligned on the vector path); a plan the kernel does not take
-// returns cudaErrorInvalidValue and launches nothing.
-extern "C" int mdt_kmask(const void* counts, const void* bits, uint64_t seed, uint64_t offset,
-                         void* out, int batch, int hw, int cs, int threads, int per_thread,
-                         int vec, void* stream) {
+int launch_kmask(const void* counts, const void* bits, uint64_t seed, uint64_t offset,
+                 const void* seeds, void* out, int batch, int hw, int cs, int threads,
+                 int per_thread, int vec, void* stream) {
   const mdt::Plan p = {cs, threads, per_thread, vec};
   if (!mdt::plan_ok(p, batch, hw) || (vec && !mdt::aligned16(out))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -130,6 +129,7 @@ extern "C" int mdt_kmask(const void* counts, const void* bits, uint64_t seed, ui
   a.bits = static_cast<const uint32_t*>(bits);
   a.seed = seed;
   a.offset = offset;
+  a.seeds = static_cast<const uint64_t*>(seeds);
   a.out = static_cast<float*>(out);
   a.hw = hw;
   a.cs = cs;
@@ -139,6 +139,31 @@ extern "C" int mdt_kmask(const void* counts, const void* bits, uint64_t seed, ui
     return mdt::launch_cluster<kmask_kernel<decltype(P)::value, decltype(V)::value>>(
         batch * cs, threads, 0, cs, st, a);
   }));
+}
+
+}  // namespace
+
+// counts: (batch,) int32; bits: (batch, hw) u32 or null (Philox at seed,
+// offset); out: (batch, hw) f32. The plan as mdt_fused_degrade's (out
+// 16-byte aligned on the vector path); a plan the kernel does not take
+// returns cudaErrorInvalidValue and launches nothing.
+extern "C" int mdt_kmask(const void* counts, const void* bits, uint64_t seed, uint64_t offset,
+                         void* out, int batch, int hw, int cs, int threads, int per_thread,
+                         int vec, void* stream) {
+  return launch_kmask(counts, bits, seed, offset, nullptr, out, batch, hw, cs, threads,
+                      per_thread, vec, stream);
+}
+
+// mdt_kmask with the Philox draws' seed and offset read by the kernel from
+// seeds: two uint64 on the device, {seed, offset}. The masks are those of
+// mdt_kmask at the same seed and offset, bit for bit; a CUDA graph that
+// captured the launch draws anew whenever the buffer is rewritten.
+extern "C" int mdt_kmask_seeded(const void* counts, const void* seeds, void* out, int batch,
+                                int hw, int cs, int threads, int per_thread, int vec,
+                                void* stream) {
+  if (seeds == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_kmask(counts, nullptr, 0, 0, seeds, out, batch, hw, cs, threads, per_thread,
+                      vec, stream);
 }
 
 // Resident clusters of the plan's kernel instance at cs CTAs of threads

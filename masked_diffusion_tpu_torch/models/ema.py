@@ -7,18 +7,22 @@ step/inv_gamma)^(-power), clamped to [min_decay, max_decay], with step =
 optimization_step - 1 and decay forced to 0 at the first step (so the EMA
 starts as a copy of the online parameters).
 
-The decay is a host float (the step counter lives on the host), so the
-update launches no transfer; the update itself is two in-place foreach
-kernels over the parameter lists, in the EMA's dtype (fp32). Under tensor
-parallelism (parallel/tp.py) the EMA copy holds the same slices as the
-model, so the elementwise update runs on each rank's slices.
+The decay is a host float (the step counter lives on the host) or a 0-d
+tensor on the parameters' device, which the train step uses, so that a
+CUDA graph of it reads each step's decay from the device; neither
+launches a transfer. The update is a few in-place foreach kernels over the
+parameter lists, in the EMA's dtype (fp32), 64 MiB of parameters at a time.
+Under tensor parallelism (parallel/tp.py) the EMA copy holds the same
+slices as the model, so the elementwise update runs on each rank's slices.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Union
 
 import torch
+
+_CHUNK_BYTES = 64 << 20  # of EMA parameters an update works on at once
 
 
 def ema_decay(
@@ -44,10 +48,29 @@ def ema_decay(
 def ema_update(
     ema_params: Sequence[torch.Tensor],
     params: Sequence[torch.Tensor],
-    decay: float,
+    decay: Union[float, torch.Tensor],
 ) -> None:
-    """ema <- decay * ema + (1 - decay) * params, in place, elementwise."""
+    """ema <- decay * ema + (1 - decay) * params, in place, elementwise.
+    decay: a float, or a 0-d tensor on the parameters' device."""
     ema_params = list(ema_params)
     params = [p.detach().to(e.dtype) for e, p in zip(ema_params, params)]
-    torch._foreach_mul_(ema_params, decay)
-    torch._foreach_add_(ema_params, params, alpha=1.0 - decay)
+    keep = 1.0 - decay
+    # (1 - decay) * params is made a chunk of parameters at a time, so its
+    # temporary stays near _CHUNK_BYTES, not the model's size
+    for part in _chunks(ema_params, _CHUNK_BYTES):
+        torch._foreach_mul_(ema_params[part], decay)
+        torch._foreach_add_(ema_params[part], torch._foreach_mul(params[part], keep))
+
+
+def _chunks(tensors: Sequence[torch.Tensor], limit: int):
+    """Slices of consecutive tensors of at most `limit` bytes together (a
+    larger tensor alone)."""
+    start = size = 0
+    for i, t in enumerate(tensors):
+        n = t.numel() * t.element_size()
+        if i > start and size + n > limit:
+            yield slice(start, i)
+            start, size = i, 0
+        size += n
+    if start < len(tensors):
+        yield slice(start, len(tensors))

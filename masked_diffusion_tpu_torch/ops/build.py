@@ -13,6 +13,7 @@ A failed build raises: nothing falls back to a plain version.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import glob
 import hashlib
@@ -20,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -97,6 +99,15 @@ def declare_exact_k(lib: ctypes.CDLL) -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     declare_exact_k(lib)
+    fn = lib.mdt_kmask_seeded
+    fn.argtypes = [
+        vp, vp,                  # counts (int32), seeds: {seed, offset} uint64 on the device
+        vp,                      # out
+        i32, i32,                # batch, hw
+        i32, i32, i32, i32,      # exact-k plan: cs, threads, per_thread, vec
+        vp,                      # cudaStream_t
+    ]
+    fn.restype = i32
     fn = lib.mdt_tinyhead_attention
     fn.argtypes = [
         vp, vp, vp, vp,          # q, k, v, out
@@ -145,24 +156,30 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.restype = i32
 
 
+def _compile(cmd) -> tuple:
+    """(returncode, output, seconds) of one nvcc -c."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+
 def _compile_and_link(path: str) -> str:
     """nvcc -c for every source at once, then one link; returns nvcc's
-    output. Raises on any failure."""
+    output, with each source's compile seconds. Raises on any failure."""
     nvcc = _nvcc()
     tag = f"{os.getpid()}.tmp"
-    objs, procs = [], []
+    objs, cmds = [], []
     for src in _sources():
         obj = os.path.join(KERNEL_DIR, f"{os.path.basename(src)}.{tag}.o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
-        procs.append((cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src])
         objs.append(obj)
+    with concurrent.futures.ThreadPoolExecutor(len(cmds)) as pool:
+        results = list(pool.map(_compile, cmds))  # every compile, then report
     log, failed = [], []
-    for cmd, proc in procs:  # wait for every compile, then report
-        out, _ = proc.communicate()
-        log.append(out)
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    for cmd, (code, out, seconds) in zip(cmds, results):
+        log.append(out + f"nvcc {os.path.basename(cmd[-1])}: {seconds:.1f} s\n")
+        if code != 0:
+            failed.append(f"nvcc failed ({code}): {' '.join(cmd)}\n{out}")
     tmp = f"{path}.{tag}"
     try:
         if failed:

@@ -39,7 +39,9 @@ Random numbers: a CPU torch.Generator seeds the mask kernel's Philox, or a
 device generator for the thresholding uniforms, made on each call (the
 sampling loop draws its fields from one device generator per call and
 passes them in); `bits` (indexing) or `uniforms` (thresholding) inject the
-draws, as the tests and the smoke check do.
+draws, as the tests and the smoke check do; `seeds` gives the mask
+kernel its Philox seed and offset on the device (the train step's route on
+a card, train/step.py:StepRandom).
 """
 
 from __future__ import annotations
@@ -53,13 +55,17 @@ from masked_diffusion_tpu_torch.ops.kmask import exact_count_masks_sharded
 from masked_diffusion_tpu_torch.parallel.mesh import MeshPlan
 
 
+def generator_seed(generator: torch.Generator) -> int:
+    """One draw of `generator`: the seed of a device generator made from it."""
+    return int(torch.randint(0, 2**62, (1,), generator=generator))
+
+
 def device_generator(generator: torch.Generator, device: torch.device) -> torch.Generator:
     """`generator` itself for the CPU; else a generator on `device` seeded
     from it (no host-device transfer)."""
     if device.type == "cpu":
         return generator
-    seed = int(torch.randint(0, 2**62, (1,), generator=generator))
-    return torch.Generator(device=device).manual_seed(seed)
+    return torch.Generator(device=device).manual_seed(generator_seed(generator))
 
 
 def threshold_masks(
@@ -123,17 +129,21 @@ def generate_masks(
     generator: Optional[torch.Generator] = None,
     bits: Optional[torch.Tensor] = None,
     uniforms: Optional[torch.Tensor] = None,
+    seeds: Optional[torch.Tensor] = None,
     plan=None,
 ) -> torch.Tensor:
     """Masks broadcast to img's (B, C, H, W) shape. On CUDA, indexing always
     launches the exact-k mask kernel, through its sharded form on `plan` (a
     parallel/mesh.MeshPlan, img holding this rank's rows; one rank when
-    None)."""
+    None); `seeds` (indexing) is the rank's Philox (seed, offset) as an
+    int64 (2,) tensor on img's device, in place of the generator
+    (ops/kmask.py)."""
     b, c, h, w = img.shape
     if select_degrade_pixel == "indexing":
         plan = plan or MeshPlan(device=img.device)
         masks = exact_count_masks_sharded(b * plan.data_size, h, w, amount.to(torch.int32),
-                                          plan=plan, generator=generator, bits=bits)
+                                          plan=plan, generator=generator, bits=bits,
+                                          **({} if seeds is None else {"seeds": seeds}))
     elif select_degrade_pixel == "thresholding":
         masks = threshold_masks(b, h, w, c, amount, degrade_channel == "3-channel",
                                 generator=generator, uniforms=uniforms)
@@ -191,9 +201,11 @@ def degrade_training(
     generator: Optional[torch.Generator] = None,
     bits: Optional[torch.Tensor] = None,
     uniforms: Optional[torch.Tensor] = None,
+    seeds: Optional[torch.Tensor] = None,
     plan=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Training-time degradation (scheduler.py:266-323), img (B, C, H, W).
+    The draws as generate_masks takes them.
 
     Returns (degrade_img, masks, degrade_mask, mean_mask):
       degrade_img  = (1-m)*mu + m*x
@@ -202,7 +214,8 @@ def degrade_training(
       mean_mask    = mu everywhere
     """
     masks = generate_masks(img, amount, select_degrade_pixel, degrade_channel,
-                           generator=generator, bits=bits, uniforms=uniforms, plan=plan)
+                           generator=generator, bits=bits, uniforms=uniforms, seeds=seeds,
+                           plan=plan)
     mean_pixel = compute_mean_pixel(img, masks, mean_option, mean_area)
     inv = 1.0 - masks
     degrade_img = inv * mean_pixel + masks * img

@@ -16,8 +16,12 @@ a warp per span, up to eight spans per CTA, the span in registers (the
 backward's dy and x^ in shared memory). The backward writes dx, dgamma and
 dbeta in one launch: each span's per-channel parts go to a (2, B, C) fp32
 scratch, and the last span of a group to finish (a per-group arrival
-counter) sums them in image order. Bound: device-memory bytes, one read of x
-(and of the incoming gradient) and one write of y (dx).
+counter) sums them in image order. The counters are one buffer per
+(device, stream), which the kernel leaves at zero: launches on two streams
+in flight at once never share one, and launches on one stream run in
+order. A CUDA graph's launches use their capture stream's buffer, which must
+exist before the capture (`reserve_counters`). Bound: device-memory bytes,
+one read of x (and of the incoming gradient) and one write of y (dx).
 
 `gn_plan` is the launch plan, a pure host function the wrappers use and the
 CPU tests hold: cluster size, spans per CTA, threads, shared memory, and
@@ -230,7 +234,31 @@ def _flat_strides(t: torch.Tensor, what: str):
 
 
 _max_clusters: dict = {}  # (backward, dtype, ctas, threads, smem) -> resident clusters
-_counters: dict = {}  # device -> the backward's per-group arrival counters (int32)
+# (device, stream handle) -> the backward's per-group arrival counters (int32)
+_counters: dict = {}
+COUNTERS_MIN = 64  # groups the counters of a stream cover at least
+
+
+def reserve_counters(device: torch.device, stream=None, groups: int = COUNTERS_MIN):
+    """The backward's arrival counters of `stream` (default: the device's
+    current stream), made now if missing or too short. A CUDA graph's
+    captured backward launches use the capture stream's counters; call this
+    (or run the backward once on that stream) before the capture."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    if stream is None:
+        stream = torch.cuda.current_stream(device)
+    key = (device, stream.cuda_stream)
+    counters = _counters.get(key)
+    if counters is None or counters.numel() < groups:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "group_norm_silu_backward: no arrival counters for the stream under capture; "
+                "reserve them (ops/groupnorm.py:reserve_counters) before capturing")
+        counters = torch.zeros(max(groups, COUNTERS_MIN), dtype=torch.int32, device=device)
+        _counters[key] = counters
+    return counters
 
 
 def max_active_clusters(backward: bool, dtype: torch.dtype, plan: GnPlan) -> int:
@@ -308,15 +336,12 @@ def group_norm_silu_backward(x, scale, bias, grad_out, mean, rstd, groups: int, 
         group_norm_silu_backward.strided += 1
     plan = _cuda_plan(b, c, h, w, groups, x.dtype, True)
     lib = build.load_library()
-    counters = _counters.get(x.device)
-    if counters is None or counters.numel() < groups:
-        counters = torch.zeros(max(groups, 64), dtype=torch.int32, device=x.device)
-        _counters[x.device] = counters
     dx = torch.empty((b, c, h, w), dtype=x.dtype, device=x.device)
     dscale = torch.empty((c,), dtype=scale.dtype, device=x.device)
     dbias = torch.empty((c,), dtype=scale.dtype, device=x.device)
     parts = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
+        counters = reserve_counters(x.device, groups=groups)
         code = lib.mdt_group_norm_bwd(
             x.data_ptr(), grad_out.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), dscale.data_ptr(),

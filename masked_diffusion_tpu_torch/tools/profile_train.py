@@ -2,6 +2,7 @@
 
     python -m masked_diffusion_tpu_torch.tools.profile_train [--config flagship]
         [--steps 5] [--out FILE]
+    python -m masked_diffusion_tpu_torch.tools.profile_train --compare A.json B.json
 
 Builds a UNet and the port's train step in bf16 (AdamW + cosine at lr 1e-4,
 EMA on, mean_shift with a 1-d_constant shift). --config picks it:
@@ -21,10 +22,22 @@ there); then a profiled window of --steps steps after a warm-up. From the
 window: wall and device-busy ms per step, the device's idle share, the
 kernels run per step, the top kernels by device time, with the device ms
 and shares of the port's own kernels (GroupNorm forward and backward,
-exact-k masks, tiny-head attention), and the host operators with the most
-self CPU time.
+exact-k masks, tiny-head attention), the host operators with the most
+self CPU time, and per step every kernel's and every host operator's calls
+and the host's launch calls (cudaLaunchKernel, cuLaunchKernelEx, ...) by
+name.
 Prints one JSON object per mode and writes them all to --out (default
 build/profile_train_<config>.json). Needs CUDA.
+
+--compare reads two such files (say, the parent tree's and a change's,
+both written by this script back to back on one card) and prints, per
+mode, both wall times and launch counts a step and the kernels and host
+operators whose calls a step differ most: where the launches went.
+
+The script imports only what every tree since the port's train step has
+(make_train_step, create_train_state, build_optimizer), so it also
+profiles another checkout of the package: run it from that checkout's
+root with PYTHONPATH=. and this file's path.
 """
 
 from __future__ import annotations
@@ -43,6 +56,8 @@ from masked_diffusion_tpu_torch.utils.profiling import device_rows
 OWN = {"gn_fwd": ("gn_fwd_", "gn_silu_kernel"), "gn_bwd": ("gn_bwd_", "gn_silu_bwd_kernel"),
        "kmask": ("kmask_kernel",), "tinyhead": ("tinyhead_fwd",),
        "tinyhead_bwd": ("tinyhead_bwd",)}
+# the host's launch calls, by the CUDA runtime's and driver's names
+HOST_LAUNCHES = ("cudaGraphLaunch", "cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
 # name: (zoo name, --num_attention, image size, batch, [(schedule, selection, T)])
 CONFIGS = {
     "flagship": ("default", 1, 64, 64, (("linear", "thresholding", 1000),
@@ -62,6 +77,20 @@ def _host_rows(prof, steps: int, top: int = 12):
     rows.sort(key=lambda r: -r[1])
     return [{"name": n[:120], "self_cpu_ms_per_step": t, "calls_per_step": c}
             for n, t, c in rows[:top]]
+
+
+def _host_counts(prof, steps: int):
+    """({host operator: calls a step}, {launch call: calls a step}) of the
+    window's CPU events."""
+    from torch.autograd import DeviceType
+
+    ops, launches = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CPU:
+            continue
+        table = launches if e.key.startswith(HOST_LAUNCHES) else ops
+        table[e.key[:120]] = e.count / steps
+    return ops, launches
 
 
 def _timed_wrappers():
@@ -147,6 +176,7 @@ def profile_mode(config: str, sched: str, select: str, t_steps: int, steps: int)
         torch.cuda.synchronize()
         window_ms = 1e3 * (time.perf_counter() - t0) / steps
     rows = device_rows(prof)
+    host_ops, host_launches = _host_counts(prof, steps)
     busy = sum(r[1] for r in rows) / steps
     own = {k: sum(r[1] for r in rows if any(f in r[0] for f in frags)) / steps
            for k, frags in OWN.items()}
@@ -171,7 +201,43 @@ def profile_mode(config: str, sched: str, select: str, t_steps: int, steps: int)
         "top": [{"name": n[:120], "ms_per_step": t / steps, "share": t / steps / busy,
                  "calls_per_step": c / steps} for n, t, c in rows[:15]],
         "host_top": _host_rows(prof, steps),
+        "host_launches_per_step": sum(v for k, v in host_launches.items()
+                                      if k.startswith(("cudaLaunch", "cuLaunch"))),
+        "host_calls_per_step": host_launches,
+        "kernel_calls_per_step": {n[:160]: c / steps for n, _, c in rows},
+        "host_op_calls_per_step": host_ops,
     }
+
+
+def compare(path_a: str, path_b: str, top: int = 20) -> list:
+    """Per mode in both files: the wall ms and launches a step of each and
+    the kernels and host operators whose calls a step differ most (b - a)."""
+    with open(path_a) as f:
+        a = {r["mode"]: r for r in json.load(f)}
+    with open(path_b) as f:
+        b = {r["mode"]: r for r in json.load(f)}
+
+    def diff(key, ra, rb):
+        x, y = ra.get(key, {}), rb.get(key, {})
+        d = {n: y.get(n, 0.0) - x.get(n, 0.0) for n in set(x) | set(y)}
+        d = sorted(((n, v) for n, v in d.items() if abs(v) > 1e-9), key=lambda r: -abs(r[1]))
+        return [{"name": n, "a": x.get(n, 0.0), "b": y.get(n, 0.0), "b_minus_a": v}
+                for n, v in d[:top]]
+
+    out = []
+    for mode in a:
+        if mode not in b:
+            continue
+        ra, rb = a[mode], b[mode]
+        row = {"mode": mode, "a": path_a, "b": path_b, "card": [ra.get("card"), rb.get("card")]}
+        for key in ("wall_ms_per_step", "device_busy_ms_per_step", "idle_share_unprofiled",
+                    "kernels_per_step", "host_launches_per_step"):
+            row[key] = [ra.get(key), rb.get(key)]
+        row["kernels"] = diff("kernel_calls_per_step", ra, rb)
+        row["host_ops"] = diff("host_op_calls_per_step", ra, rb)
+        row["host_calls"] = diff("host_calls_per_step", ra, rb)
+        out.append(row)
+    return out
 
 
 def main(argv=None) -> int:
@@ -181,7 +247,13 @@ def main(argv=None) -> int:
     p.add_argument("--config", choices=sorted(CONFIGS), default="flagship")
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--out", default=None)
+    p.add_argument("--compare", nargs=2, metavar=("A", "B"), default=None,
+                   help="two files this script wrote: print where their steps differ")
     args = p.parse_args(argv)
+    if args.compare:
+        for row in compare(*args.compare):
+            print(json.dumps(row), flush=True)
+        return 0
     out = args.out or os.path.join("build", f"profile_train_{args.config}.json")
     if not torch.cuda.is_available():
         print("profile_train: CUDA is not available", file=sys.stderr)

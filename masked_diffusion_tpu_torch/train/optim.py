@@ -15,8 +15,9 @@ reference's get_optimizer / get_lr_scheduler (main_train_masked.py:134-165):
   - clip: g * max/||g|| where ||g|| >= max (optax's formula, not
     clip_grad_norm_'s max/(||g|| + 1e-6)), the global norm over every
     gradient, computed on the device;
-  - adam, adamw (weight decay 0.01 on every parameter, eps 1e-8) and plain
-    sgd are torch.optim's, whose update equals optax's;
+  - adam and adamw (weight decay 0.01 on every parameter, eps 1e-8) are
+    torch.optim's, whose update equals optax's; plain sgd is optax's
+    p - lr * g in foreach ops (a torch.optim.SGD holds its param_groups);
   - gradient accumulation as MultiSteps: the k micro-step gradients sum
     in .grad (under DistributedDataParallel's no_sync too), and on the k-th
     micro step their mean, the sum over k, goes through clip + optimizer;
@@ -25,9 +26,18 @@ reference's get_optimizer / get_lr_scheduler (main_train_masked.py:134-165):
   - the LR is the schedule at the optimizer's update count from 0, as optax
     evaluates it, so it advances once per update.
 
-The LR and every count are host numbers: a step makes no host-device
-transfer. Under tensor parallelism the clip's norm is the whole logical
-gradient's (Optimizer.set_tensor_parallel), so it scales as in one process.
+The counts are host numbers; the LR the base optimizer reads is a 0-d
+tensor on the parameters' device (`Optimizer.lr_tensor`: float32 on a card,
+float64 on the CPU, the host number it was), so an update makes no
+host-device transfer and no host sync, and its device work
+(`Optimizer.apply_update`) can be captured into a CUDA graph as it is:
+on a card Adam and AdamW run torch's capturable form (their step counts on
+the device); torch's SGD would read a tensor LR on the host, so SGD's
+update is the port's own on every device. The gradients are static
+tensors: made once, zeroed in place where a window starts, summed into by
+backward (train/step.py:make_train_epoch replays the same tensors). Under tensor
+parallelism the clip's norm is the whole logical gradient's
+(Optimizer.set_tensor_parallel), so it scales as in one process.
 
 `Optimizer.state_dict` is what a checkpoint keeps of it (optax keeps the
 same in MultiSteps' opt_state): the base optimizer's per-parameter state
@@ -41,6 +51,7 @@ Tensors are keyed "<parameter name>.<key>" by the model's parameter names
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
@@ -107,13 +118,16 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
 class Optimizer:
     """clip + base optimizer + MultiSteps accumulation over `params`.
 
-    Before backward, `zero_grad()` clears .grad where a window starts, so
-    backward sums the micro steps' gradients there. After it, `update()`
-    on every k-th call divides the sum by k, clips it (.grad keeps the
-    clipped mean until the next window), sets the LR to schedule(count)
-    and steps the base optimizer. `count` is the number of updates made
-    (the LR schedule's step), `mini_step` the micro steps since the last
-    one."""
+    Before backward, `zero_grad()` zeroes .grad in place where a window
+    starts, so backward sums the micro steps' gradients there. After it,
+    `update()` on every k-th call divides the sum by k, clips it (.grad
+    keeps the clipped mean until the next window), sets the LR to
+    schedule(count) and steps the base optimizer. `count` is the number of
+    updates made (the LR schedule's step), `mini_step` the micro steps
+    since the last one. The device work and the host counts come apart for
+    a CUDA graph: `zero_grads` and `apply_update(lr)` are the device work,
+    `advance()` the counts, and `windows(n)` says from the counts what the
+    next n micro steps do, the one statement of MultiSteps' window rule."""
 
     def __init__(
         self,
@@ -137,6 +151,7 @@ class Optimizer:
         self.every_k = max(1, int(gradient_accumulation_steps))
         self.count = 0
         self.mini_step = 0
+        self._lr: Optional[torch.Tensor] = None
 
     def set_tensor_parallel(self, sharded_names: Sequence[str], model_group) -> None:
         """The updates of a model that parallel/tp.py:shard_module converted:
@@ -168,19 +183,69 @@ class Optimizer:
         for g, part in zip(repl, flat.split([g.numel() for g in repl])):
             g.copy_(part.view_as(g))
 
+    def lr_tensor(self) -> torch.Tensor:
+        """The 0-d LR that the updates read, on the parameters' device:
+        float32 on a card (the capturable optimizers' dtype), float64 on the
+        CPU (the host number it was)."""
+        dev = self.params[0].device
+        if self._lr is None or self._lr.device != dev:
+            dtype = torch.float64 if dev.type == "cpu" else torch.float32
+            self._lr = torch.zeros((), dtype=dtype, device=dev)
+        return self._lr
+
+    def windows(self, n: int) -> List[Tuple[bool, bool, int]]:
+        """(starts, closes, count) of each of the next n micro steps, from
+        the counts and without changing them: whether it starts an
+        accumulation window (zeroes the gradients), whether it closes one
+        (updates), and the update count the LR schedule reads there."""
+        mini, count, out = self.mini_step, self.count, []
+        for _ in range(n):
+            closes = mini + 1 >= self.every_k
+            out.append((mini == 0, closes, count))
+            mini, count = (0, count + 1) if closes else (mini + 1, count)
+        return out
+
     def zero_grad(self) -> None:
-        """Clear .grad where an accumulation window starts (on every call
+        """Zero .grad where an accumulation window starts (on every call
         when k = 1); inside a window the micro steps' gradients sum there."""
-        if self.mini_step == 0:
-            for p in self.params:
-                p.grad = None
+        if self.windows(1)[0][0]:
+            self.zero_grads()
+
+    @torch.no_grad()
+    def zero_grads(self) -> None:
+        """Every parameter's .grad zeroed in place, made where missing: the
+        same tensors from step to step, which backward sums into."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        torch._foreach_zero_([p.grad for p in self.params])
 
     @torch.no_grad()
     def update(self) -> bool:
         """Consume the micro step's gradients; True when parameters moved."""
-        self.mini_step += 1
-        if self.mini_step < self.every_k:
-            return False
+        _, closes, count = self.windows(1)[0]
+        if closes:
+            lr = self.lr_tensor()
+            lr.fill_(self.schedule(count))
+            self.apply_update(lr)
+        self.advance()
+        return closes
+
+    def advance(self) -> None:
+        """The host counts of one micro step: mini_step, and count where the
+        window closes."""
+        _, closes, _ = self.windows(1)[0]
+        if closes:
+            self.count, self.mini_step = self.count + 1, 0
+        else:
+            self.mini_step += 1
+
+    @torch.no_grad()
+    def apply_update(self, lr: torch.Tensor) -> None:
+        """The device work of a window's closing micro step: the summed
+        gradients' mean over the window, the clip, and the base optimizer's
+        step at `lr` (a 0-d tensor on the parameters' device). No host
+        sync, so a CUDA graph captures it as it is."""
         # a parameter the loss did not reach has a zero gradient, as in JAX
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         if self.every_k > 1:
@@ -191,13 +256,35 @@ class Optimizer:
             clip_by_global_norm_(grads, self.grad_clip_norm, self.sharded, self.model_group)
         for p, g in zip(self.params, grads):
             p.grad = g
-        lr = self.schedule(self.count)
+        if isinstance(self.base, torch.optim.SGD):
+            # optax's sgd; torch's would take a tensor LR as a host number
+            # (an item() sync)
+            torch._foreach_sub_(self.params, torch._foreach_mul(grads, lr))
+            return
+        self._capturable()
         for group in self.base.param_groups:
             group["lr"] = lr
-        self.base.step()
-        self.count += 1
-        self.mini_step = 0
-        return True
+        with warnings.catch_warnings():
+            # torch warns that a capturable optimizer also runs eagerly: it
+            # does, whenever a step is not replayed from a graph
+            warnings.filterwarnings("ignore", message=".*capturable=True.*")
+            self.base.step()
+
+    def _capturable(self) -> None:
+        """Adam and AdamW on a card in torch's capturable form (the step
+        counts on the device, the LR read as a tensor), with any step count
+        of a state made otherwise moved to its parameter's device."""
+        dev = self.params[0].device
+        if dev.type == "cpu" or not isinstance(self.base, (torch.optim.Adam, torch.optim.AdamW)):
+            return
+        if all(g["capturable"] for g in self.base.param_groups):
+            return
+        for group in self.base.param_groups:
+            group["capturable"] = True
+            for p in group["params"]:
+                st = self.base.state.get(p, {})
+                if "step" in st:
+                    st["step"] = st["step"].to(device=p.device, dtype=torch.float32)
 
     def state_dict(self) -> Tuple[Dict[str, torch.Tensor], dict]:
         """(tensors, scalars): the base optimizer's per-parameter tensors and,
@@ -214,7 +301,8 @@ class Optimizer:
                     tensors[f"{name}.{key}"] = value
             if self.mini_step > 0 and p.grad is not None:
                 tensors[f"{name}.grad"] = p.grad
-        groups = [{k: v for k, v in g.items() if k != "params"}
+        groups = [{k: float(v) if isinstance(v, torch.Tensor) else v
+                   for k, v in g.items() if k != "params"}
                   for g in self.base.state_dict()["param_groups"]]
         scalars = {"count": self.count, "mini_step": self.mini_step, "every_k": self.every_k,
                    "base": type(self.base).__name__, "param_groups": groups}

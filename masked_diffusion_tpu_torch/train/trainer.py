@@ -92,9 +92,20 @@ restores under any other. Inside an accumulation window the gradient sums
 are stacked by data rank, as under data parallelism (under SP each rank's
 share is summed over its model group first).
 
-Not ported yet, and refused at construction when a flag asks for it:
---epoch_scan true (the TPU's whole-epoch lax.scan; its CUDA counterpart
-would be a graphed step); so are the sampling modes the cadence's samplers
+Epoch scan (--epoch_scan, trainer.py:286-300, 497-528): the JAX trainer
+runs an epoch as one lax.scan program; here the epoch runs through
+train/step.py:make_train_epoch, on a card the step captured as CUDA graphs
+and replayed once a batch, on the CPU the same body eagerly. Same rows,
+draws, losses and state as the step-by-step loop, bit for bit; a resumed
+epoch skips its first rows as the loop does; each step is still one host
+call, so SIGTERM still stops after the step in flight, and the metrics are
+still fetched once an epoch. Selection as JAX's: the flag, else
+MDT_EPOCH_SCAN=1/0, else off (JAX's auto rule is a TPU backend). The graphs
+are kept for the epoch's curriculum and dropped when it changes and on a
+restore. Refused at construction: a plan of more than one rank with the
+scan on (each rank would capture collectives: not ported).
+
+Refused at construction too: the sampling modes the cadence's samplers
 refuse (sample/loop.py:validate_modes,
 sample/interpolation.py:validate_interpolation_modes).
 """
@@ -139,6 +150,7 @@ from masked_diffusion_tpu_torch.sample.loop import make_sample_fn, validate_mode
 from masked_diffusion_tpu_torch.train.optim import build_lr_schedule, build_optimizer
 from masked_diffusion_tpu_torch.train.step import (
     create_train_state,
+    make_train_epoch,
     make_train_step,
     make_train_visuals_fn,
 )
@@ -149,14 +161,27 @@ from masked_diffusion_tpu_torch.utils.grids import (
     save_png,
 )
 
-__all__ = ["Trainer", "build_model_from_config", "unported_options"]
+__all__ = ["Trainer", "build_model_from_config", "unported_options", "use_epoch_scan"]
 
 
-def unported_options(cfg: Config) -> List[str]:
-    """The flags of cfg that ask for something the port has not yet."""
+def use_epoch_scan(cfg: Config) -> bool:
+    """Whether training runs an epoch through make_train_epoch (JAX
+    Trainer._use_epoch_scan's precedence): an explicit --epoch_scan wins;
+    else MDT_EPOCH_SCAN=1/true or 0/false; else off. JAX's auto rule turns
+    it on for a TPU backend, which the port never has."""
+    if cfg.epoch_scan is not None:
+        return bool(cfg.epoch_scan)
+    return os.environ.get("MDT_EPOCH_SCAN", "").lower() in ("1", "true")
+
+
+def unported_options(cfg: Config, plan: Optional[MeshPlan] = None) -> List[str]:
+    """What cfg asks for on `plan` (None: one process) that the port has
+    not yet."""
     asked = []
-    if cfg.epoch_scan:
-        asked.append("--epoch_scan")
+    if plan is not None and plan.world_size > 1 and use_epoch_scan(cfg):
+        asked.append(f"--epoch_scan true on a plan of {plan.data_size} x {plan.model_size} "
+                     f"ranks (--mesh_data {plan.data_size} --mesh_model {plan.model_size}): "
+                     "the graphed epoch runs one process")
     return asked
 
 
@@ -192,7 +217,7 @@ class Trainer:
         device="cuda",
         plan: Optional[MeshPlan] = None,
     ):
-        asked = unported_options(cfg)
+        asked = unported_options(cfg, plan)
         if asked:
             raise NotImplementedError(f"not yet ported: {', '.join(asked)}")
         # silently-broken mode couplings fail here, not at the first save
@@ -241,6 +266,9 @@ class Trainer:
         self.state = create_train_state(self.model, optimizer, use_ema=cfg.use_ema,
                                         plan=self.plan)
         self._step_cache: Dict[tuple, callable] = {}
+        # (curriculum key, TrainEpoch): one at a time, its graphs dropped
+        # when the curriculum changes (JAX keys _epoch_cache the same way)
+        self._epoch_fn: Optional[tuple] = None
         self._visuals_cache: Dict[tuple, callable] = {}
         self._data_dev: Optional[torch.Tensor] = None
         self._last_batch: Optional[torch.Tensor] = None  # this rank's rows, on the device
@@ -261,6 +289,9 @@ class Trainer:
         the same files). Returns the restored global step. Raises when the
         checkpoint lacks the EMA (with EMA on) or the optimizer state."""
         model_sd, ema_sd, opt_state, meta = ckpt_io.load_checkpoint(path)
+        # the graphs hold the optimizer's state and gradient tensors, which
+        # the restore replaces
+        self._epoch_fn = None
         missing = [name for name, expected, got in (
             ("unet_ema", self.state.ema_model, ema_sd),
             ("optimizer", self.state.optimizer, opt_state)) if expected is not None and got is None]
@@ -307,6 +338,15 @@ class Trainer:
                 self.lr_schedule, self.device, self.plan,
             )
         return self._step_cache[key]
+
+    def _get_epoch_fn(self, used: np.ndarray):
+        key = tuple(int(t) for t in used)
+        if self._epoch_fn is None or self._epoch_fn[0] != key:
+            self._epoch_fn = None  # the old graphs and their pool go first
+            self._epoch_fn = (key, make_train_epoch(
+                self.model, self.schedule, self.cfg, self.state.optimizer, used,
+                self.lr_schedule, self.device, self.plan))
+        return self._epoch_fn[1]
 
     def _get_visuals_fn(self, used: np.ndarray):
         key = tuple(int(t) for t in used)
@@ -377,6 +417,7 @@ class Trainer:
         timed: List[tuple] = []  # (seconds, steps, traced) per epoch
         checkpoints: List[str] = []
         preempted = False
+        scan = use_epoch_scan(cfg)
         for epoch in range(epoch_start, epoch_start + epoch_length):
             t_start = time.perf_counter()
             rng = np.random.default_rng([cfg.seed, epoch])
@@ -384,7 +425,6 @@ class Trainer:
                 epoch, epoch_total, cfg.scheduler_num_scale_timesteps
             )
             self.timesteps_used_epoch = used
-            step_fn = self._get_step_fn(used)
 
             # the shuffle is drawn whole; a resumed epoch skips the batches
             # its preempted run trained
@@ -392,30 +432,47 @@ class Trainer:
             first = resume_step if epoch == epoch_start else 0
             carried = self._cut_epoch_losses if first else []
             self._cut_epoch_losses = []
-            losses = []
+            keys, mat = [], None  # the metrics' names and their (steps, names) matrix
             traced = cfg.profile_dir if epoch == profile_epoch else None
+
+            def label(i):
+                return (torch.profiler.record_function(f"train_step epoch {epoch} step {i}")
+                        if traced else contextlib.nullcontext())
+
             if rows[first:]:
                 # one host->device transfer of the epoch's index rows, this
                 # rank's columns of each global batch
                 sel = np.stack(rows[first:])[:, local_rows(cfg.batch_size, self.plan)]
                 sel = torch.as_tensor(sel, device=self.device)
+                losses = []
+                # built before the trace window, which holds the steps only
+                run = self._get_epoch_fn(used) if scan else self._get_step_fn(used)
                 with profiling.trace(traced, self.plan.rank, self.device):
-                    for i in range(first, len(rows)):
-                        with (torch.profiler.record_function(f"train_step epoch {epoch} step {i}")
-                              if traced else contextlib.nullcontext()):
-                            self._last_batch = self._data_dev[sel[i - first]]
-                            losses.append(step_fn(self.state, self._last_batch,
+                    if scan:
+                        keys, mat = run(
+                            self.state, self._data_dev, sel,
+                            [self._step_generator(epoch, i) for i in range(first, len(rows))],
+                            after_step=lambda j: self._step_done(single),
+                            step_context=lambda j: label(first + j))
+                    else:
+                        for i in range(first, len(rows)):
+                            with label(i):
+                                self._last_batch = self._data_dev[sel[i - first]]
+                                losses.append(run(self.state, self._last_batch,
                                                   self._step_generator(epoch, i)))
-                        self.global_step += 1
-                        if single and self._preempt_requested:
-                            break
+                            if self._step_done(single):
+                                break
+                if scan:
+                    self._last_batch = self._data_dev[sel[mat.shape[0] - 1]]
+                else:
+                    keys = list(losses[0].keys())
+                    mat = torch.stack([torch.stack([m[k] for k in keys]) for m in losses])
             stop = self._preempt_requested
-            if losses:
+            losses = []
+            if mat is not None:
                 # host sync once per epoch, as ONE stacked transfer of the
                 # steps' metrics, their mean over the ranks with the
                 # preemption flag OR-ed in (one collective)
-                keys = list(losses[0].keys())
-                mat = torch.stack([torch.stack([m[k] for k in keys]) for m in losses])
                 flat = torch.cat([mat.flatten(), mat.new_tensor([float(stop)])])
                 flat = host.mean_over_ranks(flat).cpu()
                 stop = bool(flat[-1] > 0)
@@ -500,6 +557,13 @@ class Trainer:
             "checkpoints": checkpoints,
             "preempted": preempted,
         }
+
+    def _step_done(self, single: bool) -> bool:
+        """After each train step: the global step, and whether to stop (one
+        process stops at SIGTERM after the step in flight; ranks only at an
+        epoch's end)."""
+        self.global_step += 1
+        return single and self._preempt_requested
 
     def _on_save_cadence(self, epoch: int, epoch_start: int, epoch_length: int) -> bool:
         """trainer_masked_mean_shift.py:252's cadence, plus the loop's last
