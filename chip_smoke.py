@@ -156,16 +156,16 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      archive of 160 smooth JPEGs at 256x320x3 written with
      tools/lmdb_write.py (overflow values, a branch page); (c) the flagship
      trained on it through the CLI under MDT_NATIVE_PREPROCESS=1 with
-     --profile_dir (phase 10's flags, 128 images, batch 64, 3 epochs):
-     a (128, 64, 64, 3) dataset through backend native, global_step 6, one
+     --profile_dir (phase 10's flags, 128 images, batch 64, 3 epochs, the
+     cadence at T=20): a (128, 64, 64, 3) dataset through backend native, global_step 6, one
      trace_rank0.json of epoch 1's two steps naming the GroupNorm forward
      and backward and the exact-k kernels, and its device busy ms, wall ms
      and idle share; the load without native for comparison; (d) the final
      checkpoint rewritten as the reference writes one (.bin, legacy
      attention names, EMA hyperparameters in unet_ema/config.json, no
      meta.json or optimizer/), served with phase 5's flags (linear +
-     thresholding, T=100, two requests of 16 images, kernel 1 once a reverse
-     step), converted by `python -m masked_diffusion_tpu_torch.io.import_torch`
+     thresholding, here at T=20, two requests of 16 images, kernel 1 once a
+     reverse step), converted by `python -m masked_diffusion_tpu_torch.io.import_torch`
      (weights bitwise the original's, optimizer_imported false, a resume
      from it refused), and the original served at the same seed: the same
      images
@@ -196,7 +196,7 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      blocks; the gloo all-gather and all-reduce of a (8, 512, 8, 8)
      activation; (c) the flagship through the CLI with --mesh_model 2 and
      with --mesh_spatial true (one epoch of 2 steps at batch 8, the
-     cadence's fused sampler at T=20), per-rank launches checked, each
+     cadence's fused sampler at T=8), per-rank launches checked, each
      checkpoint served by one process. Alone (~2 min with the build):
      `python3 -c "import tempfile, chip_smoke as c; smi = c.phase_env();
      c.phase_grid(tempfile.mkdtemp(dir='build'), smi)"` (needs `mkdir -p
@@ -222,14 +222,36 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      "import tempfile, chip_smoke as c; smi = c.phase_env(); d =
      tempfile.mkdtemp(dir='build'); c.phase_graphed_epoch(d, smi)"` (needs
      `mkdir -p build`)
+ 29. the trainer's device-data rule (train/trainer.py:use_device_data) and
+     the launch farm (scripts_torch/) at the flagship's width: (a) the
+     flagship (batch 64, bf16, log + indexing, T=4096) through the Trainer
+     with the dataset on the card and with each batch copied in from the
+     host, in turns: ms/step of each, a batch's gather + pin + copy and the
+     copy alone; (b) scripts_torch/train/celeba_hq/masked_shift_mean/
+     script_main.sh through scripts_torch/config/gpu_single.sh, on 64
+     synthesized images in the CelebA-HQ folder layout and cut by
+     FARM_CUTS (2 epochs, T=20, a cadence of 16 images), with
+     MDT_DEVICE_DATA=1, and with MDT_DEVICE_DATA_CAP_MB=0 and --epoch_scan
+     true, each a process whose CLI runs under deterministic() (this
+     script with `--launched <dir>` in front of the CLI): losses,
+     parameters, EMA and AdamW state bitwise equal, no device copy of the
+     dataset in the capped run, no CUDA graph and no make_train_epoch; (c)
+     the script through gpu_h100_4.sh with MDT_NPROC=2, both ranks on
+     cuda:0 over gloo, each rank running the CLI as the script calls it and
+     then again with --epoch_scan true appended (one launch): bitwise
+     equal, ms/step a rank of each; kernels 1, 2, 2b and 3 launched in
+     every run. Alone (~2.5 min with the build):
+     `python3 -c "import tempfile, chip_smoke as c; smi = c.phase_env(); d =
+     tempfile.mkdtemp(dir='build'); c.phase_farm(d, smi)"` (needs `mkdir -p
+     build`)
 
 Phases 11 and 12 run first (the newest kernels fail fast), phases 19,
 22a and 23a after the slice phases; phases 26, 5, 10, 20, 22b, 22c, 23b,
-16, 17, 18, 27, 21, 24 and 28, the main-path runs, come last, in one work
-directory. The
-kernels' `launches` are counted over those runs (phases 18's and 27's summed
-over their ranks, phase 21's over its five, phase 28's with each graph
-replay adding what its capture launched),
+16, 17, 18, 27, 21, 24, 28 and 29, the main-path runs, come last, in one
+work directory. The
+kernels' `launches` are counted over those runs (phases 18's, 27's and
+29's summed over their ranks and processes, phase 21's over its five, phase
+28's with each graph replay adding what its capture launched),
 with every count set to 0 just before each. Run phase 19 alone with `python3 -c "import chip_smoke as c;
 c.phase_env(); c.phase_sampling_modes()"`, phases 10 and 20 with `python3
 -c "import tempfile, chip_smoke as c; c.phase_env(); d =
@@ -268,6 +290,7 @@ import io
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -3380,13 +3403,14 @@ def rank_main(workdir: str) -> int:
     return 0
 
 
-def _run_group(cmd, timeout: int):
-    """Run cmd in a session of its own; on timeout kill the whole session
-    (torch.distributed.run and its ranks). Returns (rc, stdout + stderr)."""
+def _run_group(cmd, timeout: int, env=None):
+    """Run cmd in a session of its own (in `env`, default this process's);
+    on timeout kill the whole session (torch.distributed.run and its
+    ranks). Returns (rc, stdout + stderr)."""
     import signal
 
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True, start_new_session=True)
+                            text=True, start_new_session=True, env=env)
     try:
         output, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -3599,7 +3623,7 @@ GRID_UPDATE_RTOL = 1e-3
 GRID_MOVE_BOUND = 5
 GRID_UNET6_BATCH = 2
 GRID_SAMPLE_NUM = 4
-GRID_T = 20  # the CLI runs' --ddpm_num_steps (log + indexing)
+GRID_T = 8  # the CLI runs' --ddpm_num_steps (log + indexing; 20 before phase 29)
 
 
 def _grid_data(used_len: int):
@@ -3738,7 +3762,7 @@ def grid_collective_ms(plan, dev) -> dict:
 def grid_cli_args(workdir: str, mode: str):
     """(training argv, flags shared with serving) of the flagship through the
     CLI on phase 27's grid: batch 8, one epoch of 2 steps, the cadence's
-    fused sampler at T=20, --mesh_model 2 (and --mesh_spatial true for SP),
+    fused sampler at T=8, --mesh_model 2 (and --mesh_spatial true for SP),
     both ranks on cuda:0."""
     argv, common = flagship_cli_args(os.path.join(workdir, mode))
     pairs = ("--batch_size", "8", "--data_subset_num", "16", "--sample_num",
@@ -3767,7 +3791,14 @@ def grid_rank_main(workdir: str) -> int:
 
     device = init_distributed("cuda:0")
     rank = dist.get_rank()
-    out = {"rank": rank, "device": str(device), "backend": dist.get_backend()}
+    out = {"rank": rank, "device": str(device), "backend": dist.get_backend(), "seconds": {}}
+    t_part = time.perf_counter()
+
+    def part_done(name):  # the seconds of each part of the rank's work
+        nonlocal t_part
+        out["seconds"][name] = round(time.perf_counter() - t_part, 1)
+        t_part = time.perf_counter()
+
     for mode in ("tp", "sp"):
         plan = make_mesh(1, GRID_RANKS, device, spatial=mode == "sp")
         reset_counts()
@@ -3779,12 +3810,14 @@ def grid_rank_main(workdir: str) -> int:
         del tensors
         out[mode] = res
         _release()
+        part_done(f"{mode} parity")
     plan = make_mesh(1, GRID_RANKS, device, spatial=True)
     reset_counts()
     out["unet6"] = grid_unet6_peak(plan, device)
     out["unet6"]["launches"] = read_counts()
     _release()
     out["collectives"] = grid_collective_ms(plan, device)
+    part_done("unet6 and collectives")
 
     seen = {}
     train = trainer_mod.Trainer.train
@@ -3808,6 +3841,7 @@ def grid_rank_main(workdir: str) -> int:
             raise AssertionError(f"[27] rank {rank} CLI {mode}: rc {rc}")
         out[f"cli_{mode}"] = {"counts": counts, "cadence_steps": seen["steps"]}
         _release()
+        part_done(f"CLI {mode}")
     with open(os.path.join(workdir, f"grid_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
@@ -3964,7 +3998,8 @@ def phase_grid(workdir: str, smi: str) -> dict:
             f"reverse steps; launches per rank {[r[f'cli_{mode}']['counts'] for r in ranks]}; its "
             f"checkpoint served by one process: {served['images']} images, "
             f"{served['ms_per_step']:.3f} ms/step, launches {counts}")
-    log(f"[27] phase 27's ranks took {seconds:.1f} s")
+    log(f"[27] phase 27's ranks took {seconds:.1f} s, rank 0's parts "
+        f"{ranks[0]['seconds']}")
     return total
 
 
@@ -4341,6 +4376,7 @@ def phase_interpolation_cli(workdir: str):
 LSUN_IMAGES = 160  # more nodes than one leaf page holds: a branch page over two
 LSUN_HW = (256, 320)  # LSUN's short side is 256
 LSUN_SUBSET = 128  # 2 train steps an epoch at batch 64
+LSUN_T = 20  # --ddpm_num_steps of (c)'s cadences and (d)'s serves (200 and 100 before phase 29)
 NATIVE_TOL = 1e-5  # native (float32 coordinates) vs the numpy reference (float64)
 # kernel-name fragments the profiled epoch must hold (tools/profile_train.py:OWN)
 TRACED_KERNELS = {"GroupNorm forward": "gn_fwd_", "GroupNorm backward": "gn_bwd_",
@@ -4487,12 +4523,12 @@ def phase_reference_inputs(workdir: str, smi: str) -> dict:
     """[24] What a user of the reference brings, at the flagship's width:
     (a) the native preprocessing, (b) an LSUN archive, (c) the flagship
     trained on it through the CLI under MDT_NATIVE_PREPROCESS=1 with
-    --profile_dir (phase 10's flags, LSUN at 128 images, batch 64, 3 epochs):
-    one trace, of epoch 1's two steps, naming the GroupNorm and exact-k
-    kernels; (d) its final checkpoint rewritten into the reference's form
-    (.bin, legacy attention names, no meta.json or optimizer/), served
+    --profile_dir (phase 10's flags, LSUN at 128 images, batch 64, 3 epochs,
+    T=20): one trace, of epoch 1's two steps, naming the GroupNorm and
+    exact-k kernels; (d) its final checkpoint rewritten into the reference's
+    form (.bin, legacy attention names, no meta.json or optimizer/), served
     through --method sample with phase 5's flags (linear + thresholding,
-    T=100, two requests of 16 images, the fused branch) and converted by the
+    T=20, two requests of 16 images, the fused branch) and converted by the
     import tool: weights bitwise equal, a resume from it refused; the
     original served at the same seed gives the same images. Returns the
     launches of the CLI runs."""
@@ -4511,7 +4547,8 @@ def phase_reference_inputs(workdir: str, smi: str) -> dict:
     argv, common = flagship_cli_args(root)
     argv = _with(argv, "--data_name", "lsun", "--dir_dataset", data_root, "--data_set", "church",
                  "--data_subset", "True", "--data_subset_num", str(LSUN_SUBSET),
-                 "--batch_size", "64", "--num_epochs", "3", "--profile_dir", prof)
+                 "--batch_size", "64", "--num_epochs", "3", "--profile_dir", prof,
+                 "--ddpm_num_steps", str(LSUN_T))
     os.environ["MDT_NATIVE_PREPROCESS"] = "1"
     try:
         buf = io.StringIO()
@@ -4564,7 +4601,7 @@ def phase_reference_inputs(workdir: str, smi: str) -> dict:
     runs, images = [train], {}
     for name, path in (("reference", reference), ("original", ckpt)):
         rc, served, counts, images[name] = _serve_images(
-            serve_argv(path, "linear", "thresholding", 100, os.path.join(root, name)))
+            serve_argv(path, "linear", "thresholding", LSUN_T, os.path.join(root, name)))
         n_steps = served["steps"] * served["batches"]
         if (rc != 0 or not (served["finite"] and served["ema"]) or served["images"] != 32
                 or served["batches"] != 2 or counts["fused_degrade_update"] != n_steps
@@ -5580,6 +5617,312 @@ def phase_graphed_epoch(workdir: str, smi: str) -> dict:
     return {k: sum(c[k] for c in runs) for k in runs[0]}
 
 
+# [29] the trainer's device-data rule and the launch farm (scripts_torch/)
+HOSTDATA_STEPS = 3  # (a): steps an epoch at batch 64
+HOSTDATA_EPOCHS = 3  # (a): the first warms up; ms/step over the other two
+HOSTDATA_COPIES = 20  # (a): batches gathered and copied in to time one
+FARM_SCRIPT = os.path.join("scripts_torch", "train", "celeba_hq", "masked_shift_mean",
+                           "script_main.sh")
+FARM_IMAGES = 64  # MDT_SUBSET (the script's 128): 2 steps an epoch at its batch of 32
+FARM_IMAGE_HW = 128  # the synthesized CelebA-HQ files, resized to the script's 64x64
+# the script's workload flags cut through MDT_EXTRA_ARGS (its values in brackets)
+FARM_CUTS = ("--num_epochs", "2",  # (50000) one cadence, at the last epoch
+             "--ddpm_num_steps", "20",  # (4096: 1421 reverse steps a cadence) 20 steps
+             "--sample_num", "16")  # (64) the cadence's batch
+FARM_RANKS = 2  # gpu_h100_4.sh with MDT_NPROC=2, both ranks on cuda:0 over gloo
+FARM_TIMEOUT = 600  # seconds for one script run
+
+
+def launched_main(out_dir: str, argv) -> int:
+    """A farm script's CLI started by phase 29's launcher prefix
+    (`chip_smoke.py --launched <dir> [<flags>] -m masked_diffusion_tpu_torch.
+    cli.main_train_masked <script's flags>`, one a rank under
+    torch.distributed.run): the CLI's main(script's flags) under
+    deterministic(), every launch count set to 0 just before, and, if
+    <flags> are given, main again with them appended (argparse: the last
+    value wins). After each, <dir>/rank<r>_<i>.json holds its counts, the
+    CUDA graphs captured and replayed, the calls of make_train_epoch and
+    whether each Trainer.train kept the dataset on the card."""
+    module = "masked_diffusion_tpu_torch.cli.main_train_masked"
+    cut = argv.index("-m") if "-m" in argv else len(argv)
+    again, flags = argv[:cut], argv[cut + 2:]
+    if argv[cut + 1:cut + 2] != [module]:
+        raise SystemExit(f"--launched runs -m {module}, not {argv[cut:cut + 2]}")
+    sys.path.insert(0, ROOT)
+    import torch
+
+    import masked_diffusion_tpu_torch.train.trainer as trainer_mod
+    from masked_diffusion_tpu_torch.cli.main_train_masked import main
+
+    seen = {}
+    capture, replay = torch.cuda.CUDAGraph.capture_begin, torch.cuda.CUDAGraph.replay
+    make_epoch, train = trainer_mod.make_train_epoch, trainer_mod.Trainer.train
+
+    def capture_counted(self, *a, **k):
+        seen["graphs"] += 1
+        return capture(self, *a, **k)
+
+    def replay_counted(self):
+        seen["replays"] += 1
+        return replay(self)
+
+    def make_epoch_counted(*a, **k):
+        seen["epoch_fns"] += 1
+        return make_epoch(*a, **k)
+
+    def train_seen(self, *a, **k):
+        try:
+            return train(self, *a, **k)
+        finally:
+            seen["data_on_device"].append(self._data_dev is not None)
+
+    torch.cuda.CUDAGraph.capture_begin = capture_counted
+    torch.cuda.CUDAGraph.replay = replay_counted
+    trainer_mod.make_train_epoch = make_epoch_counted
+    trainer_mod.Trainer.train = train_seen
+    for i, argv_i in enumerate([flags] + ([flags + again] if again else [])):
+        seen.update(graphs=0, replays=0, epoch_fns=0, data_on_device=[])
+        reset_counts()
+        with deterministic():
+            rc = main(argv_i)
+        if rc != 0:
+            return rc
+        with open(os.path.join(out_dir, f"rank{os.environ.get('RANK', '0')}_{i}.json"),
+                  "w") as f:
+            json.dump({"counts": read_counts(), **seen}, f)
+    return 0
+
+
+def _hostdata_step_ms(workdir: str, smi: str):
+    """(a) The flagship (batch 64, bf16, log + indexing at T=4096) through
+    the Trainer API with the dataset on the card (MDT_DEVICE_DATA=1) and
+    with each batch copied in from the host (=0), in turns device, host,
+    host, device: ms/step over epochs 2-3 of 3 of 3 steps; then one
+    batch's gather, pinning and copy (host clock, synchronised) and the
+    copy alone on the card (events). Returns (ms/step by path, the
+    launches)."""
+    import numpy as np
+    import torch
+
+    cfg, device, data, hist = _scan_setup(workdir, "log", "indexing", 4096,
+                                          B_KERNEL * HOSTDATA_STEPS)
+    saved = os.environ.get("MDT_DEVICE_DATA")
+    ms = {True: [], False: []}
+    reset_counts()
+    try:
+        for on_device in (True, False, False, True):
+            os.environ["MDT_DEVICE_DATA"] = "1" if on_device else "0"
+            t = _scan_trainer(cfg, data, hist, device)
+            result = t.train(0, HOSTDATA_EPOCHS)
+            torch.cuda.synchronize()
+            if (t._data_dev is not None) != on_device or t.global_step != (
+                    HOSTDATA_EPOCHS * HOSTDATA_STEPS) or not np.isfinite(t.loss_mean_epoch).all():
+                raise AssertionError(f"[29a] MDT_DEVICE_DATA={int(on_device)}: dataset on the "
+                                     f"card {t._data_dev is not None}, global step "
+                                     f"{t.global_step}, losses {t.loss_mean_epoch}")
+            ms[on_device].append(result["ms_per_step"])
+            if not on_device and len(ms[False]) == 2:
+                rows = np.random.default_rng(29).permutation(len(data))[:B_KERNEL]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(HOSTDATA_COPIES):
+                    batch = t._batch(rows)
+                torch.cuda.synchronize()
+                batch_ms = 1e3 * (time.perf_counter() - t0) / HOSTDATA_COPIES
+                if not torch.equal(batch.cpu(), torch.from_numpy(data.data[rows])):
+                    raise AssertionError("[29a] a host batch differs from the dataset's rows")
+                pinned = torch.from_numpy(data.data[rows]).pin_memory()
+                copy_ms = _event_ms(lambda: pinned.to(device, non_blocking=True),
+                                    HOSTDATA_COPIES)
+            del t
+            _release()
+    finally:
+        if saved is None:
+            os.environ.pop("MDT_DEVICE_DATA", None)
+        else:
+            os.environ["MDT_DEVICE_DATA"] = saved
+    counts = read_counts()
+    _SCAN_MODELS.clear()
+    host_ms = statistics.median(ms[False])
+    nbytes = B_KERNEL * data.data[0].nbytes
+    log(f"[29a] the flagship (batch {B_KERNEL}, bf16, log + indexing, T=4096), "
+        f"{HOSTDATA_EPOCHS} epochs of {HOSTDATA_STEPS} steps through the Trainer, ms/step of "
+        f"epochs 2-{HOSTDATA_EPOCHS}, in turns device, host, host, device ({smi}): dataset on "
+        f"the card {[round(v, 3) for v in ms[True]]}, batches copied in from the host "
+        f"{[round(v, 3) for v in ms[False]]}; a batch ({nbytes} bytes): gathered, pinned and "
+        f"copied {batch_ms:.3f} ms (host clock, synchronised; {100 * batch_ms / host_ms:.2f}% "
+        f"of the host path's median step), the copy alone {copy_ms:.4f} ms on the card "
+        f"({nbytes / copy_ms / 1e6:.2f} GB/s; {100 * copy_ms / host_ms:.3f}% of the step)")
+    return ms, counts
+
+
+def _farm_dataset(root: str) -> str:
+    """FARM_IMAGES smooth random PNGs of FARM_IMAGE_HW^2 in the CelebA-HQ
+    folder layout the loader scans (<dir>/celeba_hq/train/); the dir."""
+    import numpy as np
+    from PIL import Image
+
+    folder = os.path.join(root, "celeba_hq", "train")
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(29)
+    for i in range(FARM_IMAGES):
+        small = Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))
+        small.resize((FARM_IMAGE_HW, FARM_IMAGE_HW), Image.BILINEAR).save(
+            os.path.join(folder, f"{i:05d}.png"))
+    return root
+
+
+def _farm_run(root: str, tag: str, preset: str, extra=(), again=(), **env):
+    """The CelebA-HQ script through `preset` (sourced in bash) with `env`,
+    the cuts of FARM_CUTS and the `extra` flags in MDT_EXTRA_ARGS, its
+    launcher prefixed with this script's --launched counter, which runs the
+    CLI once as the script calls it and, with flags `again`, a second time
+    with them appended. For each run: its
+    train_stats, each rank's record, the checkpoint's tensors and the
+    output's lines up to its train_stats; the launch's seconds."""
+    from masked_diffusion_tpu_torch.io import checkpoint as ckpt_io
+
+    out = os.path.join(root, tag)
+    os.makedirs(out)
+    bin_dir = os.path.join(root, "bin")
+    full = {k: v for k, v in os.environ.items() if not k.startswith("MDT_")}
+    full.update(PATH=f"{bin_dir}{os.pathsep}{full.get('PATH', '')}",
+                MDT_DIR_DATASET=os.path.join(root, "dataset"), MDT_SUBSET=str(FARM_IMAGES),
+                MDT_EXTRA_ARGS=" ".join((*FARM_CUTS, *extra, "--dir_work",
+                                         os.path.join(out, "0"))), **env)
+    if again:  # the second run writes a run tree of its own
+        again = (*again, "--dir_work", os.path.join(out, "1"))
+    launcher = (f'"$MDT_LAUNCHER {os.path.join(ROOT, "chip_smoke.py")} --launched {out} '
+                f'{" ".join(again)}"')
+    cmd = ["bash", "-c", f'source "{os.path.join(ROOT, "scripts_torch", "config", preset)}" '
+                         f'&& MDT_LAUNCHER={launcher} bash "{os.path.join(ROOT, FARM_SCRIPT)}"']
+    t0 = time.perf_counter()
+    rc, output = _run_group(cmd, FARM_TIMEOUT, env=full)
+    seconds = time.perf_counter() - t0
+    parts = output.split("\ntrain_stats ")
+    n = 2 if again else 1
+    if rc != 0 or len(parts) != n + 1:
+        raise AssertionError(f"[29] {tag}: rc {rc}, {len(parts) - 1} train_stats lines\n"
+                             f"{output[-6000:]}")
+    runs = []
+    for i in range(n):
+        stats = json.loads(parts[i + 1].split("\n", 1)[0])
+        ranks = []
+        for r in range(stats["ranks"]):
+            with open(os.path.join(out, f"rank{r}_{i}.json")) as f:
+                ranks.append(json.load(f))
+        (ckpt,) = stats["checkpoints"]
+        model_sd, ema_sd, (opt, scalars), _ = ckpt_io.load_checkpoint(ckpt)
+        runs.append({
+            "stats": stats, "ranks": ranks, "output": parts[i].splitlines(),
+            "scalars": scalars,
+            "state": {**{f"p.{k}": v for k, v in model_sd.items()},
+                      **{f"e.{k}": v for k, v in ema_sd.items()},
+                      **{f"o.{k}": v for k, v in opt.items()}}})
+    return runs, seconds
+
+
+def _same_run(a: dict, b: dict) -> bool:
+    import torch
+
+    return (a["stats"]["loss_mean_epoch"] == b["stats"]["loss_mean_epoch"]
+            and a["stats"]["global_step"] == b["stats"]["global_step"]
+            and a["scalars"] == b["scalars"] and a["state"].keys() == b["state"].keys()
+            and all(torch.equal(a["state"][k], b["state"][k]) for k in a["state"]))
+
+
+def phase_farm(workdir: str, smi: str) -> dict:
+    """[29] The trainer's device-data rule (train/trainer.py:use_device_data)
+    and the port's launch farm at the flagship's width: (a) the flagship's
+    ms/step with the dataset on the card and with each batch copied in from
+    the host, and a batch's copy; (b) scripts_torch/train/celeba_hq/
+    masked_shift_mean/script_main.sh through scripts_torch/config/
+    gpu_single.sh with MDT_DEVICE_DATA=1, and with MDT_DEVICE_DATA_CAP_MB=0
+    and --epoch_scan true (cut by FARM_CUTS), each under deterministic():
+    losses, parameters, EMA and AdamW state bitwise equal, no device copy of
+    the dataset in the capped run, no graph captured nor make_train_epoch
+    called in either; (c) the script through gpu_h100_4.sh at 2 gloo ranks
+    sharing cuda:0, each rank running the CLI as the script calls it and
+    again with --epoch_scan true: bitwise equal, the scan's step-by-step
+    line on rank 0. Kernels 1, 2, 2b and 3 launched in every run. Returns
+    the launches of all runs summed."""
+    import torch
+
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "farm")
+    os.makedirs(root)
+    ms, counts = _hostdata_step_ms(root, smi)
+    total = dict(counts)
+
+    _farm_dataset(os.path.join(root, "dataset"))
+    os.makedirs(os.path.join(root, "bin"))
+    python = os.path.join(root, "bin", "python")
+    with open(python, "w") as f:  # the presets' `python`: this interpreter
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    os.chmod(python, 0o755)
+    seconds = {}
+    (device,), seconds["one process, device data"] = _farm_run(
+        root, "device", "gpu_single.sh", MDT_DEVICE_DATA="1")
+    (capped,), seconds["one process, capped, --epoch_scan true"] = _farm_run(
+        root, "capped_scan", "gpu_single.sh", ("--epoch_scan", "true"),
+        MDT_DEVICE_DATA_CAP_MB="0")
+    ranked, seconds["2 ranks, without and with --epoch_scan true"] = _farm_run(
+        root, "ranks", "gpu_h100_4.sh", again=("--epoch_scan", "true"),
+        MDT_NPROC=str(FARM_RANKS), MDT_DEVICE="cuda:0")
+    runs = {"device": device, "capped_scan": capped, "ranks": ranked[0],
+            "ranks_scan": ranked[1]}
+    steps = 2 * FARM_IMAGES // 32
+    for tag, run in runs.items():
+        stats = run["stats"]
+        said = [ln for ln in run["output"] if ln.startswith("epoch_scan: ")]
+        why = {"capped_scan": "epoch_scan: the epoch runs step by step: the dataset's",
+               "ranks_scan": f"epoch_scan: the epoch runs step by step: {FARM_RANKS} ranks"}
+        if (stats["global_step"] != steps or len(said) != (tag in why)
+                or not all(s.startswith(why[tag]) for s in said)
+                or not all(math.isfinite(v) for v in stats["loss_mean_epoch"])):
+            raise AssertionError(f"[29] {tag}: {stats}, scan lines {said}")
+        for rank in run["ranks"]:
+            c = rank["counts"]
+            if not (c["fused_degrade_update"] and c["group_norm_silu"]
+                    and c["group_norm_silu_backward"] and c["exact_count_masks"]) or (
+                    not same_through_sharded(c)) or c["exact_count_masks"] != steps + 1:
+                raise AssertionError(f"[29] {tag}: launches {c}: kernels 1, 2, 2b and 3 each "
+                                     f"expected, {steps + 1} exact-k")
+            if rank["data_on_device"] != [tag == "device"] or rank["graphs"] or rank[
+                    "replays"] or rank["epoch_fns"]:
+                raise AssertionError(f"[29] {tag}: dataset on the card {rank['data_on_device']}"
+                                     f", {rank['graphs']} graphs captured, {rank['replays']} "
+                                     f"replays, make_train_epoch {rank['epoch_fns']} times")
+            for k, n in c.items():
+                total[k] = total.get(k, 0) + n
+    if not _same_run(capped, device):
+        raise AssertionError(
+            f"[29b] the capped run differs from the device-data run: losses "
+            f"{capped['stats']['loss_mean_epoch']} vs {device['stats']['loss_mean_epoch']}, "
+            f"max |diff| of the state {_max_diff(capped['state'], device['state']):.3g}")
+    if not _same_run(ranked[1], ranked[0]):
+        raise AssertionError(
+            f"[29c] 2 ranks with --epoch_scan true differ from the loop: losses "
+            f"{ranked[1]['stats']['loss_mean_epoch']} vs {ranked[0]['stats']['loss_mean_epoch']}")
+    log(f"[29b] {FARM_SCRIPT} through gpu_single.sh ({FARM_IMAGES} CelebA-HQ-layout images, "
+        f"cuts {' '.join(FARM_CUTS)}; deterministic(); {smi}): losses "
+        f"{device['stats']['loss_mean_epoch']} bitwise equal, with the parameters, EMA and "
+        f"AdamW state, with MDT_DEVICE_DATA=1 (the loop) and with MDT_DEVICE_DATA_CAP_MB=0 "
+        f"and --epoch_scan true (no graph, the loop); ms/step (epoch 2) "
+        f"{device['stats']['ms_per_step']:.3f} and {capped['stats']['ms_per_step']:.3f}; "
+        f"launches of each {device['ranks'][0]['counts']}")
+    log(f"[29c] the same through gpu_h100_4.sh, MDT_NPROC={FARM_RANKS}, both ranks on cuda:0 "
+        f"(gloo; {smi}), each rank running the CLI as the script calls it, then again with "
+        f"--epoch_scan true: bitwise equal, losses {ranked[0]['stats']['loss_mean_epoch']}; "
+        f"ms/step a rank (epoch 2) {ranked[0]['stats']['ms_per_step']:.3f} without, "
+        f"{ranked[1]['stats']['ms_per_step']:.3f} with; launches per rank and run "
+        f"{[r['counts'] for r in ranked[0]['ranks']]}")
+    log(f"[29] seconds of each launch {({k: round(v, 1) for k, v in seconds.items()})}; "
+        f"phase 29 took {time.perf_counter() - t_phase:.1f} s")
+    del runs, device, capped, ranked
+    torch.cuda.empty_cache()
+    return total
+
 def reset_counts() -> None:
     from masked_diffusion_tpu_torch.ops import launches
 
@@ -5688,6 +6031,8 @@ def main() -> int:
         runs["reference"], reference_seconds = timed_phase("[24] reference inputs",
                                                            phase_reference_inputs, workdir, smi)
         runs["graphed"] = timed_phase("[28] graphed epoch", phase_graphed_epoch, workdir, smi)
+        runs["farm"] = timed_phase("[29] device data and the launch farm", phase_farm, workdir,
+                                   smi)
     main_runs = list(runs.values())
     for mod in sorted(sys.modules):
         if mod.split(".")[0] in ("jax", "flax", "masked_diffusion_tpu"):
@@ -5795,11 +6140,14 @@ def main() -> int:
 if __name__ == "__main__":
     # `--rank <dir>` is one rank of phase 18 under torch.distributed.run;
     # `--counted <file> <CLI flags>` is phase 21's CLI subprocess; `--grid
-    # <dir>` one rank of phase 27
+    # <dir>` one rank of phase 27; `--launched <dir> -m <CLI module> <flags>`
+    # a farm script's CLI (one a rank) in phase 29
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--counted"]:
         sys.exit(counted_main(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:2] == ["--grid"]:
         sys.exit(grid_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--launched"]:
+        sys.exit(launched_main(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -58,11 +58,15 @@ blobs, and a --dir_dataset containing 'hugging' through the Hugging Face
 adapter (where `datasets` is installed). MDT_NATIVE_PREPROCESS=1 resizes
 with the port's C++ library (native/) instead of PIL. A `dataset_stats
 {json}` line names the shape, the preprocessing backend (native, pil or
-numpy) and the load seconds. --profile_dir traces one epoch of training
-(utils/profiling.py), one trace_rank<r>.json a rank. A reference-trained
-checkpoint (diffusers folders, safetensors or .bin, legacy attention names)
-is served as it is by --test_model_path, and converted into the port's
-layout by
+numpy) and the load seconds. Training keeps the whole dataset on the
+card only in one process and when MDT_DEVICE_DATA=1, or, unset, when its
+fp32 bytes fit MDT_DEVICE_DATA_CAP_MB (512 by default; MDT_DEVICE_DATA=0
+never); else each step's batch is copied in from the host, with the same
+losses bit for bit (train/trainer.py:use_device_data). --profile_dir
+traces one epoch of training (utils/profiling.py), one trace_rank<r>.json
+a rank. A reference-trained checkpoint (diffusers folders, safetensors or
+.bin, legacy attention names) is served as it is by --test_model_path, and
+converted into the port's layout by
 
     python -m masked_diffusion_tpu_torch.io.import_torch <src> <out_dir>
 
@@ -276,7 +280,9 @@ def build_parser() -> argparse.ArgumentParser:
         "through train/step.py:make_train_epoch (on a card the train step "
         "captured as CUDA graphs and replayed once a batch; on the CPU the "
         "same step body eagerly), equal bit for bit to the step-by-step "
-        "loop; one process only (a plan of more ranks is refused). false: "
+        "loop; only where the dataset is on the device (one process, "
+        "MDT_DEVICE_DATA and MDT_DEVICE_DATA_CAP_MB), else the epoch runs "
+        "step by step, as JAX's does. false: "
         "step by step. unset: MDT_EPOCH_SCAN=1/0 decides, else off (JAX's "
         "auto rule is a TPU backend, which the port never has)",
     )
@@ -503,12 +509,6 @@ def main(argv=None) -> int:
     plan = make_mesh(cfg.mesh_data, cfg.mesh_model, device, spatial=cfg.mesh_spatial)
     if cfg.mesh_spatial:
         validate_spatial(plan, cfg.data_size)
-    if method in ("base", "mean_shift"):
-        from masked_diffusion_tpu_torch.train.trainer import unported_options
-
-        asked = unported_options(cfg, plan)
-        if asked:  # before any file is written
-            raise NotImplementedError(f"not yet ported: {', '.join(asked)}")
     main_process = host.is_main_process()
     if plan.world_size > 1:
         if plan.device.type == "cuda":

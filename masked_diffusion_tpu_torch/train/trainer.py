@@ -23,8 +23,12 @@ grid with global normalisation.
               batch membership equals the JAX trainer's; the same on every
               rank
   curriculum  schedule.timesteps_for_epoch(epoch, epoch_total, scale)
-  data        the whole (subset) dataset on the device once; each epoch's
-              index rows cross in one transfer, so a step makes no host sync
+  data        JAX's device-data rule (use_device_data): the whole (subset)
+              dataset on the device once, each epoch's index rows crossing
+              in one transfer, so a step makes no host sync; else (more than
+              one rank, MDT_DEVICE_DATA=0, or above MDT_DEVICE_DATA_CAP_MB)
+              each step's rows gathered on the host and copied in, the same
+              rows and fp32 bytes, so the two paths train bitwise alike
   seeds       a CPU torch.Generator per step, seeded from (seed, epoch,
               step index) (ops/shard.py:step_seed; the cadence's visuals
               pass has an index of its own) and folded with the rank
@@ -100,12 +104,13 @@ draws, losses and state as the step-by-step loop, bit for bit; a resumed
 epoch skips its first rows as the loop does; each step is still one host
 call, so SIGTERM still stops after the step in flight, and the metrics are
 still fetched once an epoch. Selection as JAX's: the flag, else
-MDT_EPOCH_SCAN=1/0, else off (JAX's auto rule is a TPU backend). The graphs
-are kept for the epoch's curriculum and dropped when it changes and on a
-restore. Refused at construction: a plan of more than one rank with the
-scan on (each rank would capture collectives: not ported).
+MDT_EPOCH_SCAN=1/0, else off (JAX's auto rule is a TPU backend); and, as
+JAX's use_scan (trainer.py:496-497), only where the data is on the device,
+so a plan of more than one rank, or one process above the cap, runs the
+epoch step by step (rank 0 says so once). The graphs are kept for the
+epoch's curriculum and dropped when it changes and on a restore.
 
-Refused at construction too: the sampling modes the cadence's samplers
+Refused at construction: the sampling modes the cadence's samplers
 refuse (sample/loop.py:validate_modes,
 sample/interpolation.py:validate_interpolation_modes).
 """
@@ -161,7 +166,7 @@ from masked_diffusion_tpu_torch.utils.grids import (
     save_png,
 )
 
-__all__ = ["Trainer", "build_model_from_config", "unported_options", "use_epoch_scan"]
+__all__ = ["Trainer", "build_model_from_config", "use_device_data", "use_epoch_scan"]
 
 
 def use_epoch_scan(cfg: Config) -> bool:
@@ -174,15 +179,25 @@ def use_epoch_scan(cfg: Config) -> bool:
     return os.environ.get("MDT_EPOCH_SCAN", "").lower() in ("1", "true")
 
 
-def unported_options(cfg: Config, plan: Optional[MeshPlan] = None) -> List[str]:
-    """What cfg asks for on `plan` (None: one process) that the port has
-    not yet."""
-    asked = []
-    if plan is not None and plan.world_size > 1 and use_epoch_scan(cfg):
-        asked.append(f"--epoch_scan true on a plan of {plan.data_size} x {plan.model_size} "
-                     f"ranks (--mesh_data {plan.data_size} --mesh_model {plan.model_size}): "
-                     "the graphed epoch runs one process")
-    return asked
+def use_device_data(dataset: InMemoryDataset, plan: Optional[MeshPlan] = None) -> bool:
+    """Whether training keeps the whole (subset) dataset on the device and
+    gathers each batch there, so that only the epoch's index rows cross to
+    the card (JAX Trainer._use_device_data, trainer.py:342-363, with its
+    precedence). Never with more than one rank (`plan`; None: one process):
+    this comes before the variables, as in JAX, whose gather has no global
+    array to read in a multi-process run; here each rank would hold a whole
+    copy. Else MDT_DEVICE_DATA=1/0 forces it. Else on when the fp32 data
+    fits MDT_DEVICE_DATA_CAP_MB (decimal MB, default 512): the card also
+    holds the train state, the activations and, with --epoch_scan, the
+    graphs' pool. The reference's workloads train on 128-2048-image
+    subsets, far below it; a full LSUN class at 64x64 is ~49 KB an image."""
+    if plan is not None and plan.world_size > 1:
+        return False
+    env = os.environ.get("MDT_DEVICE_DATA")
+    if env is not None:
+        return env == "1"
+    cap_mb = float(os.environ.get("MDT_DEVICE_DATA_CAP_MB", 512))
+    return dataset.data.nbytes <= cap_mb * 1e6
 
 
 def _ckpt_meta(model, cfg: Config) -> dict:
@@ -217,9 +232,6 @@ class Trainer:
         device="cuda",
         plan: Optional[MeshPlan] = None,
     ):
-        asked = unported_options(cfg, plan)
-        if asked:
-            raise NotImplementedError(f"not yet ported: {', '.join(asked)}")
         # silently-broken mode couplings fail here, not at the first save
         # cadence (config.py:validate_sampling_modes); so do sampling modes
         # the cadence's sampler refuses
@@ -270,7 +282,7 @@ class Trainer:
         # when the curriculum changes (JAX keys _epoch_cache the same way)
         self._epoch_fn: Optional[tuple] = None
         self._visuals_cache: Dict[tuple, callable] = {}
-        self._data_dev: Optional[torch.Tensor] = None
+        self._data_dev: Optional[torch.Tensor] = None  # the dataset, if kept on the device
         self._last_batch: Optional[torch.Tensor] = None  # this rank's rows, on the device
         self.loss_mean_epoch: List[float] = []
         self.lr_list: List[float] = []
@@ -411,13 +423,25 @@ class Trainer:
         single = self.plan.world_size <= 1
         # the first epoch after epoch_start's compiles (trainer.py:421)
         profile_epoch = epoch_start + 1 if epoch_length > 1 else epoch_start
-        if self._data_dev is None:
+        # decided once, before anything is copied: no device copy of the
+        # dataset unless the rule says so
+        on_device = use_device_data(self.dataset, self.plan)
+        if not on_device:
+            self._data_dev = None
+        elif self._data_dev is None:
             self._data_dev = torch.from_numpy(self.dataset.data).to(self.device)
+        # JAX's use_scan: the graphed epoch gathers its batches on the device
+        asked = use_epoch_scan(cfg)
+        scan = asked and on_device
+        if asked and not scan and host.is_main_process():
+            why = (f"{self.plan.world_size} ranks" if self.plan.world_size > 1 else
+                   f"the dataset's {self.dataset.data.nbytes} bytes stay on the host "
+                   "(MDT_DEVICE_DATA, MDT_DEVICE_DATA_CAP_MB)")
+            print(f"epoch_scan: the epoch runs step by step: {why}", flush=True)
         last_metrics: Dict[str, float] = {}
         timed: List[tuple] = []  # (seconds, steps, traced) per epoch
         checkpoints: List[str] = []
         preempted = False
-        scan = use_epoch_scan(cfg)
         for epoch in range(epoch_start, epoch_start + epoch_length):
             t_start = time.perf_counter()
             rng = np.random.default_rng([cfg.seed, epoch])
@@ -440,10 +464,11 @@ class Trainer:
                         if traced else contextlib.nullcontext())
 
             if rows[first:]:
-                # one host->device transfer of the epoch's index rows, this
-                # rank's columns of each global batch
+                # this rank's columns of each global batch; with the data on
+                # the device, one host->device transfer of the epoch's rows
                 sel = np.stack(rows[first:])[:, local_rows(cfg.batch_size, self.plan)]
-                sel = torch.as_tensor(sel, device=self.device)
+                if on_device:
+                    sel = torch.as_tensor(sel, device=self.device)
                 losses = []
                 # built before the trace window, which holds the steps only
                 run = self._get_epoch_fn(used) if scan else self._get_step_fn(used)
@@ -457,7 +482,7 @@ class Trainer:
                     else:
                         for i in range(first, len(rows)):
                             with label(i):
-                                self._last_batch = self._data_dev[sel[i - first]]
+                                self._last_batch = self._batch(sel[i - first])
                                 losses.append(run(self.state, self._last_batch,
                                                   self._step_generator(epoch, i)))
                             if self._step_done(single):
@@ -557,6 +582,21 @@ class Trainer:
             "checkpoints": checkpoints,
             "preempted": preempted,
         }
+
+    def _batch(self, sel) -> torch.Tensor:
+        """The rows `sel` of the dataset on the device: gathered from the
+        device copy (sel a device tensor), or on the host and copied in.
+        On a card the host rows go into a fresh pinned block a step, copied
+        without blocking the host: the caching host allocator hands a block
+        out again only after the copies that read it have run, so the next
+        step's rows cannot overwrite a batch still in flight, and the host
+        goes on queueing the step's kernels meanwhile."""
+        if self._data_dev is not None:
+            return self._data_dev[sel]
+        rows = torch.from_numpy(self.dataset.data[sel])
+        if self.device.type == "cuda":
+            return rows.pin_memory().to(self.device, non_blocking=True)
+        return rows.to(self.device)
 
     def _step_done(self, single: bool) -> bool:
         """After each train step: the global step, and whether to stop (one

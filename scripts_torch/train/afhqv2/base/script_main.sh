@@ -1,0 +1,54 @@
+#!/bin/bash
+# AFHQv2 base workload (reference script/train/afhqv2/base/elsa/
+# script_main.sh: method="base", 32x32, batch 128, T=1024, lr 1e-4,
+# mean_option="non_degraded_area", 10k epochs. The reference sets
+# ddpm_schedule="log_scale", which the scheduler never implemented
+# (scheduler.py:39-48) — "log" is the implemented integer-count schedule.)
+# The PyTorch port's copy of scripts/train/afhqv2/base/script_main.sh:
+# the same workload flags and MDT_* overrides. Source a preset of
+# scripts_torch/config/ first: $MDT_LAUNCHER starts the processes
+# (default: python, one process on one card), --device is $MDT_DEVICE
+# (default cuda; without CUDA the CLI raises) and MDT_EXTRA_ARGS
+# appends raw flags.
+set -e
+cd "$(dirname "$0")/../../../.."
+
+${MDT_LAUNCHER:-python} -m masked_diffusion_tpu_torch.cli.main_train_masked \
+    --task "train" \
+    --content "afhqv2_masked" \
+    --method "base" \
+    --title "base_T1024" \
+    --dir_dataset "${MDT_DIR_DATASET:-/nas2/dataset}" \
+    --data_name "afhqv2" \
+    --data_size 32 \
+    --data_subset True \
+    --data_subset_num "${MDT_SUBSET:-1000}" \
+    --batch_size 128 \
+    --num_epochs 10000 \
+    --optim "adamw" \
+    --lr 1e-4 \
+    --lr_scheduler "cosine" \
+    --lr_warmup_steps 500 \
+    --use_ema True \
+    --ddpm_num_steps 1024 \
+    --ddpm_schedule "log" \
+    --ddpm_schedule_base 10.0 \
+    --select_degrade_pixel "indexing" \
+    --mean_option "non_degraded_area" \
+    --mean_area "image-wise" \
+    --sample_latent_shape "data" \
+    --sampling "momentum" \
+    --momentum_adaptive "base_momentum" \
+    --sampling_mask_dependency "independent" \
+    --sample_num 100 \
+    --save_images_epochs 500 \
+    --mixed_precision "${MDT_MIXED_PRECISION:-bf16}" \
+    --device "${MDT_DEVICE:-cuda}" \
+    --mesh_data "${MDT_MESH_DATA:--1}" \
+    --mesh_model "${MDT_MESH_MODEL:-1}" \
+    --tp_min_features "${MDT_TP_MIN_FEATURES:-256}" \
+    --mesh_spatial "${MDT_MESH_SPATIAL:-False}" \
+    --multihost "${MDT_MULTIHOST:-False}" \
+    --use_wandb "${MDT_USE_WANDB:-False}" \
+    --use_mlflow False \
+    ${MDT_EXTRA_ARGS}

@@ -1,0 +1,54 @@
+#!/bin/bash
+# Oxford Flowers-102 mean-shift workload (reference
+# script/train/oxford-flower/masked_shift_mean/elsa/script_main.sh family:
+# 32x32, batch 128, lr 1e-4 cosine, T=400-800 linear; linear ratio schedules
+# pair with thresholding — the argparse-default "indexing" only works with
+# integer-count log/sigmoid schedules, SURVEY.md §0).
+# The PyTorch port's copy of scripts/train/flowers102/masked_shift_mean/script_main.sh:
+# the same workload flags and MDT_* overrides. Source a preset of
+# scripts_torch/config/ first: $MDT_LAUNCHER starts the processes
+# (default: python, one process on one card), --device is $MDT_DEVICE
+# (default cuda; without CUDA the CLI raises) and MDT_EXTRA_ARGS
+# appends raw flags.
+set -e
+cd "$(dirname "$0")/../../../.."
+
+${MDT_LAUNCHER:-python} -m masked_diffusion_tpu_torch.cli.main_train_masked \
+    --task "train" \
+    --content "flowers_masked" \
+    --method "mean_shift" \
+    --title "shift_mean_T400" \
+    --dir_dataset "${MDT_DIR_DATASET:-/nas2/dataset}" \
+    --data_name "flowers102" \
+    --data_size 32 \
+    --data_subset True \
+    --data_subset_num "${MDT_SUBSET:-1000}" \
+    --batch_size 128 \
+    --num_epochs 10000 \
+    --optim "adamw" \
+    --lr 1e-4 \
+    --lr_scheduler "cosine" \
+    --lr_warmup_steps 500 \
+    --use_ema True \
+    --ddpm_num_steps 400 \
+    --ddpm_schedule "linear" \
+    --select_degrade_pixel "thresholding" \
+    --mean_option "degraded_area" \
+    --mean_area "image-wise" \
+    --shift_type "1-d_constant" \
+    --sample_latent_shape "data" \
+    --sampling "momentum" \
+    --momentum_adaptive "base_momentum" \
+    --sampling_mask_dependency "independent" \
+    --sample_num 100 \
+    --save_images_epochs 500 \
+    --mixed_precision "${MDT_MIXED_PRECISION:-bf16}" \
+    --device "${MDT_DEVICE:-cuda}" \
+    --mesh_data "${MDT_MESH_DATA:--1}" \
+    --mesh_model "${MDT_MESH_MODEL:-1}" \
+    --tp_min_features "${MDT_TP_MIN_FEATURES:-256}" \
+    --mesh_spatial "${MDT_MESH_SPATIAL:-False}" \
+    --multihost "${MDT_MULTIHOST:-False}" \
+    --use_wandb "${MDT_USE_WANDB:-False}" \
+    --use_mlflow False \
+    ${MDT_EXTRA_ARGS}
