@@ -20,7 +20,9 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      masks bitwise; plans the kernel must refuse; each plan's resident
      clusters
   3. GroupNorm(+SiLU) kernel vs its plain version at every (C, H, W) the
-     flagship UNet normalises, fp32 and bf16, with both times; then at
+     flagship UNet normalises, fp32, bf16 and fp16 (csrc/groupnorm_f16.cu,
+     within one fp16 ulp of the plain version run in fp32 and rounded
+     once), with the times; then at
      shapes that reach every branch of the launch plan (each cluster size,
      the warp path's widths, a slice re-read from device memory, a ragged
      5x7 and 45x45 span, a strided input), and each cluster size's
@@ -28,8 +30,8 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
   4. slice parity: the sampler with both kernels on CUDA vs the plain
      versions on the CPU, same weights and draws, fp32 with TF32 off
   5. serving through the CLI: a seeded random flagship checkpoint, two
-     requests of 16 images at 64x64 in bf16, linear+thresholding (100
-     steps) and log+indexing (200 steps); kernel launch counts checked
+     requests of 16 images at 64x64 in bf16, linear+thresholding (50
+     steps) and log+indexing (100 steps); kernel launch counts checked
   6. exact-k mask kernel vs its plain version, explicit bits (64x64 at
      batch 64 with k = 0, HW-1, HW and tied top bits; 128x128 at batch 8):
      masks bitwise equal; then its Philox path's exact counts and per-pixel
@@ -37,15 +39,16 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
   7. GroupNorm(+SiLU) as training runs it, at the training batch (64): the
      forward with grad through the autograd Function and its backward
      kernel vs the plain forward and autograd through the plain version, at
-     every (C, H, W) the flagship UNet normalises, fp32 and bf16, SiLU on
-     and off; the backward also against its plain version
+     every (C, H, W) the flagship UNet normalises, fp32, bf16 and fp16 (the
+     fp16 backward as the bf16 one), SiLU on and off; the backward also
+     against its plain version
      (group_norm_silu_backward_plain) on the kernel's saved statistics, and
      bitwise equal over two runs; one kernel per forward and per backward
      call by a torch.profiler count; the plan's branch shapes and a strided
      incoming gradient; forward and backward times beside F.group_norm +
      F.silu
   8. train-step parity: the step with every kernel on CUDA vs the plain
-     versions on the CPU, same weights and draws, 3 AdamW steps, fp32 with
+     versions on the CPU, same weights and draws, 2 AdamW steps, fp32 with
      TF32 off, both schedule modes
   9. the flagship train step (batch 64, bf16), both modes: one step through
      the kernels vs one through their plain versions on the card (loss and
@@ -99,7 +102,7 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      tester's ranks leaving in the same round with the same unique count,
      rank 1 writing no image, checked
  19. the reverse loop's plain branch (the modes the fused kernel does not
-     cover) at the flagship's width, 64x64, batch 2, 10 steps, fp32 with
+     cover) at the flagship's width, 64x64, batch 2, 5 steps, fp32 with
      TF32 off: CUDA vs the CPU path on the same draws within SLICE_TOL in
      SAMPLING_MODES (independent+momentum+thresholding 3-channel
      channel-wise; dependent_prev+boosting+indexing non_degraded_area;
@@ -138,7 +141,7 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      near-copies at cosines 0.9 +- 1e-3: the same kept images, neighbour
      indices, get_nearest_neighbor picks and buckets; (b) Tester.run(
      max_rounds=3) with random flagship weights, sample_num 100, bf16, log +
-     indexing at T=200, on the fused branch (kernel 1 rounds x steps times)
+     indexing at T=100, on the fused branch (kernel 1 rounds x steps times)
      and in dependent_prev (kernel 3 once a step), seconds a round, ms a
      reverse step and images/s; (c) --method test through the CLI on phase
      10's checkpoint: exit 0, a test_stats line, sample_page_0.png,
@@ -147,7 +150,7 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      CUDA against the CPU path on the same weights and injected shared
      fields, fp32 with TF32 off, for base_momentum, momentum and boosting,
      within SLICE_TOL; (b) the flagship trained through the CLI with
-     --interpolation_shift 0.5 (linear + thresholding at T=200, 2 epochs):
+     --interpolation_shift 0.5 (linear + thresholding at T=100, 2 epochs):
      ema_interpolation_00001.png on the cadence and the interpolation
      pass's ms a reverse step
  24. the reference user's inputs at the flagship's width: (a) the port's
@@ -244,11 +247,36 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      `python3 -c "import tempfile, chip_smoke as c; smi = c.phase_env(); d =
      tempfile.mkdtemp(dir='build'); c.phase_farm(d, smi)"` (needs `mkdir -p
      build`)
+ 30. the kernels against the JAX package's numbers at the flagship's full
+     width (masked_diffusion_tpu_torch/tools/full_width.py on
+     tests/data/jax_full_width.npz, which the JAX package wrote on the CPU):
+     the flagship and CelebA-HQ's topology rebuilt from their seeded
+     weights (held to the file's record of them), 64x64, batch 2; forwards
+     at two timesteps, one train step (AdamW, clip 1.0, EMA) in both bench
+     modes and three fused reverse steps from t = T in both, fp32 with TF32
+     off and bf16 under autocast, each distance printed beside its bound
+     (the tolerances of tests/test_torch_port_full_width.py); each case's
+     launches counted from 0: kernels 2 and 2b in every norm, 3 in the
+     indexing step, 1 in the reverse steps, 4 in CelebA-HQ's 10 attention
+     blocks. Alone (~1.5 min with the build): `python3 -c "import
+     chip_smoke as c; c.phase_env(); c.phase_jax_reference()"`
+ 31. the reference's default cadence at T=4096: (a) the flagship through
+     the CLI with the default sampling flags (--sampling base, trajectory
+     capture of 4 items) at log + indexing, --ddpm_num_steps 4096 (1421
+     reverse steps), one train step at batch 64: 44 trajectory PNGs, finite
+     trajectory means, kernel 3 twice a reverse step, the cadence's seconds
+     and the peak device memory above the 3.07 GB of trajectory buffers;
+     (b) the same cadence again from the run's trainer and generator state,
+     uncaptured on the same (plain) branch: its sample bitwise the captured
+     one's. Alone (~2 min with the build): `python3 -c
+     "import tempfile, chip_smoke as c; smi = c.phase_env();
+     c.phase_t4096_cadence(tempfile.mkdtemp(dir='build'), smi)"` (needs
+     `mkdir -p build`)
 
 Phases 11 and 12 run first (the newest kernels fail fast), phases 19,
-22a and 23a after the slice phases; phases 26, 5, 10, 20, 22b, 22c, 23b,
-16, 17, 18, 27, 21, 24, 28 and 29, the main-path runs, come last, in one
-work directory. The
+22a and 23a after the slice phases, phase 30 after phase 9; phases 26, 5,
+10, 20, 31, 22b, 22c, 23b, 16, 17, 18, 27, 21, 24, 28 and 29, the main-path
+runs, come last, in one work directory. The
 kernels' `launches` are counted over those runs (phases 18's, 27's and
 29's summed over their ranks and processes, phase 21's over its five, phase
 28's with each graph replay adding what its capture launched),
@@ -301,13 +329,18 @@ B_KERNEL = 64  # the bench's batch (bench.py BENCH_BATCH)
 SIZE = 64
 FUSED_TOL = 1e-6  # kernel and plain differ only in the masked sums' order
 GN_TOL = {"float32": (1e-5, 1e-5),  # (atol, rtol): fp32 sums in another order
-          "bfloat16": (8e-2, 2e-2)}  # plain rounds each op to bf16, the kernel once
+          "bfloat16": (8e-2, 2e-2),  # plain rounds each op to bf16, the kernel once
+          # plain rounds each op to fp16, the kernel once; the fp16 forward is
+          # also held within one fp16 ulp (plus fp32's bound) of the plain
+          # version run in fp32 on the same values and rounded once
+          # (gn_fp16_ulps)
+          "float16": (1e-2, 4e-3)}
 SLICE_TOL = 2e-3  # atol = rtol: cuDNN vs CPU conv sums over a 113.7M-param UNet, 10 steps
 # GroupNorm backward, (atol, rtol). dx: fp32 sums in another order; bf16 x
 # and g against the fp32 plain backward on the same (bf16-exact) values: one
 # rounding of dx to bf16 (2^-8 relative). dscale/dbias are fp32 sums over
 # B*H*W terms in either dtype; their atol grows with the term count.
-GN_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
+GN_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2), "float16": (1e-2, 1e-2)}
 GN_BWD_SUM_TOL = (1e-6, 1e-4)  # (atol per summed term, rtol)
 # (B, C, H, W, G) that reach every branch of ops/groupnorm.py:gn_plan: the
 # warp path's widths (2x2, 5x7 ragged, 8x8, 4x4 at 768 channels) and its 1,
@@ -321,7 +354,8 @@ GN_BRANCH_SHAPES = ((2, 48, 5, 7, 16), (16, 512, 2, 2, 32), (16, 512, 8, 8, 32),
                     (2, 48, 45, 45, 16), (8, 128, 128, 128, 32), (8, 256, 128, 128, 32),
                     (8, 256, 256, 256, 32))
 TRAIN_LOSS_RTOL = 2e-3  # losses, CUDA kernels vs CPU plain, fp32 with TF32 off
-# parameter (and EMA) updates after 3 AdamW steps, relative L2 over the model:
+# parameter (and EMA) updates after 2 AdamW steps (phase 8; 3 in phase 18),
+# relative L2 over the model:
 # Adam divides each coordinate by its own gradient scale, so cuDNN's and the
 # CPU's sums in another order move coordinates with near-zero gradients
 TRAIN_UPDATE_RTOL = 1e-2
@@ -880,6 +914,40 @@ def _gn_inputs(gen, batch, c, h, w):
     return x, scale, bias
 
 
+def gn_fp16_ulps(out, xd, scale, bias, groups: int, silu: bool, where: str) -> float:
+    """The fp16 forward kernel's output against its plain version run in
+    fp32 on the same values and rounded once to fp16: every element within
+    one fp16 ulp of that reference plus GN_TOL's fp32 bound (the kernel's
+    arithmetic before its rounding, whose error near zero outgrows an fp16
+    ulp there; a subnormal's ulp is 2^-24). Returns the largest difference
+    in ulps; the worst element is named in the error."""
+    import torch
+
+    from masked_diffusion_tpu_torch.ops.groupnorm import group_norm_silu_plain
+
+    ref = group_norm_silu_plain(xd.float(), scale.float(), bias.float(), groups, 1e-5,
+                                silu).half().float()
+    _, exp = torch.frexp(ref.abs().clamp(min=2.0**-14))
+    ulp = torch.ldexp(torch.ones_like(ref), exp - 11)
+    diff = (out.float() - ref).abs()
+    atol, rtol = GN_TOL["float32"]
+    excess = diff - (ulp + atol + rtol * ref.abs())
+    ulps = float((diff / ulp).max())
+    if out.dtype != torch.float16 or float(excess.max()) > 0:
+        i = int(excess.argmax())
+        raise AssertionError(
+            f"group_norm_silu float16 {where}: {float(diff.flatten()[i]):.3g} from the plain "
+            f"version in fp32 rounded once ({float(ref.flatten()[i]):.6g}) at element {i}, "
+            f"beyond one fp16 ulp ({float(ulp.flatten()[i]):.3g}) plus atol {atol} rtol {rtol}; "
+            f"{ulps:.3g} ulps at most")
+    if ulps > 1.0:
+        i = int((diff / ulp).argmax())
+        log(f"[fp16] group_norm_silu float16 {where}: {ulps:.3g} ulps at the reference "
+            f"{float(ref.flatten()[i]):.6g} (a difference of {float(diff.flatten()[i]):.3g}), "
+            f"within fp32's bound")
+    return ulps
+
+
 def phase_groupnorm(calls, batch: int):
     import torch
     import torch.nn.functional as F
@@ -888,14 +956,15 @@ def phase_groupnorm(calls, batch: int):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst = {"float32": 0.0, "bfloat16": 0.0, "float16": 0.0}
     k_total = p_total = lib_total = bnd_total = 0.0
+    f16 = dict(kernel=0.0, plain=0.0, library=0.0, ulps=0.0)
     with torch.inference_mode():
         for (chw, groups, silu), count in sorted(calls.items()):
             c, h, w = chw
             x, scale, bias = _gn_inputs(gen, batch, c, h, w)
             line = []
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
                 xd, sd, bd = x.to(dtype), scale.to(dtype), bias.to(dtype)
                 out = group_norm_silu(xd, sd, bd, groups, 1e-5, silu)
                 ref = group_norm_silu_plain(xd, sd, bd, groups, 1e-5, silu)
@@ -907,6 +976,9 @@ def phase_groupnorm(calls, batch: int):
                         f"group_norm_silu {name} {(batch, c, h, w)} G={groups} silu={silu}: "
                         f"max err {diff.max().item()} beyond atol {atol} rtol {rtol}")
                 worst[name] = max(worst[name], diff.max().item())
+                if dtype == torch.float16:
+                    f16["ulps"] = max(f16["ulps"], gn_fp16_ulps(
+                        out, xd, sd, bd, groups, silu, f"{(batch, c, h, w)} G={groups}"))
 
                 def library():
                     y = F.group_norm(xd, groups, sd, bd, 1e-5)
@@ -918,6 +990,10 @@ def phase_groupnorm(calls, batch: int):
                 lms, _ = cuda_ms(library)
                 line.append(f"{name} kernel {kms:.4f} ({keager:.4f} eager) "
                             f"plain {pms:.4f} ({peager:.4f} eager) library {lms:.4f} ms")
+                if dtype == torch.float16:
+                    f16["kernel"] += count * kms
+                    f16["plain"] += count * pms
+                    f16["library"] += count * lms
                 if dtype == torch.bfloat16:
                     n = batch * c * h * w
                     k_total += count * kms
@@ -928,9 +1004,14 @@ def phase_groupnorm(calls, batch: int):
             log(f"[3] GN {batch}x{c}x{h}x{w} G={groups} silu={int(silu)} (x{count} per forward): "
                 + "; ".join(line))
     log(f"[3] group_norm_silu: all shapes within tolerance; max err fp32 {worst['float32']:.3g}, "
-        f"bf16 {worst['bfloat16']:.3g}; device time per bf16 forward at batch {batch}: "
+        f"bf16 {worst['bfloat16']:.3g}, fp16 {worst['float16']:.3g} ({f16['ulps']:.3g} fp16 "
+        f"ulps at most from the plain version in fp32 rounded once, each element within one "
+        f"ulp plus fp32's bound; csrc/groupnorm_f16.cu); "
+        f"device time per bf16 forward at batch {batch}: "
         f"kernel {k_total:.4f} ms, plain {p_total:.4f} ms, F.group_norm+F.silu "
-        f"{lib_total:.4f} ms, bound {bnd_total:.5f} ms (bytes)")
+        f"{lib_total:.4f} ms, bound {bnd_total:.5f} ms (bytes); per fp16 forward: kernel "
+        f"{f16['kernel']:.4f} ms, plain {f16['plain']:.4f} ms, F.group_norm+F.silu "
+        f"{f16['library']:.4f} ms (the bound as bf16's)")
     return worst["float32"], k_total, p_total, lib_total, (bnd_total, "bytes")
 
 
@@ -1196,6 +1277,8 @@ def gn_train_check(xd, scale, bias, gd, groups: int, silu: bool) -> float:
                              f"backward) {launched} kernels, expected (1, 1)")
     with torch.no_grad():
         ref_y = group_norm_silu_plain(xd, scale, bias, groups, 1e-5, silu)
+        if dtype == torch.float16:
+            gn_fp16_ulps(y.detach(), xd, scale, bias, groups, silu, f"with grad {where}")
     fa, fr = GN_TOL[name]
     fdiff = (y.detach().float() - ref_y.float()).abs()
     if y.dtype != dtype or not bool((fdiff <= fa + fr * ref_y.float().abs()).all()):
@@ -1248,9 +1331,10 @@ def phase_groupnorm_train(calls, batch: int, tag: str = "[7]", timed: bool = Tru
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst = {"float32": 0.0, "bfloat16": 0.0, "float16": 0.0}
     bwd = dict(kernel=0.0, plain=0.0, library=0.0, bound=0.0, backward_plain=0.0)
     fwd_t = dict(kernel=0.0, plain=0.0, library=0.0, bound=0.0)
+    f16_bwd = f16_fwd = 0.0  # the fp16 instance's kernel times
     shapes = sorted({(chw, groups) for chw, groups, _ in calls})
     for chw, groups in shapes:
         c, h, w = chw
@@ -1259,13 +1343,13 @@ def phase_groupnorm_train(calls, batch: int, tag: str = "[7]", timed: bool = Tru
         line = []
         for silu in (True, False):
             count = calls.get((chw, groups, silu), 0)
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
                 name = str(dtype).split(".")[1]
                 xd, gd = x.to(dtype), g.to(dtype)
                 worst[name] = max(worst[name], gn_train_check(xd, scale, bias, gd, groups, silu))
                 if not GN_PROFILED:
                     gn_profile_one_call(xd, scale, bias, gd, groups, silu)
-                if not timed or count == 0 or dtype != torch.bfloat16:
+                if not timed or count == 0 or dtype == torch.float32:
                     continue
                 _, mean, rstd = group_norm_silu_forward(xd, scale, bias, groups, 1e-5, silu)
 
@@ -1290,11 +1374,17 @@ def phase_groupnorm_train(calls, batch: int, tag: str = "[7]", timed: bool = Tru
                     return F.silu(y) if silu else y
 
                 kms, _ = cuda_ms(kernel)
+                kfwd, _ = cuda_ms(lambda: group_norm_silu_forward(xd, scale, bias, groups,
+                                                                  1e-5, silu))
+                if dtype == torch.float16:  # its kernels' times; the rest as bf16's
+                    f16_bwd += count * kms
+                    f16_fwd += count * kfwd
+                    line.append(f"fp16 silu={int(silu)} x{count}: backward kernel {kms:.4f}, "
+                                f"forward kernel {kfwd:.4f} ms")
+                    continue
                 bpms = cuda_ms(lambda: group_norm_silu_backward_plain(
                     xd, scale, bias, gd, mean, rstd, groups, silu))[0]
                 bwd["backward_plain"] += count * bpms
-                kfwd, _ = cuda_ms(lambda: group_norm_silu_forward(xd, scale, bias, groups,
-                                                                  1e-5, silu))
                 pfwd = cuda_ms(lambda: fwd(plain_fn))[0]
                 lfwd = cuda_ms(lambda: fwd(lib_fn))[0]
                 pms = cuda_ms(lambda: fwd_bwd(plain_fn))[0] - pfwd
@@ -1318,7 +1408,12 @@ def phase_groupnorm_train(calls, batch: int, tag: str = "[7]", timed: bool = Tru
             f"within tolerance" + ("; bf16 " + "; ".join(line) if line else ""))
     log(f"{tag} group_norm_silu with grad at batch {batch}: all shapes within tolerance, one "
         f"forward and one backward launch each; max |dx| err fp32 {worst['float32']:.3g}, "
-        f"bf16 {worst['bfloat16']:.3g}")
+        f"bf16 {worst['bfloat16']:.3g}, fp16 {worst['float16']:.3g} (csrc/groupnorm_f16.cu, "
+        f"its forward within one fp16 ulp plus fp32's bound)")
+    if timed:
+        log(f"{tag} device time per fp16 train step at batch {batch} (csrc/groupnorm_f16.cu): "
+            f"GN backward kernel {f16_bwd:.4f} ms, forward kernel {f16_fwd:.4f} ms (the "
+            f"bounds as bf16's)")
     for what, acc in (("backward", bwd), ("forward", fwd_t)):
         if not timed:
             break
@@ -1346,7 +1441,7 @@ def _flagship_weights(seed: int, num_attention: int = 1):
 
 
 def phase_slice(tag: str = "[4]", num_attention: int = 1,
-                modes=(("linear", "thresholding", 10, 10), ("log", "indexing", 10, 10))):
+                modes=(("linear", "thresholding", 10, 5), ("log", "indexing", 10, 5))):
     """The sampler with every kernel on CUDA vs the plain versions on the
     CPU: same weights and draws, fp32 with TF32 off. modes: (schedule,
     selection, T, reverse steps run, the last of the used timesteps)."""
@@ -1455,7 +1550,7 @@ def phase_serve(workdir: str):
     del model
     launches = {}
     runs = []
-    for sched, select, steps in (("linear", "thresholding", 100), ("log", "indexing", 200)):
+    for sched, select, steps in (("linear", "thresholding", 50), ("log", "indexing", 100)):
         argv = serve_argv(ckpt, sched, select, steps, os.path.join(workdir, sched))
         buf = io.StringIO()
         reset_counts()
@@ -1528,7 +1623,7 @@ def phase_train_parity():
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    batch, steps, hw = 2, 3, SIZE * SIZE
+    batch, steps, hw = 2, 2, SIZE * SIZE
     ref_model = _flagship_weights(8)
     init = {k: v.clone() for k, v in ref_model.state_dict().items()}
     for sched, select, t_steps in MODES:
@@ -1583,7 +1678,7 @@ def phase_train_parity():
                          {k: v.detach().cpu() for k, v in state.ema_model.state_dict().items()})
             log(f"[8] {sched}+{select} on {dev}: {steps} steps in "
                 f"{time.perf_counter() - t0:.2f} s"
-                + (" with no host sync in steps 2-3" if dev == "cuda" else ""))
+                + (" with no host sync in step 2" if dev == "cuda" else ""))
         lc, lp = runs["cuda"][0], runs["cpu"][0]
         if not torch.isfinite(lc).all() or not torch.allclose(lc, lp, rtol=TRAIN_LOSS_RTOL,
                                                                 atol=0):
@@ -2536,7 +2631,7 @@ def plain_branch_parity(ref_model, latent, what, sched, select, flags, capture, 
     return max(errs.values())
 
 
-def phase_sampling_modes(steps: int = 10):
+def phase_sampling_modes(steps: int = 5):
     """[19] The reverse loop's plain branch at the flagship's width, 64x64,
     batch 2, `steps` reverse steps, fp32 with TF32 off: CUDA (the exact-k
     kernel for indexing masks) against the CPU path (its plain version) on
@@ -2662,12 +2757,16 @@ def _timed_cadence(record: dict):
     return ctx()
 
 
+DEFAULT_CLI_T = 20  # phase 20's training --ddpm_num_steps (the serve keeps phase 10's 200)
+
+
 def phase_default_cli(workdir: str, flagship_perf: dict):
     """[20] The flagship through the CLI with the default sampling flags (no
     --sampling, no --use_ema: EMA on, --sampling base): phase 10's flags
-    otherwise (batch 64, bf16, log + indexing at T=200, 2 epochs of 4 steps,
-    --sample_num 16). The cadence samples with trajectory capture on the
-    plain branch. Checks the EMA grids, 11 x 4 trajectory PNGs, the train
+    otherwise (batch 64, bf16, log + indexing, 2 epochs of 4 steps,
+    --sample_num 16) but the training run at T=DEFAULT_CLI_T (phase 31 runs
+    the captured cadence at T=4096). The cadence samples with trajectory
+    capture on the plain branch. Checks the EMA grids, 11 x 4 trajectory PNGs, the train
     visuals, finite trajectory means in metrics.jsonl, and kernel 3's
     launches: one a train step, one for the visuals pass, two a reverse step
     of the cadence; none of kernel 1. Then serves the checkpoint with
@@ -2681,6 +2780,7 @@ def phase_default_cli(workdir: str, flagship_perf: dict):
     argv, common = flagship_cli_args(os.path.join(workdir, "default"))
     i = argv.index("--sampling")
     argv = argv[:i] + argv[i + 2:]
+    argv[argv.index("--ddpm_num_steps") + 1] = str(DEFAULT_CLI_T)
     if "--use_ema" in argv:
         raise AssertionError("phase 20 runs the default --use_ema")
     cadence = {}
@@ -2708,7 +2808,7 @@ def phase_default_cli(workdir: str, flagship_perf: dict):
             "ema_sample_shift_t_mean", "ema_sample_0_shift_mean")
     if len(means) != 1 or not all(np.isfinite(means[0][k]) for k in keys):
         raise AssertionError(f"[20] trajectory means in metrics.jsonl: {means}")
-    schedule = build_schedule("log", 200, SIZE, "indexing")
+    schedule = build_schedule("log", DEFAULT_CLI_T, SIZE, "indexing")
     reverse = len(schedule.timesteps_for_epoch(1, 2, 1))  # the last epoch's curriculum
     if cadence.get("steps") != reverse:
         raise AssertionError(f"[20] cadence sampled {cadence}, expected {reverse} steps")
@@ -4006,6 +4106,7 @@ def phase_grid(workdir: str, smi: str) -> dict:
 # [22] the diversity tester at the flagship's width
 TESTER_SAMPLE_NUM = 100  # the reference tester's round (cfg.sample_num default)
 TESTER_ROUNDS = 2  # the first pays warm-up and is left out of the times
+TESTER_T = 100  # (b)'s --ddpm_num_steps
 TESTER_PLANTED = 100  # images in phase 22's fixed batch
 # cosines of 64x64x3 images, card vs CPU, both fp32: sums in another order,
 # 3.6e-7 on an H100. A TF32 product (10-bit mantissa) errs by ~4e-6 there,
@@ -4155,7 +4256,7 @@ def _flagship_dataset(n: int):
 
 def phase_tester_run(workdir: str):
     """[22b] Tester.run(max_rounds=TESTER_ROUNDS) at the flagship's width
-    (random weights, 64x64, bf16, log + indexing at T=200, sample_num 100,
+    (random weights, 64x64, bf16, log + indexing at T=100, sample_num 100,
     a target of 256 that the rounds do not reach), on the fused branch and
     in dependent_prev, each with the counts set to 0 just before: kernel 1
     rounds x steps times on the fused branch, kernel 3 once a step in
@@ -4175,11 +4276,11 @@ def phase_tester_run(workdir: str):
     total, perf = {}, {}
     for name, flags in TESTER_MODES:
         cfg, _ = parse(["--method", "test", "--data_size", str(SIZE), "--ddpm_schedule", "log",
-                        "--ddpm_num_steps", "200", "--select_degrade_pixel", "indexing",
-                        "--mean_option", "degraded_area", "--shift_type", "1-d_constant",
-                        "--momentum_adaptive", "base_momentum", "--mixed_precision", "bf16",
-                        "--sample_num", str(TESTER_SAMPLE_NUM), "--data_subset_num", "256",
-                        *flags])
+                        "--ddpm_num_steps", str(TESTER_T), "--select_degrade_pixel",
+                        "indexing", "--mean_option", "degraded_area", "--shift_type",
+                        "1-d_constant", "--momentum_adaptive", "base_momentum",
+                        "--mixed_precision", "bf16", "--sample_num", str(TESTER_SAMPLE_NUM),
+                        "--data_subset_num", "256", *flags])
         tester = Tester(cfg, data, model, dataset_hist=hist, device="cuda")
         dirs = Dir("train", "tester", os.path.join(workdir, "tester", name),
                    data_name="synthetic", method="test")
@@ -4208,7 +4309,8 @@ def phase_tester_run(workdir: str):
         for k, n in counts.items():
             total[k] = total.get(k, 0) + n
         log(f"[22b] Tester.run at the flagship's width, {name}: {rounds} rounds of "
-            f"{TESTER_SAMPLE_NUM} images x {steps} reverse steps (bf16, log+indexing T=200), "
+            f"{TESTER_SAMPLE_NUM} images x {steps} reverse steps (bf16, log+indexing "
+            f"T={TESTER_T}), "
             f"unique counts {result['num_unique_history']}; {perf[name][0]:.3f} s a round, "
             f"{perf[name][1]:.3f} ms a reverse step, {perf[name][2]:.2f} images/s (rounds 2-"
             f"{rounds}); launches {counts}")
@@ -4257,7 +4359,7 @@ def phase_tester_cli(workdir: str):
 
 
 # [23] interpolation sampling at the flagship's width
-INTERP_STEPS = 4  # reverse steps of 23a: the CPU side runs the 113.7M-param UNet (6 before phase 28 took the time)
+INTERP_STEPS = 3  # reverse steps of 23a: the CPU side runs the 113.7M-param UNet
 
 
 def phase_interpolation_parity():
@@ -4323,9 +4425,12 @@ def phase_interpolation_parity():
         f"a step; {time.perf_counter() - t0:.1f} s")
 
 
+INTERP_CLI_T = 100  # 23b's --ddpm_num_steps: the EMA cadence and the sweep, 100 steps each
+
+
 def phase_interpolation_cli(workdir: str):
     """[23b] The flagship trained through the CLI with --interpolation_shift
-    0.5, linear + thresholding at T=200, phase 10's flags otherwise (2
+    0.5, linear + thresholding at T=INTERP_CLI_T, phase 10's flags otherwise (2
     epochs of 4 steps, one save): the cadence writes
     ema_interpolation_00001.png beside the EMA grids; no exact-k launch,
     kernel 1 once a reverse step of the EMA cadence. Returns (launches, the
@@ -4334,7 +4439,8 @@ def phase_interpolation_cli(workdir: str):
 
     argv, _ = flagship_cli_args(os.path.join(workdir, "interpolation"))
     for flag, value in (("--ddpm_schedule", "linear"),
-                        ("--select_degrade_pixel", "thresholding")):
+                        ("--select_degrade_pixel", "thresholding"),
+                        ("--ddpm_num_steps", str(INTERP_CLI_T))):
         argv[argv.index(flag) + 1] = value
     argv += ["--interpolation_shift", "0.5"]
     real = trainer_mod.Trainer._save_interpolation_sample
@@ -4357,14 +4463,15 @@ def phase_interpolation_cli(workdir: str):
     want_grids = ["ema_interpolation_00001.png", "ema_sample_00001_global.png",
                   "ema_sample_00001_local.png"]
     steps = record.get("steps", 0)
-    if (rc != 0 or stats["global_step"] != 8 or grids != want_grids or steps != 200
+    if (rc != 0 or stats["global_step"] != 8 or grids != want_grids or steps != INTERP_CLI_T
             or counts["exact_count_masks"] or counts["fused_degrade_update"] != steps
             or counts["group_norm_silu"] < 71 * 2 * steps or not counts["group_norm_silu_backward"]
             or not same_through_sharded(counts)):
         raise AssertionError(f"[23b] interpolation train CLI: rc {rc}, {stats}, grids {grids}, "
                              f"interpolation {record}, launches {counts}")
     ms = 1e3 * record["seconds"] / steps
-    log(f"[23b] train CLI with --interpolation_shift 0.5 (linear+thresholding T=200): 2 epochs "
+    log(f"[23b] train CLI with --interpolation_shift 0.5 (linear+thresholding T={INTERP_CLI_T}): "
+        f"2 epochs "
         f"x 4 steps, losses {[round(v, 5) for v in stats['loss_mean_epoch']]}, "
         f"{stats['ms_per_step']:.3f} ms/step; grids {grids}; the interpolation pass: {steps} "
         f"reverse steps of 16 images in {record['seconds']:.2f} s, {ms:.3f} ms a reverse step "
@@ -5923,6 +6030,192 @@ def phase_farm(workdir: str, smi: str) -> dict:
     torch.cuda.empty_cache()
     return total
 
+# [30] the kernels against the JAX package's numbers at the flagship's full width
+JAX_REFERENCE = os.path.join(ROOT, "tests", "data", "jax_full_width.npz")
+
+
+def phase_jax_reference() -> dict:
+    """[30] masked_diffusion_tpu_torch/tools/full_width.py on the card: the
+    flagship and CelebA-HQ's topology with the seeded weights (held to the
+    file's record of them first), each case of tests/data/jax_full_width.npz
+    (what the JAX package computed on the CPU) through the normal route, fp32
+    with TF32 off and bf16 under autocast, each distance printed beside its
+    bound; any miss raises. The launches of each case, counted from 0, must
+    be what the case runs: kernel 2 in every norm, 2b in every norm's
+    backward, 3 in the indexing step (on its injected bits), 1 in each fused
+    reverse step (on its injected bits), 4 in CelebA-HQ's 10 attention
+    blocks. Returns {case: launches}."""
+    from masked_diffusion_tpu_torch.models.factory import build_unet
+    from masked_diffusion_tpu_torch.models.unet import GroupNormAct
+    from masked_diffusion_tpu_torch.tools import full_width as fw
+
+    ref = fw.load(JAX_REFERENCE)
+    counts, case = {}, [None]
+
+    def before(name):
+        if case[0] is not None:
+            counts[case[0]] = read_counts()
+        reset_counts()
+        case[0] = name
+
+    try:
+        rows = fw.check(ref, "cuda", log=lambda m: log(f"[30] {m}"), before=before)
+    finally:
+        if case[0] is not None:
+            counts[case[0]] = read_counts()
+    want = {}
+    for name, num_attention in fw.MODELS.items():
+        model = build_unet(num_attention=num_attention)
+        norms = sum(isinstance(m, GroupNormAct) for m in model.modules())
+        for dtype in fw.DTYPES:
+            want[f"forward {name} {dtype}"] = dict(
+                group_norm_silu=norms, tinyhead_attention=tinyhead_per_forward(model.config))
+        if name != "flagship":
+            continue
+        for mode in fw.MODES:
+            k = int(fw.MODES[mode][1] == "indexing")
+            for dtype in fw.DTYPES:
+                want[f"train {mode} {dtype}"] = dict(
+                    group_norm_silu=norms, group_norm_silu_backward=norms, exact_count_masks=k,
+                    exact_count_masks_sharded=k)
+            steps = fw.REVERSE_STEPS + 1
+            want[f"reverse {mode}"] = dict(group_norm_silu=norms * steps,
+                                           fused_degrade_update=steps,
+                                           fused_degrade_update_sharded=steps)
+    for name, expect in want.items():
+        expect = {k: expect.get(k, 0) for k in counts[name]}
+        if counts[name] != expect:
+            raise AssertionError(f"[30] {name}: launches {counts[name]}, expected {expect}")
+    total = {k: sum(c[k] for c in counts.values()) for k in read_counts()}
+    log(f"[30] {len(rows)} distances within their bounds over {len(counts)} cases, each case's "
+        f"launches as expected; launches of the phase {total}")
+    return counts
+
+
+# [31] the reference's default cadence at T=4096: trajectory capture at full width
+T4096 = 4096  # --ddpm_num_steps of the reference's default (log + indexing: 1421 reverse steps)
+T4096_SAMPLE_NUM = 4  # the cadence's images: the trainer captures the first 4
+
+
+def phase_t4096_cadence(workdir: str, smi: str) -> dict:
+    """[31] The flagship through the CLI with the default sampling flags
+    (--sampling base: the EMA sample with trajectory capture of 4 items) at
+    log + indexing, --ddpm_num_steps 4096 (1421 reverse steps), one epoch
+    of one train step at batch 64, bf16, --sample_num 4: the 11 x 4
+    trajectory PNGs, the EMA grids, finite trajectory means in
+    metrics.jsonl, kernel 3 once for the step, once for the visuals pass
+    and twice a reverse step, the cadence's seconds and the run's peak
+    device memory, at least the trajectory's 11 buffers (3.07 GB). Then the
+    same cadence again, uncaptured, from the run's trainer and the
+    generator state its captured call started from: the same draws, on the
+    same (plain) branch, which its mode leaves for the fused one unless
+    told; its images equal the captured run's bitwise, and so does the
+    captured trajectory's last sample_0. (With random weights the 1421
+    steps diverge, so the fused branch, whose sums run in another order, is
+    held to the plain one only over the 3-10 steps of phases 4, 19 and 30.)
+    Returns the launches of the CLI run."""
+    import numpy as np
+    import torch
+
+    import masked_diffusion_tpu_torch.sample.loop as loop_mod
+    import masked_diffusion_tpu_torch.train.trainer as trainer_mod
+    from masked_diffusion_tpu_torch.ops.schedule import build_schedule
+    from masked_diffusion_tpu_torch.sample.loop import TRAJECTORY_FIELDS
+
+    t0 = time.perf_counter()
+    argv, _ = flagship_cli_args(os.path.join(workdir, "t4096"))
+    i = argv.index("--sampling")
+    argv = argv[:i] + argv[i + 2:]
+    for flag, value in (("--ddpm_num_steps", str(T4096)), ("--num_epochs", "1"),
+                        ("--save_images_epochs", "1"), ("--data_subset_num", "64"),
+                        ("--sample_num", str(T4096_SAMPLE_NUM))):
+        argv[argv.index(flag) + 1] = value
+    reverse = len(build_schedule("log", T4096, SIZE, "indexing").timesteps_for_epoch(0, 1, 1))
+    real = trainer_mod.Trainer.sample_ema
+    seen = {}
+
+    def recorded(self, generator, *a, **k):
+        seen["trainer"], seen["state"] = self, generator.get_state()
+        seen["out"] = real(self, generator, *a, **k)
+        return seen["out"]
+
+    cadence = {}
+    torch.cuda.reset_peak_memory_stats()
+    t_cli = time.perf_counter()
+    trainer_mod.Trainer.sample_ema = recorded
+    try:
+        with _timed_cadence(cadence):
+            rc, stats, counts = _run_cli(argv, "train_stats")
+    finally:
+        trainer_mod.Trainer.sample_ema = real
+    t_cli = time.perf_counter() - t_cli
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0 or stats["global_step"] != 1 or not np.isfinite(stats["loss_mean_epoch"]).all():
+        raise AssertionError(f"[31] train CLI at T={T4096}: rc {rc}, stats {stats}")
+    (ckpt,) = stats["checkpoints"]
+    run = os.path.dirname(os.path.dirname(ckpt))
+    image = os.path.join(run, "train", "image")
+    traj = sorted(os.listdir(os.path.join(image, "sample_all_t")))
+    want_traj = sorted(f"{f}_00000_item{k}.png" for f in TRAJECTORY_FIELDS for k in range(4))
+    grids = sorted(os.listdir(os.path.join(image, "ema_sample_img")))
+    if traj != want_traj or grids != ["ema_sample_00000_global.png",
+                                      "ema_sample_00000_local.png"]:
+        raise AssertionError(f"[31] trajectory PNGs {traj}, EMA grids {grids}")
+    with open(os.path.join(run, "log", "metrics.jsonl")) as f:
+        means = [r for r in (json.loads(ln) for ln in f) if "ema_sample_t_mean" in r]
+    keys = ("ema_sample_mean", "ema_sample_t_mean", "ema_sample_0_mean",
+            "ema_sample_shift_t_mean", "ema_sample_0_shift_mean")
+    if len(means) != 1 or not all(np.isfinite(means[0][k]) for k in keys):
+        raise AssertionError(f"[31] trajectory means in metrics.jsonl: {means}")
+    want = {"exact_count_masks": 1 + 1 + 2 * reverse, "fused_degrade_update": 0}
+    if cadence.get("steps") != reverse or any(counts[k] != n for k, n in want.items()) or (
+            not same_through_sharded(counts) or not counts["group_norm_silu_backward"]):
+        raise AssertionError(f"[31] cadence {cadence}, launches {counts}, expected {want} and "
+                             f"{reverse} reverse steps")
+    images, trajectory = seen["out"]
+    buffers = sum(v.numel() * v.element_size() for key, v in trajectory.items() if key != "means")
+    if buffers < 11 * reverse * 4 * SIZE * SIZE * 3 * 4 or peak < buffers:
+        raise AssertionError(f"[31] trajectory buffers {buffers} bytes, peak {peak}")
+    log(f"[31] train CLI at log + indexing T={T4096} with the default sampling flags: the "
+        f"captured cadence, {reverse} reverse steps of {T4096_SAMPLE_NUM} images, "
+        f"{cadence['seconds']:.2f} s ({1e3 * cadence['seconds'] / reverse:.3f} ms a reverse "
+        f"step, up to the images' host copy); the CLI run {t_cli:.1f} s, its 44 trajectory "
+        f"PNGs and their host copy included; trajectory means "
+        f"{ {k: round(means[0][k], 5) for k in keys} }; the trajectory's 11 buffers "
+        f"{buffers / 1e9:.3f} GB, the run's peak device memory {peak / 2**30:.3f} GiB; "
+        f"launches {counts}")
+
+    # the same cadence uncaptured: the same generator state, the plain branch
+    generator = torch.Generator()
+    generator.set_state(seen["state"])
+    fused_mode = loop_mod.fused_mode
+    loop_mod.fused_mode = lambda cfg, capture_trajectory=False: None
+    t1 = time.perf_counter()
+    reset_counts()
+    try:
+        again = seen["trainer"].sample_ema(generator, capture=False)
+    finally:
+        loop_mod.fused_mode = fused_mode
+    seconds = time.perf_counter() - t1
+    launched = read_counts()
+    last = trajectory["sample_0"][-1].cpu().numpy()
+    if launched["exact_count_masks"] != 2 * reverse or launched["fused_degrade_update"]:
+        raise AssertionError(f"[31] uncaptured: launches {launched}, expected {2 * reverse} of "
+                             "exact_count_masks and no fused")
+    if not (np.isfinite(images).all() and np.array_equal(again, images)
+            and np.array_equal(last, images[:4])):
+        raise AssertionError(f"[31] captured vs uncaptured sample_0: max |diff| "
+                             f"{np.abs(again - images).max()}, the trajectory's last sample_0 "
+                             f"max |diff| {np.abs(last - images[:4]).max()}")
+    log(f"[31] the cadence again, uncaptured, on the same draws and branch: {reverse} reverse "
+        f"steps in {seconds:.2f} s; sample_0 bitwise the captured run's (|sample_0| up to "
+        f"{np.abs(images).max():.4g}), as is the captured trajectory's last sample_0; phase 31 "
+        f"{time.perf_counter() - t0:.1f} s; {smi}")
+    del seen, images, trajectory
+    _release()
+    return counts
+
+
 def reset_counts() -> None:
     from masked_diffusion_tpu_torch.ops import launches
 
@@ -5995,6 +6288,7 @@ def main() -> int:
     timed_phase("[8] train parity", phase_train_parity)
     timed_phase("[9] bf16 train parity", phase_train_bf16_parity)
     timed_phase("[9] train throughput", phase_train_throughput, smi)
+    timed_phase("[30] against the JAX package's numbers", phase_jax_reference)
     zoo_backward = timed_phase("[15] zoo", phase_zoo)
     remat = timed_phase("[25a] remat", phase_remat, smi)
     route_peaks = timed_phase("[25b] attention routes", phase_attention_routes)
@@ -6015,6 +6309,8 @@ def main() -> int:
                                                       workdir)
         runs["default"], captured_ms = timed_phase("[20] default flags CLI", phase_default_cli,
                                                    workdir, flagship_perf)
+        runs["t4096"] = timed_phase("[31] the cadence at T=4096", phase_t4096_cadence, workdir,
+                                    smi)
         runs["tester"], tester_perf = timed_phase("[22b] tester run", phase_tester_run, workdir)
         runs["tester_cli"] = timed_phase("[22c] tester CLI", phase_tester_cli, workdir)
         runs["interp"], interp_ms = timed_phase("[23b] interpolation CLI",

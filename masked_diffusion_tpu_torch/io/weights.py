@@ -31,6 +31,11 @@ UNet2DModel tensor names — the names of the port's UNet2D parameters.
   DistributedDataParallel wraps, never the wrapper: the names carry no
   `module.` prefix, so a checkpoint of N ranks loads in one process and
   in the JAX package's io/import_torch.py.
+- seeded_state_dict / seeded_projections: weights and random projections
+  made from a seed and each tensor's name alone, the same bits on any
+  machine, so that a reference computed elsewhere (the JAX package's
+  numbers at the flagship's width, tests/data/jax_full_width.npz) is
+  replayed without a weight file.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from __future__ import annotations
 import json
 import os
 import struct
+import zlib
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -165,6 +171,58 @@ def unet_config_meta(ucfg) -> dict:
         ("layers_per_block", ucfg.layers_per_block), ("attn_down", ucfg.attn_down),
         ("attn_up", ucfg.attn_up), ("attention_head_dim", ucfg.attention_head_dim),
         ("norm_groups", ucfg.norm_groups))}
+
+
+# ------------------------------------------------------------------ seeded tensors
+
+
+def _name_rng(name: str, seed: int) -> np.random.Generator:
+    return np.random.default_rng((int(seed), zlib.crc32(name.encode())))
+
+
+def seeded_state_dict(model: torch.nn.Module, seed: int) -> Dict[str, torch.Tensor]:
+    """model's state dict filled from numpy, each tensor from a generator
+    seeded by (seed, crc32 of its name): conv and dense weights N(0, 1) /
+    sqrt(fan_in), 1-d weights (norm scales) 1 + 0.1 N(0, 1), biases 0.05
+    N(0, 1). conv_out is nonzero too, so the output depends on every layer.
+    float32 CPU tensors; load with load_state_dict(strict=True)."""
+    sd = {}
+    for name, ref in model.state_dict().items():
+        shape = tuple(ref.shape)
+        z = _name_rng(name, seed).standard_normal(shape, dtype=np.float32)
+        if name.endswith(".bias"):
+            z *= np.float32(0.05)
+        elif len(shape) == 1:
+            z = np.float32(1) + np.float32(0.1) * z
+        else:
+            z *= np.float32(1 / np.sqrt(np.prod(shape[1:])))
+        sd[name] = torch.from_numpy(z)
+    return sd
+
+
+_PROJECTION_SIGNS: Dict[Tuple[str, int, int], np.ndarray] = {}
+
+
+def seeded_projections(name: str, values, seed: int, k: int = 16) -> np.ndarray:
+    """k random projections of one tensor, float64 (k,): element i, times a
+    random sign drawn from (seed, crc32 of name), is added to sum i mod k.
+    Each sum's expected square is the squared norm of its elements, so the
+    relative L2 distance of two tensors' projections estimates theirs
+    (within ~20% at k = 16) from k numbers instead of the tensor. values:
+    numpy or torch on any device."""
+    if isinstance(values, torch.Tensor):
+        values = values.detach().float().cpu().numpy()
+    flat = np.asarray(values, np.float32).ravel()
+    key = (name, int(seed), flat.size)
+    signs = _PROJECTION_SIGNS.get(key)
+    if signs is None:
+        bits = _name_rng(name, seed).integers(0, 2, flat.size, dtype=np.int8)
+        signs = _PROJECTION_SIGNS[key] = np.int8(1) - np.int8(2) * bits
+    signed = flat * signs
+    whole = flat.size - flat.size % k
+    out = signed[:whole].reshape(-1, k).sum(axis=0, dtype=np.float64)
+    out[: flat.size - whole] += signed[whole:]
+    return out
 
 
 # ------------------------------------------------------------------ safetensors
