@@ -200,7 +200,10 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      activation; (c) the flagship through the CLI with --mesh_model 2 and
      with --mesh_spatial true (one epoch of 2 steps at batch 8, the
      cadence's fused sampler at T=8), per-rank launches checked, each
-     checkpoint served by one process. Alone (~2 min with the build):
+     checkpoint served by one process. Under SP the GroupNorm launches are
+     exact: the split pair (phase 32's kernels) on the flagship's 65 split
+     norms and kernels 2 and 2b whole on its 6 attention norms, a forward
+     and a backward; unet6's split norms likewise. Alone (~2 min with the build):
      `python3 -c "import tempfile, chip_smoke as c; smi = c.phase_env();
      c.phase_grid(tempfile.mkdtemp(dir='build'), smi)"` (needs `mkdir -p
      build`)
@@ -240,9 +243,9 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      parameters, EMA and AdamW state bitwise equal, no device copy of the
      dataset in the capped run, no CUDA graph and no make_train_epoch; (c)
      the script through gpu_h100_4.sh with MDT_NPROC=2, both ranks on
-     cuda:0 over gloo, each rank running the CLI as the script calls it and
-     then again with --epoch_scan true appended (one launch): bitwise
-     equal, ms/step a rank of each; kernels 1, 2, 2b and 3 launched in
+     cuda:0 over gloo, each rank running the CLI as the script calls it
+     (the rerun with --epoch_scan true was cut for phase 32; the CPU tests
+     hold it bitwise), ms/step a rank; kernels 1, 2, 2b and 3 launched in
      every run. Alone (~2.5 min with the build):
      `python3 -c "import tempfile, chip_smoke as c; smi = c.phase_env(); d =
      tempfile.mkdtemp(dir='build'); c.phase_farm(d, smi)"` (needs `mkdir -p
@@ -265,16 +268,32 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
      capture of 4 items) at log + indexing, --ddpm_num_steps 4096 (1421
      reverse steps), one train step at batch 64: 44 trajectory PNGs, finite
      trajectory means, kernel 3 twice a reverse step, the cadence's seconds
-     and the peak device memory above the 3.07 GB of trajectory buffers;
-     (b) the same cadence again from the run's trainer and generator state,
-     uncaptured on the same (plain) branch: its sample bitwise the captured
-     one's. Alone (~2 min with the build): `python3 -c
+     and the peak device memory above the 3.07 GB of trajectory buffers,
+     the trajectory's last sample_0 bitwise the images (the cadence
+     replayed uncaptured was cut for phase 32; the CPU tests hold capture
+     against no capture). Alone (~2 min with the build): `python3 -c
      "import tempfile, chip_smoke as c; smi = c.phase_env();
      c.phase_t4096_cadence(tempfile.mkdtemp(dir='build'), smi)"` (needs
      `mkdir -p build`)
+ 32. kernels 2 and 2b in their split modes (--mesh_spatial; ops/groupnorm.py:
+     group_norm_split and group_norm_split_backward), the M ranks of a model
+     group emulated in one process by row pieces and a sum of their (2,
+     B*G) tensors in place of the all-reduce: at every local shape of the
+     flagship's split norms at M = 2 (65 a forward) and M = 4, batch 8, and
+     of unet6's at 256x256 at M = 2, batch 2, in fp32, bf16 and fp16, the
+     forward and backward pairs against the plain split functions on the
+     same pieces (fp32 under GN_TOL / GN_BWD_TOL; bf16 and fp16 within one
+     ulp of the plain versions in fp32 rounded once, plus fp32's bound;
+     dscale and dbias summed over the pieces under GN_BWD_SUM_TOL); at M =
+     1 against kernels 2 and 2b whole; each pass's device ms at the
+     flagship's M = 2 shapes in bf16 (one rank's rows) beside its byte
+     bound and the plain pair's ms. Alone (~1.5 min with the build):
+     `python3 -c "import chip_smoke as c; smi = c.phase_env();
+     c.phase_split_groupnorm(smi)"`
 
 Phases 11 and 12 run first (the newest kernels fail fast), phases 19,
-22a and 23a after the slice phases, phase 30 after phase 9; phases 26, 5,
+22a and 23a after the slice phases, phase 32 after phase 13, phase 30
+after phase 9; phases 26, 5,
 10, 20, 31, 22b, 22c, 23b, 16, 17, 18, 27, 21, 24, 28 and 29, the main-path
 runs, come last, in one work directory. The
 kernels' `launches` are counted over those runs (phases 18's, 27's and
@@ -914,38 +933,49 @@ def _gn_inputs(gen, batch, c, h, w):
     return x, scale, bias
 
 
+def gn_ulps(out, ref32, tol, where: str) -> float:
+    """A kernel's fp16 or bf16 output against its plain version run in fp32
+    on the same values (ref32): every element within one ulp of ref32
+    rounded once to out's dtype, plus `tol`, fp32's (atol, rtol) bound (the
+    kernel's arithmetic before its rounding, whose error near zero outgrows
+    an ulp there; an fp16 subnormal's ulp is 2^-24). Returns the largest
+    difference in ulps; the worst element is named in the error."""
+    import torch
+
+    name = str(out.dtype).split(".")[1]
+    bits, tiny = {"float16": (11, 2.0**-14), "bfloat16": (8, 2.0**-126)}[name]
+    ref = ref32.to(out.dtype).float()
+    _, exp = torch.frexp(ref.abs().clamp(min=tiny))
+    ulp = torch.ldexp(torch.ones_like(ref), exp - bits)
+    diff = (out.float() - ref).abs()
+    atol, rtol = tol
+    excess = diff - (ulp + atol + rtol * ref.abs())
+    ulps = float((diff / ulp).max())
+    if float(excess.max()) > 0:
+        i = int(excess.argmax())
+        raise AssertionError(
+            f"{where}: {float(diff.flatten()[i]):.3g} from the plain version in fp32 rounded "
+            f"once ({float(ref.flatten()[i]):.6g}) at element {i}, beyond one {name} ulp "
+            f"({float(ulp.flatten()[i]):.3g}) plus atol {atol} rtol {rtol}; {ulps:.3g} ulps at "
+            f"most")
+    if ulps > 1.0:
+        i = int((diff / ulp).argmax())
+        log(f"[{name}] {where}: {ulps:.3g} ulps at the reference {float(ref.flatten()[i]):.6g} "
+            f"(a difference of {float(diff.flatten()[i]):.3g}), within fp32's bound")
+    return ulps
+
+
 def gn_fp16_ulps(out, xd, scale, bias, groups: int, silu: bool, where: str) -> float:
     """The fp16 forward kernel's output against its plain version run in
-    fp32 on the same values and rounded once to fp16: every element within
-    one fp16 ulp of that reference plus GN_TOL's fp32 bound (the kernel's
-    arithmetic before its rounding, whose error near zero outgrows an fp16
-    ulp there; a subnormal's ulp is 2^-24). Returns the largest difference
-    in ulps; the worst element is named in the error."""
+    fp32 on the same values, by gn_ulps under GN_TOL's fp32 bound."""
     import torch
 
     from masked_diffusion_tpu_torch.ops.groupnorm import group_norm_silu_plain
 
-    ref = group_norm_silu_plain(xd.float(), scale.float(), bias.float(), groups, 1e-5,
-                                silu).half().float()
-    _, exp = torch.frexp(ref.abs().clamp(min=2.0**-14))
-    ulp = torch.ldexp(torch.ones_like(ref), exp - 11)
-    diff = (out.float() - ref).abs()
-    atol, rtol = GN_TOL["float32"]
-    excess = diff - (ulp + atol + rtol * ref.abs())
-    ulps = float((diff / ulp).max())
-    if out.dtype != torch.float16 or float(excess.max()) > 0:
-        i = int(excess.argmax())
-        raise AssertionError(
-            f"group_norm_silu float16 {where}: {float(diff.flatten()[i]):.3g} from the plain "
-            f"version in fp32 rounded once ({float(ref.flatten()[i]):.6g}) at element {i}, "
-            f"beyond one fp16 ulp ({float(ulp.flatten()[i]):.3g}) plus atol {atol} rtol {rtol}; "
-            f"{ulps:.3g} ulps at most")
-    if ulps > 1.0:
-        i = int((diff / ulp).argmax())
-        log(f"[fp16] group_norm_silu float16 {where}: {ulps:.3g} ulps at the reference "
-            f"{float(ref.flatten()[i]):.6g} (a difference of {float(diff.flatten()[i]):.3g}), "
-            f"within fp32's bound")
-    return ulps
+    if out.dtype != torch.float16:
+        raise AssertionError(f"group_norm_silu float16 {where}: output dtype {out.dtype}")
+    ref = group_norm_silu_plain(xd.float(), scale.float(), bias.float(), groups, 1e-5, silu)
+    return gn_ulps(out, ref, GN_TOL["float32"], f"group_norm_silu float16 {where}")
 
 
 def phase_groupnorm(calls, batch: int):
@@ -1429,6 +1459,277 @@ def phase_groupnorm_train(calls, batch: int, tag: str = "[7]", timed: bool = Tru
             (fwd_t["kernel"], fwd_t["plain"], fwd_t["library"], (fwd_t["bound"], "bytes")))
 
 
+# [32] kernels 2 and 2b in their split modes (--mesh_spatial), M ranks
+# emulated in one process by row pieces and a sum of their (2, B*G) tensors
+SP_SPLIT_NORMS = 65  # of the flagship's 71 norms a forward, split at M = 2
+SP_WHOLE_NORMS = 6  # its attention blocks' norms, on kernel 2 whole under SP
+SPLIT_ONLY = ("group_norm_split", "group_norm_split_backward")  # under --mesh_spatial alone
+
+
+def _unet(name: str, size: int):
+    from masked_diffusion_tpu_torch.models.factory import build_unet
+    from masked_diffusion_tpu_torch.models.zoo import Model
+
+    return build_unet(3, size, size) if name == "default" else Model(name, 3, size, size)
+
+
+def split_norm_names(m: int, name: str = "default", size: int = SIZE) -> set:
+    """The names of the GroupNormAct modules that parallel/sp.py:split_module
+    splits at model size m (each runs once a forward), from a model on the
+    meta device: the flagship by default, or a zoo name at `size`."""
+    import types
+
+    import torch
+
+    from masked_diffusion_tpu_torch.parallel import sp
+
+    with torch.device("meta"):
+        twin = _unet(name, size)
+    # rank 1 of m: split_module prints nothing and touches no tensor
+    sp.split_module(twin, types.SimpleNamespace(model_size=m, rank=1, model_rank=1))
+    return {n for n, mod in twin.named_modules() if isinstance(mod, sp.SplitGroupNormAct)}
+
+
+def split_norm_shapes(m: int, name: str = "default", size: int = SIZE):
+    """{((C, H / m, W), groups, silu): norms per forward} of the norms that
+    parallel/sp.py:split_module splits at model size m: each rank's local
+    shape. The flagship by default, or a zoo name at `size`."""
+    import torch
+
+    from masked_diffusion_tpu_torch.models.unet import GroupNormAct
+
+    split = split_norm_names(m, name, size)
+    dev = torch.device("cuda")
+    with dev:
+        model = _unet(name, size).to(torch.bfloat16).eval()
+    calls = {}
+
+    def hook(mod, inputs, _out):
+        c, h, w = inputs[0].shape[1:]
+        key = ((c, h // m, w), mod.num_groups, mod.silu)
+        calls[key] = calls.get(key, 0) + 1
+
+    hooks = [mod.register_forward_hook(hook) for n, mod in model.named_modules()
+             if n in split and isinstance(mod, GroupNormAct)]
+    with torch.inference_mode():
+        model(torch.randn(1, 3, size, size, device=dev, dtype=torch.bfloat16),
+              torch.full((1,), 10.0, device=dev))
+    for h in hooks:
+        h.remove()
+    del model
+    return calls
+
+
+def split_check(x, scale, bias, g, groups: int, silu: bool, m: int, where: str) -> dict:
+    """Kernels 2 and 2b in their split modes on m row pieces of x (each
+    piece one rank's rows, contiguous), the pieces' sums added in order in
+    place of the all-reduce, against the plain split functions on the same
+    pieces: fp32 under GN_TOL / GN_BWD_TOL; bf16 and fp16 within one ulp of
+    the plain versions in fp32 rounded once (plus fp32's bound); the
+    statistics, dscale and dbias (summed over the pieces) in fp32. Returns
+    the max |y| and |dx| errors and the pieces, statistics and sums the
+    timing reuses."""
+    import torch
+
+    from masked_diffusion_tpu_torch.ops import groupnorm as gn
+
+    name = str(x.dtype).split(".")[1]
+    b, c, h, w = x.shape
+    pieces = [p.contiguous() for p in x.chunk(m, 2)]
+    g_pieces = [p.contiguous() for p in g.chunk(m, 2)]
+    count = float(m * (c // groups) * (h // m) * w)
+    sums = sum(gn.group_norm_sums(p, groups) for p in pieces)
+    fwd = [gn.group_norm_apply(p, scale, bias, sums, count, groups, 1e-5, silu) for p in pieces]
+    ref_sums = sum(gn.group_norm_sums_plain(p.float(), groups) for p in pieces)
+    ref = [gn.group_norm_apply_plain(p.float(), scale, bias, ref_sums, count, groups, 1e-5, silu)
+           for p in pieces]
+    fa, fr = GN_TOL["float32"]
+    stats = torch.stack([torch.stack(f[1:]) for f in fwd])
+    ref_stats = torch.stack([torch.stack(r[1:]) for r in ref])
+    if not bool(((stats - ref_stats).abs() <= fa + fr * ref_stats.abs()).all()):
+        raise AssertionError(f"[32] split GroupNorm {where}: statistics max err "
+                             f"{float((stats - ref_stats).abs().max()):.3g}")
+    y, y_ref = torch.cat([f[0] for f in fwd], 2), torch.cat([r[0] for r in ref], 2)
+    if y.dtype != x.dtype:
+        raise AssertionError(f"[32] split GroupNorm {where}: y dtype {y.dtype}")
+    if x.dtype == torch.float32:
+        diff = (y - y_ref).abs()
+        if not bool((diff <= fa + fr * y_ref.abs()).all()):
+            raise AssertionError(f"[32] split GroupNorm {where}: y max err "
+                                 f"{float(diff.max()):.3g} beyond atol {fa} rtol {fr}")
+    else:
+        gn_ulps(y, y_ref, GN_TOL["float32"], f"[32] split GroupNorm {where}: y")
+
+    first = [gn.group_norm_backward_sums(p, scale, bias, gp, f[1], f[2], groups, silu)
+             for p, gp, f in zip(pieces, g_pieces, fwd)]
+    msums = sum(f[0] for f in first)
+    dx = torch.cat([gn.group_norm_backward_apply(p, scale, bias, gp, f[1], f[2], msums, count,
+                                                 groups, silu)
+                    for p, gp, f in zip(pieces, g_pieces, fwd)], 2)
+    ref_first = [gn.group_norm_backward_sums_plain(p.float(), scale, bias, gp.float(), f[1],
+                                                   f[2], groups, silu)
+                 for p, gp, f in zip(pieces, g_pieces, fwd)]
+    ref_msums = sum(r[0] for r in ref_first)
+    dx_ref = torch.cat([gn.group_norm_backward_apply_plain(p.float(), scale, bias, gp.float(),
+                                                           f[1], f[2], ref_msums, count,
+                                                           groups, silu)
+                        for p, gp, f in zip(pieces, g_pieces, fwd)], 2)
+    ba, br = GN_BWD_TOL["float32"]
+    if dx.dtype != x.dtype:
+        raise AssertionError(f"[32] split GroupNorm {where}: dx dtype {dx.dtype}")
+    if x.dtype == torch.float32:
+        diff = (dx - dx_ref).abs()
+        if not bool((diff <= ba + br * dx_ref.abs()).all()):
+            raise AssertionError(f"[32] split GroupNorm backward {where}: dx max err "
+                                 f"{float(diff.max()):.3g} beyond atol {ba} rtol {br}")
+    else:
+        gn_ulps(dx, dx_ref, GN_BWD_TOL["float32"], f"[32] split GroupNorm backward {where}: dx")
+    sum_atol = GN_BWD_SUM_TOL[0] * b * h * w
+    for what, i in (("dscale", 1), ("dbias", 2)):
+        got = sum(f[i].float() for f in first)
+        want = sum(r[i].float() for r in ref_first)
+        if not bool(((got - want).abs() <= sum_atol + GN_BWD_SUM_TOL[1] * want.abs()).all()):
+            raise AssertionError(f"[32] split GroupNorm backward {where}: {what} max err "
+                                 f"{float((got - want).abs().max()):.3g} beyond atol "
+                                 f"{sum_atol:.3g} rtol {GN_BWD_SUM_TOL[1]}")
+    return {"y_err": float((y.float() - y_ref).abs().max()),
+            "dx_err": float((dx.float() - dx_ref).abs().max()),
+            "pieces": pieces, "g_pieces": g_pieces, "fwd": fwd, "sums": sums, "msums": msums,
+            "count": count}
+
+
+def split_whole_check(x, scale, bias, g, groups: int, silu: bool, where: str) -> None:
+    """M = 1: the split pair on the whole image against kernel 2 and 2b whole
+    (group_norm_silu_forward / _backward) under GN_TOL, GN_BWD_TOL and
+    GN_BWD_SUM_TOL of x's dtype; the statistics in fp32."""
+    import torch
+
+    from masked_diffusion_tpu_torch.ops import groupnorm as gn
+
+    name = str(x.dtype).split(".")[1]
+    b, c, h, w = x.shape
+    count = float((c // groups) * h * w)
+    y, mean, rstd = gn.group_norm_apply(x, scale, bias, gn.group_norm_sums(x, groups), count,
+                                        groups, 1e-5, silu)
+    y_w, mean_w, rstd_w = gn.group_norm_silu_forward(x, scale, bias, groups, 1e-5, silu)
+    sums, dscale, dbias = gn.group_norm_backward_sums(x, scale, bias, g, mean_w, rstd_w, groups,
+                                                      silu)
+    dx = gn.group_norm_backward_apply(x, scale, bias, g, mean_w, rstd_w, sums, count, groups,
+                                      silu)
+    whole = gn.group_norm_silu_backward(x, scale, bias, g, mean_w, rstd_w, groups, silu)
+    sum_atol = GN_BWD_SUM_TOL[0] * b * h * w
+    for what, got, want, (atol, rtol) in (
+            ("y", y, y_w, GN_TOL[name]), ("mean", mean, mean_w, GN_TOL["float32"]),
+            ("rstd", rstd, rstd_w, GN_TOL["float32"]), ("dx", dx, whole[0], GN_BWD_TOL[name]),
+            ("dscale", dscale, whole[1], (sum_atol, GN_BWD_SUM_TOL[1])),
+            ("dbias", dbias, whole[2], (sum_atol, GN_BWD_SUM_TOL[1]))):
+        diff = (got.float() - want.float()).abs()
+        if got.dtype != want.dtype or not bool((diff <= atol + rtol * want.float().abs()).all()):
+            raise AssertionError(f"[32] split GroupNorm at M = 1 {where}: {what} vs the whole "
+                                 f"kernel, max err {float(diff.max()):.3g} beyond atol {atol} "
+                                 f"rtol {rtol}")
+
+
+def phase_split_groupnorm(smi: str) -> dict:
+    """[32] Kernels 2 and 2b in their split modes (ops/groupnorm.py:
+    group_norm_split and _backward, as parallel/sp.py runs them), at every
+    local shape of the flagship's split norms at M = 2 and M = 4 (batch
+    GRID_BATCH) and of unet6's at 256x256 at M = 2 (GRID_UNET6_BATCH), fp32,
+    bf16 and fp16, SiLU as the norm has it: split_check, and at M = 1 on the
+    flagship's whole shapes split_whole_check. Then each pass's device ms at
+    the flagship's M = 2 shapes in bf16 (one rank's rows; the all-reduce not
+    included) beside its byte bound and the plain pair's ms. Returns the
+    forward and backward pairs' (max fp32 err, kernel ms, plain ms, bound)
+    per rank per forward (backward) at M = 2."""
+    import torch
+
+    from masked_diffusion_tpu_torch.ops import groupnorm as gn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(32)
+    cases = (("flagship", 2, GRID_BATCH, split_norm_shapes(2)),
+             ("flagship", 4, GRID_BATCH, split_norm_shapes(4)),
+             ("unet6 256x256", 2, GRID_UNET6_BATCH, split_norm_shapes(2, "unet6", 256)))
+    if sum(cases[0][3].values()) != SP_SPLIT_NORMS:
+        raise AssertionError(f"[32] the flagship splits {sum(cases[0][3].values())} norms a "
+                             f"forward at M = 2, not {SP_SPLIT_NORMS}")
+    worst = {"y": 0.0, "dx": 0.0}
+    timed = dict(fwd=0.0, bwd=0.0, fwd_plain=0.0, bwd_plain=0.0, fwd_bound=0.0, bwd_bound=0.0)
+    for label, m, batch, shapes in cases:
+        for ((c, hl, w), groups, silu), per_forward in sorted(shapes.items()):
+            x, scale, bias = _gn_inputs(gen, batch, c, hl * m, w)
+            g = torch.randn(x.shape, generator=gen, device=dev)
+            line = []
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
+                name = str(dtype).split(".")[1]
+                xd, gd = x.to(dtype), g.to(dtype)
+                where = f"{label} M={m} {name} {(batch, c, hl, w)} G={groups} silu={silu}"
+                got = split_check(xd, scale, bias, gd, groups, silu, m, where)
+                if dtype == torch.float32:
+                    worst["y"] = max(worst["y"], got["y_err"])
+                    worst["dx"] = max(worst["dx"], got["dx_err"])
+                if label == "flagship" and m == 2:
+                    split_whole_check(xd, scale, bias, gd, groups, silu, where)
+                if label != "flagship" or m != 2 or dtype != torch.bfloat16:
+                    continue
+                p, gp, (_, mean, rstd) = got["pieces"][0], got["g_pieces"][0], got["fwd"][0]
+                sums, msums, count = got["sums"], got["msums"], got["count"]
+                ms = {
+                    "fwd sums": cuda_ms(lambda: gn.group_norm_sums(p, groups))[0],
+                    "fwd apply": cuda_ms(lambda: gn.group_norm_apply(
+                        p, scale, bias, sums, count, groups, 1e-5, silu))[0],
+                    "bwd sums": cuda_ms(lambda: gn.group_norm_backward_sums(
+                        p, scale, bias, gp, mean, rstd, groups, silu))[0],
+                    "bwd apply": cuda_ms(lambda: gn.group_norm_backward_apply(
+                        p, scale, bias, gp, mean, rstd, msums, count, groups, silu))[0]}
+                plain_fwd = cuda_ms(lambda: gn.group_norm_apply_plain(
+                    p, scale, bias, gn.group_norm_sums_plain(p, groups), count, groups, 1e-5,
+                    silu))[0]
+                plain_bwd = cuda_ms(lambda: gn.group_norm_backward_apply_plain(
+                    p, scale, bias, gp, mean, rstd, gn.group_norm_backward_sums_plain(
+                        p, scale, bias, gp, mean, rstd, groups, silu)[0], count, groups,
+                    silu))[0]
+                n, bg, pc = p.numel(), batch * groups, 2 * 4 * c
+                # each pass's bytes, every input read once and every output written once
+                # (bf16 x, g, y, dx; fp32 sums and statistics, 8 bytes a span; scale and
+                # bias or dscale and dbias; the backward's (2, B, C) parts), and its fp32
+                # operations
+                bounds = {"fwd sums": bound(2 * n + 8 * bg, 3 * n),
+                          "fwd apply": bound(2 * 2 * n + 2 * 8 * bg + pc, 12 * n),
+                          "bwd sums": bound(2 * 2 * n + 2 * 8 * bg + 2 * pc + 8 * batch * c,
+                                            25 * n),
+                          "bwd apply": bound(3 * 2 * n + 2 * 8 * bg + pc, 20 * n)}
+                timed["fwd"] += per_forward * (ms["fwd sums"] + ms["fwd apply"])
+                timed["bwd"] += per_forward * (ms["bwd sums"] + ms["bwd apply"])
+                timed["fwd_plain"] += per_forward * plain_fwd
+                timed["bwd_plain"] += per_forward * plain_bwd
+                timed["fwd_bound"] += per_forward * (bounds["fwd sums"][0]
+                                                     + bounds["fwd apply"][0])
+                timed["bwd_bound"] += per_forward * (bounds["bwd sums"][0]
+                                                     + bounds["bwd apply"][0])
+                line = [f"{k} {v:.4f} ms (bound {bounds[k][0]:.5f}, {bounds[k][1]})"
+                        for k, v in ms.items()]
+                line.append(f"plain pair forward {plain_fwd:.4f}, backward {plain_bwd:.4f} ms")
+            log(f"[32] split GN {label} M={m} {(batch, c, hl, w)} G={groups} silu={int(silu)} "
+                f"(x{per_forward} a forward): fp32, bf16, fp16 within tolerance"
+                + (", M = 1 against the whole kernels too" if label == "flagship" and m == 2
+                   else "") + ("; bf16 rank 0: " + "; ".join(line) if line else ""))
+        log(f"[32] {label} at M = {m}: {sum(shapes.values())} split norms a forward, "
+            f"{len(shapes)} local shapes")
+    log(f"[32] group_norm_split (kernels 2/2b split modes): every shape within tolerance; max "
+        f"fp32 err y {worst['y']:.3g}, dx {worst['dx']:.3g}; device time a rank per bf16 "
+        f"forward of the flagship at M = 2, batch {GRID_BATCH} ({SP_SPLIT_NORMS} split norms, "
+        f"the all-reduces not included; {smi}): forward pairs {timed['fwd']:.4f} ms, plain "
+        f"{timed['fwd_plain']:.4f}, bound {timed['fwd_bound']:.5f} (bytes: 2 reads of x, 1 "
+        f"write of y); backward pairs {timed['bwd']:.4f} ms, plain {timed['bwd_plain']:.4f}, "
+        f"bound {timed['bwd_bound']:.5f} (2 reads of x and g, 1 write of dx, fp32 parts); no "
+        f"library call takes outside statistics (F.group_norm reduces its own)")
+    return {"forward": (worst["y"], timed["fwd"], timed["fwd_plain"],
+                        (timed["fwd_bound"], "bytes")),
+            "backward": (worst["dx"], timed["bwd"], timed["bwd_plain"],
+                         (timed["bwd_bound"], "bytes"))}
+
+
 def _flagship_weights(seed: int, num_attention: int = 1):
     import torch
 
@@ -1852,11 +2153,10 @@ def phase_train_throughput(smi: str):
         counts = read_counts()
         strided = group_norm_silu_backward.strided - strided_before
         per = {k: v / TRAIN_STEPS_TIMED for k, v in counts.items()}
-        want = {"exact_count_masks": 1 if select == "indexing" else 0,
-                "group_norm_silu": norms, "group_norm_silu_backward": norms,
-                "fused_degrade_update": 0, "tinyhead_attention": 0,
-                "tinyhead_attention_backward": 0, "fused_degrade_update_sharded": 0,
-                "exact_count_masks_sharded": 1 if select == "indexing" else 0}
+        want = dict.fromkeys(per, 0)
+        want.update(exact_count_masks=int(select == "indexing"), group_norm_silu=norms,
+                    group_norm_silu_backward=norms,
+                    exact_count_masks_sharded=int(select == "indexing"))
         if per != want:
             raise AssertionError(f"train {sched}: launches per step {per}, expected {want}")
         if not bool(torch.isfinite(metrics["train_loss"])):
@@ -1928,7 +2228,7 @@ def phase_train_cli(workdir: str):
         raise AssertionError(f"train CLI: meta {meta}, grids {grids}")
     # one process reaches the kernels through their sharded forms on one rank;
     # one exact-k launch a train step and one for the cadence's visuals pass
-    off = ("tinyhead_attention", "tinyhead_attention_backward")
+    off = ("tinyhead_attention", "tinyhead_attention_backward", *SPLIT_ONLY)
     if (train_counts["exact_count_masks"] != 8 + 1 or any(train_counts[k] for k in off)
             or not all(n for k, n in train_counts.items() if k not in off)
             or not same_through_sharded(train_counts)):
@@ -2508,7 +2808,7 @@ SAMPLING_MODES = (
       "--mean_option", "degraded_area"], True),
 )
 SAMPLING_TIMED_BATCH = 16
-SAMPLING_TIMED_STEPS = 50
+SAMPLING_TIMED_STEPS = 25  # 50 before phase 32 took the time
 
 
 def kmask_per_step(cfg) -> int:
@@ -4013,11 +4313,21 @@ def phase_grid(workdir: str, smi: str) -> dict:
                 f"gradient rel L2 {grad:.3g}, update rel L2 params/EMA {upd}, max |diff| "
                 f"{worst:.3g} ({above} entries above 2e-5)")
         readings[mode] = (loss_diff, grad, upd, worst, above)
+        # SP: the split pair on every split norm, kernel 2 whole on the attention
+        # blocks' norms, a forward and a backward a step; TP: no split launch
+        steps = len(one["losses"])
+        want = ({"group_norm_split": steps * SP_SPLIT_NORMS,
+                 "group_norm_split_backward": steps * SP_SPLIT_NORMS,
+                 "group_norm_silu": steps * SP_WHOLE_NORMS,
+                 "group_norm_silu_backward": steps * SP_WHOLE_NORMS} if mode == "sp" else
+                {"group_norm_split": 0, "group_norm_split_backward": 0})
         for r in ranks:
             n = r[mode]["launches"]
-            if not (n["group_norm_silu"] and n["group_norm_silu_backward"]) or any(
+            if any(n[k] != v for k, v in want.items()) or not (
+                    n["group_norm_silu"] and n["group_norm_silu_backward"]) or any(
                     n[k] for k in ("tinyhead_attention", "tinyhead_attention_backward")):
-                raise AssertionError(f"[27] {mode} parity launches rank {r['rank']}: {n}")
+                raise AssertionError(f"[27] {mode} parity launches rank {r['rank']}: {n}, "
+                                     f"expected {want}")
     tp_held = [r["tp"]["held"] for r in ranks]
     frac = one["fraction"]
     expect = one["held"] * (1 - frac / 2)
@@ -4045,12 +4355,15 @@ def phase_grid(workdir: str, smi: str) -> dict:
 
     # unet6 at 256x256 under SP: the activations' memory per rank
     one6 = grid_unet6_peak(None, torch.device("cuda"))
+    split6 = len(split_norm_names(GRID_RANKS, "unet6", 256))
     for r in ranks:
-        u = r["unet6"]
+        u, n = r["unet6"], r["unet6"]["launches"]
         if not (u["finite"] and one6["finite"]) or u["shape"] != one6["shape"] or not (
-                u["launches"]["tinyhead_attention"]
-                and u["launches"]["tinyhead_attention_backward"]):
-            raise AssertionError(f"[27] unet6 SP rank {r['rank']}: {u}, one process {one6}")
+                n["tinyhead_attention"] and n["tinyhead_attention_backward"]) or not (
+                n["group_norm_split"] == n["group_norm_split_backward"] == split6
+                and n["group_norm_silu"] == n["group_norm_silu_backward"]):
+            raise AssertionError(f"[27] unet6 SP rank {r['rank']}: {u}, one process {one6}, "
+                                 f"{split6} split norms a forward")
     coll = ranks[0]["collectives"]
     log(f"[27b] unet6 256x256 bf16 forward + backward at batch {GRID_UNET6_BATCH} under SP "
         f"(every level split): peak memory above the weights per rank "
@@ -4073,7 +4386,16 @@ def phase_grid(workdir: str, smi: str) -> dict:
             c, steps = r[f"cli_{mode}"]["counts"], r[f"cli_{mode}"]["cadence_steps"]
             want = {"exact_count_masks": 3, "exact_count_masks_sharded": 3,
                     "fused_degrade_update": steps, "fused_degrade_update_sharded": steps}
-            if any(c[k] != n for k, n in want.items()) or not (
+            if mode == "sp":  # 2 train steps; every forward SP_SPLIT_NORMS pairs and
+                # SP_WHOLE_NORMS whole launches
+                want.update(group_norm_split_backward=2 * SP_SPLIT_NORMS,
+                            group_norm_silu_backward=2 * SP_WHOLE_NORMS)
+                forwards = c["group_norm_split"] * SP_WHOLE_NORMS == \
+                    c["group_norm_silu"] * SP_SPLIT_NORMS
+            else:
+                want.update(group_norm_split=0, group_norm_split_backward=0)
+                forwards = True
+            if any(c[k] != n for k, n in want.items()) or not forwards or not (
                     c["group_norm_silu"] and c["group_norm_silu_backward"]):
                 raise AssertionError(f"[27] CLI {mode} rank {r['rank']}: launches {c}, "
                                      f"expected {want}")
@@ -4675,7 +4997,7 @@ def phase_reference_inputs(workdir: str, smi: str) -> dict:
             or stats["global_step"] != 6 or len(stats["checkpoints"]) != 2
             or not np.isfinite(stats["loss_mean_epoch"]).all()):
         raise AssertionError(f"[24c] LSUN train CLI: rc {rc}, dataset {data}, stats {stats}")
-    off = ("tinyhead_attention", "tinyhead_attention_backward")
+    off = ("tinyhead_attention", "tinyhead_attention_backward", *SPLIT_ONLY)
     if (train["exact_count_masks"] != 6 + 2 or any(train[k] for k in off)
             or not all(n for k, n in train.items() if k not in off)
             or not same_through_sharded(train)):
@@ -5742,19 +6064,16 @@ FARM_TIMEOUT = 600  # seconds for one script run
 
 def launched_main(out_dir: str, argv) -> int:
     """A farm script's CLI started by phase 29's launcher prefix
-    (`chip_smoke.py --launched <dir> [<flags>] -m masked_diffusion_tpu_torch.
-    cli.main_train_masked <script's flags>`, one a rank under
+    (`chip_smoke.py --launched <dir> -m masked_diffusion_tpu_torch.cli.
+    main_train_masked <script's flags>`, one a rank under
     torch.distributed.run): the CLI's main(script's flags) under
-    deterministic(), every launch count set to 0 just before, and, if
-    <flags> are given, main again with them appended (argparse: the last
-    value wins). After each, <dir>/rank<r>_<i>.json holds its counts, the
-    CUDA graphs captured and replayed, the calls of make_train_epoch and
-    whether each Trainer.train kept the dataset on the card."""
+    deterministic(), every launch count set to 0 just before. After it,
+    <dir>/rank<r>.json holds its counts, the CUDA graphs captured and
+    replayed, the calls of make_train_epoch and whether each Trainer.train
+    kept the dataset on the card."""
     module = "masked_diffusion_tpu_torch.cli.main_train_masked"
-    cut = argv.index("-m") if "-m" in argv else len(argv)
-    again, flags = argv[:cut], argv[cut + 2:]
-    if argv[cut + 1:cut + 2] != [module]:
-        raise SystemExit(f"--launched runs -m {module}, not {argv[cut:cut + 2]}")
+    if argv[:2] != ["-m", module]:
+        raise SystemExit(f"--launched runs -m {module}, not {argv[:2]}")
     sys.path.insert(0, ROOT)
     import torch
 
@@ -5787,16 +6106,14 @@ def launched_main(out_dir: str, argv) -> int:
     torch.cuda.CUDAGraph.replay = replay_counted
     trainer_mod.make_train_epoch = make_epoch_counted
     trainer_mod.Trainer.train = train_seen
-    for i, argv_i in enumerate([flags] + ([flags + again] if again else [])):
-        seen.update(graphs=0, replays=0, epoch_fns=0, data_on_device=[])
-        reset_counts()
-        with deterministic():
-            rc = main(argv_i)
-        if rc != 0:
-            return rc
-        with open(os.path.join(out_dir, f"rank{os.environ.get('RANK', '0')}_{i}.json"),
-                  "w") as f:
-            json.dump({"counts": read_counts(), **seen}, f)
+    seen.update(graphs=0, replays=0, epoch_fns=0, data_on_device=[])
+    reset_counts()
+    with deterministic():
+        rc = main(argv[2:])
+    if rc != 0:
+        return rc
+    with open(os.path.join(out_dir, f"rank{os.environ.get('RANK', '0')}.json"), "w") as f:
+        json.dump({"counts": read_counts(), **seen}, f)
     return 0
 
 
@@ -5879,14 +6196,13 @@ def _farm_dataset(root: str) -> str:
     return root
 
 
-def _farm_run(root: str, tag: str, preset: str, extra=(), again=(), **env):
+def _farm_run(root: str, tag: str, preset: str, extra=(), **env):
     """The CelebA-HQ script through `preset` (sourced in bash) with `env`,
     the cuts of FARM_CUTS and the `extra` flags in MDT_EXTRA_ARGS, its
     launcher prefixed with this script's --launched counter, which runs the
-    CLI once as the script calls it and, with flags `again`, a second time
-    with them appended. For each run: its
-    train_stats, each rank's record, the checkpoint's tensors and the
-    output's lines up to its train_stats; the launch's seconds."""
+    CLI as the script calls it. The run's train_stats, each rank's record,
+    the checkpoint's tensors and the output's lines up to its train_stats;
+    the launch's seconds."""
     from masked_diffusion_tpu_torch.io import checkpoint as ckpt_io
 
     out = os.path.join(root, tag)
@@ -5897,36 +6213,27 @@ def _farm_run(root: str, tag: str, preset: str, extra=(), again=(), **env):
                 MDT_DIR_DATASET=os.path.join(root, "dataset"), MDT_SUBSET=str(FARM_IMAGES),
                 MDT_EXTRA_ARGS=" ".join((*FARM_CUTS, *extra, "--dir_work",
                                          os.path.join(out, "0"))), **env)
-    if again:  # the second run writes a run tree of its own
-        again = (*again, "--dir_work", os.path.join(out, "1"))
-    launcher = (f'"$MDT_LAUNCHER {os.path.join(ROOT, "chip_smoke.py")} --launched {out} '
-                f'{" ".join(again)}"')
+    launcher = f'"$MDT_LAUNCHER {os.path.join(ROOT, "chip_smoke.py")} --launched {out}"'
     cmd = ["bash", "-c", f'source "{os.path.join(ROOT, "scripts_torch", "config", preset)}" '
                          f'&& MDT_LAUNCHER={launcher} bash "{os.path.join(ROOT, FARM_SCRIPT)}"']
     t0 = time.perf_counter()
     rc, output = _run_group(cmd, FARM_TIMEOUT, env=full)
     seconds = time.perf_counter() - t0
     parts = output.split("\ntrain_stats ")
-    n = 2 if again else 1
-    if rc != 0 or len(parts) != n + 1:
+    if rc != 0 or len(parts) != 2:
         raise AssertionError(f"[29] {tag}: rc {rc}, {len(parts) - 1} train_stats lines\n"
                              f"{output[-6000:]}")
-    runs = []
-    for i in range(n):
-        stats = json.loads(parts[i + 1].split("\n", 1)[0])
-        ranks = []
-        for r in range(stats["ranks"]):
-            with open(os.path.join(out, f"rank{r}_{i}.json")) as f:
-                ranks.append(json.load(f))
-        (ckpt,) = stats["checkpoints"]
-        model_sd, ema_sd, (opt, scalars), _ = ckpt_io.load_checkpoint(ckpt)
-        runs.append({
-            "stats": stats, "ranks": ranks, "output": parts[i].splitlines(),
-            "scalars": scalars,
+    stats = json.loads(parts[1].split("\n", 1)[0])
+    ranks = []
+    for r in range(stats["ranks"]):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    (ckpt,) = stats["checkpoints"]
+    model_sd, ema_sd, (opt, scalars), _ = ckpt_io.load_checkpoint(ckpt)
+    return {"stats": stats, "ranks": ranks, "output": parts[0].splitlines(), "scalars": scalars,
             "state": {**{f"p.{k}": v for k, v in model_sd.items()},
                       **{f"e.{k}": v for k, v in ema_sd.items()},
-                      **{f"o.{k}": v for k, v in opt.items()}}})
-    return runs, seconds
+                      **{f"o.{k}": v for k, v in opt.items()}}}, seconds
 
 
 def _same_run(a: dict, b: dict) -> bool:
@@ -5949,9 +6256,11 @@ def phase_farm(workdir: str, smi: str) -> dict:
     losses, parameters, EMA and AdamW state bitwise equal, no device copy of
     the dataset in the capped run, no graph captured nor make_train_epoch
     called in either; (c) the script through gpu_h100_4.sh at 2 gloo ranks
-    sharing cuda:0, each rank running the CLI as the script calls it and
-    again with --epoch_scan true: bitwise equal, the scan's step-by-step
-    line on rank 0. Kernels 1, 2, 2b and 3 launched in every run. Returns
+    sharing cuda:0, each rank running the CLI as the script calls it (the
+    same run with --epoch_scan true, which falls back to the loop on more
+    than one rank, is held bitwise on the CPU by
+    tests/test_torch_port_epoch_scan.py; it ran here too before phase 32
+    took the time). Kernels 1, 2, 2b and 3 launched in every run. Returns
     the launches of all runs summed."""
     import torch
 
@@ -5968,22 +6277,19 @@ def phase_farm(workdir: str, smi: str) -> dict:
         f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
     os.chmod(python, 0o755)
     seconds = {}
-    (device,), seconds["one process, device data"] = _farm_run(
+    device, seconds["one process, device data"] = _farm_run(
         root, "device", "gpu_single.sh", MDT_DEVICE_DATA="1")
-    (capped,), seconds["one process, capped, --epoch_scan true"] = _farm_run(
+    capped, seconds["one process, capped, --epoch_scan true"] = _farm_run(
         root, "capped_scan", "gpu_single.sh", ("--epoch_scan", "true"),
         MDT_DEVICE_DATA_CAP_MB="0")
-    ranked, seconds["2 ranks, without and with --epoch_scan true"] = _farm_run(
-        root, "ranks", "gpu_h100_4.sh", again=("--epoch_scan", "true"),
-        MDT_NPROC=str(FARM_RANKS), MDT_DEVICE="cuda:0")
-    runs = {"device": device, "capped_scan": capped, "ranks": ranked[0],
-            "ranks_scan": ranked[1]}
+    ranked, seconds["2 ranks"] = _farm_run(
+        root, "ranks", "gpu_h100_4.sh", MDT_NPROC=str(FARM_RANKS), MDT_DEVICE="cuda:0")
+    runs = {"device": device, "capped_scan": capped, "ranks": ranked}
     steps = 2 * FARM_IMAGES // 32
     for tag, run in runs.items():
         stats = run["stats"]
         said = [ln for ln in run["output"] if ln.startswith("epoch_scan: ")]
-        why = {"capped_scan": "epoch_scan: the epoch runs step by step: the dataset's",
-               "ranks_scan": f"epoch_scan: the epoch runs step by step: {FARM_RANKS} ranks"}
+        why = {"capped_scan": "epoch_scan: the epoch runs step by step: the dataset's"}
         if (stats["global_step"] != steps or len(said) != (tag in why)
                 or not all(s.startswith(why[tag]) for s in said)
                 or not all(math.isfinite(v) for v in stats["loss_mean_epoch"])):
@@ -6007,10 +6313,6 @@ def phase_farm(workdir: str, smi: str) -> dict:
             f"[29b] the capped run differs from the device-data run: losses "
             f"{capped['stats']['loss_mean_epoch']} vs {device['stats']['loss_mean_epoch']}, "
             f"max |diff| of the state {_max_diff(capped['state'], device['state']):.3g}")
-    if not _same_run(ranked[1], ranked[0]):
-        raise AssertionError(
-            f"[29c] 2 ranks with --epoch_scan true differ from the loop: losses "
-            f"{ranked[1]['stats']['loss_mean_epoch']} vs {ranked[0]['stats']['loss_mean_epoch']}")
     log(f"[29b] {FARM_SCRIPT} through gpu_single.sh ({FARM_IMAGES} CelebA-HQ-layout images, "
         f"cuts {' '.join(FARM_CUTS)}; deterministic(); {smi}): losses "
         f"{device['stats']['loss_mean_epoch']} bitwise equal, with the parameters, EMA and "
@@ -6019,11 +6321,10 @@ def phase_farm(workdir: str, smi: str) -> dict:
         f"{device['stats']['ms_per_step']:.3f} and {capped['stats']['ms_per_step']:.3f}; "
         f"launches of each {device['ranks'][0]['counts']}")
     log(f"[29c] the same through gpu_h100_4.sh, MDT_NPROC={FARM_RANKS}, both ranks on cuda:0 "
-        f"(gloo; {smi}), each rank running the CLI as the script calls it, then again with "
-        f"--epoch_scan true: bitwise equal, losses {ranked[0]['stats']['loss_mean_epoch']}; "
-        f"ms/step a rank (epoch 2) {ranked[0]['stats']['ms_per_step']:.3f} without, "
-        f"{ranked[1]['stats']['ms_per_step']:.3f} with; launches per rank and run "
-        f"{[r['counts'] for r in ranked[0]['ranks']]}")
+        f"(gloo; {smi}), each rank running the CLI as the script calls it: losses "
+        f"{ranked['stats']['loss_mean_epoch']}; ms/step a rank (epoch 2) "
+        f"{ranked['stats']['ms_per_step']:.3f}; launches per rank "
+        f"{[r['counts'] for r in ranked['ranks']]}")
     log(f"[29] seconds of each launch {({k: round(v, 1) for k, v in seconds.items()})}; "
         f"phase 29 took {time.perf_counter() - t_phase:.1f} s")
     del runs, device, capped, ranked
@@ -6105,19 +6406,17 @@ def phase_t4096_cadence(workdir: str, smi: str) -> dict:
     trajectory PNGs, the EMA grids, finite trajectory means in
     metrics.jsonl, kernel 3 once for the step, once for the visuals pass
     and twice a reverse step, the cadence's seconds and the run's peak
-    device memory, at least the trajectory's 11 buffers (3.07 GB). Then the
-    same cadence again, uncaptured, from the run's trainer and the
-    generator state its captured call started from: the same draws, on the
-    same (plain) branch, which its mode leaves for the fused one unless
-    told; its images equal the captured run's bitwise, and so does the
-    captured trajectory's last sample_0. (With random weights the 1421
-    steps diverge, so the fused branch, whose sums run in another order, is
-    held to the plain one only over the 3-10 steps of phases 4, 19 and 30.)
+    device memory, at least the trajectory's 11 buffers (3.07 GB), and the
+    trajectory's last sample_0 bitwise the cadence's images. (The same
+    cadence uncaptured, bitwise the captured one, ran here too until phase
+    32 took its ~55 s; capture against no capture is held on the CPU by
+    tests/test_torch_port_sampler.py. With random weights the 1421 steps
+    diverge, so the fused branch, whose sums run in another order, is held
+    to the plain one only over the 3-10 steps of phases 4, 19 and 30.)
     Returns the launches of the CLI run."""
     import numpy as np
     import torch
 
-    import masked_diffusion_tpu_torch.sample.loop as loop_mod
     import masked_diffusion_tpu_torch.train.trainer as trainer_mod
     from masked_diffusion_tpu_torch.ops.schedule import build_schedule
     from masked_diffusion_tpu_torch.sample.loop import TRAJECTORY_FIELDS
@@ -6135,7 +6434,6 @@ def phase_t4096_cadence(workdir: str, smi: str) -> dict:
     seen = {}
 
     def recorded(self, generator, *a, **k):
-        seen["trainer"], seen["state"] = self, generator.get_state()
         seen["out"] = real(self, generator, *a, **k)
         return seen["out"]
 
@@ -6185,32 +6483,12 @@ def phase_t4096_cadence(workdir: str, smi: str) -> dict:
         f"{buffers / 1e9:.3f} GB, the run's peak device memory {peak / 2**30:.3f} GiB; "
         f"launches {counts}")
 
-    # the same cadence uncaptured: the same generator state, the plain branch
-    generator = torch.Generator()
-    generator.set_state(seen["state"])
-    fused_mode = loop_mod.fused_mode
-    loop_mod.fused_mode = lambda cfg, capture_trajectory=False: None
-    t1 = time.perf_counter()
-    reset_counts()
-    try:
-        again = seen["trainer"].sample_ema(generator, capture=False)
-    finally:
-        loop_mod.fused_mode = fused_mode
-    seconds = time.perf_counter() - t1
-    launched = read_counts()
     last = trajectory["sample_0"][-1].cpu().numpy()
-    if launched["exact_count_masks"] != 2 * reverse or launched["fused_degrade_update"]:
-        raise AssertionError(f"[31] uncaptured: launches {launched}, expected {2 * reverse} of "
-                             "exact_count_masks and no fused")
-    if not (np.isfinite(images).all() and np.array_equal(again, images)
-            and np.array_equal(last, images[:4])):
-        raise AssertionError(f"[31] captured vs uncaptured sample_0: max |diff| "
-                             f"{np.abs(again - images).max()}, the trajectory's last sample_0 "
-                             f"max |diff| {np.abs(last - images[:4]).max()}")
-    log(f"[31] the cadence again, uncaptured, on the same draws and branch: {reverse} reverse "
-        f"steps in {seconds:.2f} s; sample_0 bitwise the captured run's (|sample_0| up to "
-        f"{np.abs(images).max():.4g}), as is the captured trajectory's last sample_0; phase 31 "
-        f"{time.perf_counter() - t0:.1f} s; {smi}")
+    if not (np.isfinite(images).all() and np.array_equal(last, images[:4])):
+        raise AssertionError(f"[31] the trajectory's last sample_0 vs the cadence's images: max "
+                             f"|diff| {np.abs(last - images[:4]).max()}")
+    log(f"[31] the trajectory's last sample_0 bitwise the cadence's images (|sample_0| up to "
+        f"{np.abs(images).max():.4g}); phase 31 {time.perf_counter() - t0:.1f} s; {smi}")
     del seen, images, trajectory
     _release()
     return counts
@@ -6285,6 +6563,7 @@ def main() -> int:
     timed_phase("[7] GroupNorm branches", phase_groupnorm_branches)
     timed_phase("[13] GroupNorm at unet6 256x256", phase_groupnorm_train,
                 norm_shapes(8, "unet6", 256, "[13]"), 8, "[13]", timed=False)
+    split = timed_phase("[32] GroupNorm split modes", phase_split_groupnorm, smi)
     timed_phase("[8] train parity", phase_train_parity)
     timed_phase("[9] bf16 train parity", phase_train_bf16_parity)
     timed_phase("[9] train throughput", phase_train_throughput, smi)
@@ -6391,7 +6670,7 @@ def main() -> int:
     log("[seconds] " + json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})
         + f"; the script {time.perf_counter() - t_start:.1f} s")
     log(smi)
-    print(json.dumps({"kernels": [
+    entries = [
         kernel_entry("fused_degrade_update", "cuda",
                      "masked_diffusion_tpu_torch/csrc/fused_degrade.cu",
                      "masked_diffusion_tpu/ops/pallas/fused_degrade.py:209",
@@ -6426,7 +6705,20 @@ def main() -> int:
                      "masked_diffusion_tpu_torch/csrc/kmask.cu",
                      "masked_diffusion_tpu/ops/pallas/kmask.py:122",
                      launches("exact_count_masks_sharded"), *sharded["kmask"], None),
-    ]}), flush=True)
+        # kernels 2 and 2b in their split modes under --mesh_spatial (a launch pair a
+        # count); no library call takes statistics from outside
+        kernel_entry("group_norm_split", "cuda", "masked_diffusion_tpu_torch/csrc/groupnorm.cu",
+                     "masked_diffusion_tpu/ops/pallas/groupnorm.py:158",
+                     launches("group_norm_split"), *split["forward"], None),
+        kernel_entry("group_norm_split_backward", "cuda",
+                     "masked_diffusion_tpu_torch/csrc/groupnorm.cu",
+                     "masked_diffusion_tpu/ops/pallas/groupnorm.py:169",
+                     launches("group_norm_split_backward"), *split["backward"], None),
+    ]
+    idle = [e["name"] for e in entries if not e["launches"]]
+    if idle:
+        raise AssertionError(f"kernels launched no time on the main-path runs: {idle}")
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

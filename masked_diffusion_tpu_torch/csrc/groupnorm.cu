@@ -46,6 +46,32 @@
 //   the B parts in image order, writes dgamma and dbeta in the parameters'
 //   dtype and resets the counter for the next call. One launch, no memset,
 //   and the same inputs give bitwise the same dx, dgamma and dbeta.
+//
+// Split modes (parallel/sp.py: a span's rows lie on M ranks, whose sums
+// meet in an all-reduce between two launches; mode 0 is the whole span):
+//
+//   forward, sums (1):  each span's fp32 Sx and Sx^2 over this rank's rows,
+//                       written to sums (2, B*G); no y
+//   forward, apply (2): mean = Sx / count, rstd = rsqrt(Sx^2 / count - mean^2
+//                       + eps) from the all-reduced sums over the whole count
+//                       (n * M), then y as the whole kernel writes it, and the
+//                       statistics for the backward
+//   backward, sums (1): from the saved global mean and rstd, the per-channel
+//                       parts (dgamma and dbeta of this rank's rows, through
+//                       the arrival counters as the whole kernel) and each
+//                       span's m1 = sum_c gamma_c Sdy_c, m2 = sum_c gamma_c
+//                       Sdy*x^_c, undivided, written to sums (2, B*G); no dx
+//   backward, apply (2): dx from the all-reduced m1, m2 over the whole count
+//
+// The split passes stage nothing: the sums passes read each slice once,
+// the apply passes once more (the all-reduce stands between them), so the
+// forward pair moves 2 reads of x + 1 write of y and the backward pair 2
+// reads of x and g + 1 write of dx. The sums passes take the whole call's
+// path and combine a cluster's partials as the whole kernels do; the apply
+// passes run the cluster path's kernels launched without a cluster, each
+// CTA on its own slice, a CTA a span where the whole call takes the warp
+// path: an apply pass in the warp kernels either unrolled fully (the
+// backward's build 1.7x as long) or ran up to 4x slower.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -63,6 +89,9 @@ constexpr int kGroup = 8;       // elements per load group: 16 bytes of bf16, 32
 constexpr int kWarpSpans = 8;   // spans per CTA on the warp path, at most
 constexpr int kParamLoads = 32; // loads in flight per thread summing dgamma, dbeta
 constexpr int kMaxThreads = 512;
+constexpr int kWhole = 0;  // modes: the whole span in one launch
+constexpr int kSums = 1;   // split: this rank's partial sums only
+constexpr int kApply = 2;  // split: the pass after the all-reduce of the sums
 using mdt::kMaxSmem;
 
 struct GnArgs {
@@ -72,7 +101,9 @@ struct GnArgs {
   int ctas, slice, staged, tile_bytes;     // cluster path: CTAs per span, elements per CTA
   int silu, pdtype;                        // pdtype: scale/bias dtype, 0 fp32, 1 bf16, 2 fp16
   int x_vec, g_vec, out_vec;               // 16-byte groups allowed
+  int mode;                                // kWhole, kSums or kApply
   float eps;
+  float count;                             // kApply: elements of a span over all its ranks
 };
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
@@ -362,7 +393,8 @@ __device__ void reduce_params(const float* parts, void* dscale, void* dbias, int
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads, 2) gn_fwd_block_kernel(
     const T* __restrict__ x, const void* __restrict__ scale, const void* __restrict__ bias,
-    T* __restrict__ y, float* __restrict__ mean_out, float* __restrict__ rstd_out, GnArgs a) {
+    T* __restrict__ y, float* __restrict__ mean_out, float* __restrict__ rstd_out,
+    float* __restrict__ sums, GnArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* tile = reinterpret_cast<T*>(smem);
   float* coef = reinterpret_cast<float*>(smem + a.tile_bytes);
@@ -379,34 +411,52 @@ __global__ void __launch_bounds__(kMaxThreads, 2) gn_fwd_block_kernel(
   const Span<T> src{x + img * a.xsb + static_cast<long long>(grp) * a.cg * a.xsc, a.hw,
                     a.xsc, a.xsp, a.xsp == 1 && a.xsc == a.hw, a.x_vec != 0};
 
-  for (int c = tid; c < a.cg; c += nthr) {  // gamma, beta of the group's channels
-    coef[2 * c] = ld_param(scale, grp * a.cg + c, a.pdtype);
-    coef[2 * c + 1] = ld_param(bias, grp * a.cg + c, a.pdtype);
-  }
-  // one read of the slice: stage it (when it stays on chip) and reduce it
-  float s = 0.f, s2 = 0.f;
-  stage<T, true>(a.staged ? tile : nullptr, src, start, len, s, s2);
-  block_sum2(s, s2, wbuf);  // also orders the staged tile and coef before their reads
-  if (a.ctas > 1) {
-    cgrp::cluster_group cluster = cgrp::this_cluster();
-    if (tid == 0) {
-      part[0] = s;
-      part[1] = s2;
+  if (a.mode != kSums) {
+    for (int c = tid; c < a.cg; c += nthr) {  // gamma, beta of the group's channels
+      coef[2 * c] = ld_param(scale, grp * a.cg + c, a.pdtype);
+      coef[2 * c + 1] = ld_param(bias, grp * a.cg + c, a.pdtype);
     }
-    cluster.sync();
-    float cs = 0.f, cs2 = 0.f;
-    for (int r = 0; r < a.ctas; ++r) {
-      const float* p = cluster.map_shared_rank(part, r);
-      cs += p[0];
-      cs2 += p[1];
-    }
-    s = cs;
-    s2 = cs2;
-    cluster_arrive();  // this CTA is done reading its peers
   }
-  const float inv_n = 1.f / static_cast<float>(a.n);
-  const float mean = s * inv_n;
-  const float rstd = rsqrtf(s2 * inv_n - mean * mean + a.eps);
+  float mean, rstd;
+  if (a.mode == kApply) {  // the statistics of the all-reduced sums
+    const int spans = a.batch * a.groups;
+    mean = sums[span] / a.count;
+    rstd = rsqrtf(sums[spans + span] / a.count - mean * mean + a.eps);
+    __syncthreads();  // coef before its reads
+  } else {
+    // one read of the slice: stage it (when it stays on chip) and reduce it
+    float s = 0.f, s2 = 0.f;
+    stage<T, true>(a.staged ? tile : nullptr, src, start, len, s, s2);
+    block_sum2(s, s2, wbuf);  // also orders the staged tile and coef before their reads
+    if (a.ctas > 1) {
+      cgrp::cluster_group cluster = cgrp::this_cluster();
+      if (tid == 0) {
+        part[0] = s;
+        part[1] = s2;
+      }
+      cluster.sync();
+      float cs = 0.f, cs2 = 0.f;
+      for (int r = 0; r < a.ctas; ++r) {
+        const float* p = cluster.map_shared_rank(part, r);
+        cs += p[0];
+        cs2 += p[1];
+      }
+      s = cs;
+      s2 = cs2;
+      cluster_arrive();  // this CTA is done reading its peers
+    }
+    if (a.mode == kSums) {  // this rank's sums, for the all-reduce
+      if (rank == 0 && tid == 0) {
+        sums[span] = s;
+        sums[a.batch * a.groups + span] = s2;
+      }
+      if (a.ctas > 1) cluster_wait();
+      return;
+    }
+    const float inv_n = 1.f / static_cast<float>(a.n);
+    mean = s * inv_n;
+    rstd = rsqrtf(s2 * inv_n - mean * mean + a.eps);
+  }
   if (rank == 0 && tid == 0 && mean_out != nullptr) {
     mean_out[span] = mean;
     rstd_out[span] = rstd;
@@ -449,7 +499,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) gn_fwd_block_kernel(
     }
     out_store(out, a.out_vec != 0, start + i, cnt, v);
   }
-  if (a.ctas > 1) cluster_wait();  // no CTA leaves while a peer may read it
+  if (a.ctas > 1 && a.mode == kWhole) cluster_wait();  // no CTA leaves while a peer may read it
 }
 
 // The channel (within its group) of warp-path element e < 1024: exact, since
@@ -465,7 +515,8 @@ __host__ __device__ constexpr int warp_words(int v) { return 33 * v; }
 template <typename T, int V>
 __global__ void __launch_bounds__(32 * kWarpSpans) gn_fwd_warp_kernel(
     const T* __restrict__ x, const void* __restrict__ scale, const void* __restrict__ bias,
-    T* __restrict__ y, float* __restrict__ mean_out, float* __restrict__ rstd_out, GnArgs a) {
+    T* __restrict__ y, float* __restrict__ mean_out, float* __restrict__ rstd_out,
+    float* __restrict__ sums, GnArgs a) {
   const int lane = threadIdx.x & 31;
   const int span = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (span >= a.batch * a.groups) return;
@@ -474,7 +525,7 @@ __global__ void __launch_bounds__(32 * kWarpSpans) gn_fwd_warp_kernel(
                     a.xsc, a.xsp, a.xsp == 1 && a.xsc == a.hw, false};
   const bool lane_params = a.cg <= 32;  // lane c holds channel c's gamma and beta
   float gl = 0.f, bl = 0.f;
-  if (lane_params && lane < a.cg) {
+  if (lane_params && lane < a.cg && a.mode != kSums) {  // the sums pass takes no parameters
     gl = ld_param(scale, grp * a.cg + lane, a.pdtype);
     bl = ld_param(bias, grp * a.cg + lane, a.pdtype);
   }
@@ -488,6 +539,13 @@ __global__ void __launch_bounds__(32 * kWarpSpans) gn_fwd_warp_kernel(
     s2 += v[j] * v[j];
   }
   warp_sum2(s, s2);
+  if (a.mode == kSums) {  // this rank's sums, for the all-reduce
+    if (lane == 0) {
+      sums[span] = s;
+      sums[a.batch * a.groups + span] = s2;
+    }
+    return;
+  }
   const float inv_n = 1.f / static_cast<float>(a.n);
   const float mean = s * inv_n;
   const float rstd = rsqrtf(s2 * inv_n - mean * mean + a.eps);
@@ -522,7 +580,8 @@ __global__ void __launch_bounds__(kMaxThreads, 2) gn_bwd_block_kernel(
     const T* __restrict__ x, const T* __restrict__ g, const void* __restrict__ scale,
     const void* __restrict__ bias, const float* __restrict__ mean_in,
     const float* __restrict__ rstd_in, T* __restrict__ dx, void* __restrict__ dscale,
-    void* __restrict__ dbias, float* __restrict__ parts, int* __restrict__ counters, GnArgs a) {
+    void* __restrict__ dbias, float* __restrict__ parts, int* __restrict__ counters,
+    float* __restrict__ msums, GnArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warps = blockDim.x >> 5;
   T* tile_x = reinterpret_cast<T*>(smem);
@@ -558,20 +617,112 @@ __global__ void __launch_bounds__(kMaxThreads, 2) gn_bwd_block_kernel(
   }
   __syncthreads();
 
-  // per-channel sums of dy and dy * x^ over this slice: warps take channels,
-  // `per` warps to a channel when the slice touches fewer channels than warps
-  const int c_lo = len > 0 ? start / a.hw : 0;
-  const int nch = len > 0 ? (start + len - 1) / a.hw - c_lo + 1 : 0;
-  const int per = nch > 0 && nch < warps ? warps / nch : 1;
-  const int q = warp % per;
-  for (int cl = warp / per; cl < nch; cl += warps / per) {
-    const int c = c_lo + cl;
-    const int lo = max(c * a.hw, start) - start;
-    const int hi = min((c + 1) * a.hw, start + len) - start;
-    const float gam = coef[2 * c], bet = coef[2 * c + 1];
-    float sdy = 0.f, sdyx = 0.f;
-    for (int i = lo + (q * 32 + lane) * kGroup; i < hi; i += per * 32 * kGroup) {
-      const int cnt = min(kGroup, hi - i);
+  int last = 0;  // the arrival, issued before the dx pass and read after it
+  if (a.mode == kApply) {  // m1, m2 from the all-reduced sums: no per-channel pass
+    if (tid == 0) {
+      misc[0] = msums[span] / a.count;
+      misc[1] = msums[a.batch * a.groups + span] / a.count;
+    }
+    __syncthreads();
+  } else {
+    // per-channel sums of dy and dy * x^ over this slice: warps take channels,
+    // `per` warps to a channel when the slice touches fewer channels than warps
+    const int c_lo = len > 0 ? start / a.hw : 0;
+    const int nch = len > 0 ? (start + len - 1) / a.hw - c_lo + 1 : 0;
+    const int per = nch > 0 && nch < warps ? warps / nch : 1;
+    const int q = warp % per;
+    for (int cl = warp / per; cl < nch; cl += warps / per) {
+      const int c = c_lo + cl;
+      const int lo = max(c * a.hw, start) - start;
+      const int hi = min((c + 1) * a.hw, start + len) - start;
+      const float gam = coef[2 * c], bet = coef[2 * c + 1];
+      float sdy = 0.f, sdyx = 0.f;
+      for (int i = lo + (q * 32 + lane) * kGroup; i < hi; i += per * 32 * kGroup) {
+        const int cnt = min(kGroup, hi - i);
+        float vx[kGroup], vg[kGroup];
+        if (a.staged) {
+          tile_load(tile_x, i, cnt, vx);
+          tile_load(tile_g, i, cnt, vg);
+        } else {
+          xs.load(start + i, cnt, vx);
+          gs.load(start + i, cnt, vg);
+        }
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k) {  // padding: g = 0, so dy = 0
+          const float xh = (vx[k] - mean) * rstd;
+          const float dy = a.silu ? silu_grad(vg[k], xh * gam + bet) : vg[k];
+          sdy += dy;
+          sdyx += dy * xh;
+        }
+      }
+      warp_sum2(sdy, sdyx);
+      if (lane == 0) {
+        wpart[2 * (cl * per + q)] = sdy;
+        wpart[2 * (cl * per + q) + 1] = sdyx;
+      }
+    }
+    __syncthreads();
+    for (int c = tid; c < a.cg; c += nthr) {
+      float sdy = 0.f, sdyx = 0.f;
+      if (c >= c_lo && c < c_lo + nch) {
+        for (int w = 0; w < per; ++w) {
+          sdy += wpart[2 * ((c - c_lo) * per + w)];
+          sdyx += wpart[2 * ((c - c_lo) * per + w) + 1];
+        }
+      }
+      cpart[2 * c] = sdy;
+      cpart[2 * c + 1] = sdyx;
+    }
+    const float* sums = cpart;
+    if (a.ctas > 1) {
+      cgrp::cluster_group cluster = cgrp::this_cluster();
+      cluster.sync();
+      for (int c = tid; c < a.cg; c += nthr) {
+        float t0 = 0.f, t1 = 0.f;
+        for (int r = 0; r < a.ctas; ++r) {
+          const float* p = cluster.map_shared_rank(cpart, r);
+          t0 += p[2 * c];
+          t1 += p[2 * c + 1];
+        }
+        tot[2 * c] = t0;
+        tot[2 * c + 1] = t1;
+      }
+      cluster_arrive();
+      sums = tot;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float m1 = 0.f, m2 = 0.f;
+      for (int c = 0; c < a.cg; ++c) {
+        m1 += coef[2 * c] * sums[2 * c];
+        m2 += coef[2 * c] * sums[2 * c + 1];
+      }
+      if (a.mode == kSums && rank == 0) {  // this rank's m1, m2, for the all-reduce
+        msums[span] = m1;
+        msums[a.batch * a.groups + span] = m2;
+      }
+      misc[0] = m1 / static_cast<float>(a.n);
+      misc[1] = m2 / static_cast<float>(a.n);
+    }
+    if (rank == 0) {
+      for (int c = tid; c < a.cg; c += nthr) {
+        const size_t at = static_cast<size_t>(img) * a.channels + cbase + c;
+        parts[at] = sums[2 * c];
+        parts[static_cast<size_t>(a.batch) * a.channels + at] = sums[2 * c + 1];
+      }
+      if (tid < a.cg) __threadfence();  // the parts before the arrival below
+    }
+    __syncthreads();
+    if (rank == 0 && tid == 0) last = atomicAdd(&counters[grp], 1) == a.batch - 1;
+  }
+  if (a.mode != kSums) {
+    // dx = rstd (dy gamma - m1 - x^ m2) = dy (rstd gamma) - x^ (rstd m2) - rstd m1
+    const float r2 = rstd * misc[1], k0 = -rstd * misc[0];
+
+    T* out = dx + static_cast<long long>(span) * a.n;
+    const bool one_channel = a.hw % kGroup == 0;
+    for (int j = tid; j < ngroups; j += nthr) {
+      const int i = j * kGroup, cnt = min(kGroup, len - i);
       float vx[kGroup], vg[kGroup];
       if (a.staged) {
         tile_load(tile_x, i, cnt, vx);
@@ -580,111 +731,35 @@ __global__ void __launch_bounds__(kMaxThreads, 2) gn_bwd_block_kernel(
         xs.load(start + i, cnt, vx);
         gs.load(start + i, cnt, vg);
       }
+      int ch = (start + i) / a.hw;
+      int r = start + i - ch * a.hw;
 #pragma unroll
-      for (int k = 0; k < kGroup; ++k) {  // padding: g = 0, so dy = 0
-        const float xh = (vx[k] - mean) * rstd;
-        const float dy = a.silu ? silu_grad(vg[k], xh * gam + bet) : vg[k];
-        sdy += dy;
-        sdyx += dy * xh;
-      }
-    }
-    warp_sum2(sdy, sdyx);
-    if (lane == 0) {
-      wpart[2 * (cl * per + q)] = sdy;
-      wpart[2 * (cl * per + q) + 1] = sdyx;
-    }
-  }
-  __syncthreads();
-  for (int c = tid; c < a.cg; c += nthr) {
-    float sdy = 0.f, sdyx = 0.f;
-    if (c >= c_lo && c < c_lo + nch) {
-      for (int w = 0; w < per; ++w) {
-        sdy += wpart[2 * ((c - c_lo) * per + w)];
-        sdyx += wpart[2 * ((c - c_lo) * per + w) + 1];
-      }
-    }
-    cpart[2 * c] = sdy;
-    cpart[2 * c + 1] = sdyx;
-  }
-  const float* sums = cpart;
-  if (a.ctas > 1) {
-    cgrp::cluster_group cluster = cgrp::this_cluster();
-    cluster.sync();
-    for (int c = tid; c < a.cg; c += nthr) {
-      float t0 = 0.f, t1 = 0.f;
-      for (int r = 0; r < a.ctas; ++r) {
-        const float* p = cluster.map_shared_rank(cpart, r);
-        t0 += p[2 * c];
-        t1 += p[2 * c + 1];
-      }
-      tot[2 * c] = t0;
-      tot[2 * c + 1] = t1;
-    }
-    cluster_arrive();
-    sums = tot;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float m1 = 0.f, m2 = 0.f;
-    for (int c = 0; c < a.cg; ++c) {
-      m1 += coef[2 * c] * sums[2 * c];
-      m2 += coef[2 * c] * sums[2 * c + 1];
-    }
-    misc[0] = m1 / static_cast<float>(a.n);
-    misc[1] = m2 / static_cast<float>(a.n);
-  }
-  if (rank == 0) {
-    for (int c = tid; c < a.cg; c += nthr) {
-      const size_t at = static_cast<size_t>(img) * a.channels + cbase + c;
-      parts[at] = sums[2 * c];
-      parts[static_cast<size_t>(a.batch) * a.channels + at] = sums[2 * c + 1];
-    }
-    if (tid < a.cg) __threadfence();  // the parts before the arrival below
-  }
-  __syncthreads();
-  int last = 0;  // the arrival, issued now and read after the dx pass
-  if (rank == 0 && tid == 0) last = atomicAdd(&counters[grp], 1) == a.batch - 1;
-  // dx = rstd (dy gamma - m1 - x^ m2) = dy (rstd gamma) - x^ (rstd m2) - rstd m1
-  const float r2 = rstd * misc[1], k0 = -rstd * misc[0];
-
-  T* out = dx + static_cast<long long>(span) * a.n;
-  const bool one_channel = a.hw % kGroup == 0;
-  for (int j = tid; j < ngroups; j += nthr) {
-    const int i = j * kGroup, cnt = min(kGroup, len - i);
-    float vx[kGroup], vg[kGroup];
-    if (a.staged) {
-      tile_load(tile_x, i, cnt, vx);
-      tile_load(tile_g, i, cnt, vg);
-    } else {
-      xs.load(start + i, cnt, vx);
-      gs.load(start + i, cnt, vg);
-    }
-    int ch = (start + i) / a.hw;
-    int r = start + i - ch * a.hw;
-#pragma unroll
-    for (int k = 0; k < kGroup; ++k) {
-      if (!one_channel) {
-        if (r == a.hw) {
-          ++ch;
-          r = 0;
+      for (int k = 0; k < kGroup; ++k) {
+        if (!one_channel) {
+          if (r == a.hw) {
+            ++ch;
+            r = 0;
+          }
+          ++r;
         }
-        ++r;
+        const int c = min(ch, a.cg - 1);
+        const float gam = coef[2 * c];
+        const float xh = (vx[k] - mean) * rstd;
+        const float dy = a.silu ? silu_grad(vg[k], xh * gam + coef[2 * c + 1]) : vg[k];
+        vx[k] = fmaf(dy, rstd * gam, fmaf(-xh, r2, k0));
       }
-      const int c = min(ch, a.cg - 1);
-      const float gam = coef[2 * c];
-      const float xh = (vx[k] - mean) * rstd;
-      const float dy = a.silu ? silu_grad(vg[k], xh * gam + coef[2 * c + 1]) : vg[k];
-      vx[k] = fmaf(dy, rstd * gam, fmaf(-xh, r2, k0));
+      out_store(out, a.out_vec != 0, start + i, cnt, vx);
     }
-    out_store(out, a.out_vec != 0, start + i, cnt, vx);
   }
 
-  if (rank == 0) {
-    if (tid == 0) misc[2] = last ? 1.f : 0.f;
-    __syncthreads();
-    if (misc[2] != 0.f) reduce_params(parts, dscale, dbias, counters, a, grp, tid, nthr);
+  if (a.mode != kApply) {
+    if (rank == 0) {
+      if (tid == 0) misc[2] = last ? 1.f : 0.f;
+      __syncthreads();
+      if (misc[2] != 0.f) reduce_params(parts, dscale, dbias, counters, a, grp, tid, nthr);
+    }
+    if (a.ctas > 1) cluster_wait();
   }
-  if (a.ctas > 1) cluster_wait();
 }
 
 template <typename T, int V>
@@ -692,7 +767,8 @@ __global__ void __launch_bounds__(32 * kWarpSpans) gn_bwd_warp_kernel(
     const T* __restrict__ x, const T* __restrict__ g, const void* __restrict__ scale,
     const void* __restrict__ bias, const float* __restrict__ mean_in,
     const float* __restrict__ rstd_in, T* __restrict__ dx, void* __restrict__ dscale,
-    void* __restrict__ dbias, float* __restrict__ parts, int* __restrict__ counters, GnArgs a) {
+    void* __restrict__ dbias, float* __restrict__ parts, int* __restrict__ counters,
+    float* __restrict__ msums, GnArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr unsigned kAll = 0xffffffffu;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -777,18 +853,25 @@ __global__ void __launch_bounds__(32 * kWarpSpans) gn_bwd_warp_kernel(
   int last = 0;
   if (lane == 0) last = atomicAdd(&counters[grp], 1) == a.batch - 1;
 
-  // dx = dy (rstd gamma) - x^ (rstd m2 / n) - rstd m1 / n
-  const float r2 = rstd * m2 / static_cast<float>(a.n);
-  const float k0 = -rstd * m1 / static_cast<float>(a.n);
-  T* out = dx + static_cast<long long>(span) * a.n;
+  if (a.mode == kSums) {  // this rank's m1, m2, for the all-reduce; no dx
+    if (lane == 0) {
+      msums[span] = m1;
+      msums[a.batch * a.groups + span] = m2;
+    }
+  } else {
+    // dx = dy (rstd gamma) - x^ (rstd m2 / n) - rstd m1 / n
+    const float r2 = rstd * m2 / static_cast<float>(a.n);
+    const float k0 = -rstd * m1 / static_cast<float>(a.n);
+    T* out = dx + static_cast<long long>(span) * a.n;
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
-    const int e = j * 32 + lane;
-    const int c = warp_channel(e, inv_hw, a.cg);
-    const float gam = lane_params ? __shfl_sync(kAll, gl, c)
-                                  : ld_param(scale, grp * a.cg + c, a.pdtype);
-    const float v = fmaf(s_dy[e + j], rstd * gam, fmaf(-s_xh[e + j], r2, k0));
-    if (e < a.n) out[e] = from_f<T>(v);
+    for (int j = 0; j < V; ++j) {
+      const int e = j * 32 + lane;
+      const int c = warp_channel(e, inv_hw, a.cg);
+      const float gam = lane_params ? __shfl_sync(kAll, gl, c)
+                                    : ld_param(scale, grp * a.cg + c, a.pdtype);
+      const float v = fmaf(s_dy[e + j], rstd * gam, fmaf(-s_xh[e + j], r2, k0));
+      if (e < a.n) out[e] = from_f<T>(v);
+    }
   }
   last = __shfl_sync(kAll, last, 0);
   if (last) reduce_params(parts, dscale, dbias, counters, a, grp, lane, 32);
@@ -814,7 +897,8 @@ cudaError_t launch(int grid, int threads, int smem, int ctas, cudaStream_t st, A
 // cudaErrorInvalidValue on a plan the kernels do not take.
 cudaError_t setup(GnArgs& a, bool backward, int dsize, int per_lane, int threads, int smem) {
   if (a.batch <= 0 || a.channels <= 0 || a.hw <= 0 || a.groups <= 0 ||
-      a.channels % a.groups != 0 || a.pdtype < 0 || a.pdtype > 2) {
+      a.channels % a.groups != 0 || a.pdtype < 0 || a.pdtype > 2 || a.mode < kWhole ||
+      a.mode > kApply || (a.mode == kApply && !(a.count > 0.f))) {
     return cudaErrorInvalidValue;
   }
   a.cg = a.channels / a.groups;
@@ -824,14 +908,14 @@ cudaError_t setup(GnArgs& a, bool backward, int dsize, int per_lane, int threads
   if (per_lane > 0) {
     const int want = backward ? threads / 32 * 2 * warp_words(per_lane) * 4 : 0;
     if (32LL * per_lane < n || threads < 32 || threads > 32 * kWarpSpans || threads % 32 != 0 ||
-        smem != want || a.ctas != 1) {
+        smem != want || a.ctas != 1 || a.mode == kApply) {  // apply: the cluster path's kernel
       return cudaErrorInvalidValue;
     }
     return cudaSuccess;
   }
   if (a.ctas < 1 || a.ctas > 16 || (a.ctas & (a.ctas - 1)) != 0 || threads < 32 ||
-      threads > kMaxThreads || threads % 32 != 0) {
-    return cudaErrorInvalidValue;
+      threads > kMaxThreads || threads % 32 != 0 || (a.mode != kWhole && a.staged)) {
+    return cudaErrorInvalidValue;  // the cluster path's split passes stage nothing
   }
   a.slice = slice_of(a.n, a.ctas);
   const int tile = round16(static_cast<long long>(a.slice) * dsize);
@@ -843,9 +927,13 @@ cudaError_t setup(GnArgs& a, bool backward, int dsize, int per_lane, int threads
 
 template <typename T>
 cudaError_t fwd(const void* x, const void* scale, const void* bias, void* y, void* mean,
-                void* rstd, GnArgs& a, int per_lane, int threads, int smem, cudaStream_t st) {
+                void* rstd, void* sums, GnArgs& a, int per_lane, int threads, int smem,
+                cudaStream_t st) {
   cudaError_t err = setup(a, false, sizeof(T), per_lane, threads, smem);
   if (err != cudaSuccess) return err;
+  if ((a.mode != kWhole) != (sums != nullptr) || (a.mode != kSums) != (y != nullptr)) {
+    return cudaErrorInvalidValue;
+  }
   a.x_vec = a.xsp == 1 && a.xsc == a.hw && a.hw % kGroup == 0 && aligned16(x) &&
             (a.xsb * static_cast<long long>(sizeof(T))) % 16 == 0;
   a.out_vec = aligned16(y) && a.n % kGroup == 0;
@@ -853,34 +941,44 @@ cudaError_t fwd(const void* x, const void* scale, const void* bias, void* y, voi
   T* yp = static_cast<T*>(y);
   float* mp = static_cast<float*>(mean);
   float* rp = static_cast<float*>(rstd);
+  float* sp = static_cast<float*>(sums);
   const int spans = a.batch * a.groups;
   if (per_lane > 0) {
     const int grid = (spans + threads / 32 - 1) / (threads / 32);
     if (per_lane == 2) {
       return launch<gn_fwd_warp_kernel<T, 2>>(grid, threads, 0, 1, st, xp, scale, bias, yp,
-                                                  mp, rp, a);
+                                                  mp, rp, sp, a);
     }
     if (per_lane == 8) {
       return launch<gn_fwd_warp_kernel<T, 8>>(grid, threads, 0, 1, st, xp, scale, bias, yp,
-                                                  mp, rp, a);
+                                                  mp, rp, sp, a);
     }
     if (per_lane == 32) {
       return launch<gn_fwd_warp_kernel<T, 32>>(grid, threads, 0, 1, st, xp, scale, bias, yp,
-                                                  mp, rp, a);
+                                                  mp, rp, sp, a);
     }
     return cudaErrorInvalidValue;
   }
-  return launch<gn_fwd_block_kernel<T>>(spans * a.ctas, threads, smem, a.ctas, st, xp, scale,
-                bias, yp, mp, rp, a);
+  // the apply pass reads no peer: its CTAs launch without a cluster
+  return launch<gn_fwd_block_kernel<T>>(spans * a.ctas, threads, smem,
+                                        a.mode == kApply ? 1 : a.ctas, st, xp, scale, bias,
+                                        yp, mp, rp, sp, a);
 }
 
 template <typename T>
 cudaError_t bwd(const void* x, const void* g, const void* scale, const void* bias,
                 const void* mean, const void* rstd, void* dx, void* dscale, void* dbias,
-                void* parts, void* counters, GnArgs& a, int per_lane, int threads, int smem,
-                cudaStream_t st) {
+                void* parts, void* counters, void* sums, GnArgs& a, int per_lane, int threads,
+                int smem, cudaStream_t st) {
   cudaError_t err = setup(a, true, sizeof(T), per_lane, threads, smem);
   if (err != cudaSuccess) return err;
+  // dscale, dbias, parts and counters unless the apply pass; dx unless the sums pass
+  const bool params = dscale != nullptr && dbias != nullptr && parts != nullptr &&
+                      counters != nullptr;
+  if ((a.mode != kWhole) != (sums != nullptr) || (a.mode != kApply) != params ||
+      (a.mode != kSums) != (dx != nullptr)) {
+    return cudaErrorInvalidValue;
+  }
   const long long dsize = sizeof(T);
   a.x_vec = a.xsp == 1 && a.xsc == a.hw && a.hw % kGroup == 0 && aligned16(x) &&
             (a.xsb * dsize) % 16 == 0;
@@ -894,29 +992,32 @@ cudaError_t bwd(const void* x, const void* g, const void* scale, const void* bia
   T* dxp = static_cast<T*>(dx);
   float* pp = static_cast<float*>(parts);
   int* cp = static_cast<int*>(counters);
+  float* sp = static_cast<float*>(sums);
   const int spans = a.batch * a.groups;
   if (per_lane > 0) {
     const int grid = (spans + threads / 32 - 1) / (threads / 32);
     if (per_lane == 2) {
       return launch<gn_bwd_warp_kernel<T, 2>>(grid, threads, smem, 1, st, xp, gp, scale, bias,
-                                                  mp, rp, dxp, dscale, dbias, pp, cp, a);
+                                                  mp, rp, dxp, dscale, dbias, pp, cp, sp, a);
     }
     if (per_lane == 8) {
       return launch<gn_bwd_warp_kernel<T, 8>>(grid, threads, smem, 1, st, xp, gp, scale, bias,
-                                                  mp, rp, dxp, dscale, dbias, pp, cp, a);
+                                                  mp, rp, dxp, dscale, dbias, pp, cp, sp, a);
     }
     if (per_lane == 32) {
       return launch<gn_bwd_warp_kernel<T, 32>>(grid, threads, smem, 1, st, xp, gp, scale, bias,
-                                                  mp, rp, dxp, dscale, dbias, pp, cp, a);
+                                                  mp, rp, dxp, dscale, dbias, pp, cp, sp, a);
     }
     return cudaErrorInvalidValue;
   }
-  return launch<gn_bwd_block_kernel<T>>(spans * a.ctas, threads, smem, a.ctas, st, xp, gp,
-                scale, bias, mp, rp, dxp, dscale, dbias, pp, cp, a);
+  return launch<gn_bwd_block_kernel<T>>(spans * a.ctas, threads, smem,
+                                        a.mode == kApply ? 1 : a.ctas, st, xp, gp, scale, bias,
+                                        mp, rp, dxp, dscale, dbias, pp, cp, sp, a);
 }
 
 GnArgs make_args(int batch, int channels, int hw, int groups, long long xsb, long long xsc,
-                 long long xsp, int ctas, int staged, int silu, int pdtype, float eps) {
+                 long long xsp, int ctas, int staged, int silu, int pdtype, float eps, int mode,
+                 float count) {
   GnArgs a = {};
   a.batch = batch;
   a.channels = channels;
@@ -930,6 +1031,8 @@ GnArgs make_args(int batch, int channels, int hw, int groups, long long xsb, lon
   a.silu = silu != 0;
   a.pdtype = pdtype;
   a.eps = eps;
+  a.mode = mode;
+  a.count = count;
   return a;
 }
 
@@ -939,85 +1042,100 @@ GnArgs make_args(int batch, int channels, int hw, int groups, long long xsb, lon
   const void *x, const void *scale, const void *bias, void *y, void *mean, void *rstd,       \
       int batch, int channels, int hw, int groups, long long xsb, long long xsc,             \
       long long xsp, float eps, int silu, int pdtype, int ctas, int per_lane, int threads,   \
-      int smem, int staged, void *stream
+      int smem, int staged, int mode, void *sums, float count, void *stream
 #define MDT_GN_FWD_ARGS                                                                      \
   x, scale, bias, y, mean, rstd, batch, channels, hw, groups, xsb, xsc, xsp, eps, silu,      \
-      pdtype, ctas, per_lane, threads, smem, staged, stream
+      pdtype, ctas, per_lane, threads, smem, staged, mode, sums, count, stream
 #define MDT_GN_BWD_PARAMS                                                                    \
   const void *x, const void *g, const void *scale, const void *bias, const void *mean,       \
       const void *rstd, void *dx, void *dscale, void *dbias, void *parts, void *counters,    \
       int batch, int channels, int hw, int groups, long long xsb, long long xsc,             \
       long long xsp, long long gsb, long long gsc, long long gsp, int silu, int pdtype,      \
-      int ctas, int per_lane, int threads, int smem, int staged, void *stream
+      int ctas, int per_lane, int threads, int smem, int staged, int mode, void *sums,       \
+      float count, void *stream
 #define MDT_GN_BWD_ARGS                                                                      \
   x, g, scale, bias, mean, rstd, dx, dscale, dbias, parts, counters, batch, channels, hw,    \
       groups, xsb, xsc, xsp, gsb, gsc, gsp, silu, pdtype, ctas, per_lane, threads, smem,     \
-      staged, stream
+      staged, mode, sums, count, stream
 
 template <typename T>
 int fwd_entry(MDT_GN_FWD_PARAMS) {
   GnArgs a = make_args(batch, channels, hw, groups, xsb, xsc, xsp, ctas, staged, silu, pdtype,
-                       eps);
+                       eps, mode, count);
   if ((mean == nullptr) != (rstd == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(fwd<T>(x, scale, bias, y, mean, rstd, a, per_lane, threads, smem,
-                                 static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(fwd<T>(x, scale, bias, y, mean, rstd, sums, a, per_lane, threads,
+                                 smem, static_cast<cudaStream_t>(stream)));
 }
 
 template <typename T>
 int bwd_entry(MDT_GN_BWD_PARAMS) {
   GnArgs a = make_args(batch, channels, hw, groups, xsb, xsc, xsp, ctas, staged, silu, pdtype,
-                       0.f);
+                       0.f, mode, count);
   a.gsb = gsb;
   a.gsc = gsc;
   a.gsp = gsp;
   return static_cast<int>(bwd<T>(x, g, scale, bias, mean, rstd, dx, dscale, dbias, parts,
-                                 counters, a, per_lane, threads, smem,
+                                 counters, sums, a, per_lane, threads, smem,
                                  static_cast<cudaStream_t>(stream)));
 }
 
-template <typename T>
-int max_clusters_entry(int backward, int ctas, int threads, int smem, int* out) {
-  const void* fn = backward ? reinterpret_cast<const void*>(gn_bwd_block_kernel<T>)
-                            : reinterpret_cast<const void*>(gn_fwd_block_kernel<T>);
+template <typename T, bool Backward>
+int max_clusters_entry(int ctas, int threads, int smem, int* out) {
+  const void* fn;
+  if constexpr (Backward) {
+    fn = reinterpret_cast<const void*>(gn_bwd_block_kernel<T>);
+  } else {
+    fn = reinterpret_cast<const void*>(gn_fwd_block_kernel<T>);
+  }
   return static_cast<int>(mdt::max_active_clusters(fn, kMaxSmem, ctas, threads, smem, out));
 }
 
 }  // namespace
 
-// The C entry points of dtype T, suffixed S. A template is compiled only for
-// the dtypes it is used with, so each translation unit that expands this
-// compiles one dtype's kernels: this file fp32's, groupnorm_bf16.cu and
-// groupnorm_f16.cu (which include this file) theirs, and the build runs the
-// three nvcc processes at once.
-#define MDT_GN_ENTRIES(T, S)                                                                 \
+// The C entry points of dtype T, suffixed S: the forward's and the
+// backward's. A template is compiled only where it is used, so each
+// translation unit that expands one of these compiles one dtype's forward or
+// backward kernels: this file the fp32 forward, groupnorm_bwd.cu the fp32
+// backward, groupnorm_bf16[_bwd].cu and groupnorm_f16[_bwd].cu (which include
+// this file) theirs, and the build runs the six nvcc processes at once.
+#define MDT_GN_FWD_ENTRIES(T, S)                                                             \
   extern "C" int mdt_gn_fwd_##S(MDT_GN_FWD_PARAMS) { return fwd_entry<T>(MDT_GN_FWD_ARGS); } \
+  extern "C" int mdt_gn_max_clusters_fwd_##S(int ctas, int threads, int smem, int* out) {    \
+    return max_clusters_entry<T, false>(ctas, threads, smem, out);                           \
+  }
+#define MDT_GN_BWD_ENTRIES(T, S)                                                             \
   extern "C" int mdt_gn_bwd_##S(MDT_GN_BWD_PARAMS) { return bwd_entry<T>(MDT_GN_BWD_ARGS); } \
-  extern "C" int mdt_gn_max_clusters_##S(int backward, int ctas, int threads, int smem,      \
-                                         int* out) {                                         \
-    return max_clusters_entry<T>(backward, ctas, threads, smem, out);                        \
+  extern "C" int mdt_gn_max_clusters_bwd_##S(int ctas, int threads, int smem, int* out) {    \
+    return max_clusters_entry<T, true>(ctas, threads, smem, out);                            \
   }
 
 #ifndef MDT_GN_ONE_DTYPE  // this file compiled on its own
 
-MDT_GN_ENTRIES(float, f32)
-extern "C" int mdt_gn_fwd_bf16(MDT_GN_FWD_PARAMS);
-extern "C" int mdt_gn_bwd_bf16(MDT_GN_BWD_PARAMS);
-extern "C" int mdt_gn_max_clusters_bf16(int backward, int ctas, int threads, int smem, int* out);
-extern "C" int mdt_gn_fwd_f16(MDT_GN_FWD_PARAMS);
-extern "C" int mdt_gn_bwd_f16(MDT_GN_BWD_PARAMS);
-extern "C" int mdt_gn_max_clusters_f16(int backward, int ctas, int threads, int smem, int* out);
+MDT_GN_FWD_ENTRIES(float, f32)
+#define MDT_GN_DECLARE(S)                                                                    \
+  extern "C" int mdt_gn_fwd_##S(MDT_GN_FWD_PARAMS);                                          \
+  extern "C" int mdt_gn_bwd_##S(MDT_GN_BWD_PARAMS);                                          \
+  extern "C" int mdt_gn_max_clusters_fwd_##S(int ctas, int threads, int smem, int* out);     \
+  extern "C" int mdt_gn_max_clusters_bwd_##S(int ctas, int threads, int smem, int* out);
+MDT_GN_DECLARE(f32)
+MDT_GN_DECLARE(bf16)
+MDT_GN_DECLARE(f16)
 
 // x: (batch, channels, hw) with strides (xsb, xsc, xsp) in elements; y: the
 // same shape, contiguous; mean, rstd: (batch * groups) fp32, or null when no
 // gradient will be taken. dtype / pdtype: 0 fp32, 1 bf16, 2 fp16 (x and y /
 // scale and bias). The plan (ops/groupnorm.py:gn_plan): per_lane > 0 takes
 // the warp path, else ctas CTAs per span with threads threads and smem bytes
-// of dynamic shared memory, the slice staged when staged != 0.
+// of dynamic shared memory, the slice staged when staged != 0. mode: 0 the
+// whole span (sums null); 1 the split sums pass, which writes sums (2,
+// batch * groups) fp32 and no y (null); 2 the split apply pass, which reads
+// sums over count elements of a span. The split passes stage nothing.
 extern "C" int mdt_group_norm_fwd(const void* x, const void* scale, const void* bias, void* y,
                                   void* mean, void* rstd, int batch, int channels, int hw,
                                   int groups, long long xsb, long long xsc, long long xsp,
                                   float eps, int silu, int dtype, int pdtype, int ctas,
-                                  int per_lane, int threads, int smem, int staged, void* stream) {
+                                  int per_lane, int threads, int smem, int staged, int mode,
+                                  void* sums, float count, void* stream) {
   if (dtype == 0) return mdt_gn_fwd_f32(MDT_GN_FWD_ARGS);
   if (dtype == 1) return mdt_gn_fwd_bf16(MDT_GN_FWD_ARGS);
   if (dtype == 2) return mdt_gn_fwd_f16(MDT_GN_FWD_ARGS);
@@ -1027,7 +1145,10 @@ extern "C" int mdt_group_norm_fwd(const void* x, const void* scale, const void* 
 // g: the incoming gradient, strides (gsb, gsc, gsp); dx: contiguous, x's
 // dtype; dscale, dbias: (channels,) in pdtype; parts: (2, batch, channels)
 // fp32 scratch; counters: (groups,) int32, zero before the first call and
-// left zero by every call.
+// left zero by every call. mode: 0 whole (sums null); 1 the split sums pass:
+// dscale and dbias of these rows, m1 and m2 to sums (2, batch * groups), no
+// dx (null); 2 the split apply pass: dx from sums over count elements of a
+// span (dscale, dbias, parts and counters null).
 extern "C" int mdt_group_norm_bwd(const void* x, const void* g, const void* scale,
                                   const void* bias, const void* mean, const void* rstd,
                                   void* dx, void* dscale, void* dbias, void* parts,
@@ -1035,7 +1156,7 @@ extern "C" int mdt_group_norm_bwd(const void* x, const void* g, const void* scal
                                   long long xsb, long long xsc, long long xsp, long long gsb,
                                   long long gsc, long long gsp, int silu, int dtype, int pdtype,
                                   int ctas, int per_lane, int threads, int smem, int staged,
-                                  void* stream) {
+                                  int mode, void* sums, float count, void* stream) {
   if (dtype == 0) return mdt_gn_bwd_f32(MDT_GN_BWD_ARGS);
   if (dtype == 1) return mdt_gn_bwd_bf16(MDT_GN_BWD_ARGS);
   if (dtype == 2) return mdt_gn_bwd_f16(MDT_GN_BWD_ARGS);
@@ -1047,9 +1168,16 @@ extern "C" int mdt_group_norm_bwd(const void* x, const void* g, const void* scal
 // scheduled on this card.
 extern "C" int mdt_group_norm_max_clusters(int backward, int dtype, int ctas, int threads,
                                            int smem, int* out) {
-  if (dtype == 0) return mdt_gn_max_clusters_f32(backward, ctas, threads, smem, out);
-  if (dtype == 1) return mdt_gn_max_clusters_bf16(backward, ctas, threads, smem, out);
-  return mdt_gn_max_clusters_f16(backward, ctas, threads, smem, out);
+  if (dtype == 0) {
+    return backward ? mdt_gn_max_clusters_bwd_f32(ctas, threads, smem, out)
+                    : mdt_gn_max_clusters_fwd_f32(ctas, threads, smem, out);
+  }
+  if (dtype == 1) {
+    return backward ? mdt_gn_max_clusters_bwd_bf16(ctas, threads, smem, out)
+                    : mdt_gn_max_clusters_fwd_bf16(ctas, threads, smem, out);
+  }
+  return backward ? mdt_gn_max_clusters_bwd_f16(ctas, threads, smem, out)
+                  : mdt_gn_max_clusters_fwd_f16(ctas, threads, smem, out);
 }
 
 #endif  // MDT_GN_ONE_DTYPE

@@ -1,0 +1,7 @@
+// The fp16 GroupNorm backward kernels of groupnorm.cu (which has the design),
+// in a translation unit of their own so that nvcc compiles the dtypes and the
+// directions in parallel: groupnorm.cu's C entry points call mdt_gn_bwd_f16.
+#define MDT_GN_ONE_DTYPE
+#include "groupnorm.cu"
+
+MDT_GN_BWD_ENTRIES(__half, f16)

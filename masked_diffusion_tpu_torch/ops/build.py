@@ -135,6 +135,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         i64, i64, i64,           # x strides: image, channel, pixel
         f32, i32, i32, i32,      # eps, silu, dtype, scale/bias dtype
         i32, i32, i32, i32, i32,  # plan: ctas, per_lane, threads, smem bytes, staged
+        i32, vp, f32,            # mode (0 whole, 1 split sums, 2 split apply), sums, count
         vp,                      # cudaStream_t
     ]
     fn.restype = i32
@@ -148,6 +149,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         i64, i64, i64,           # grad_out strides
         i32, i32, i32,           # silu, dtype, scale/bias dtype
         i32, i32, i32, i32, i32,  # plan: ctas, per_lane, threads, smem bytes, staged
+        i32, vp, f32,            # mode, (2, B*G) fp32 sums of m1 and m2, count
         vp,                      # cudaStream_t
     ]
     fn.restype = i32

@@ -37,6 +37,21 @@ dgamma/dbeta summed over the batch in image order.
 `group_norm_silu` is a torch.autograd.Function on CUDA: the forward kernel,
 then the backward kernel (`group_norm_silu_backward`). Each has its own
 launch count. CPU tensors take the plain forward, and autograd through it.
+
+Split modes, for a span whose rows lie on M ranks (parallel/sp.py): the
+same kernels in two passes each, with an all-reduce of a (2, B*G) fp32
+tensor between them. Forward: `group_norm_sums` (each span's sums of x and
+x^2 over the rank's rows), then `group_norm_apply` (the statistics over the
+whole count n*M, y, and the statistics for the backward). Backward:
+`group_norm_backward_sums` (dscale and dbias of the rank's rows, and each
+span's m1, m2), then `group_norm_backward_apply` (dx). The pair wrappers
+`group_norm_split` and `group_norm_split_backward` run both passes around
+the caller's all-reduce and count a launch pair each; on CPU tensors every
+pass is its plain version (`group_norm_sums_plain`, `group_norm_apply_plain`,
+`group_norm_backward_sums_plain`, `group_norm_backward_apply_plain`: the
+arithmetic of the plain forward and backward above, taken apart at the
+all-reduce). The split passes stage nothing (`gn_plan(..., mode=)`), so the
+forward pair reads x twice and the backward pair x and the gradient twice.
 """
 
 from __future__ import annotations
@@ -66,6 +81,8 @@ WARP_MIN_CTAS = 264  # fewer spans per CTA until the launch has two CTAs per SM
 CLUSTER_SIZES = (1, 2, 4, 8, 16)  # 16 is above the portable limit of 8
 GROUP = 8  # elements of one load group (16 bytes of bf16)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the kernels' modes: the whole span, or the split passes before and after the all-reduce
+MODES = {"whole": 0, "sums": 1, "apply": 2}
 
 
 class GnPlan(NamedTuple):
@@ -96,12 +113,18 @@ def _float_bytes(cg: int, threads: int) -> int:
 
 
 def gn_plan(b: int, c: int, h: int, w: int, groups: int, dtype: torch.dtype,
-            backward: bool, max_cluster: int = 16) -> GnPlan:
-    """The launch plan of one forward (or backward) call on (b, c, h, w)."""
+            backward: bool, max_cluster: int = 16, mode: str = "whole") -> GnPlan:
+    """The launch plan of one forward (or backward) call on (b, c, h, w). A
+    split pass (`mode` "sums" or "apply") stages nothing: it takes the whole
+    call's path and CTAs a span, its slices read from device memory; an
+    apply pass whose whole call takes the warp path runs the cluster path's
+    kernel, one CTA a span."""
+    if mode not in MODES:
+        raise ValueError(f"gn_plan: mode {mode!r} is not one of {sorted(MODES)}")
     cg = c // groups
     span = cg * h * w
     spans = b * groups
-    if span <= WARP_SPAN_MAX:
+    if span <= WARP_SPAN_MAX and mode != "apply":
         per_lane = next(v for v in WARP_LANE_WIDTHS if 32 * v >= span)
         per_cta = WARP_SPANS
         while per_cta > 1 and -(-spans // per_cta) < WARP_MIN_CTAS:
@@ -122,6 +145,8 @@ def gn_plan(b: int, c: int, h: int, w: int, groups: int, dtype: torch.dtype,
         return GnPlan(k, 1, threads, tile + _float_bytes(cg, threads), staged, slice_, 0,
                       spans * k)
 
+    if mode != "whole":  # the whole call's CTAs a span, nothing staged
+        return plan(gn_plan(b, c, h, w, groups, dtype, backward, max_cluster).ctas, False)
     for k in sizes:  # the smallest cluster whose slices are within the target
         p = plan(k, True)
         if k <= 8 and p.smem - _float_bytes(cg, p.threads) <= STAGE_TARGET[backward]:
@@ -134,6 +159,17 @@ def gn_plan(b: int, c: int, h: int, w: int, groups: int, dtype: torch.dtype,
                 False)
 
 
+def _affine_silu(xg, mean, rstd, scale, bias, shape, silu: bool) -> torch.Tensor:
+    """The plain normalise, affine and SiLU of x grouped as (B, G, -1), from
+    fp32 (B, G, 1) statistics, elementwise in x's dtype."""
+    dtype = xg.dtype
+    y = (xg - mean.to(dtype)) * rstd.to(dtype)
+    y = y.reshape(shape) * scale.to(dtype)[:, None, None] + bias.to(dtype)[:, None, None]
+    if silu:
+        y = F.silu(y)
+    return y.to(dtype)
+
+
 def group_norm_silu_plain(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -144,16 +180,12 @@ def group_norm_silu_plain(
 ) -> torch.Tensor:
     """GroupNorm(+SiLU) over NCHW x: fp32 statistics, without an fp32 copy
     of x for the mean; elementwise math in x's dtype."""
-    b, c, h, w = x.shape
-    xg = x.reshape(b, groups, (c // groups) * h * w)
+    b = x.shape[0]
+    xg = x.reshape(b, groups, -1)
     mean = xg.mean(dim=2, keepdim=True, dtype=torch.float32)
     mean_sq = xg.float().square().mean(dim=2, keepdim=True)
     rstd = torch.rsqrt(mean_sq - mean.square() + eps)
-    y = (xg - mean.to(x.dtype)) * rstd.to(x.dtype)
-    y = y.reshape(b, c, h, w) * scale.to(x.dtype)[:, None, None] + bias.to(x.dtype)[:, None, None]
-    if silu:
-        y = F.silu(y)
-    return y.to(x.dtype)
+    return _affine_silu(xg, mean, rstd, scale, bias, x.shape, silu)
 
 
 def group_norm_stats_plain(x: torch.Tensor, groups: int, eps: float = 1e-5):
@@ -165,12 +197,31 @@ def group_norm_stats_plain(x: torch.Tensor, groups: int, eps: float = 1e-5):
     return mean.reshape(-1), rstd.reshape(-1)
 
 
-def group_norm_silu_backward_plain(x, scale, bias, grad_out, mean, rstd, groups: int,
-                                   silu: bool):
-    """The backward kernel's arithmetic in fp32: per-channel sums of dy and
-    dy * x^, then dx (in x's dtype), and dscale, dbias summed over the batch
-    in image order (in scale's and bias's dtypes). mean, rstd: the forward's
-    fp32 (B*G,) statistics."""
+def group_norm_sums_plain(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """The split forward's first pass: each (image, group)'s fp32 sum of x
+    and of x^2 over x's rows, (2, B*G)."""
+    b = x.shape[0]
+    xg = x.reshape(b, groups, -1)
+    return torch.stack([xg.sum(dim=2, dtype=torch.float32),
+                        xg.float().square().sum(dim=2)]).reshape(2, b * groups)
+
+
+def group_norm_apply_plain(x, scale, bias, sums, count: float, groups: int,
+                           eps: float = 1e-5, silu: bool = True):
+    """The split forward's second pass: GroupNorm(+SiLU) of x's rows with the
+    statistics of `sums` (the all-reduced group_norm_sums_plain) over `count`
+    elements a span, as group_norm_silu_plain normalises. Returns (y in x's
+    dtype, fp32 mean (B*G,), fp32 rstd (B*G,))."""
+    b = x.shape[0]
+    mean, mean_sq = (sums / count).reshape(2, b, groups, 1)
+    rstd = torch.rsqrt(mean_sq - mean.square() + eps)
+    y = _affine_silu(x.reshape(b, groups, -1), mean, rstd, scale, bias, x.shape, silu)
+    return y, mean.reshape(-1), rstd.reshape(-1)
+
+
+def _backward_terms(x, scale, bias, grad_out, mean, rstd, groups: int, silu: bool):
+    """fp32 x^ and dy (the gradient through SiLU), (B, G, C/G, H*W), and
+    gamma (1, G, C/G, 1), from the forward's (B*G,) statistics."""
     b, c, h, w = x.shape
     cg = c // groups
     xh = (x.float().reshape(b, groups, cg, h * w) - mean.reshape(b, groups, 1, 1)) \
@@ -181,34 +232,85 @@ def group_norm_silu_backward_plain(x, scale, bias, grad_out, mean, rstd, groups:
         y = xh * gam + bias.float().reshape(1, groups, cg, 1)
         s = torch.sigmoid(y)
         dy = dy * s * (1 + y * (1 - s))
+    return xh, gam, dy
+
+
+def _params_in_image_order(dg, db, scale, bias):
+    """dscale, dbias: the (B, G, C/G) parts summed over images in image
+    order, as the kernel sums them, in scale's and bias's dtypes."""
+    c = scale.shape[0]
+    dscale, dbias = dg[0].reshape(c).clone(), db[0].reshape(c).clone()
+    for i in range(1, dg.shape[0]):
+        dscale += dg[i].reshape(c)
+        dbias += db[i].reshape(c)
+    return dscale.to(scale.dtype), dbias.to(bias.dtype)
+
+
+def group_norm_silu_backward_plain(x, scale, bias, grad_out, mean, rstd, groups: int,
+                                   silu: bool):
+    """The backward kernel's arithmetic in fp32: per-channel sums of dy and
+    dy * x^, then dx (in x's dtype), and dscale, dbias summed over the batch
+    in image order (in scale's and bias's dtypes). mean, rstd: the forward's
+    fp32 (B*G,) statistics."""
+    b, c, h, w = x.shape
+    xh, gam, dy = _backward_terms(x, scale, bias, grad_out, mean, rstd, groups, silu)
     db = dy.sum(dim=3)  # (B, G, cg): the (image, channel) parts of dbias
     dg = (dy * xh).sum(dim=3)  # and of dscale
-    n = cg * h * w
+    n = (c // groups) * h * w
     m1 = (db * gam[..., 0]).sum(dim=2)[..., None, None] / n
     m2 = (dg * gam[..., 0]).sum(dim=2)[..., None, None] / n
     dx = rstd.reshape(b, groups, 1, 1) * (dy * gam - m1 - xh * m2)
-    dscale, dbias = dg[0].reshape(c).clone(), db[0].reshape(c).clone()
-    for i in range(1, b):  # image order, as the kernel sums
-        dscale += dg[i].reshape(c)
-        dbias += db[i].reshape(c)
-    return dx.reshape(b, c, h, w).to(x.dtype), dscale.to(scale.dtype), dbias.to(bias.dtype)
+    return (dx.reshape(b, c, h, w).to(x.dtype), *_params_in_image_order(dg, db, scale, bias))
+
+
+def group_norm_backward_sums_plain(x, scale, bias, grad_out, mean, rstd, groups: int,
+                                   silu: bool):
+    """The split backward's first pass, from the forward's global (B*G,)
+    statistics: (fp32 (2, B*G) of each span's m1 = sum_c gamma_c Sdy_c and
+    m2 = sum_c gamma_c Sdy*x^_c over x's rows, undivided; dscale; dbias),
+    dscale and dbias those rows' share, as group_norm_silu_backward_plain
+    sums them."""
+    xh, gam, dy = _backward_terms(x, scale, bias, grad_out, mean, rstd, groups, silu)
+    db = dy.sum(dim=3)
+    dg = (dy * xh).sum(dim=3)
+    sums = torch.stack([(db * gam[..., 0]).sum(dim=2), (dg * gam[..., 0]).sum(dim=2)])
+    return (sums.reshape(2, -1), *_params_in_image_order(dg, db, scale, bias))
+
+
+def group_norm_backward_apply_plain(x, scale, bias, grad_out, mean, rstd, sums,
+                                    count: float, groups: int, silu: bool) -> torch.Tensor:
+    """The split backward's second pass: dx (in x's dtype) from the
+    all-reduced group_norm_backward_sums_plain over `count` elements a span."""
+    b, c, h, w = x.shape
+    xh, gam, dy = _backward_terms(x, scale, bias, grad_out, mean, rstd, groups, silu)
+    m1, m2 = (sums / count).reshape(2, b, groups, 1, 1)
+    dx = rstd.reshape(b, groups, 1, 1) * (dy * gam - m1 - xh * m2)
+    return dx.reshape(b, c, h, w).to(x.dtype)
+
+
+def _check_x(x, groups):
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, C, H, W), got {tuple(x.shape)}")
+    if x.shape[1] % groups != 0:
+        raise ValueError(f"{x.shape[1]} channels do not split into {groups} groups")
 
 
 def _check(x, scale, bias, groups):
-    if x.dim() != 4:
-        raise ValueError(f"x must be (B, C, H, W), got {tuple(x.shape)}")
+    _check_x(x, groups)
     c = x.shape[1]
-    if c % groups != 0:
-        raise ValueError(f"{c} channels do not split into {groups} groups")
     if tuple(scale.shape) != (c,) or tuple(bias.shape) != (c,):
         raise ValueError(f"scale and bias must have shape ({c},)")
 
 
-def _check_cuda(x, scale, bias):
+def _check_cuda_x(x):
     if x.device.type != "cuda":
         raise RuntimeError(f"group_norm_silu: no kernel for {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"group_norm_silu: unsupported dtype {x.dtype}")
+
+
+def _check_cuda(x, scale, bias):
+    _check_cuda_x(x)
     if scale.dtype not in _DTYPES or bias.dtype != scale.dtype:
         raise TypeError(f"group_norm_silu: scale {scale.dtype} and bias {bias.dtype} "
                         "must share one of float32, bfloat16, float16")
@@ -279,12 +381,82 @@ def max_active_clusters(backward: bool, dtype: torch.dtype, plan: GnPlan) -> int
 
 @functools.lru_cache(maxsize=None)
 def _cuda_plan(b: int, c: int, h: int, w: int, groups: int, dtype: torch.dtype,
-               backward: bool) -> GnPlan:
-    """gn_plan, without the cluster of 16 where this card cannot schedule it."""
-    plan = gn_plan(b, c, h, w, groups, dtype, backward)
-    if plan.ctas == 16 and max_active_clusters(backward, dtype, plan) == 0:
-        plan = gn_plan(b, c, h, w, groups, dtype, backward, max_cluster=8)
+               backward: bool, mode: str = "whole") -> GnPlan:
+    """gn_plan, without the cluster of 16 where this card cannot schedule it
+    (the apply passes launch no cluster)."""
+    plan = gn_plan(b, c, h, w, groups, dtype, backward, mode=mode)
+    if plan.ctas == 16 and mode != "apply" and max_active_clusters(backward, dtype, plan) == 0:
+        plan = gn_plan(b, c, h, w, groups, dtype, backward, max_cluster=8, mode=mode)
     return plan
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_forward(x, scale, bias, groups: int, eps: float, silu: bool, mode: str,
+                    y=None, mean=None, rstd=None, sums=None, count: float = 0.0):
+    """One launch of the forward kernel in `mode` on CUDA x (any image and
+    channel strides with a flat H*W run), into the given outputs."""
+    b, c, h, w = x.shape
+    xs = _flat_strides(x, "x")
+    plan = _cuda_plan(b, c, h, w, groups, x.dtype, False, mode)
+    lib = build.load_library()
+    with torch.cuda.device(x.device):
+        code = lib.mdt_group_norm_fwd(
+            x.data_ptr(), _ptr(scale), _ptr(bias), _ptr(y), _ptr(mean), _ptr(rstd),
+            b, c, h * w, groups, *xs, float(eps), int(silu), _DTYPES[x.dtype],
+            _DTYPES[scale.dtype] if scale is not None else 0, plan.ctas, plan.per_lane,
+            plan.threads, plan.smem, int(plan.on_chip), MODES[mode], _ptr(sums), float(count),
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, code, "group_norm_silu" if mode == "whole" else f"group_norm_{mode}")
+
+
+def _check_backward(x, scale, bias, grad_out, mean, rstd, groups):
+    _check(x, scale, bias, groups)
+    _check_cuda(x, scale, bias)
+    if grad_out.shape != x.shape or grad_out.dtype != x.dtype or grad_out.device != x.device:
+        raise ValueError(f"grad_out {grad_out.dtype} {tuple(grad_out.shape)} on "
+                         f"{grad_out.device} does not match x {x.dtype} {tuple(x.shape)}")
+    n = x.shape[0] * groups
+    for t, what in ((mean, "mean"), (rstd, "rstd")):
+        if t.dtype != torch.float32 or t.numel() != n or not t.is_contiguous():
+            raise ValueError(f"{what} must be a contiguous fp32 ({n},) tensor")
+
+
+def _check_sums(sums, x, groups):
+    want = (2, x.shape[0] * groups)
+    if (sums.dtype != torch.float32 or tuple(sums.shape) != want or not sums.is_contiguous()
+            or sums.device != x.device):
+        raise ValueError(f"sums must be a contiguous fp32 {want} tensor on {x.device}, got "
+                         f"{sums.dtype} {tuple(sums.shape)} on {sums.device}")
+
+
+def _launch_backward(x, scale, bias, grad_out, mean, rstd, groups: int, silu: bool, mode: str,
+                     dx=None, dscale=None, dbias=None, sums=None, count: float = 0.0):
+    """One launch of the backward kernel in `mode` on CUDA tensors checked by
+    _check_backward, into the given outputs; the whole and sums passes take
+    a (2, B, C) fp32 scratch and the stream's arrival counters."""
+    b, c, h, w = x.shape
+    xs = _flat_strides(x, "x")
+    gs = _flat_strides(grad_out, "grad_out")
+    plan = _cuda_plan(b, c, h, w, groups, x.dtype, True, mode)
+    lib = build.load_library()
+    parts = counters = None
+    if mode != "apply":
+        parts = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        if mode != "apply":
+            counters = reserve_counters(x.device, groups=groups)
+        code = lib.mdt_group_norm_bwd(
+            x.data_ptr(), grad_out.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), _ptr(dx), _ptr(dscale), _ptr(dbias),
+            _ptr(parts), _ptr(counters), b, c, h * w, groups, *xs, *gs, int(silu),
+            _DTYPES[x.dtype], _DTYPES[scale.dtype], plan.ctas, plan.per_lane, plan.threads,
+            plan.smem, int(plan.on_chip), MODES[mode], _ptr(sums), float(count),
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, code, "group_norm_silu_backward" if mode == "whole"
+                else f"group_norm_backward_{mode}")
 
 
 def group_norm_silu_forward(x, scale, bias, groups: int, eps: float, silu: bool,
@@ -294,23 +466,13 @@ def group_norm_silu_forward(x, scale, bias, groups: int, eps: float, silu: bool,
     (B*G,); fp32 rstd (B*G,)), the statistics None when not `stats`."""
     _check(x, scale, bias, groups)
     _check_cuda(x, scale, bias)
-    b, c, h, w = x.shape
-    xs = _flat_strides(x, "x")
-    plan = _cuda_plan(b, c, h, w, groups, x.dtype, False)
-    lib = build.load_library()
-    y = torch.empty((b, c, h, w), dtype=x.dtype, device=x.device)
+    b = x.shape[0]
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     mean = rstd = None
     if stats:
         st = torch.empty((2, b * groups), dtype=torch.float32, device=x.device)
         mean, rstd = st[0], st[1]
-    with torch.cuda.device(x.device):
-        code = lib.mdt_group_norm_fwd(
-            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            mean.data_ptr() if stats else None, rstd.data_ptr() if stats else None,
-            b, c, h * w, groups, *xs, float(eps), int(silu), _DTYPES[x.dtype],
-            _DTYPES[scale.dtype], plan.ctas, plan.per_lane, plan.threads, plan.smem,
-            int(plan.on_chip), torch.cuda.current_stream().cuda_stream)
-    build.check(lib, code, "group_norm_silu")
+    _launch_forward(x, scale, bias, groups, eps, silu, "whole", y, mean, rstd)
     group_norm_silu.launches += 1
     return y, mean, rstd
 
@@ -321,35 +483,114 @@ def group_norm_silu_backward(x, scale, bias, grad_out, mean, rstd, groups: int, 
     with a flat H*W run (a gradient that is not contiguous is counted in
     `.strided`); mean, rstd: the forward's fp32 (B*G,) statistics. Returns
     (dx in x's dtype, contiguous; dscale, dbias in scale's dtype)."""
-    _check(x, scale, bias, groups)
-    _check_cuda(x, scale, bias)
-    if grad_out.shape != x.shape or grad_out.dtype != x.dtype or grad_out.device != x.device:
-        raise ValueError(f"grad_out {grad_out.dtype} {tuple(grad_out.shape)} on "
-                         f"{grad_out.device} does not match x {x.dtype} {tuple(x.shape)}")
-    b, c, h, w = x.shape
-    for t, what in ((mean, "mean"), (rstd, "rstd")):
-        if t.dtype != torch.float32 or t.numel() != b * groups or not t.is_contiguous():
-            raise ValueError(f"{what} must be a contiguous fp32 ({b * groups},) tensor")
-    xs = _flat_strides(x, "x")
-    gs = _flat_strides(grad_out, "grad_out")
+    _check_backward(x, scale, bias, grad_out, mean, rstd, groups)
     if not grad_out.is_contiguous():
         group_norm_silu_backward.strided += 1
-    plan = _cuda_plan(b, c, h, w, groups, x.dtype, True)
-    lib = build.load_library()
-    dx = torch.empty((b, c, h, w), dtype=x.dtype, device=x.device)
-    dscale = torch.empty((c,), dtype=scale.dtype, device=x.device)
-    dbias = torch.empty((c,), dtype=scale.dtype, device=x.device)
-    parts = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        counters = reserve_counters(x.device, groups=groups)
-        code = lib.mdt_group_norm_bwd(
-            x.data_ptr(), grad_out.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
-            dbias.data_ptr(), parts.data_ptr(), counters.data_ptr(), b, c, h * w, groups, *xs,
-            *gs, int(silu), _DTYPES[x.dtype], _DTYPES[scale.dtype], plan.ctas, plan.per_lane,
-            plan.threads, plan.smem, int(plan.on_chip), torch.cuda.current_stream().cuda_stream)
-    build.check(lib, code, "group_norm_silu_backward")
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    dscale = torch.empty(scale.shape, dtype=scale.dtype, device=x.device)
+    dbias = torch.empty(scale.shape, dtype=scale.dtype, device=x.device)
+    _launch_backward(x, scale, bias, grad_out, mean, rstd, groups, silu, "whole", dx, dscale,
+                     dbias)
     group_norm_silu_backward.launches += 1
+    return dx, dscale, dbias
+
+
+def group_norm_sums(x, groups: int) -> torch.Tensor:
+    """The split forward's first pass: each (image, group)'s fp32 sum of x
+    and of x^2 over x's rows, (2, B*G). The kernel on CUDA x, the plain
+    version on the CPU."""
+    _check_x(x, groups)
+    if x.device.type == "cpu":
+        return group_norm_sums_plain(x, groups)
+    _check_cuda_x(x)
+    sums = torch.empty((2, x.shape[0] * groups), dtype=torch.float32, device=x.device)
+    _launch_forward(x, None, None, groups, 0.0, False, "sums", sums=sums)
+    return sums
+
+
+def group_norm_apply(x, scale, bias, sums, count: float, groups: int, eps: float, silu: bool):
+    """The split forward's second pass: y of x's rows with the statistics of
+    the all-reduced `sums` over `count` elements a span. Returns (y in x's
+    dtype; fp32 mean (B*G,); fp32 rstd (B*G,)). The kernel on CUDA x, the
+    plain version on the CPU."""
+    _check(x, scale, bias, groups)
+    if x.device.type == "cpu":
+        return group_norm_apply_plain(x, scale, bias, sums, count, groups, eps, silu)
+    _check_cuda(x, scale, bias)
+    _check_sums(sums, x, groups)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    st = torch.empty((2, x.shape[0] * groups), dtype=torch.float32, device=x.device)
+    _launch_forward(x, scale, bias, groups, eps, silu, "apply", y, st[0], st[1], sums, count)
+    return y, st[0], st[1]
+
+
+def group_norm_backward_sums(x, scale, bias, grad_out, mean, rstd, groups: int, silu: bool):
+    """The split backward's first pass, from the forward's global fp32 (B*G,)
+    statistics. Returns (fp32 (2, B*G) of each span's undivided m1 and m2
+    over x's rows; dscale and dbias of those rows, in scale's dtype). The
+    kernel on CUDA tensors, the plain version on the CPU."""
+    if x.device.type == "cpu":
+        _check(x, scale, bias, groups)
+        return group_norm_backward_sums_plain(x, scale, bias, grad_out, mean, rstd, groups,
+                                              silu)
+    _check_backward(x, scale, bias, grad_out, mean, rstd, groups)
+    sums = torch.empty((2, x.shape[0] * groups), dtype=torch.float32, device=x.device)
+    dscale = torch.empty(scale.shape, dtype=scale.dtype, device=x.device)
+    dbias = torch.empty(scale.shape, dtype=scale.dtype, device=x.device)
+    _launch_backward(x, scale, bias, grad_out, mean, rstd, groups, silu, "sums",
+                     dscale=dscale, dbias=dbias, sums=sums)
+    return sums, dscale, dbias
+
+
+def group_norm_backward_apply(x, scale, bias, grad_out, mean, rstd, sums, count: float,
+                              groups: int, silu: bool) -> torch.Tensor:
+    """The split backward's second pass: dx (in x's dtype) from the
+    all-reduced group_norm_backward_sums over `count` elements a span. The
+    kernel on CUDA tensors, the plain version on the CPU."""
+    if x.device.type == "cpu":
+        _check(x, scale, bias, groups)
+        return group_norm_backward_apply_plain(x, scale, bias, grad_out, mean, rstd, sums,
+                                               count, groups, silu)
+    _check_backward(x, scale, bias, grad_out, mean, rstd, groups)
+    _check_sums(sums, x, groups)
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    _launch_backward(x, scale, bias, grad_out, mean, rstd, groups, silu, "apply", dx=dx,
+                     sums=sums, count=count)
+    return dx
+
+
+def _split_count(x, groups: int, pieces: int) -> float:
+    """Elements of a span over all `pieces` row pieces of the image."""
+    return float(pieces * (x.shape[1] // groups) * x.shape[2] * x.shape[3])
+
+
+def group_norm_split(x, scale, bias, groups: int, eps: float, silu: bool, reduce,
+                     pieces: int):
+    """GroupNorm(+SiLU) of x's rows, one of `pieces` equal row pieces of an
+    image, with the whole image's statistics: group_norm_sums, then
+    `reduce` (the all-reduce of the (2, B*G) fp32 sums over the pieces),
+    then group_norm_apply. Returns (y, fp32 mean (B*G,), fp32 rstd (B*G,)).
+    On CUDA one launch pair, counted in `.launches`."""
+    sums = reduce(group_norm_sums(x, groups))
+    out = group_norm_apply(x, scale, bias, sums, _split_count(x, groups, pieces), groups, eps,
+                           silu)
+    if x.device.type == "cuda":
+        group_norm_split.launches += 1
+    return out
+
+
+def group_norm_split_backward(x, scale, bias, grad_out, mean, rstd, groups: int, silu: bool,
+                              reduce, pieces: int):
+    """The gradient of group_norm_split from its saved global statistics:
+    group_norm_backward_sums, `reduce` of its (2, B*G) m1 and m2, then
+    group_norm_backward_apply. Returns (dx; dscale, dbias of x's rows). On
+    CUDA one launch pair, counted in `.launches`."""
+    sums, dscale, dbias = group_norm_backward_sums(x, scale, bias, grad_out, mean, rstd,
+                                                   groups, silu)
+    dx = group_norm_backward_apply(x, scale, bias, grad_out, mean, rstd, reduce(sums),
+                                   _split_count(x, groups, pieces), groups, silu)
+    if x.device.type == "cuda":
+        group_norm_split_backward.launches += 1
     return dx, dscale, dbias
 
 
@@ -397,3 +638,7 @@ group_norm_silu.launches = 0
 group_norm_silu_backward.launches = 0
 #: backward calls whose incoming gradient was not contiguous (the kernel takes its strides)
 group_norm_silu_backward.strided = 0
+#: split forward launch pairs (sums, apply) since the count was last set to 0
+group_norm_split.launches = 0
+#: split backward launch pairs since the count was last set to 0
+group_norm_split_backward.launches = 0

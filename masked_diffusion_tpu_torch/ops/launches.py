@@ -1,8 +1,9 @@
 """The kernels' launch counts, read and added as one table.
 
 Every wrapper of a CUDA kernel counts its launches in its `.launches`
-attribute, where it launches. A CUDA graph replays what it captured
-without calling the wrappers, so train/step.py:TrainEpoch reads the counts
+attribute, where it launches (the split GroupNorm wrappers a launch pair
+each). A CUDA graph replays what it captured without calling the
+wrappers, so train/step.py:TrainEpoch reads the counts
 around a capture (`snapshot`, `since`), sets them back (the capture ran
 nothing) and adds the captured counts on every replay (`add`): the counts
 stay those of the kernels that ran.
@@ -19,7 +20,12 @@ def wrappers() -> Dict[str, object]:
         fused_degrade_update,
         fused_degrade_update_sharded,
     )
-    from masked_diffusion_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_backward
+    from masked_diffusion_tpu_torch.ops.groupnorm import (
+        group_norm_silu,
+        group_norm_silu_backward,
+        group_norm_split,
+        group_norm_split_backward,
+    )
     from masked_diffusion_tpu_torch.ops.kmask import exact_count_masks, exact_count_masks_sharded
     from masked_diffusion_tpu_torch.ops.tinyhead_attention import (
         tinyhead_attention,
@@ -29,7 +35,8 @@ def wrappers() -> Dict[str, object]:
     return {f.__name__: f for f in (fused_degrade_update, group_norm_silu,
                                     group_norm_silu_backward, exact_count_masks,
                                     tinyhead_attention, tinyhead_attention_backward,
-                                    fused_degrade_update_sharded, exact_count_masks_sharded)}
+                                    fused_degrade_update_sharded, exact_count_masks_sharded,
+                                    group_norm_split, group_norm_split_backward)}
 
 
 def snapshot() -> Dict[str, int]:

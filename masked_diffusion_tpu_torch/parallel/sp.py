@@ -20,16 +20,15 @@ the EMA replicated (the opposite trade from parallel/tp.py):
     sends the halo rows' gradients back and adds them. The Upsample's
     nearest x2 is local before its conv; 1x1 convolutions and the time
     embedding are local or replicated;
-  * GroupNorm reduces per-(image, group) fp32 sums of x and x^2 over the
-    model group and normalises the local rows with the global statistics,
-    in the plain version's arithmetic (ops/groupnorm.py:
-    group_norm_silu_plain) around the all-reduce; its backward is
-    group_norm_silu_backward_plain's arithmetic with its two per-group sums
-    all-reduced, from the saved x and statistics alone. Kernels 2 and 2b
-    compute their statistics inside one launch, so split levels take this
-    route (a mode of the split, not a fallback); the kernels taking
-    statistics from outside are ROADMAP kernel work. Norms at replicated
-    levels and inside attention run kernel 2;
+  * GroupNorm runs kernels 2 and 2b in their split modes
+    (ops/groupnorm.py:group_norm_split and group_norm_split_backward), two
+    launches a pass with one all-reduce of a (2, B*G) fp32 tensor over the
+    model group between them: the forward's per-(image, group) sums of x
+    and x^2 over the local rows, then the local rows normalised with the
+    statistics over the whole image's count; the backward's per-group sums
+    of gamma * dy and gamma * dy * x^ from the saved x and global
+    statistics, then dx. CPU tensors take the passes' plain versions. Norms
+    at replicated levels and inside attention run kernel 2 whole;
   * attention all-gathers the block's input over the model group, runs the
     block whole (kernel 4 where models/unet.attention_route says "kernel")
     and keeps the local rows;
@@ -56,6 +55,7 @@ errors with its words.
 
 from __future__ import annotations
 
+import functools
 import json
 from typing import List, Tuple
 
@@ -70,6 +70,7 @@ from masked_diffusion_tpu_torch.models.unet import (
     ResnetBlock,
     Upsample,
 )
+from masked_diffusion_tpu_torch.ops.groupnorm import group_norm_split, group_norm_split_backward
 from masked_diffusion_tpu_torch.parallel.mesh import (
     MeshPlan,
     PlanRef,
@@ -81,7 +82,7 @@ from masked_diffusion_tpu_torch.parallel.tp import gather_from_group
 
 #: what runs where on split levels, for the `sp:` line
 ROUTES = {"conv3x3": "halo exchange of one row a side",
-          "group_norm": "plain arithmetic around an all-reduce of fp32 sums (not kernel 2)",
+          "group_norm": "kernels 2/2b in split mode around an all-reduce of fp32 sums",
           "attention": "block input all-gathered, the block whole, local rows kept",
           "unet_io": "conv_in reads its rows of the whole input; conv_out all-gathered"}
 
@@ -219,52 +220,30 @@ class OutputConv(HaloConv2d):
 
 
 class _SplitGroupNorm(torch.autograd.Function):
-    """GroupNorm(+SiLU) of split rows with the whole image's statistics.
-
-    Forward: ops/groupnorm.py:group_norm_silu_plain's arithmetic, its fp32
-    sums of x and x^2 all-reduced over the model group. Backward:
-    group_norm_silu_backward_plain's arithmetic in fp32 from the saved x
-    and statistics, its two per-(image, group) sums all-reduced; dscale and
-    dbias are the rank's rows' share. Only x and the statistics are kept for
-    the backward, as the kernel keeps them."""
+    """GroupNorm(+SiLU) of split rows with the whole image's statistics:
+    ops/groupnorm.py's split pair around an all-reduce over the model group,
+    forward and backward. dscale and dbias are the rank's rows' share. Only
+    x and the fp32 statistics are kept for the backward, as kernel 2 keeps
+    them; a recomputing forward (--remat) runs the pair again."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, groups, eps, silu, ref):
-        b, c, h, w = x.shape
-        xg = x.reshape(b, groups, (c // groups) * h * w)
-        count = xg.shape[2] * ref.plan.model_size
-        sums = torch.stack([xg.sum(dim=2, dtype=torch.float32), xg.float().square().sum(dim=2)])
-        sums = all_reduce_sum(sums, ref.plan.model_group) / count
-        mean, mean_sq = sums[0][..., None], sums[1][..., None]
-        rstd = torch.rsqrt(mean_sq - mean.square() + eps)
-        y = (xg - mean.to(x.dtype)) * rstd.to(x.dtype)
-        y = (y.reshape(b, c, h, w) * scale.to(x.dtype)[:, None, None]
-             + bias.to(x.dtype)[:, None, None])
-        if silu:
-            y = F.silu(y)
+        plan = ref.plan
+        y, mean, rstd = group_norm_split(x, scale, bias, groups, eps, silu,
+                                         functools.partial(all_reduce_sum, group=plan.model_group),
+                                         plan.model_size)
         ctx.save_for_backward(x, scale, bias, mean, rstd)
-        ctx.groups, ctx.silu, ctx.ref, ctx.count = groups, silu, ref, count
-        return y.to(x.dtype)
+        ctx.groups, ctx.silu, ctx.ref = groups, silu, ref
+        return y
 
     @staticmethod
     def backward(ctx, grad):
         x, scale, bias, mean, rstd = ctx.saved_tensors
-        b, c, h, w = x.shape
-        g, cg = ctx.groups, c // ctx.groups
-        xh = (x.float().reshape(b, g, cg, h * w) - mean[..., None]) * rstd[..., None]
-        gam = scale.float().reshape(1, g, cg, 1)
-        dy = grad.float().reshape(b, g, cg, h * w)
-        if ctx.silu:
-            y = xh * gam + bias.float().reshape(1, g, cg, 1)
-            sig = torch.sigmoid(y)
-            dy = dy * sig * (1 + y * (1 - sig))
-        db = dy.sum(dim=3)  # (B, G, cg): the rows' parts of dbias
-        dg = (dy * xh).sum(dim=3)  # and of dscale
-        m = torch.stack([(db * gam[..., 0]).sum(dim=2), (dg * gam[..., 0]).sum(dim=2)])
-        m = all_reduce_sum(m, ctx.ref.plan.model_group)[..., None, None] / ctx.count
-        dx = rstd[..., None] * (dy * gam - m[0] - xh * m[1])
-        return (dx.reshape(b, c, h, w).to(x.dtype), dg.sum(dim=0).reshape(c).to(scale.dtype),
-                db.sum(dim=0).reshape(c).to(bias.dtype), None, None, None, None)
+        plan = ctx.ref.plan
+        dx, dscale, dbias = group_norm_split_backward(
+            x, scale, bias, grad, mean, rstd, ctx.groups, ctx.silu,
+            functools.partial(all_reduce_sum, group=plan.model_group), plan.model_size)
+        return dx, dscale, dbias, None, None, None, None
 
 
 class SplitGroupNormAct(GroupNormAct):

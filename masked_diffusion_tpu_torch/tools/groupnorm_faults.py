@@ -28,8 +28,9 @@ _CU = "masked_diffusion_tpu_torch/csrc/groupnorm.cu"
 FAULTS = {
     # the forward's cluster sum leaves out the last CTA's partial
     "cluster_sum_drops_a_cta": (
-        _CU, "for (int r = 0; r < a.ctas; ++r) {\n      const float* p = cluster.map_shared_rank(part",
-        "for (int r = 0; r < a.ctas - 1; ++r) {\n      const float* p = "
+        _CU, "for (int r = 0; r < a.ctas; ++r) {\n        const float* p = "
+        "cluster.map_shared_rank(part",
+        "for (int r = 0; r < a.ctas - 1; ++r) {\n        const float* p = "
         "cluster.map_shared_rank(part"),
     # dgamma and dbeta leave out the last image's parts
     "dparams_skip_last_image": (_CU, "v[k] = i0 + k < a.batch ?",
