@@ -293,12 +293,18 @@ port's CLI at the flagship width. Every phase raises on failure. Phases:
 
 Phases 11 and 12 run first (the newest kernels fail fast), phases 19,
 22a and 23a after the slice phases, phase 32 after phase 13, phase 30
-after phase 9; phases 26, 5,
-10, 20, 31, 22b, 22c, 23b, 16, 17, 18, 27, 21, 24, 28 and 29, the main-path
-runs, come last, in one work directory. The
+after phase 9; the main-path runs come last, in one work directory: phase
+10, then three lanes at once (WORKER_LANES) — this process runs 26, 5, 20,
+22b, 22c, 23b, 25c, 25d, 16, 17, 21 and 24 while two worker processes of
+this script (`--worker <spec>`) run 18 then 29, and 31 then 27 — and phase
+28 alone after all three, so its eager and graphed step times share the
+card with nothing. The kernel timings of the kernels line are all taken
+before the lanes start; the main-path phases' own ms and seconds are taken
+with the lanes sharing the card and the host's cores. The
 kernels' `launches` are counted over those runs (phases 18's, 27's and
 29's summed over their ranks and processes, phase 21's over its five, phase
-28's with each graph replay adding what its capture launched),
+28's with each graph replay adding what its capture launched, a worker's
+phases in the worker's own counts),
 with every count set to 0 just before each. Run phase 19 alone with `python3 -c "import chip_smoke as c;
 c.phase_env(); c.phase_sampling_modes()"`, phases 10 and 20 with `python3
 -c "import tempfile, chip_smoke as c; c.phase_env(); d =
@@ -2304,28 +2310,41 @@ def _graph_grad_ms(forward, leaves, g, reps, iters):
 def phase_tinyhead():
     """The tiny-head attention kernels, forward and backward, against their
     plain versions at the main paths' shapes and at ragged ones, fp32 (TF32
-    off) and bf16; their times beside the plain versions', SDPA's and the
-    bounds; the backward's peak extra memory; the autograd Function against
-    autograd through the plain version. Returns (max fp32 err of the forward,
-    of the backward, {(shape, dtype): forward (ms, plain ms, SDPA ms,
-    terms)}, {(shape, dtype): backward (ms, plain ms, SDPA ms, terms,
-    recompute ms)})."""
+    off) and bf16; the backward bitwise equal over two runs, and in bf16
+    without bias; the bf16 backward on plans other than its own (passes,
+    one slice of 16 warps) and refusing plans it does not take; their times
+    beside the plain versions', SDPA's and the bounds, with the backward's
+    plan; the backward's peak extra memory at every main shape; the
+    autograd Function against autograd through the plain version. Returns
+    (max fp32 err of the forward, of the backward, {(shape, dtype): forward
+    (ms, plain ms, SDPA ms, terms)}, {(shape, dtype): backward (ms, plain
+    ms, SDPA ms, terms, recompute ms)}, {shape: (peak extra bytes of the
+    bf16 backward, inputs' bytes)})."""
     import math
 
     import torch
     import torch.nn.functional as F
 
     from masked_diffusion_tpu_torch.ops.tinyhead_attention import (
+        BWD_MEMORY_SHARE,
+        TinyheadBwdPlan,
+        launch_backward,
         tinyhead_attention,
         tinyhead_attention_backward,
         tinyhead_attention_plain,
         tinyhead_backward_plain,
+        tinyhead_bwd_plan,
         tinyhead_forward,
         tinyhead_forward_plain,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def plan_text(plan):
+        return (f"plan {plan.keys} keys a CTA, {plan.slices} slices, {plan.warps} warps, "
+                f"workspace {plan.workspace / 2**20:.2f} MiB")
     gen = torch.Generator(device=dev).manual_seed(12)
     worst = {}
     fwd_times, bwd_times = {}, {}
@@ -2383,16 +2402,26 @@ def phase_tinyhead():
                 # backward kernel vs the plain backward in fp32 on the same
                 # inputs, out and lse
                 grads = tinyhead_attention_backward(q, k, v, out2, lse, g, scale)
+                again = tinyhead_attention_backward(q, k, v, out2, lse, g, scale)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                    raise AssertionError(f"tinyhead backward {shape} {name}: two runs differ")
                 plain = tinyhead_backward_plain(*wide[:3], out2.float(), lse, wide[3], scale)
                 mags = tinyhead_grad_mags(*wide, scale)
-                bwd = []
+                bwd, bwd_bias = [], []
                 for x, a, w, mag in zip("qkv", grads, plain, mags):
                     lim = (bf16_limit(mag, w) if bf16
                            else TINYHEAD_FP32_TOL[0] + TINYHEAD_FP32_TOL[1] * mag)
                     if a.dtype != dtype:
                         raise AssertionError(f"tinyhead d{x} {shape}: dtype {a.dtype}")
                     bwd.append(check(a, w, lim, f"d{x} {name} vs plain ({shape})"))
-                del grads, plain
+                    bwd_bias.append(bias(a, w))
+                if bf16 and not max(abs(x) for x in bwd_bias) <= TH_BIAS:
+                    raise AssertionError(
+                        f"tinyhead backward {shape} bf16: signed mean errors of dq/dk/dv "
+                        f"{'/'.join(f'{x:.3g}' for x in bwd_bias)} of mean |ref|, limit "
+                        f"{TH_BIAS:.3g}")
+                del grads, again, plain
             # the autograd Function vs autograd through the plain version
             leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
             before = (tinyhead_attention.launches, tinyhead_attention_backward.launches)
@@ -2413,21 +2442,24 @@ def phase_tinyhead():
             summary = (f"{name}: out err {err:.3g} ({ratio:.3g} of limit"
                        + (f", bias {beta:.3g}" if bf16 else "") + f"), lse err {lse_err:.3g}; "
                        f"dq/dk/dv err vs plain {'/'.join(f'{e:.3g}' for e, _ in bwd)} "
-                       f"({max(r for _, r in bwd):.3g} of limit), vs autograd "
+                       f"({max(r for _, r in bwd):.3g} of limit"
+                       + (f", bias {'/'.join(f'{x:.3g}' for x in bwd_bias)}" if bf16 else "")
+                       + "; bitwise over two runs), vs autograd "
                        f"{'/'.join(f'{e:.3g}' for e, _ in ag)} ({max(r for _, r in ag):.3g})")
             if not main:
                 line.append(summary)
                 continue
-            # times: CUDA-graph device ms; the S=4096 plain versions hold
-            # 4 GiB per (S, S) tensor
+            # times: CUDA-graph device ms, the kernels 20 calls a graph
+            # replayed 10 times; above 2^28 scores the rest 3 and 3 (the
+            # S=4096 plain versions hold 4 GiB per (S, S) tensor)
             reps, iters = (3, 3) if b * h * s * s > 2**28 else (20, 10)
             with torch.inference_mode():
-                kms, _ = cuda_ms(lambda: tinyhead_attention(q, k, v, scale), reps, iters)
+                kms, _ = cuda_ms(lambda: tinyhead_attention(q, k, v, scale), 20, 10)
                 pms, _ = cuda_ms(lambda: tinyhead_attention_plain(q, k, v, scale), reps, iters)
                 lms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
                                  reps, iters)
                 bkms, _ = cuda_ms(lambda: tinyhead_attention_backward(q, k, v, out2, lse, g,
-                                                                      scale), reps, iters)
+                                                                      scale), 20, 10)
                 bpms, _ = cuda_ms(lambda: tinyhead_backward_plain(q, k, v, out2, lse, g, scale),
                                   reps, iters)
             leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -2450,20 +2482,67 @@ def phase_tinyhead():
                 f"{bkms:.4f} ms, plain {bpms:.4f}, recompute {rec_fb:.4f} (its forward "
                 f"{rec_f:.4f}), SDPA backward {sdpa_fb - sdpa_f:.4f} (forward + backward "
                 f"{sdpa_fb:.4f}), bound {bbnd[0]:.5f} ({bbnd[2]}; " + ", ".join(
-                    f"{t} {v:.5f}" for t, v in bterms.items()) + ")")
+                    f"{t} {v:.5f}" for t, v in bterms.items()) + ")"
+                + (f", {plan_text(tinyhead_bwd_plan(b * h, s, sms, d))}" if bf16 else ""))
         log(f"[11] tinyhead {shape}: " + "; ".join(line))
         del qkvg, q, k, v, g, wide, out, out2, lse, ref, ref_lse
         torch.cuda.empty_cache()
 
-    # peak extra device memory of one backward at the CelebA-HQ shape, bf16
-    shape = TINYHEAD_SHAPES[0]
-    scale = 1.0 / math.sqrt(shape[-1])
-    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-                  for _ in range(4))
-    with torch.inference_mode():
-        out, lse = tinyhead_forward(q, k, v, scale)
-    inputs = sum(t.numel() * t.element_size() for t in (q, k, v, out, g))
+    # the bf16 backward on plans other than its own at ragged shapes: passes
+    # (one slice), 6, 8 and 16 warps in one slice (warps past S; chunks of
+    # 64 and 128 queries), d = 4 in passes and in 16 warps; then plans the
+    # kernel refuses
+    forced = {
+        (2, 4, 384, 8): [TinyheadBwdPlan(512, 1, 4, 0), TinyheadBwdPlan(384, 1, 6, 0),
+                         TinyheadBwdPlan(512, 1, 8, 0), TinyheadBwdPlan(1024, 1, 16, 0)],
+        (2, 4, 200, 4): [TinyheadBwdPlan(512, 1, 4, 0), TinyheadBwdPlan(1024, 1, 16, 0)],
+    }
+    # (keys, slices, warps, with a workspace): short of S; 3 warps; an empty
+    # slice; a workspace where one slice of one pass writes dq; none where
+    # two slices need one; 17 warps; keys not whole passes
+    refused = [(256, 1, 4, False), (192, 2, 3, True), (256, 3, 4, True), (384, 1, 6, True),
+               (256, 2, 4, False), (1088, 1, 17, False), (320, 2, 4, True)]
+    lines = []
+    for shape, plans in forced.items():
+        b, h, s, d = shape
+        scale = 1.0 / math.sqrt(d)
+        q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                      for _ in range(4))
+        wide = [t.float() for t in (q, k, v, g)]
+        with torch.inference_mode():
+            out, lse = tinyhead_forward(q, k, v, scale)
+            plain = tinyhead_backward_plain(*wide[:3], out.float(), lse, wide[3], scale)
+            mags = tinyhead_grad_mags(*wide, scale)
+            for plan in plans:
+                parts = plan.slices > 1 or plan.keys > 64 * plan.warps
+                plan = plan._replace(
+                    workspace=plan.slices * b * h * s * 32 if parts else 0)
+                grads = launch_backward(q, k, v, out, lse, g, scale, plan)
+                again = launch_backward(q, k, v, out, lse, g, scale, plan)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+                    raise AssertionError(f"tinyhead backward {shape} {plan}: two runs differ")
+                errs = [check(a, w, bf16_limit(mag, w), f"d{x} bfloat16 vs plain, forced plan "
+                              f"({shape} {plan})")[0]
+                        for x, a, w, mag in zip("qkv", grads, plain, mags)]
+                lines.append(f"{shape} {plan_text(plan)}: dq/dk/dv err "
+                             + "/".join(f"{e:.3g}" for e in errs))
+        for keys, slices, warps, ws in refused if shape == (2, 4, 384, 8) else ():
+            plan = TinyheadBwdPlan(keys, slices, warps, slices * b * h * s * 32 if ws else 0)
+            try:
+                launch_backward(q, k, v, out, lse, g, scale, plan)
+            except RuntimeError:
+                continue
+            raise AssertionError(f"tinyhead backward {shape}: plan {plan} was not refused")
+    log("[11] tinyhead backward bf16 on forced plans, bitwise over two runs and within the "
+        "limits: " + "; ".join(lines) + f"; refused at (2, 4, 384, 8): "
+        + ", ".join(f"{k}/{n}/{w}{' with a workspace' if ws else ''}"
+                    for k, n, w, ws in refused))
+    del q, k, v, g, wide, out, lse, plain, mags
+    torch.cuda.empty_cache()
 
+    # peak extra device memory of one bf16 backward at each main shape (its
+    # outputs and workspace), the plain recompute's at the first
     def peak(fn):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -2474,24 +2553,36 @@ def phase_tinyhead():
         del res
         return torch.cuda.max_memory_allocated() - base
 
-    def recompute():
-        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        return torch.autograd.grad(tinyhead_attention_plain(*leaves, scale), leaves, g)
+    peaks = {}
+    for shape in TINYHEAD_SHAPES:
+        b, h, s, d = shape
+        scale = 1.0 / math.sqrt(d)
+        q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                      for _ in range(4))
+        with torch.inference_mode():
+            out, lse = tinyhead_forward(q, k, v, scale)
+        inputs = sum(t.numel() * t.element_size() for t in (q, k, v, out, g))
 
-    kpeak = peak(lambda: tinyhead_attention_backward(q, k, v, out, lse, g, scale))
-    rpeak = peak(recompute)
-    if not kpeak < 4 * inputs:
-        raise AssertionError(f"tinyhead backward {shape}: peak extra memory {kpeak} bytes, "
-                             f"limit 4 x {inputs}")
-    log(f"[11] tinyhead backward {shape} bf16: peak extra device memory {kpeak / 2**20:.2f} MiB "
-        f"(q, k, v, out, dO: {inputs / 2**20:.2f} MiB); the plain recompute "
-        f"{rpeak / 2**30:.3f} GiB")
-    del q, k, v, g, out, lse
-    torch.cuda.empty_cache()
+        def recompute():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            return torch.autograd.grad(tinyhead_attention_plain(*leaves, scale), leaves, g)
+
+        kpeak = peak(lambda: tinyhead_attention_backward(q, k, v, out, lse, g, scale))
+        if not kpeak < BWD_MEMORY_SHARE * inputs:
+            raise AssertionError(f"tinyhead backward {shape}: peak extra memory {kpeak} bytes, "
+                                 f"limit {BWD_MEMORY_SHARE} x {inputs}")
+        rpeak = peak(recompute) if shape == TINYHEAD_SHAPES[0] else None
+        peaks[shape] = (kpeak, inputs)
+        log(f"[11] tinyhead backward {shape} bf16: peak extra device memory "
+            f"{kpeak / 2**20:.2f} MiB, {kpeak / inputs:.3f} x q, k, v, out, dO "
+            f"({inputs / 2**20:.2f} MiB), {plan_text(tinyhead_bwd_plan(b * h, s, sms, d))}"
+            + (f"; the plain recompute {rpeak / 2**30:.3f} GiB" if rpeak else ""))
+        del q, k, v, g, out, lse
+        torch.cuda.empty_cache()
     log("[11] tinyhead_attention: all shapes within their limits; worst (max abs err, ratio "
         "to limit): " + "; ".join(f"{w} {e:.3g} {r:.3g}" for w, (e, r) in sorted(worst.items())))
     fp32_bwd = max(worst[f"d{x} float32 vs plain"][0] for x in "qkv")
-    return worst["out float32"][0], fp32_bwd, fwd_times, bwd_times, (kpeak, rpeak, inputs)
+    return worst["out float32"][0], fp32_bwd, fwd_times, bwd_times, peaks
 
 
 def phase_exact_k_large():
@@ -3817,6 +3908,9 @@ def _run_group(cmd, timeout: int, env=None):
         os.killpg(proc.pid, signal.SIGKILL)
         output, _ = proc.communicate()
         raise AssertionError(f"{' '.join(cmd[:6])} ...: no end in {timeout} s\n{output[-4000:]}")
+    except BaseException:  # a worker lane stopped from outside: its ranks go too
+        os.killpg(proc.pid, signal.SIGKILL)
+        raise
     return proc.returncode, output
 
 
@@ -6532,6 +6626,126 @@ def kernel_entry(name, route, source, replaces, launches, err, ms, plain_ms, bnd
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
 
 
+def check_no_jax() -> None:
+    for mod in sorted(sys.modules):
+        if mod.split(".")[0] in ("jax", "flax", "masked_diffusion_tpu"):
+            raise AssertionError(f"{mod} was imported")
+
+
+# Main-path phases that two worker processes of this script run, each lane's
+# phases in turn, beside the rest of the main path in this process. Each
+# eager step leaves the card idle most of the time (phases 18, 24 and 28
+# read idle shares of 0.89-0.93), so the lanes' host work overlaps; 18 and
+# 27, the two gloo phases, sit in different lanes at different places.
+WORKER_LANES = (
+    (("[18] two ranks", "ddp"), ("[29] device data and the launch farm", "farm")),
+    (("[31] the cadence at T=4096", "t4096"), ("[27] tensor and spatial parallelism", "grid")),
+)
+WORKER_PHASES = {
+    "ddp": lambda workdir, smi, perf: phase_ddp(os.path.join(workdir, "ranks"), smi, perf),
+    "farm": lambda workdir, smi, perf: phase_farm(workdir, smi),
+    "t4096": lambda workdir, smi, perf: phase_t4096_cadence(workdir, smi),
+    "grid": lambda workdir, smi, perf: phase_grid(os.path.join(workdir, "grid"), smi),
+}
+WORKER_TIMEOUT = 900  # seconds from a lane's start to its end
+
+
+def worker_main(spec_path: str) -> int:
+    """One lane of WORKER_LANES (`chip_smoke.py --worker <spec.json>`, which
+    main() writes): its phases in turn, each timed, then their launches and
+    seconds to the spec's `out`. SIGTERM ends it, and a phase's ranks with
+    it (_run_group)."""
+    import signal
+
+    def stop(signum, frame):
+        raise SystemExit(128 + signum)
+
+    signal.signal(signal.SIGTERM, stop)
+    t0 = time.perf_counter()
+    sys.path.insert(0, ROOT)
+    from masked_diffusion_tpu_torch.ops import build
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    global EXP_PER_S, INT_OPS_PER_S
+    EXP_PER_S, INT_OPS_PER_S = spec["exp_per_s"], spec["int_ops_per_s"]
+    build.load_library()  # phase 1's build, loaded
+    runs = {key: timed_phase(tag, WORKER_PHASES[key], spec["workdir"], spec["smi"],
+                             spec["flagship_perf"])
+            for tag, key in spec["phases"]}
+    check_no_jax()
+    with open(spec["out"], "w") as f:
+        json.dump({"runs": runs, "seconds": PHASE_SECONDS,
+                   "wall": time.perf_counter() - t0}, f)
+    return 0
+
+
+def start_workers(workdir: str, smi: str, flagship_perf: dict) -> list:
+    """A process a lane of WORKER_LANES, each in a session of its own with
+    its output in <workdir>/lane<i>.log; [(lane, spec, log, Popen, start)]."""
+    lanes = []
+    for i, lane in enumerate(WORKER_LANES):
+        spec = {"phases": lane, "workdir": workdir, "smi": smi, "flagship_perf": flagship_perf,
+                "exp_per_s": EXP_PER_S, "int_ops_per_s": INT_OPS_PER_S,
+                "out": os.path.join(workdir, f"lane{i}.out.json")}
+        path = os.path.join(workdir, f"lane{i}.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        log_path = os.path.join(workdir, f"lane{i}.log")
+        with open(log_path, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--worker", path],
+                cwd=ROOT, stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+        lanes.append((lane, spec, log_path, proc, time.perf_counter()))
+    return lanes
+
+
+def join_workers(lanes) -> dict:
+    """Waits for each lane (WORKER_TIMEOUT from its start), relays its
+    output and its own seconds, merges its phases' seconds into
+    PHASE_SECONDS and returns their launches by phase; raises if a lane
+    failed or ran out of time."""
+    import signal
+
+    runs = {}
+    for lane, spec, log_path, proc, start in lanes:
+        try:
+            rc = proc.wait(timeout=max(1.0, WORKER_TIMEOUT - (time.perf_counter() - start)))
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGTERM)
+            rc = None
+        with open(log_path) as f:
+            output = f.read()
+        sys.stdout.write(output)
+        tags = [tag for tag, _ in lane]
+        if rc != 0:
+            raise AssertionError(f"worker lane {tags}: " + (
+                f"no end in {WORKER_TIMEOUT} s" if rc is None else f"rc {rc}")
+                + f"\n{output[-6000:]}")
+        with open(spec["out"]) as f:
+            done = json.load(f)
+        PHASE_SECONDS.update(done["seconds"])
+        runs.update(done["runs"])
+        log(f"[lanes] worker lane {tags}: its process took {done['wall']:.1f} s")
+    return runs
+
+
+def stop_workers(lanes) -> None:
+    """SIGTERM to every lane still running (its phases' ranks go with it),
+    SIGKILL to one that outlives 60 s."""
+    import signal
+
+    for *_, proc, _ in lanes:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGTERM)
+    for *_, proc, _ in lanes:
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
 def main() -> int:
     import torch
 
@@ -6574,44 +6788,44 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     sharded = timed_phase("[18a] sharded kernels", phase_sharded)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
-        # the legacy GAN/EBM path launches none of the kernels: its norms are
-        # plain nn.GroupNorm without SiLU, its attentions einsums
-        reset_counts()
-        gan_step = timed_phase("[26a] GAN step", phase_gan_step, smi)
-        legacy_fwd = timed_phase("[26b] legacy forwards", phase_legacy_forwards, smi)
-        legacy_cli = timed_phase("[26c] legacy CLI", phase_legacy_cli, workdir, smi)
-        runs = {"legacy": read_counts()}
-        if any(runs["legacy"].values()):
-            raise AssertionError(f"[26] the legacy path launched kernels: {runs['legacy']}")
-        runs["serve"] = timed_phase("[5] serve", phase_serve, workdir)[0]
+        runs = {}
         runs["flagship"], flagship_perf = timed_phase("[10] train CLI", phase_train_cli,
                                                       workdir)
-        runs["default"], captured_ms = timed_phase("[20] default flags CLI", phase_default_cli,
-                                                   workdir, flagship_perf)
-        runs["t4096"] = timed_phase("[31] the cadence at T=4096", phase_t4096_cadence, workdir,
-                                    smi)
-        runs["tester"], tester_perf = timed_phase("[22b] tester run", phase_tester_run, workdir)
-        runs["tester_cli"] = timed_phase("[22c] tester CLI", phase_tester_cli, workdir)
-        runs["interp"], interp_ms = timed_phase("[23b] interpolation CLI",
-                                                phase_interpolation_cli, workdir)
-        runs["reuse"] = timed_phase("[25c] encoder reuse", phase_encoder_reuse, workdir)
-        runs["switches"] = timed_phase("[25d] switches CLI", phase_switches_cli, workdir)
-        runs["celeba"] = timed_phase("[16] CelebA-HQ CLI", phase_celeba_cli, workdir)
-        runs["unet6"] = timed_phase("[17] unet6 CLI", phase_unet6_cli, workdir)
-        runs["ddp"] = timed_phase("[18] two ranks", phase_ddp, os.path.join(workdir, "ranks"),
-                                  smi, flagship_perf)
-        runs["grid"] = timed_phase("[27] tensor and spatial parallelism", phase_grid,
-                                   os.path.join(workdir, "grid"), smi)
-        runs["preempt"] = timed_phase("[21] preemption", phase_preempt, workdir, smi)
-        runs["reference"], reference_seconds = timed_phase("[24] reference inputs",
-                                                           phase_reference_inputs, workdir, smi)
+        t_lanes = time.perf_counter()
+        lanes = start_workers(workdir, smi, flagship_perf)
+        try:
+            # the legacy GAN/EBM path launches none of the kernels: its norms
+            # are plain nn.GroupNorm without SiLU, its attentions einsums
+            reset_counts()
+            gan_step = timed_phase("[26a] GAN step", phase_gan_step, smi)
+            legacy_fwd = timed_phase("[26b] legacy forwards", phase_legacy_forwards, smi)
+            legacy_cli = timed_phase("[26c] legacy CLI", phase_legacy_cli, workdir, smi)
+            runs["legacy"] = read_counts()
+            if any(runs["legacy"].values()):
+                raise AssertionError(f"[26] the legacy path launched kernels: {runs['legacy']}")
+            runs["serve"] = timed_phase("[5] serve", phase_serve, workdir)[0]
+            runs["default"], captured_ms = timed_phase("[20] default flags CLI",
+                                                       phase_default_cli, workdir, flagship_perf)
+            runs["tester"], tester_perf = timed_phase("[22b] tester run", phase_tester_run,
+                                                      workdir)
+            runs["tester_cli"] = timed_phase("[22c] tester CLI", phase_tester_cli, workdir)
+            runs["interp"], interp_ms = timed_phase("[23b] interpolation CLI",
+                                                    phase_interpolation_cli, workdir)
+            runs["reuse"] = timed_phase("[25c] encoder reuse", phase_encoder_reuse, workdir)
+            runs["switches"] = timed_phase("[25d] switches CLI", phase_switches_cli, workdir)
+            runs["celeba"] = timed_phase("[16] CelebA-HQ CLI", phase_celeba_cli, workdir)
+            runs["unet6"] = timed_phase("[17] unet6 CLI", phase_unet6_cli, workdir)
+            runs["preempt"] = timed_phase("[21] preemption", phase_preempt, workdir, smi)
+            runs["reference"], reference_seconds = timed_phase(
+                "[24] reference inputs", phase_reference_inputs, workdir, smi)
+            log(f"[lanes] this process's lane took {time.perf_counter() - t_lanes:.1f} s")
+            runs.update(join_workers(lanes))
+        finally:
+            stop_workers(lanes)
+        log(f"[lanes] the three lanes took {time.perf_counter() - t_lanes:.1f} s")
         runs["graphed"] = timed_phase("[28] graphed epoch", phase_graphed_epoch, workdir, smi)
-        runs["farm"] = timed_phase("[29] device data and the launch farm", phase_farm, workdir,
-                                   smi)
     main_runs = list(runs.values())
-    for mod in sorted(sys.modules):
-        if mod.split(".")[0] in ("jax", "flax", "masked_diffusion_tpu"):
-            raise AssertionError(f"{mod} was imported")
+    check_no_jax()
 
     def launches(name):
         return sum(run.get(name, 0) for run in main_runs)
@@ -6729,7 +6943,10 @@ if __name__ == "__main__":
     # `--rank <dir>` is one rank of phase 18 under torch.distributed.run;
     # `--counted <file> <CLI flags>` is phase 21's CLI subprocess; `--grid
     # <dir>` one rank of phase 27; `--launched <dir> -m <CLI module> <flags>`
-    # a farm script's CLI (one a rank) in phase 29
+    # a farm script's CLI (one a rank) in phase 29; `--worker <spec>` a lane
+    # of WORKER_LANES
+    if sys.argv[1:2] == ["--worker"]:
+        sys.exit(worker_main(sys.argv[2]))
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--counted"]:

@@ -96,6 +96,23 @@ def declare_exact_k(lib: ctypes.CDLL) -> None:
     lib.mdt_error_string.restype = ctypes.c_char_p
 
 
+def declare_tinyhead_bwd(lib: ctypes.CDLL) -> None:
+    """argtypes of the tiny-head backward's entry point
+    (csrc/tinyhead_attention_bwd.cu)."""
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.mdt_tinyhead_attention_bwd
+    fn.argtypes = [
+        vp, vp, vp, vp, vp, vp,  # q, k, v, out, lse, dout
+        vp, vp, vp,              # dq, dk, dv
+        vp,                      # (slices, B*heads, S, 8) fp32 dQ workspace (nullable)
+        i32, i32, i32,           # batch * heads, sequence, head_dim
+        f32, i32,                # scale, dtype (0 fp32, 1 bf16)
+        i32, i32, i32,           # bf16 plan: keys a CTA, slices a head, warps a CTA
+        vp,                      # cudaStream_t
+    ]
+    fn.restype = i32
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     declare_exact_k(lib)
@@ -117,15 +134,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp,                      # cudaStream_t
     ]
     fn.restype = i32
-    fn = lib.mdt_tinyhead_attention_bwd
-    fn.argtypes = [
-        vp, vp, vp, vp, vp, vp,  # q, k, v, out, lse, dout
-        vp, vp, vp,              # dq, dk, dv
-        i32, i32, i32,           # batch * heads, sequence, head_dim
-        f32, i32,                # scale, dtype (0 fp32, 1 bf16)
-        vp,                      # cudaStream_t
-    ]
-    fn.restype = i32
+    declare_tinyhead_bwd(lib)
     i64 = ctypes.c_longlong
     fn = lib.mdt_group_norm_fwd
     fn.argtypes = [

@@ -25,6 +25,8 @@ out in q's dtype.
                                differentiable in q, k and v
   tinyhead_forward             the forward's wrapper: (out, lse)
   tinyhead_attention_backward  the backward's wrapper: (dq, dk, dv)
+  tinyhead_bwd_plan            the bf16 backward kernel's launch plan: keys a
+                               CTA, slices a head, warps a CTA, workspace
 
 The gradient is an autograd Function, as the JAX custom VJP (whose `_bwd`
 recomputes through the einsums): its forward saves q, k, v, out and the
@@ -36,7 +38,9 @@ raise on what they do not take. Each wrapper counts its launches.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -46,6 +50,15 @@ HEAD_DIM_MAX = 8
 SEQ_MIN = 128
 LOG2E = math.log2(math.e)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: keys a warp of the bf16 backward kernel owns (four 16-key mma tiles)
+BWD_WARP_KEYS = 64
+#: warps a CTA of the bf16 backward kernel: at least 4 (a thread a query row
+#: of a 64-query chunk), at most 16 (1024 keys a pass)
+BWD_MIN_WARPS = 4
+BWD_MAX_WARPS = 16
+#: the backward's peak extra device memory (its outputs and workspace)
+#: stays under this many times the bytes of q, k, v, out and dO
+BWD_MEMORY_SHARE = 4
 
 
 def tinyhead_supported(s: int, d: int) -> bool:
@@ -108,6 +121,64 @@ def tinyhead_backward_plain(q, k, v, out, lse, g, scale: float):
     dq = torch.einsum("bhst,bhtd->bhsd", ds, kf) * scale
     dk = torch.einsum("bhst,bhsd->bhtd", ds, qf) * scale
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+class TinyheadBwdPlan(NamedTuple):
+    """Launch plan of the bf16 backward kernel (csrc/tinyhead_attention_bwd.cu).
+    CTA i of a head owns keys [i * keys, (i + 1) * keys) and covers them in
+    keys / (64 * warps) passes; warp w of pass p owns the 64 keys from
+    i * keys + (p * warps + w) * 64."""
+
+    keys: int  # keys a CTA
+    slices: int  # CTAs a head
+    warps: int  # warps a CTA
+    workspace: int  # bytes of the (slices, B*heads, S, 8) fp32 dQ sums; 0: one slice
+    # of one pass, and the kernel writes dq itself
+
+
+def tinyhead_bwd_max_slices(d: int) -> int:
+    """Most slices whose fp32 workspace (32 bytes a row a slice) and bf16
+    dq, dk, dv stay under BWD_MEMORY_SHARE times the bf16 q, k, v, out and
+    dO (2d bytes a row each)."""
+    return max(1, (BWD_MEMORY_SHARE * 5 * 2 * d - 3 * 2 * d - 1) // (4 * HEAD_DIM_MAX))
+
+
+def tinyhead_bwd_plan(bh: int, s: int, sms: int, d: int = HEAD_DIM_MAX) -> TinyheadBwdPlan:
+    """The bf16 backward kernel's plan for bh heads of S queries and keys of
+    width d on a card of `sms` SMs. Slices: the fewest that give each CTA
+    at most 16 warps of 64 keys in one pass, doubled while bh * slices
+    stays under one CTA an SM and a CTA keeps 4 warps, never more than
+    tinyhead_bwd_max_slices(d); a wider slice runs in passes. Warps: the
+    fewest that cover a slice's share of a pass. Raises on what the kernel
+    does not take (bh < 1; S < 128 or d > 8)."""
+    if bh <= 0 or sms <= 0 or not tinyhead_supported(s, d):
+        raise ValueError(f"tinyhead_bwd_plan: bh {bh}, S {s}, d {d}, {sms} SMs: the kernel "
+                         f"takes bh >= 1, S >= {SEQ_MIN}, d <= {HEAD_DIM_MAX}")
+
+    def ceil(a, b):
+        return -(-a // b)
+
+    pass_keys = BWD_WARP_KEYS * BWD_MAX_WARPS
+    cap = tinyhead_bwd_max_slices(d)
+    slices = min(cap, ceil(s, pass_keys))
+    most = min(cap, ceil(s, BWD_WARP_KEYS * BWD_MIN_WARPS))
+    while slices < most and bh * slices < sms:
+        slices = min(most, 2 * slices)
+    while True:
+        passes = ceil(s, slices * pass_keys)
+        warps = max(BWD_MIN_WARPS, ceil(s, slices * passes * BWD_WARP_KEYS))
+        keys = warps * BWD_WARP_KEYS * passes
+        if (slices - 1) * keys < s:  # no slice empty
+            break
+        slices -= 1
+    parts = slices > 1 or passes > 1
+    return TinyheadBwdPlan(keys, slices, warps,
+                           slices * bh * s * HEAD_DIM_MAX * 4 if parts else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(q, k, v):
@@ -180,18 +251,41 @@ def tinyhead_attention_backward(q, k, v, out, lse, g, scale: float):
     tensors launch the backward kernel, or raise on what it does not take."""
     if q.device.type == "cpu":
         return tinyhead_backward_plain(q, k, v, out, lse, g, scale)
-    _kernel_inputs("tinyhead_attention_backward", (q, k, v, out, g), lse)
+    plan = None
+    if q.dtype == torch.bfloat16:
+        b, h, s, d = q.shape
+        index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+        plan = tinyhead_bwd_plan(b * h, s, _sm_count(index), d)
+    return launch_backward(q, k, v, out, lse, g, scale, plan)
+
+
+def launch_backward(q, k, v, out, lse, g, scale: float, plan):
+    """The backward kernel on CUDA tensors: bf16 on `plan` (a
+    TinyheadBwdPlan; the kernel refuses one it does not take, and the
+    wrapper raises), fp32 with plan None. Allocates dq, dk, dv and the plan's
+    workspace. One launch of kernel 4b to the count, the slice sum
+    included."""
+    what = "tinyhead_attention_backward"
+    _kernel_inputs(what, (q, k, v, out, g), lse)
+    if (plan is None) != (q.dtype != torch.bfloat16):
+        raise ValueError(f"{what}: a bf16 backward takes a plan, an fp32 one none")
     b, h, s, d = q.shape
     lib = build.load_library()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    ws = None
+    if plan is not None and plan.workspace:
+        ws = torch.empty((plan.slices, b * h, s, HEAD_DIM_MAX), dtype=torch.float32,
+                         device=q.device)
+    keys, slices, warps = plan[:3] if plan is not None else (0, 0, 0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.mdt_tinyhead_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, s, d,
-            float(scale), _DTYPES[q.dtype], stream,
+            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            ws.data_ptr() if ws is not None else None, b * h, s, d, float(scale),
+            _DTYPES[q.dtype], keys, slices, warps, stream,
         )
-    build.check(lib, code, "tinyhead_attention_backward")
+    build.check(lib, code, what)
     tinyhead_attention_backward.launches += 1
     return dq, dk, dv
 

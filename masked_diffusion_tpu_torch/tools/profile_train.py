@@ -31,8 +31,9 @@ build/profile_train_<config>.json). Needs CUDA.
 
 --compare reads two such files (say, the parent tree's and a change's,
 both written by this script back to back on one card) and prints, per
-mode, both wall times and launch counts a step and the kernels and host
-operators whose calls a step differ most: where the launches went.
+mode, both wall times, device-busy ms, the port's own kernels' ms and
+shares and launch counts a step, and the kernels and host operators whose
+calls a step differ most: where the launches went.
 
 The script imports only what every tree since the port's train step has
 (make_train_step, create_train_state, build_optimizer), so it also
@@ -231,7 +232,8 @@ def compare(path_a: str, path_b: str, top: int = 20) -> list:
         ra, rb = a[mode], b[mode]
         row = {"mode": mode, "a": path_a, "b": path_b, "card": [ra.get("card"), rb.get("card")]}
         for key in ("wall_ms_per_step", "device_busy_ms_per_step", "idle_share_unprofiled",
-                    "kernels_per_step", "host_launches_per_step"):
+                    "kernels_per_step", "host_launches_per_step", "own_kernels_ms_per_step",
+                    "own_kernels_share"):
             row[key] = [ra.get(key), rb.get(key)]
         row["kernels"] = diff("kernel_calls_per_step", ra, rb)
         row["host_ops"] = diff("host_op_calls_per_step", ra, rb)

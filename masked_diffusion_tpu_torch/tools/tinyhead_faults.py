@@ -25,6 +25,7 @@ _ROOT = os.path.dirname(_PKG)
 _CU = "masked_diffusion_tpu_torch/csrc/"
 _LAST_TILE = "for (int tile = 0; tile < tiles; ++tile) {"
 _BUT_LAST = "for (int tile = 0; tile < tiles - 1 + (tiles == 1); ++tile) {"
+_BWD = _CU + "tinyhead_attention_bwd.cu"
 _RN = ("if (col < d) p[0] = __float2bfloat16_rn(c0);\n"
        "  if (col + 1 < d) p[1] = __float2bfloat16_rn(c1);")
 
@@ -36,10 +37,21 @@ FAULTS = {
         "          acc[mt][2 * r] *= corr;\n          acc[mt][2 * r + 1] *= corr;\n", ""),
     "truncating_p_and_ds": (_CU + "tinyhead_mma.cuh", "cvt.rn.bf16x2.f32", "cvt.rz.bf16x2.f32"),
     "truncating_output": (_CU + "tinyhead_mma.cuh", _RN, _RN.replace("_rn(", "_rz(")),
-    "bwd_dq_drops_d": (_CU + "tinyhead_attention_bwd.cu",
-                       "dp[nt][i] = p * (dp[nt][i] - dr[mt][i >> 1]);",
-                       "dp[nt][i] = p * dp[nt][i];"),
-    "bwd_dkdv_drops_last_query_tile": (_CU + "tinyhead_attention_bwd.cu", _LAST_TILE, _BUT_LAST),
+    # the bf16 backward (csrc/tinyhead_attention_bwd.cu): the last slice's dQ
+    # sums left out of the slice sum; each slice's last query chunk skipped;
+    # D taken from the neighbouring row's O; dS rounded toward zero
+    "bwd_dq_drops_a_slice": (_BWD, "for (int sl = 1; sl < slices; ++sl) {",
+                             "for (int sl = 1; sl < slices - 1; ++sl) {"),
+    "bwd_skips_last_query_chunk": (_BWD, "for (int j = 0; j < chunks; ++j) {",
+                                   "for (int j = 0; j < chunks - 1 + (chunks == 1); ++j) {"),
+    "bwd_d_from_wrong_row": (_BWD, "dot_row(st.dout[r], st.o[r])",
+                             "dot_row(st.dout[r], st.o[r ^ 1])"),
+    "bwd_ds_toward_zero": (
+        _BWD, "sa[2 * nt] = pack_bf16(dp[0], dp[1]);\n"
+              "            sa[2 * nt + 1] = pack_bf16(dp[2], dp[3]);",
+        'asm("cvt.rz.bf16x2.f32 %0, %1, %2;" : "=r"(sa[2 * nt]) : "f"(dp[1]), "f"(dp[0]));\n'
+        '            asm("cvt.rz.bf16x2.f32 %0, %1, %2;" : "=r"(sa[2 * nt + 1]) : "f"(dp[3]), '
+        '"f"(dp[2]));'),
 }
 
 

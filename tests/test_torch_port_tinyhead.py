@@ -194,6 +194,100 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
         tth.tinyhead_attention(q, q[:, :1], q, 1.0)
 
 
+PLAN_S = (128, 200, 256, 384, 1024, 4096)
+PLAN_BH = (2, 64, 512)  # the zoo's batch x heads: 4 x 16 at S=4096, 32 x 16 at S=1024
+
+
+def _plan_warp_keys(plan, s):
+    """{(slice, pass, warp): the keys it owns}, as the backward kernel maps
+    them (csrc/tinyhead_attention_bwd.cu: key0)."""
+    wk = tth.BWD_WARP_KEYS
+    passes = plan.keys // (wk * plan.warps)
+    out = {}
+    for sl in range(plan.slices):
+        for p in range(passes):
+            for w in range(plan.warps):
+                k0 = sl * plan.keys + (p * plan.warps + w) * wk
+                out[(sl, p, w)] = range(min(k0, s), min(k0 + wk, s))
+    return out
+
+
+@pytest.mark.parametrize("bh", PLAN_BH)
+@pytest.mark.parametrize("d", [4, 8])
+@pytest.mark.parametrize("s", PLAN_S)
+def test_bwd_plan_covers_every_key_once(s, d, bh):
+    plan = tth.tinyhead_bwd_plan(bh, s, 132, d)
+    assert tth.BWD_MIN_WARPS <= plan.warps <= tth.BWD_MAX_WARPS
+    assert plan.keys % (tth.BWD_WARP_KEYS * plan.warps) == 0
+    assert 1 <= plan.slices <= tth.tinyhead_bwd_max_slices(d)
+    assert (plan.slices - 1) * plan.keys < s <= plan.slices * plan.keys  # no slice empty
+    seen = np.zeros(s, dtype=int)
+    for keys in _plan_warp_keys(plan, s).values():
+        seen[list(keys)] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("bh", PLAN_BH)
+@pytest.mark.parametrize("d", [4, 8])
+@pytest.mark.parametrize("s", PLAN_S)
+def test_bwd_plan_workspace_within_memory_share(s, d, bh):
+    """The workspace, with the bf16 dq, dk and dv, stays under
+    BWD_MEMORY_SHARE times the bf16 q, k, v, out and dO (phase 11's peak
+    limit); it is there exactly when dQ has parts to sum."""
+    plan = tth.tinyhead_bwd_plan(bh, s, 132, d)
+    inputs = 5 * bh * s * d * 2
+    parts = plan.slices > 1 or plan.keys > tth.BWD_WARP_KEYS * plan.warps
+    assert plan.workspace == (plan.slices * bh * s * tth.HEAD_DIM_MAX * 4 if parts else 0)
+    assert plan.workspace + 3 * bh * s * d * 2 < tth.BWD_MEMORY_SHARE * inputs
+
+
+@pytest.mark.parametrize("bh, s, sms, d", [(0, 256, 132, 8), (8, 127, 132, 8), (8, 256, 132, 9),
+                                           (8, 256, 0, 8), (8, 64, 132, 4)])
+def test_bwd_plan_refuses_what_the_kernel_does_not_take(bh, s, sms, d):
+    with pytest.raises(ValueError, match="tinyhead_bwd_plan"):
+        tth.tinyhead_bwd_plan(bh, s, sms, d)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 384, 8), (1, 2, 1024, 4), (1, 1, 4096, 8),
+                                   (1, 1, 4096, 2)])
+def test_dq_summed_by_plan_matches_plain_and_jax(shape):
+    """dQ as the bf16 kernel sums it on its plan, in fp32 (the plain
+    version's dS): each warp's 32 keys, the warps of a pass in order, the
+    passes of a slice in order, then the slices in index order, scaled once;
+    against tinyhead_backward_plain's dq and the JAX custom VJP's _bwd at the
+    fp32 tolerance. The shapes take 2, 4, 8 and 2 slices, the last in 2
+    passes."""
+    b, h, s, d = shape
+    q, k, v = _qkv(shape, 30)
+    g = np.random.default_rng(31).normal(size=shape).astype(np.float32)
+    scale = 1.0 / math.sqrt(d)
+    qt, kt, vt, gt = (torch.from_numpy(t) for t in (q, k, v, g))
+    out, lse = tth.tinyhead_forward_plain(qt, kt, vt, scale)
+    plan = tth.tinyhead_bwd_plan(b * h, s, 132, d)
+    p = torch.exp2(torch.einsum("bhsd,bhtd->bhst", qt, kt) * (scale * tth.LOG2E)
+                   - lse[..., None])
+    ds = p * (torch.einsum("bhsd,bhtd->bhst", gt, vt) - (gt * out).sum(-1, keepdim=True))
+    owned = _plan_warp_keys(plan, s)
+    passes = plan.keys // (tth.BWD_WARP_KEYS * plan.warps)
+    total = None
+    for sl in range(plan.slices):
+        for pas in range(passes):
+            pass_sum = None
+            for w in range(plan.warps):
+                idx = torch.tensor(list(owned[(sl, pas, w)]), dtype=torch.long)
+                part = torch.einsum("bhst,bhtd->bhsd", ds[..., idx], kt[:, :, idx])
+                pass_sum = part if pass_sum is None else pass_sum + part
+            sl_sum = pass_sum if pas == 0 else sl_sum + pass_sum
+        total = sl_sum if total is None else total + sl_sum
+    got = (total * scale).numpy()
+    plain = tth.tinyhead_backward_plain(qt, kt, vt, out, lse, gt, scale)[0].numpy()
+    want = jax.jit(lambda *a: jth._bwd(scale, 256, True, a[:3], a[3]))(
+        *(jnp.asarray(t) for t in (q, k, v, g)))[0]
+    assert plan.slices > 1
+    np.testing.assert_allclose(got, plain, atol=TOL["float32"], rtol=TOL["float32"])
+    np.testing.assert_allclose(got, np.asarray(want), atol=TOL["float32"], rtol=TOL["float32"])
+
+
 def _block_inputs(c, size, seed):
     rng = np.random.default_rng(seed)
     return rng.normal(size=(2, size, size, c)).astype(np.float32)
