@@ -296,7 +296,8 @@ Phases 11 and 12 run first (the newest kernels fail fast), phases 19,
 after phase 9; the main-path runs come last, in one work directory: phase
 10, then three lanes at once (WORKER_LANES) — this process runs 26, 5, 20,
 22b, 22c, 23b, 25c, 25d, 16, 17, 21 and 24 while two worker processes of
-this script (`--worker <spec>`) run 18 then 29, and 31 then 27 — and phase
+this script (`--worker <spec>`) run 18 then 29, and 31, 27 then 16b (the
+CelebA-HQ config trained at fp32, `--mixed_precision no`) — and phase
 28 alone after all three, so its eager and graphed step times share the
 card with nothing. The kernel timings of the kernels line are all taken
 before the lanes start; the main-path phases' own ms and seconds are taken
@@ -326,11 +327,17 @@ exact-k kernels the integer work is what any implementation must do: the
 Philox draws (two a pixel for kernel 1, one for kernel 3) at
 PHILOX_INT_OPS instructions each, read from the compiled code, and one
 compare per key and selection. For the tiny-head kernels the products count at the dense bf16
-tensor-core rate of 989 TFLOP/s (fp32: 67 TFLOP/s), the softmax's other ~4
-operations a score at 67 TFLOP/s, and one exp2 a score (forward; the least
-the backward needs) at 16 a clock per SM times the SM count times the
-card's maximum SM clock; the exponentials set the bound in bf16 at every
-shape the main paths give them (in fp32 the products on the CUDA cores do).
+tensor-core rate of 989 TFLOP/s; in fp32 by two routes, on the CUDA cores
+at 67 TFLOP/s or as three tf32 products at the dense TF32 rate of 494.7
+TFLOP/s, a route's bound the largest of its terms and the least of the
+routes the bound; the softmax's other ~4 operations a score at 67
+TFLOP/s, and one exp2 a score (forward; the least the backward needs) at
+16 a clock per SM times the SM count times the card's maximum SM clock.
+The exponentials set the bound in bf16 at every shape the main paths give
+them, and in the fp32 forward; the split-TF32 products set the fp32
+backward's. The fp32 instances have entries of their own
+(`tinyhead_attention_fp32`, `tinyhead_attention_backward_fp32`, launched
+on the main path by 16b), and the bf16 entries count bf16 launches.
 
 Its last two lines are one JSON object of kernel results and
 {"ok": true, "device": {...}}. Without CUDA it exits 2 and prints neither.
@@ -340,6 +347,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import math
 import os
@@ -431,6 +439,12 @@ TH_ATOL = 1e-5
 TH_ETA = 1e-4
 TH_BIAS = 2.0**-12
 TH_LSE_TOL = (1e-5, 1e-5)  # lse, base 2: fp32 sums in another order, ex2.approx
+# fp32 (split TF32): the same signed mean error. A sound kernel's products
+# keep ~2^-22 and its tensor-core sums run a chunk long (a few fp32 ulps,
+# 2^-20 at most, even if every sum truncated); one that truncates a split
+# value to tf32 (2^-11 relative, always down) shifts it by ~3e-4 while
+# staying near the per-element limit
+TH_BIAS_FP32 = 2.0**-16
 # the backward through the autograd Function vs autograd through the plain
 # version, both in bf16: each side rounds its own intermediates (the kernel P,
 # dS and, through the forward's bf16 out, D; autograd P and dP) and its result
@@ -458,6 +472,7 @@ PHILOX_INT_OPS = 42  # 50 SASS instructions less the 8 UIADD3 of the key
 # schedule, which run once a warp on the uniform datapath (19 IMAD, 15 LOP3,
 # 6 IADD3, 2 VIADD; CUDA 12 nvcc -O3, NVIDIA H100 80GB HBM3)
 BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+TF32_TC_OPS_PER_S = 494.7e12  # H100 SXM dense TF32 tensor cores: half the bf16 rate
 # exp2 on the special-function units: 16 a clock per SM on compute capability
 # 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput); phase 1
 # sets it from the card's SM count and its maximum SM clock
@@ -697,15 +712,25 @@ def check_plan_coverage(kind: str, taken) -> None:
                              "of exact_k_plan")
 
 
+def _product_terms(ops: float, bf16: bool) -> dict:
+    """ms of the products by route: bf16 on the tensor cores; fp32 on the
+    CUDA cores ("products") or in split TF32 on the tensor cores (three tf32
+    products a product, "products_tf32x3")."""
+    if bf16:
+        return {"products": ops / BF16_TC_OPS_PER_S * 1e3}
+    return {"products": ops / FP32_OPS_PER_S * 1e3,
+            "products_tf32x3": 3 * ops / TF32_TC_OPS_PER_S * 1e3}
+
+
 def attention_terms(b: int, h: int, s: int, d: int, bf16: bool) -> dict:
     """ms of each lower bound of one tiny-head attention forward: q, k, v
     read and out written once; the two products (4*B*H*S^2*D operations) on
-    the tensor cores in bf16, on the CUDA cores in fp32; one exp2 a score on
-    the special-function units; the softmax's other ~4 fp32 operations a
-    score (scale and subtract, max, sum, cast)."""
+    the tensor cores in bf16, in fp32 by either route (_product_terms); one
+    exp2 a score on the special-function units; the softmax's other ~4 fp32
+    operations a score (scale and subtract, max, sum, cast)."""
     return {
         "bytes": 4 * b * h * s * d * (2 if bf16 else 4) / HBM_BYTES_PER_S * 1e3,
-        "products": 4 * b * h * s * s * d / (BF16_TC_OPS_PER_S if bf16 else FP32_OPS_PER_S) * 1e3,
+        **_product_terms(4 * b * h * s * s * d, bf16),
         "softmax": 4 * b * h * s * s / FP32_OPS_PER_S * 1e3,
         "exp": b * h * s * s / EXP_PER_S * 1e3,
     }
@@ -714,19 +739,26 @@ def attention_terms(b: int, h: int, s: int, d: int, bf16: bool) -> dict:
 def attention_bwd_terms(b: int, h: int, s: int, d: int, bf16: bool) -> dict:
     """ms of each lower bound of one tiny-head attention backward: q, k, v,
     out, dO and lse read and dq, dk, dv written once; five products
-    (10*B*H*S^2*D operations); one exp2 a score, the least a backward needs
-    (P rebuilt once)."""
+    (10*B*H*S^2*D operations, by route as the forward's); one exp2 a score,
+    the least a backward needs (P rebuilt once)."""
     return {
         "bytes": (8 * b * h * s * d * (2 if bf16 else 4) + 4 * b * h * s) / HBM_BYTES_PER_S * 1e3,
-        "products": 10 * b * h * s * s * d / (BF16_TC_OPS_PER_S if bf16 else FP32_OPS_PER_S) * 1e3,
+        **_product_terms(10 * b * h * s * s * d, bf16),
         "exp": b * h * s * s / EXP_PER_S * 1e3,
     }
 
 
 def terms_bound(terms: dict):
-    """(least ms, "bytes" or "operations", the term that sets it)."""
-    term = max(terms, key=terms.get)
-    return terms[term], "bytes" if term == "bytes" else "operations", term
+    """(least ms, "bytes" or "operations", the term that sets it). With
+    two product routes (fp32: "products" on the CUDA cores,
+    "products_tf32x3" on the tensor cores) a route's bound is the largest
+    of its terms, and the least over the routes is the bound."""
+    routes = [{t: v for t, v in terms.items() if t != other}
+              for other in ("products_tf32x3", "products") if other in terms]
+    if len(routes) < 2:
+        routes = [terms]
+    term, ms = min(((max(r, key=r.get), max(r.values())) for r in routes), key=lambda x: x[1])
+    return ms, "bytes" if term == "bytes" else "operations", term
 
 
 def tinyhead_per_forward(cfg) -> int:
@@ -1470,6 +1502,8 @@ def phase_groupnorm_train(calls, batch: int, tag: str = "[7]", timed: bool = Tru
 SP_SPLIT_NORMS = 65  # of the flagship's 71 norms a forward, split at M = 2
 SP_WHOLE_NORMS = 6  # its attention blocks' norms, on kernel 2 whole under SP
 SPLIT_ONLY = ("group_norm_split", "group_norm_split_backward")  # under --mesh_spatial alone
+# the fp32 tiny-head kernels' own counts: models that attend at S >= 128 in fp32 alone
+FP32_ONLY = ("tinyhead_attention_fp32", "tinyhead_attention_backward_fp32")
 
 
 def _unet(name: str, size: int):
@@ -2234,7 +2268,7 @@ def phase_train_cli(workdir: str):
         raise AssertionError(f"train CLI: meta {meta}, grids {grids}")
     # one process reaches the kernels through their sharded forms on one rank;
     # one exact-k launch a train step and one for the cadence's visuals pass
-    off = ("tinyhead_attention", "tinyhead_attention_backward", *SPLIT_ONLY)
+    off = ("tinyhead_attention", "tinyhead_attention_backward", *SPLIT_ONLY, *FP32_ONLY)
     if (train_counts["exact_count_masks"] != 8 + 1 or any(train_counts[k] for k in off)
             or not all(n for k, n in train_counts.items() if k not in off)
             or not same_through_sharded(train_counts)):
@@ -2310,16 +2344,18 @@ def _graph_grad_ms(forward, leaves, g, reps, iters):
 def phase_tinyhead():
     """The tiny-head attention kernels, forward and backward, against their
     plain versions at the main paths' shapes and at ragged ones, fp32 (TF32
-    off) and bf16; the backward bitwise equal over two runs, and in bf16
-    without bias; the bf16 backward on plans other than its own (passes,
-    one slice of 16 warps) and refusing plans it does not take; their times
-    beside the plain versions', SDPA's and the bounds, with the backward's
-    plan; the backward's peak extra memory at every main shape; the
-    autograd Function against autograd through the plain version. Returns
-    (max fp32 err of the forward, of the backward, {(shape, dtype): forward
+    off; the kernels' split TF32 held to the fp32 limits) and bf16; the
+    backward bitwise equal over two runs, and in bf16 without bias; the
+    backward in both dtypes on plans other than its own (passes, slices,
+    warps past S) and refusing plans it does not take; their times beside
+    the plain versions', SDPA's and the bounds (fp32: both product routes,
+    the bound the least), with the backward's plan; the backward's peak
+    extra memory at every main shape in both dtypes; the autograd Function
+    against autograd through the plain version. Returns ({dtype: max err of
+    the forward}, {dtype: max err of the backward}, {(shape, dtype): forward
     (ms, plain ms, SDPA ms, terms)}, {(shape, dtype): backward (ms, plain
-    ms, SDPA ms, terms, recompute ms)}, {shape: (peak extra bytes of the
-    bf16 backward, inputs' bytes)})."""
+    ms, SDPA ms, terms, recompute ms)}, {(shape, dtype): (peak extra bytes
+    of the backward, inputs' bytes)})."""
     import math
 
     import torch
@@ -2327,6 +2363,7 @@ def phase_tinyhead():
 
     from masked_diffusion_tpu_torch.ops.tinyhead_attention import (
         BWD_MEMORY_SHARE,
+        BWD_WARP_KEYS,
         TinyheadBwdPlan,
         launch_backward,
         tinyhead_attention,
@@ -2395,9 +2432,10 @@ def phase_tinyhead():
                          else TINYHEAD_FP32_TOL)
                 err, ratio = check(out, ref, limit, f"out {name} ({shape})")
                 beta = bias(out, ref)
-                if bf16 and not abs(beta) <= TH_BIAS:
-                    raise AssertionError(f"tinyhead {shape} bf16: signed mean error {beta:.3g} "
-                                         f"of mean |ref|, limit {TH_BIAS:.3g}")
+                bias_limit = TH_BIAS if bf16 else TH_BIAS_FP32
+                if not abs(beta) <= bias_limit:
+                    raise AssertionError(f"tinyhead {shape} {name}: signed mean error {beta:.3g} "
+                                         f"of mean |ref|, limit {bias_limit:.3g}")
                 lse_err, _ = check(lse, ref_lse, TH_LSE_TOL, f"lse {name} ({shape})")
                 # backward kernel vs the plain backward in fp32 on the same
                 # inputs, out and lse
@@ -2416,11 +2454,11 @@ def phase_tinyhead():
                         raise AssertionError(f"tinyhead d{x} {shape}: dtype {a.dtype}")
                     bwd.append(check(a, w, lim, f"d{x} {name} vs plain ({shape})"))
                     bwd_bias.append(bias(a, w))
-                if bf16 and not max(abs(x) for x in bwd_bias) <= TH_BIAS:
+                if not max(abs(x) for x in bwd_bias) <= bias_limit:
                     raise AssertionError(
-                        f"tinyhead backward {shape} bf16: signed mean errors of dq/dk/dv "
+                        f"tinyhead backward {shape} {name}: signed mean errors of dq/dk/dv "
                         f"{'/'.join(f'{x:.3g}' for x in bwd_bias)} of mean |ref|, limit "
-                        f"{TH_BIAS:.3g}")
+                        f"{bias_limit:.3g}")
                 del grads, again, plain
             # the autograd Function vs autograd through the plain version
             leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -2439,11 +2477,11 @@ def phase_tinyhead():
                        else TINYHEAD_FP32_TOL[0] + TINYHEAD_FP32_TOL[1] * mag)
                 ag.append(check(a, w, lim, f"d{x} {name} vs autograd ({shape})"))
             del got, want, leaves, refs, mags
-            summary = (f"{name}: out err {err:.3g} ({ratio:.3g} of limit"
-                       + (f", bias {beta:.3g}" if bf16 else "") + f"), lse err {lse_err:.3g}; "
+            summary = (f"{name}: out err {err:.3g} ({ratio:.3g} of limit, bias {beta:.3g}), "
+                       f"lse err {lse_err:.3g}; "
                        f"dq/dk/dv err vs plain {'/'.join(f'{e:.3g}' for e, _ in bwd)} "
-                       f"({max(r for _, r in bwd):.3g} of limit"
-                       + (f", bias {'/'.join(f'{x:.3g}' for x in bwd_bias)}" if bf16 else "")
+                       f"({max(r for _, r in bwd):.3g} of limit, bias "
+                       f"{'/'.join(f'{x:.3g}' for x in bwd_bias)}"
                        + "; bitwise over two runs), vs autograd "
                        f"{'/'.join(f'{e:.3g}' for e, _ in ag)} ({max(r for _, r in ag):.3g})")
             if not main:
@@ -2477,72 +2515,95 @@ def phase_tinyhead():
             bwd_times[(shape, name)] = (bkms, bpms, sdpa_fb - sdpa_f, bterms, rec_fb)
             line.append(
                 f"{summary}; forward kernel {kms:.4f} ms, plain {pms:.4f}, SDPA {lms:.4f}, "
-                f"bound {bnd[0]:.5f} ({bnd[2]}; " + ", ".join(
+                f"bound {bnd[0]:.5f} ({bnd[2]}, {bnd[0] / kms:.1%} of it; " + ", ".join(
                     f"{t} {v:.5f}" for t, v in terms.items()) + f"); backward kernel "
                 f"{bkms:.4f} ms, plain {bpms:.4f}, recompute {rec_fb:.4f} (its forward "
                 f"{rec_f:.4f}), SDPA backward {sdpa_fb - sdpa_f:.4f} (forward + backward "
-                f"{sdpa_fb:.4f}), bound {bbnd[0]:.5f} ({bbnd[2]}; " + ", ".join(
-                    f"{t} {v:.5f}" for t, v in bterms.items()) + ")"
-                + (f", {plan_text(tinyhead_bwd_plan(b * h, s, sms, d))}" if bf16 else ""))
+                f"{sdpa_fb:.4f}), bound {bbnd[0]:.5f} ({bbnd[2]}, {bbnd[0] / bkms:.1%} of it; "
+                + ", ".join(f"{t} {v:.5f}" for t, v in bterms.items()) + "), "
+                + plan_text(tinyhead_bwd_plan(b * h, s, sms, d, q.element_size())))
         log(f"[11] tinyhead {shape}: " + "; ".join(line))
         del qkvg, q, k, v, g, wide, out, out2, lse, ref, ref_lse
         torch.cuda.empty_cache()
 
-    # the bf16 backward on plans other than its own at ragged shapes: passes
-    # (one slice), 6, 8 and 16 warps in one slice (warps past S; chunks of
-    # 64 and 128 queries), d = 4 in passes and in 16 warps; then plans the
-    # kernel refuses
+    # the backward on plans other than its own at ragged shapes. bf16 (64
+    # keys a warp): passes (one slice), 6, 8 and 16 warps in one slice
+    # (warps past S; chunks of 64 and 128 queries), d = 4 in passes and in
+    # 16 warps. fp32 (32 keys a warp): passes (one slice, 4, 6 and 8
+    # warps), 2 slices of 8 warps, d = 4 in one pass of 8 warps (warps past
+    # S) and in passes. Then plans each refuses
     forced = {
-        (2, 4, 384, 8): [TinyheadBwdPlan(512, 1, 4, 0), TinyheadBwdPlan(384, 1, 6, 0),
-                         TinyheadBwdPlan(512, 1, 8, 0), TinyheadBwdPlan(1024, 1, 16, 0)],
-        (2, 4, 200, 4): [TinyheadBwdPlan(512, 1, 4, 0), TinyheadBwdPlan(1024, 1, 16, 0)],
+        (torch.bfloat16, (2, 4, 384, 8)): [
+            TinyheadBwdPlan(512, 1, 4, 0), TinyheadBwdPlan(384, 1, 6, 0),
+            TinyheadBwdPlan(512, 1, 8, 0), TinyheadBwdPlan(1024, 1, 16, 0)],
+        (torch.bfloat16, (2, 4, 200, 4)): [TinyheadBwdPlan(512, 1, 4, 0),
+                                           TinyheadBwdPlan(1024, 1, 16, 0)],
+        (torch.float32, (2, 4, 384, 8)): [
+            TinyheadBwdPlan(384, 1, 4, 0), TinyheadBwdPlan(384, 1, 6, 0),
+            TinyheadBwdPlan(512, 1, 8, 0), TinyheadBwdPlan(256, 2, 8, 0)],
+        (torch.float32, (2, 4, 200, 4)): [TinyheadBwdPlan(256, 1, 8, 0),
+                                          TinyheadBwdPlan(256, 1, 4, 0)],
     }
-    # (keys, slices, warps, with a workspace): short of S; 3 warps; an empty
-    # slice; a workspace where one slice of one pass writes dq; none where
-    # two slices need one; 17 warps; keys not whole passes
-    refused = [(256, 1, 4, False), (192, 2, 3, True), (256, 3, 4, True), (384, 1, 6, True),
-               (256, 2, 4, False), (1088, 1, 17, False), (320, 2, 4, True)]
+    # (keys, slices, warps, with a workspace). bf16: short of S; 3 warps; an
+    # empty slice; a workspace where one slice of one pass writes dq; none
+    # where two slices need one; 17 warps; keys not whole passes. fp32:
+    # short of S; 3 warps; an empty slice; none where two slices need one; 9
+    # and 12 warps (its most is 8; bf16 takes 12); keys not whole passes
+    refused = {
+        torch.bfloat16: [(256, 1, 4, False), (192, 2, 3, True), (256, 3, 4, True),
+                         (384, 1, 6, True), (256, 2, 4, False), (1088, 1, 17, False),
+                         (320, 2, 4, True)],
+        torch.float32: [(256, 1, 8, False), (96, 4, 3, True), (128, 4, 4, True),
+                        (256, 2, 8, False), (288, 2, 9, True), (160, 3, 4, True),
+                        (768, 1, 12, True)],
+    }
     lines = []
-    for shape, plans in forced.items():
+    for (dtype, shape), plans in forced.items():
+        name = str(dtype).split(".")[1]
+        bf16 = dtype == torch.bfloat16
         b, h, s, d = shape
         scale = 1.0 / math.sqrt(d)
-        q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-                      for _ in range(4))
+        q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(4))
         wide = [t.float() for t in (q, k, v, g)]
+        warp_keys = BWD_WARP_KEYS[q.element_size()]
         with torch.inference_mode():
             out, lse = tinyhead_forward(q, k, v, scale)
             plain = tinyhead_backward_plain(*wide[:3], out.float(), lse, wide[3], scale)
             mags = tinyhead_grad_mags(*wide, scale)
             for plan in plans:
-                parts = plan.slices > 1 or plan.keys > 64 * plan.warps
+                parts = plan.slices > 1 or plan.keys > warp_keys * plan.warps
                 plan = plan._replace(
                     workspace=plan.slices * b * h * s * 32 if parts else 0)
                 grads = launch_backward(q, k, v, out, lse, g, scale, plan)
                 again = launch_backward(q, k, v, out, lse, g, scale, plan)
                 torch.cuda.synchronize()
                 if not all(torch.equal(x, y) for x, y in zip(grads, again)):
-                    raise AssertionError(f"tinyhead backward {shape} {plan}: two runs differ")
-                errs = [check(a, w, bf16_limit(mag, w), f"d{x} bfloat16 vs plain, forced plan "
-                              f"({shape} {plan})")[0]
+                    raise AssertionError(f"tinyhead backward {shape} {name} {plan}: two runs "
+                                         "differ")
+                errs = [check(a, w, bf16_limit(mag, w) if bf16 else
+                              TINYHEAD_FP32_TOL[0] + TINYHEAD_FP32_TOL[1] * mag,
+                              f"d{x} {name} vs plain, forced plan ({shape} {plan})")[0]
                         for x, a, w, mag in zip("qkv", grads, plain, mags)]
-                lines.append(f"{shape} {plan_text(plan)}: dq/dk/dv err "
+                lines.append(f"{shape} {name} {plan_text(plan)}: dq/dk/dv err "
                              + "/".join(f"{e:.3g}" for e in errs))
-        for keys, slices, warps, ws in refused if shape == (2, 4, 384, 8) else ():
+        for keys, slices, warps, ws in refused[dtype] if shape == (2, 4, 384, 8) else ():
             plan = TinyheadBwdPlan(keys, slices, warps, slices * b * h * s * 32 if ws else 0)
             try:
                 launch_backward(q, k, v, out, lse, g, scale, plan)
             except RuntimeError:
                 continue
-            raise AssertionError(f"tinyhead backward {shape}: plan {plan} was not refused")
-    log("[11] tinyhead backward bf16 on forced plans, bitwise over two runs and within the "
-        "limits: " + "; ".join(lines) + f"; refused at (2, 4, 384, 8): "
-        + ", ".join(f"{k}/{n}/{w}{' with a workspace' if ws else ''}"
-                    for k, n, w, ws in refused))
+            raise AssertionError(f"tinyhead backward {shape} {name}: plan {plan} was not "
+                                 "refused")
+    log("[11] tinyhead backward on forced plans, bitwise over two runs and within the "
+        "limits: " + "; ".join(lines) + "; refused at (2, 4, 384, 8): " + "; ".join(
+            f"{str(dt).split('.')[1]} " + ", ".join(
+                f"{k}/{n}/{w}{' with a workspace' if ws else ''}" for k, n, w, ws in plans)
+            for dt, plans in refused.items()))
     del q, k, v, g, wide, out, lse, plain, mags
     torch.cuda.empty_cache()
 
-    # peak extra device memory of one bf16 backward at each main shape (its
-    # outputs and workspace), the plain recompute's at the first
+    # peak extra device memory of one backward at each main shape in each
+    # dtype (its outputs and workspace), the plain recompute's at the first
     def peak(fn):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -2554,11 +2615,11 @@ def phase_tinyhead():
         return torch.cuda.max_memory_allocated() - base
 
     peaks = {}
-    for shape in TINYHEAD_SHAPES:
+    for shape, dtype in itertools.product(TINYHEAD_SHAPES, (torch.float32, torch.bfloat16)):
         b, h, s, d = shape
+        name = str(dtype).split(".")[1]
         scale = 1.0 / math.sqrt(d)
-        q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-                      for _ in range(4))
+        q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(4))
         with torch.inference_mode():
             out, lse = tinyhead_forward(q, k, v, scale)
         inputs = sum(t.numel() * t.element_size() for t in (q, k, v, out, g))
@@ -2569,20 +2630,24 @@ def phase_tinyhead():
 
         kpeak = peak(lambda: tinyhead_attention_backward(q, k, v, out, lse, g, scale))
         if not kpeak < BWD_MEMORY_SHARE * inputs:
-            raise AssertionError(f"tinyhead backward {shape}: peak extra memory {kpeak} bytes, "
-                                 f"limit {BWD_MEMORY_SHARE} x {inputs}")
-        rpeak = peak(recompute) if shape == TINYHEAD_SHAPES[0] else None
-        peaks[shape] = (kpeak, inputs)
-        log(f"[11] tinyhead backward {shape} bf16: peak extra device memory "
+            raise AssertionError(f"tinyhead backward {shape} {name}: peak extra memory {kpeak} "
+                                 f"bytes, limit {BWD_MEMORY_SHARE} x {inputs}")
+        rpeak = (peak(recompute) if shape == TINYHEAD_SHAPES[0] and dtype == torch.bfloat16
+                 else None)
+        peaks[(shape, name)] = (kpeak, inputs)
+        log(f"[11] tinyhead backward {shape} {name}: peak extra device memory "
             f"{kpeak / 2**20:.2f} MiB, {kpeak / inputs:.3f} x q, k, v, out, dO "
-            f"({inputs / 2**20:.2f} MiB), {plan_text(tinyhead_bwd_plan(b * h, s, sms, d))}"
+            f"({inputs / 2**20:.2f} MiB), "
+            f"{plan_text(tinyhead_bwd_plan(b * h, s, sms, d, q.element_size()))}"
             + (f"; the plain recompute {rpeak / 2**30:.3f} GiB" if rpeak else ""))
         del q, k, v, g, out, lse
         torch.cuda.empty_cache()
     log("[11] tinyhead_attention: all shapes within their limits; worst (max abs err, ratio "
         "to limit): " + "; ".join(f"{w} {e:.3g} {r:.3g}" for w, (e, r) in sorted(worst.items())))
-    fp32_bwd = max(worst[f"d{x} float32 vs plain"][0] for x in "qkv")
-    return worst["out float32"][0], fp32_bwd, fwd_times, bwd_times, peaks
+    names = ("float32", "bfloat16")
+    fwd_err = {n: worst[f"out {n}"][0] for n in names}
+    bwd_err = {n: max(worst[f"d{x} {n} vs plain"][0] for x in "qkv") for n in names}
+    return fwd_err, bwd_err, fwd_times, bwd_times, peaks
 
 
 def phase_exact_k_large():
@@ -2796,15 +2861,24 @@ def _run_cli(argv, tag: str):
 
 
 def phase_cli_pair(tag: str, what: str, common, train_extra, per_forward: int, epochs: int,
-                   steps_per_epoch: int):
-    """Train through the CLI (--method mean_shift), then serve the checkpoint
-    it wrote (--method sample, EMA weights). Checks the counts: one kmask
-    launch per indexing train step and one for the cadence's visuals pass,
-    one fused launch per reverse step, `per_forward` tinyhead launches per
-    UNet forward (one per train step, the visuals pass and each reverse
-    step) and `per_forward` tinyhead backward launches per train step, none
-    in serving. Returns the launches of both runs."""
+                   steps_per_epoch: int, serve: bool = True):
+    """Train through the CLI (--method mean_shift), then, if `serve`, serve
+    the checkpoint it wrote (--method sample, EMA weights). Checks the
+    counts: one kmask launch per indexing train step and one for the
+    cadence's visuals pass, one fused launch per reverse step, `per_forward`
+    tinyhead launches per UNet forward (one per train step, the visuals pass
+    and each reverse step) and `per_forward` tinyhead backward launches per
+    train step, none in serving; all of them on the fp32 kernels under
+    --mixed_precision no, none otherwise. Returns the launches of both
+    runs."""
     import numpy as np
+
+    fp32 = common[common.index("--mixed_precision") + 1] == "no"
+
+    def with_fp32(want):
+        for name in ("tinyhead_attention", "tinyhead_attention_backward"):
+            want[f"{name}_fp32"] = want[name] if fp32 else 0
+        return want
 
     rc, stats, train = _run_cli(["--method", "mean_shift", "--num_epochs", str(epochs),
                                  *train_extra, *common], "train_stats")
@@ -2814,9 +2888,9 @@ def phase_cli_pair(tag: str, what: str, common, train_extra, per_forward: int, e
     (ckpt,) = stats["checkpoints"]
     # one save cadence (the last epoch): its visuals pass is one more exact-k
     # launch and one more UNet forward
-    want = {"exact_count_masks": steps + 1,
-            "tinyhead_attention": per_forward * (steps + 1 + train["fused_degrade_update"]),
-            "tinyhead_attention_backward": per_forward * steps}
+    want = with_fp32({"exact_count_masks": steps + 1,
+                      "tinyhead_attention": per_forward * (steps + 1 + train["fused_degrade_update"]),
+                      "tinyhead_attention_backward": per_forward * steps})
     if (any(train[k] != n for k, n in want.items()) or not train["fused_degrade_update"]
             or not same_through_sharded(train)):
         raise AssertionError(f"{what} train CLI: launches {train}, expected {want}")
@@ -2824,13 +2898,17 @@ def phase_cli_pair(tag: str, what: str, common, train_extra, per_forward: int, e
         f"{[round(v, 5) for v in stats['loss_mean_epoch']]}, {stats['ms_per_step']:.3f} ms/step "
         f"and {stats['images_per_sec']:.2f} images/s (last epoch) on {stats['device']}; "
         f"launches {train} ({per_forward} tinyhead forward launches per UNet forward, "
-        f"{per_forward} backward launches per train step)")
+        f"{per_forward} backward launches per train step"
+        + (", all on the fp32 kernels)" if fp32 else ")"))
+    if not serve:
+        return train
 
     rc, served, serve = _run_cli(["--method", "sample", "--test_model_path", ckpt, *common],
                                  "sample_stats")
     n_steps = served["steps"] * served["batches"]
-    want = {"exact_count_masks": 0, "fused_degrade_update": n_steps,
-            "tinyhead_attention": per_forward * n_steps, "tinyhead_attention_backward": 0}
+    want = with_fp32({"exact_count_masks": 0, "fused_degrade_update": n_steps,
+                      "tinyhead_attention": per_forward * n_steps,
+                      "tinyhead_attention_backward": 0})
     if rc != 0 or not (served["finite"] and served["ema"]) or any(
             serve[k] != n for k, n in want.items()) or not same_through_sharded(serve):
         raise AssertionError(f"{what} serve CLI: rc {rc}, {served}, launches {serve}, "
@@ -2841,25 +2919,48 @@ def phase_cli_pair(tag: str, what: str, common, train_extra, per_forward: int, e
     return {k: train[k] + serve[k] for k in train}
 
 
+def celeba_cli_args(dir_work: str, precision: str):
+    """(common flags, training flags) of the CelebA-HQ launch config through
+    the CLI at --mixed_precision `precision`."""
+    common = [
+        "--data_name", "synthetic", "--data_size", "64", "--data_subset", "True",
+        "--data_subset_num", "64", "--batch_size", "32", "--num_attention", "5",
+        "--sample_num", "16", "--mixed_precision", precision, "--ddpm_schedule", "log",
+        "--ddpm_num_steps", "16", "--select_degrade_pixel", "indexing",
+        "--mean_option", "degraded_area", "--mean_area", "image-wise",
+        "--shift_type", "1-d_constant", "--sample_latent_shape", "data",
+        "--momentum_adaptive", "base_momentum", "--sampling_mask_dependency", "independent",
+        "--use_wandb", "False", "--device", "cuda", "--dir_work", dir_work,
+    ]
+    train = ["--optim", "adamw", "--lr", "3e-5", "--lr_scheduler", "cosine",
+             "--lr_warmup_steps", "500", "--use_ema", "True", "--sampling", "momentum",
+             "--save_images_epochs", "1000"]
+    return common, train
+
+
 def phase_celeba_cli(workdir: str):
     """The CelebA-HQ launch config (scripts/train/celeba_hq/base/script_main.sh:
     --num_attention 5 at 64x64, batch 32, mean_shift, log + indexing at
     T=16, 1-d_constant, base_momentum, bf16) on synthetic data, 2 epochs of
     2 steps, then served; 10 tinyhead launches per forward."""
-    common = [
-        "--data_name", "synthetic", "--data_size", "64", "--data_subset", "True",
-        "--data_subset_num", "64", "--batch_size", "32", "--num_attention", "5",
-        "--sample_num", "16", "--mixed_precision", "bf16", "--ddpm_schedule", "log",
-        "--ddpm_num_steps", "16", "--select_degrade_pixel", "indexing",
-        "--mean_option", "degraded_area", "--mean_area", "image-wise",
-        "--shift_type", "1-d_constant", "--sample_latent_shape", "data",
-        "--momentum_adaptive", "base_momentum", "--sampling_mask_dependency", "independent",
-        "--use_wandb", "False", "--device", "cuda", "--dir_work", os.path.join(workdir, "celeba"),
-    ]
-    train = ["--optim", "adamw", "--lr", "3e-5", "--lr_scheduler", "cosine",
-             "--lr_warmup_steps", "500", "--use_ema", "True", "--sampling", "momentum",
-             "--save_images_epochs", "1000"]
+    common, train = celeba_cli_args(os.path.join(workdir, "celeba"), "bf16")
     return phase_cli_pair("[16]", "CelebA-HQ config", common, train, 10, 2, 2)
+
+
+def phase_celeba_fp32_cli(workdir: str):
+    """[16b] The CelebA-HQ config of phase 16 at the CLI's default precision
+    (--mixed_precision no: fp32), one epoch of 2 train steps and its
+    cadence: every tiny-head launch on the fp32 (split-TF32) kernels, 10
+    forward and 10 backward a train step and 10 a forward of the cadence,
+    counted exactly. Its directory (a 1.8 GB checkpoint) is removed after."""
+    import shutil
+
+    root = os.path.join(workdir, "celeba_fp32")
+    common, train = celeba_cli_args(root, "no")
+    runs = phase_cli_pair("[16b]", "CelebA-HQ config, fp32", common, train, 10, 1, 2,
+                          serve=False)
+    shutil.rmtree(root, ignore_errors=True)
+    return runs
 
 
 def phase_unet6_cli(workdir: str):
@@ -5091,7 +5192,7 @@ def phase_reference_inputs(workdir: str, smi: str) -> dict:
             or stats["global_step"] != 6 or len(stats["checkpoints"]) != 2
             or not np.isfinite(stats["loss_mean_epoch"]).all()):
         raise AssertionError(f"[24c] LSUN train CLI: rc {rc}, dataset {data}, stats {stats}")
-    off = ("tinyhead_attention", "tinyhead_attention_backward", *SPLIT_ONLY)
+    off = ("tinyhead_attention", "tinyhead_attention_backward", *SPLIT_ONLY, *FP32_ONLY)
     if (train["exact_count_masks"] != 6 + 2 or any(train[k] for k in off)
             or not all(n for k, n in train.items() if k not in off)
             or not same_through_sharded(train)):
@@ -6439,7 +6540,7 @@ def phase_jax_reference() -> dict:
     be what the case runs: kernel 2 in every norm, 2b in every norm's
     backward, 3 in the indexing step (on its injected bits), 1 in each fused
     reverse step (on its injected bits), 4 in CelebA-HQ's 10 attention
-    blocks. Returns {case: launches}."""
+    blocks (its fp32 kernel in fp32). Returns {case: launches}."""
     from masked_diffusion_tpu_torch.models.factory import build_unet
     from masked_diffusion_tpu_torch.models.unet import GroupNormAct
     from masked_diffusion_tpu_torch.tools import full_width as fw
@@ -6463,8 +6564,10 @@ def phase_jax_reference() -> dict:
         model = build_unet(num_attention=num_attention)
         norms = sum(isinstance(m, GroupNormAct) for m in model.modules())
         for dtype in fw.DTYPES:
+            tiny = tinyhead_per_forward(model.config)
             want[f"forward {name} {dtype}"] = dict(
-                group_norm_silu=norms, tinyhead_attention=tinyhead_per_forward(model.config))
+                group_norm_silu=norms, tinyhead_attention=tiny,
+                tinyhead_attention_fp32=tiny if dtype == "fp32" else 0)
         if name != "flagship":
             continue
         for mode in fw.MODES:
@@ -6639,9 +6742,11 @@ def check_no_jax() -> None:
 # 27, the two gloo phases, sit in different lanes at different places.
 WORKER_LANES = (
     (("[18] two ranks", "ddp"), ("[29] device data and the launch farm", "farm")),
-    (("[31] the cadence at T=4096", "t4096"), ("[27] tensor and spatial parallelism", "grid")),
+    (("[31] the cadence at T=4096", "t4096"), ("[27] tensor and spatial parallelism", "grid"),
+     ("[16b] CelebA-HQ CLI, fp32", "celeba_fp32")),
 )
 WORKER_PHASES = {
+    "celeba_fp32": lambda workdir, smi, perf: phase_celeba_fp32_cli(workdir),
     "ddp": lambda workdir, smi, perf: phase_ddp(os.path.join(workdir, "ranks"), smi, perf),
     "farm": lambda workdir, smi, perf: phase_farm(workdir, smi),
     "t4096": lambda workdir, smi, perf: phase_t4096_cadence(workdir, smi),
@@ -6830,27 +6935,30 @@ def main() -> int:
     def launches(name):
         return sum(run.get(name, 0) for run in main_runs)
 
-    # the tiny-head entries: per bf16 UNet forward (and backward) of the
-    # CelebA-HQ config at batch 32, five launches at S=1024 and five at S=256
+    # the tiny-head entries: per UNet forward (and backward) of the CelebA-HQ
+    # config at batch 32, five launches at S=1024 and five at S=256, bf16
+    # and fp32
     per_forward = [(shape, 5) for shape in TINYHEAD_SHAPES[:2]]
 
-    def per_step(times, what):
-        ms = [sum(n * times[(shape, "bfloat16")][i] for shape, n in per_forward)
-              for i in range(3)]
-        terms = times[(per_forward[0][0], "bfloat16")][3]
-        bnd = terms_bound({t: sum(n * times[(shape, "bfloat16")][3][t]
-                                  for shape, n in per_forward) for t in terms})
-        log(f"[11] tinyhead {what} of the CelebA-HQ config, bf16, batch 32 (5 x S=1024, "
+    def per_step(times, what, name):
+        ms = [sum(n * times[(shape, name)][i] for shape, n in per_forward) for i in range(3)]
+        terms = times[(per_forward[0][0], name)][3]
+        bnd = terms_bound({t: sum(n * times[(shape, name)][3][t] for shape, n in per_forward)
+                           for t in terms})
+        log(f"[11] tinyhead {what} of the CelebA-HQ config, {name}, batch 32 (5 x S=1024, "
             f"5 x S=256): kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, SDPA {ms[2]:.4f} ms, "
-            f"bound {bnd[0]:.5f} ms ({bnd[2]})")
+            f"bound {bnd[0]:.5f} ms ({bnd[2]}, {bnd[0] / ms[0]:.1%} of it)")
         return ms, bnd
 
-    th, th_bound = per_step(tinyhead_times, "forward per UNet forward")
-    thb, thb_bound = per_step(tinyhead_bwd_times, "backward per train step")
+    th, th_bound = per_step(tinyhead_times, "forward per UNet forward", "bfloat16")
+    thb, thb_bound = per_step(tinyhead_bwd_times, "backward per train step", "bfloat16")
+    th32, th32_bound = per_step(tinyhead_times, "forward per UNet forward", "float32")
+    thb32, thb32_bound = per_step(tinyhead_bwd_times, "backward per train step", "float32")
     log(f"[11] tinyhead backward launches per train step: CelebA-HQ "
-        f"{runs['celeba']['tinyhead_attention_backward'] // 4} (phase 16, 4 steps), unet6 "
-        f"256x256 {runs['unet6']['tinyhead_attention_backward'] // 4} (phase 17, 4 steps), at "
-        f"128x128 (phase 15) {zoo_backward}")
+        f"{runs['celeba']['tinyhead_attention_backward'] // 4} (phase 16, 4 steps), at fp32 "
+        f"{runs['celeba_fp32']['tinyhead_attention_backward_fp32'] // 2} (phase 16b, 2 "
+        f"steps), unet6 256x256 {runs['unet6']['tinyhead_attention_backward'] // 4} (phase "
+        f"17, 4 steps), at 128x128 (phase 15) {zoo_backward}")
     kb2 = modes["kmask_b2"]
     log(f"[19/20] exact_count_masks on the main path: {launches('exact_count_masks')} launches, "
         f"{runs['default']['exact_count_masks']} of them in phase 20 (its captured cadence "
@@ -6901,16 +7009,29 @@ def main() -> int:
         kernel_entry("exact_count_masks", "cuda", "masked_diffusion_tpu_torch/csrc/kmask.cu",
                      "masked_diffusion_tpu/ops/pallas/kmask.py:84",
                      launches("exact_count_masks"), kmask[0], kmask[1], kmask[2], kmask[3], None),
+        # bf16 instances: the wrappers' launches less their fp32 kernels'
         kernel_entry("tinyhead_attention", "cuda",
                      "masked_diffusion_tpu_torch/csrc/tinyhead_attention.cu",
                      "masked_diffusion_tpu/ops/pallas/tinyhead_attention.py:99",
-                     launches("tinyhead_attention"), tinyhead_err, th[0], th[1], th_bound[:2],
-                     th[2]),
+                     launches("tinyhead_attention") - launches("tinyhead_attention_fp32"),
+                     tinyhead_err["bfloat16"], th[0], th[1], th_bound[:2], th[2]),
         kernel_entry("tinyhead_attention_backward", "cuda",
                      "masked_diffusion_tpu_torch/csrc/tinyhead_attention_bwd.cu",
                      "masked_diffusion_tpu/ops/pallas/tinyhead_attention.py:168",
-                     launches("tinyhead_attention_backward"), tinyhead_bwd_err, thb[0], thb[1],
-                     thb_bound[:2], thb[2]),
+                     launches("tinyhead_attention_backward")
+                     - launches("tinyhead_attention_backward_fp32"),
+                     tinyhead_bwd_err["bfloat16"], thb[0], thb[1], thb_bound[:2], thb[2]),
+        # fp32 instances: split TF32 on the tensor cores
+        kernel_entry("tinyhead_attention_fp32", "cuda",
+                     "masked_diffusion_tpu_torch/csrc/tinyhead_attention.cu",
+                     "masked_diffusion_tpu/ops/pallas/tinyhead_attention.py:99",
+                     launches("tinyhead_attention_fp32"), tinyhead_err["float32"], th32[0],
+                     th32[1], th32_bound[:2], th32[2]),
+        kernel_entry("tinyhead_attention_backward_fp32", "cuda",
+                     "masked_diffusion_tpu_torch/csrc/tinyhead_attention_bwd.cu",
+                     "masked_diffusion_tpu/ops/pallas/tinyhead_attention.py:168",
+                     launches("tinyhead_attention_backward_fp32"), tinyhead_bwd_err["float32"],
+                     thb32[0], thb32[1], thb32_bound[:2], thb32[2]),
         kernel_entry("fused_degrade_update_sharded", "cuda",
                      "masked_diffusion_tpu_torch/csrc/fused_degrade.cu",
                      "masked_diffusion_tpu/ops/pallas/fused_degrade.py:295",

@@ -22,7 +22,10 @@
 // SM (CUDA C++ Programming Guide, arithmetic throughput, compute capability
 // 9.0), 132 SMs, ~1.98 GHz: ~4.2e12 a second, against 989e12 bf16
 // tensor-core operations. So the exponentials bound the kernel, and the
-// design keeps every other instruction per score few.
+// design keeps every other instruction per score few. In fp32 the split
+// products take three times the operations at the TF32 rate (494.7e12),
+// 96 a score against one exp2: 0.8 of the exponentials' time, where fp32 on
+// the CUDA cores (67e12) would take 2.0 of it.
 //
 // bf16: tinyhead_fwd_mma_kernel, the JAX kernel's own recipe (bf16 products
 // with fp32 accumulation, fp32 online softmax, P rounded to bf16 for the
@@ -43,11 +46,29 @@
 // and not wgmma: wgmma needs a contraction of 16 (the head padded 2x) and
 // 64-row warpgroup tiles, and the products are not what bounds the kernel.
 //
-// fp32: tinyhead_fwd_kernel, both products in fp32 on the CUDA cores (Hopper
-// has no fp32 tensor-core product without TF32, which would change the
-// numerics against the JAX package's fp32 path): one thread per query, K/V
-// tiles of 128 rows widened into shared memory, the online softmax in base 2
-// rescaled once per 16 keys.
+// fp32: tinyhead_fwd_tf32_kernel, the same skeleton on the tensor cores in
+// split TF32 (tinyhead_mma.cuh: x = hi + lo, three tf32 products a product
+// for fp32 accuracy; torch.backends.cuda.matmul.allow_tf32 does not govern
+// it). q is scaled by c and split into hi/lo A fragments once, in
+// registers; each K and V row is split once, when the block stages it into
+// shared memory (its rows land by cp.async; K by rows, V transposed with
+// each run of 8 keys stored 0, 2, 4, 6, 1, 3, 5, 7, so that ldmatrix gives
+// every B fragment with no arithmetic). Per chunk of 64 keys and 16 queries:
+//   S = (q c) K^T     8 x 3 mma.m16n8k8.tf32 (lo hi, hi lo, hi hi)
+//   softmax           as bf16, one ex2.approx a score (scores already in base 2)
+//   P                 split per score (one cvt.rna.tf32 and a subtraction)
+//   pv = P V          8 x 3 mma.m16n8k8.tf32 into four fresh accumulators
+//                     (four chains of dependent products, not one of 24):
+//                     the C fragment of S is P's A fragment with the keys of
+//                     each 8 in the order 0, 2, 4, 6 | 1, 3, 5, 7 (c2a), and
+//                     V's B fragment takes keys 2t and 2t+1 to match: no
+//                     shuffle
+//   acc = acc 2^(m_old - m) + pv, on the CUDA cores
+// The tensor cores' sums run over one chunk; chunks meet in fp32 FFMAs, so
+// the result keeps fp32 accuracy over 4096 keys. Every score costs six tf32
+// products, one ex2 and about six other instructions; mma.sync's tf32 rate
+// on the H100 (measured: ~1.8-2.2 SM clocks an m16n8k8, against 1 at the
+// dense TF32 peak) makes the products, not the exponentials, the floor.
 //
 // The online softmax differs from the full-row softmax of the TPU kernel and
 // of the plain version only by rounding.
@@ -61,6 +82,9 @@
 
 namespace {
 
+using tinyhead::cp_async;
+using tinyhead::cp_async_commit;
+using tinyhead::cp_async_wait;
 using tinyhead::kD;
 using tinyhead::kLog2e;
 
@@ -206,87 +230,190 @@ __global__ void __launch_bounds__(kThreads, 4) tinyhead_fwd_mma_kernel(
   }
 }
 
-// ---- fp32: CUDA cores -----------------------------------------------------
+// ---- fp32: tensor cores, split TF32 -------------------------------------
 
-constexpr int kQ = 128;     // queries per block = threads per block
-constexpr int kKTF = kQ;    // K/V rows per shared-memory tile: one per thread
-constexpr int kChunkF = 16; // keys per online-softmax update
+// one 16-byte row of 4 fp32 values a stored row half; V transposed: a dim's
+// row of the tile's keys, 4 floats of padding so that an ldmatrix phase's 8
+// rows (33 16-byte units apart) fall in distinct banks
+constexpr int kVS = kKT + 4;
 
-__global__ void __launch_bounds__(kQ) tinyhead_fwd_kernel(
+__global__ void __launch_bounds__(kThreads, 3) tinyhead_fwd_tf32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ out, float* __restrict__ lse, int s, int d, float scale_log2) {
-  __shared__ float ks[kKTF][kD];
-  __shared__ float vs[kKTF][kD];
+    float* __restrict__ out, float* __restrict__ lse, int s, int d, float c) {
+  using namespace tinyhead;
+  // [buffer][hi, lo]: K rows (swizzled 8-float rows), V transposed
+  __shared__ __align__(16) float ks[2][2][kKT * kD];
+  __shared__ __align__(16) float vs[2][2][kD * kVS];
+  // the next tile's rows as they land (cp.async, d == 8): thread i's K and V row
+  __shared__ __align__(16) float raw[2][kKT * kD];
 
   const size_t head = static_cast<size_t>(blockIdx.x) * s * d;
-  const int tid = threadIdx.x;
-  const int qi = blockIdx.y * kQ + tid;
-  const bool valid = qi < s;
+  q += head;
+  k += head;
+  v += head;
+  out += head;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.y * kRows + warp * kMT * 16;
 
-  float qr[kD], acc[kD];
+  uint32_t qa[kMT][2][4];  // q c as {hi, lo} A fragments
+  float acc[kMT][4], m[kMT][2], l[kMT][2];
 #pragma unroll
-  for (int c = 0; c < kD; ++c) {
-    qr[c] = (valid && c < d) ? q[head + static_cast<size_t>(qi) * d + c] * scale_log2 : 0.f;
-    acc[c] = 0.f;
-  }
-  float m = -INFINITY;  // running max of the scores (base 2)
-  float l = 0.f;        // running sum of 2^(score - m)
-
-  for (int j0 = 0; j0 < s; j0 += kKTF) {
-    const int n = min(kKTF, s - j0);
-    __syncthreads();  // every thread is done with the previous tile
-    if (tid < n) {
-      const size_t r = head + static_cast<size_t>(j0 + tid) * d;
+  for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
-      for (int c = 0; c < kD; ++c) {
-        ks[tid][c] = c < d ? k[r + c] : 0.f;
-        vs[tid][c] = c < d ? v[r + c] : 0.f;
-      }
+    for (int i = 0; i < 4; ++i) {
+      const float x = load_at(q, row0 + mt * 16 + g + 8 * (i & 1), t + 4 * (i >> 1), s, d);
+      split_tf32(x * c, qa[mt][0][i], qa[mt][1][i]);
+      acc[mt][i] = 0.f;
     }
-    __syncthreads();
-
-    // every chunk holds at least one valid key, so m is finite after the
-    // first and 2^(m - m_new) is 0, not NaN, on the first rescale
-    for (int c0 = 0; c0 < n; c0 += kChunkF) {
-      float sc[kChunkF];
-      float cmax = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < kChunkF; ++j) {
-        float x = -INFINITY;
-        if (c0 + j < n) {
-          x = 0.f;
-#pragma unroll
-          for (int c = 0; c < kD; ++c) x = fmaf(qr[c], ks[c0 + j][c], x);
-        }
-        sc[j] = x;
-        cmax = fmaxf(cmax, x);
-      }
-      const float m_new = fmaxf(m, cmax);
-      const float corr = exp2f(m - m_new);
-      l *= corr;
-#pragma unroll
-      for (int c = 0; c < kD; ++c) acc[c] *= corr;
-#pragma unroll
-      for (int j = 0; j < kChunkF; ++j) {
-        const float p = exp2f(sc[j] - m_new);  // 0 for keys past S
-        l += p;
-        if (c0 + j < n) {
-#pragma unroll
-          for (int c = 0; c < kD; ++c) acc[c] = fmaf(p, vs[c0 + j][c], acc[c]);
-        }
-      }
-      m = m_new;
+    for (int r = 0; r < 2; ++r) {
+      m[mt][r] = -INFINITY;  // running max of the scores (base 2)
+      l[mt][r] = 0.f;        // this lane's part of the running sum
     }
   }
 
-  if (valid) {
-    const float inv = 1.f / l;
-    float* row = out + head + static_cast<size_t>(qi) * d;
+  // this thread's K and V row of a tile, split into the shared buffers
+  auto store_rows = [&](int buf, const float (&kr)[kD], const float (&vr)[kD]) {
+    uint32_t h[kD], lo[kD];
 #pragma unroll
-    for (int c = 0; c < kD; ++c) {
-      if (c < d) row[c] = acc[c] * inv;
+    for (int i = 0; i < kD; ++i) split_tf32(kr[i], h[i], lo[i]);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      *reinterpret_cast<uint4*>(&ks[buf][0][swz(tid, half)]) =
+          make_uint4(h[4 * half], h[4 * half + 1], h[4 * half + 2], h[4 * half + 3]);
+      *reinterpret_cast<uint4*>(&ks[buf][1][swz(tid, half)]) =
+          make_uint4(lo[4 * half], lo[4 * half + 1], lo[4 * half + 2], lo[4 * half + 3]);
     }
-    if (lse != nullptr) lse[static_cast<size_t>(blockIdx.x) * s + qi] = m + log2f(l);
+    const int p = pair_pos(tid);
+#pragma unroll
+    for (int i = 0; i < kD; ++i) {
+      split_tf32(vr[i], h[i], lo[i]);
+      vs[buf][0][i * kVS + p] = __uint_as_float(h[i]);
+      vs[buf][1][i * kVS + p] = __uint_as_float(lo[i]);
+    }
+  };
+
+  // this thread's K and V row `row`: d == 8 by cp.async into `raw`, landed
+  // and read by the same thread in stage(); else by plain loads there
+  auto fetch = [&](int row) {
+    if (d != kD) return;
+    const bool in = row < s;
+    const size_t off = static_cast<size_t>(in ? row : 0) * kD;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      cp_async<16>(&raw[0][tid * kD + 4 * u], k + off + 4 * u, in);
+      cp_async<16>(&raw[1][tid * kD + 4 * u], v + off + 4 * u, in);
+    }
+    cp_async_commit();
+  };
+  auto stage = [&](int buf, int row) {
+    float kr[kD], vr[kD];
+    if (d == kD) {
+      cp_async_wait<0>();
+#pragma unroll
+      for (int i = 0; i < kD; ++i) {
+        kr[i] = raw[0][tid * kD + i];
+        vr[i] = raw[1][tid * kD + i];
+      }
+    } else {
+      load_row(k, row, s, d, kr);
+      load_row(v, row, s, d, vr);
+    }
+    store_rows(buf, kr, vr);
+  };
+
+  const int tiles = (s + kKT - 1) / kKT;
+  fetch(tid);
+  stage(0, tid);
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int j0 = tile * kKT;
+    if (tile + 1 < tiles) fetch(j0 + kKT + tid);  // in flight during this tile
+    __syncthreads();  // this tile stored; every warp done with the other buffer
+    const float* kh = ks[tile & 1][0];
+    const float* kl = ks[tile & 1][1];
+    const float* vh = vs[tile & 1][0];
+    const float* vl = vs[tile & 1][1];
+    const int n = min(kKT, s - j0);  // valid keys in the tile; rows past it are 0
+
+    for (int c0 = 0; c0 < n; c0 += kChunk) {  // every chunk has a valid key
+      uint32_t kb[8][4];  // K^T B fragments {hi b0, hi b1, lo b0, lo b1} of each 8 keys
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) ldsm_x4(kb[nt], frag_rows(kh, kl, c0 + nt * 8, lane));
+      const bool ragged = c0 + kChunk > n;
+
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        float sc[8][4];
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) sc[nt][i] = 0.f;
+          mma_tf32x3(sc[nt], qa[mt], kb[nt]);
+        }
+        if (ragged) {
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if (c0 + nt * 8 + 2 * t + (i & 1) >= n) sc[nt][i] = -INFINITY;
+            }
+          }
+        }
+        float corr[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(sc[nt][2 * r], sc[nt][2 * r + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float mn = fmaxf(m[mt][r], mx);
+          corr[r] = ex2(m[mt][r] - mn);  // 0 on the first chunk
+          m[mt][r] = mn;
+          float sum = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            sc[nt][2 * r] = ex2(sc[nt][2 * r] - mn);  // 0 for masked keys
+            sc[nt][2 * r + 1] = ex2(sc[nt][2 * r + 1] - mn);
+            sum += sc[nt][2 * r] + sc[nt][2 * r + 1];
+          }
+          l[mt][r] = fmaf(l[mt][r], corr[r], sum);
+        }
+        // four accumulators: four chains of dependent products, not one
+        float pv[4][4] = {};
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          uint32_t vb[4], pa[2][4];
+          ldsm_x4(vb, frag_cols(vh, vl, c0 + nt * 8, kVS, lane));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split_tf32(sc[nt][c2a(i)], pa[0][i], pa[1][i]);
+          mma_tf32x3(pv[nt & 3], pa, vb);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float sum = (pv[0][i] + pv[1][i]) + (pv[2][i] + pv[3][i]);
+          acc[mt][i] = fmaf(acc[mt][i], corr[i >> 1], sum);
+        }
+      }
+    }
+    if (tile + 1 < tiles) stage((tile + 1) & 1, j0 + kKT + tid);
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lt = l[mt][r];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const int row = row0 + mt * 16 + g + 8 * r;
+      const float inv = 1.f / lt;
+      store_pair(out, row, 2 * t, s, d, acc[mt][2 * r] * inv, acc[mt][2 * r + 1] * inv);
+      if (lse != nullptr && t == 0 && row < s) {
+        lse[static_cast<size_t>(blockIdx.x) * s + row] = m[mt][r] + log2f(lt);
+      }
+    }
   }
 }
 
@@ -297,8 +424,7 @@ __global__ void __launch_bounds__(kQ) tinyhead_fwd_kernel(
 extern "C" int mdt_tinyhead_attention(const void* q, const void* k, const void* v, void* out,
                                       void* lse, int bh, int s, int d, float scale, int dtype,
                                       void* stream) {
-  static_assert(kRows == kQ, "both instances take 128 queries a block");
-  const int tiles = s > 0 ? (s + kQ - 1) / kQ : 0;
+  const int tiles = s > 0 ? (s + kRows - 1) / kRows : 0;
   if (bh <= 0 || s <= 0 || d <= 0 || d > kD || tiles > 65535 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -306,7 +432,7 @@ extern "C" int mdt_tinyhead_attention(const void* q, const void* k, const void* 
   const float c = scale * kLog2e;
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    tinyhead_fwd_kernel<<<grid, kQ, 0, st>>>(
+    tinyhead_fwd_tf32_kernel<<<grid, kThreads, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(out), static_cast<float*>(lse), s, d, c);
   } else {

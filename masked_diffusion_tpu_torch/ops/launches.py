@@ -2,7 +2,8 @@
 
 Every wrapper of a CUDA kernel counts its launches in its `.launches`
 attribute, where it launches (the split GroupNorm wrappers a launch pair
-each). A CUDA graph replays what it captured without calling the
+each); the tiny-head wrappers count their fp32 kernels' launches apart too,
+in two counters named like wrappers. A CUDA graph replays what it captured without calling the
 wrappers, so train/step.py:TrainEpoch reads the counts
 around a capture (`snapshot`, `since`), sets them back (the capture ran
 nothing) and adds the captured counts on every replay (`add`): the counts
@@ -30,13 +31,16 @@ def wrappers() -> Dict[str, object]:
     from masked_diffusion_tpu_torch.ops.tinyhead_attention import (
         tinyhead_attention,
         tinyhead_attention_backward,
+        tinyhead_attention_backward_fp32,
+        tinyhead_attention_fp32,
     )
 
     return {f.__name__: f for f in (fused_degrade_update, group_norm_silu,
                                     group_norm_silu_backward, exact_count_masks,
                                     tinyhead_attention, tinyhead_attention_backward,
                                     fused_degrade_update_sharded, exact_count_masks_sharded,
-                                    group_norm_split, group_norm_split_backward)}
+                                    group_norm_split, group_norm_split_backward,
+                                    tinyhead_attention_fp32, tinyhead_attention_backward_fp32)}
 
 
 def snapshot() -> Dict[str, int]:

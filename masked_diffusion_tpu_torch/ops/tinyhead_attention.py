@@ -25,14 +25,16 @@ out in q's dtype.
                                differentiable in q, k and v
   tinyhead_forward             the forward's wrapper: (out, lse)
   tinyhead_attention_backward  the backward's wrapper: (dq, dk, dv)
-  tinyhead_bwd_plan            the bf16 backward kernel's launch plan: keys a
+  tinyhead_bwd_plan            the backward kernel's launch plan: keys a
                                CTA, slices a head, warps a CTA, workspace
 
 The gradient is an autograd Function, as the JAX custom VJP (whose `_bwd`
 recomputes through the einsums): its forward saves q, k, v, out and the
 log-sum-exp, and its backward runs the backward kernel. CPU tensors run the
 plain versions, forward and backward; CUDA tensors launch the kernels, or
-raise on what they do not take. Each wrapper counts its launches.
+raise on what they do not take. Each wrapper counts its launches, and
+apart its fp32 instances' (tinyhead_attention_fp32,
+tinyhead_attention_backward_fp32: split-TF32 kernels on the tensor cores).
 """
 
 from __future__ import annotations
@@ -50,12 +52,15 @@ HEAD_DIM_MAX = 8
 SEQ_MIN = 128
 LOG2E = math.log2(math.e)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: keys a warp of the bf16 backward kernel owns (four 16-key mma tiles)
-BWD_WARP_KEYS = 64
-#: warps a CTA of the bf16 backward kernel: at least 4 (a thread a query row
-#: of a 64-query chunk), at most 16 (1024 keys a pass)
+#: keys a warp of the backward kernel owns, by element size: bf16 four
+#: 16-key mma tiles, fp32 two (its split-TF32 fragments take four times
+#: bf16's registers)
+BWD_WARP_KEYS = {2: 64, 4: 32}
+#: warps a CTA of the backward kernel: at least 4 (a thread a query row of a
+#: 64-query chunk; fp32 two), at most, by element size, 16 in bf16 (1024 keys
+#: a pass) and 8 in fp32 (256)
 BWD_MIN_WARPS = 4
-BWD_MAX_WARPS = 16
+BWD_MAX_WARPS = {2: 16, 4: 8}
 #: the backward's peak extra device memory (its outputs and workspace)
 #: stays under this many times the bytes of q, k, v, out and dO
 BWD_MEMORY_SHARE = 4
@@ -124,10 +129,11 @@ def tinyhead_backward_plain(q, k, v, out, lse, g, scale: float):
 
 
 class TinyheadBwdPlan(NamedTuple):
-    """Launch plan of the bf16 backward kernel (csrc/tinyhead_attention_bwd.cu).
-    CTA i of a head owns keys [i * keys, (i + 1) * keys) and covers them in
-    keys / (64 * warps) passes; warp w of pass p owns the 64 keys from
-    i * keys + (p * warps + w) * 64."""
+    """Launch plan of the backward kernel (csrc/tinyhead_attention_bwd.cu).
+    With n = BWD_WARP_KEYS of the dtype (bf16 64, fp32 32), CTA i of a head
+    owns keys [i * keys, (i + 1) * keys) and covers them in keys / (n *
+    warps) passes; warp w of pass p owns the n keys from i * keys + (p *
+    warps + w) * n."""
 
     keys: int  # keys a CTA
     slices: int  # CTAs a head
@@ -136,38 +142,43 @@ class TinyheadBwdPlan(NamedTuple):
     # of one pass, and the kernel writes dq itself
 
 
-def tinyhead_bwd_max_slices(d: int) -> int:
-    """Most slices whose fp32 workspace (32 bytes a row a slice) and bf16
-    dq, dk, dv stay under BWD_MEMORY_SHARE times the bf16 q, k, v, out and
-    dO (2d bytes a row each)."""
-    return max(1, (BWD_MEMORY_SHARE * 5 * 2 * d - 3 * 2 * d - 1) // (4 * HEAD_DIM_MAX))
+def tinyhead_bwd_max_slices(d: int, elem: int = 2) -> int:
+    """Most slices whose fp32 workspace (32 bytes a row a slice) and dq,
+    dk, dv stay under BWD_MEMORY_SHARE times q, k, v, out and dO (elem * d
+    bytes a row each; elem 2 for bf16, 4 for fp32)."""
+    return max(1, (BWD_MEMORY_SHARE * 5 * elem * d - 3 * elem * d - 1) // (4 * HEAD_DIM_MAX))
 
 
-def tinyhead_bwd_plan(bh: int, s: int, sms: int, d: int = HEAD_DIM_MAX) -> TinyheadBwdPlan:
-    """The bf16 backward kernel's plan for bh heads of S queries and keys of
-    width d on a card of `sms` SMs. Slices: the fewest that give each CTA
-    at most 16 warps of 64 keys in one pass, doubled while bh * slices
-    stays under one CTA an SM and a CTA keeps 4 warps, never more than
-    tinyhead_bwd_max_slices(d); a wider slice runs in passes. Warps: the
-    fewest that cover a slice's share of a pass. Raises on what the kernel
-    does not take (bh < 1; S < 128 or d > 8)."""
-    if bh <= 0 or sms <= 0 or not tinyhead_supported(s, d):
-        raise ValueError(f"tinyhead_bwd_plan: bh {bh}, S {s}, d {d}, {sms} SMs: the kernel "
-                         f"takes bh >= 1, S >= {SEQ_MIN}, d <= {HEAD_DIM_MAX}")
+def tinyhead_bwd_plan(bh: int, s: int, sms: int, d: int = HEAD_DIM_MAX,
+                      elem: int = 2) -> TinyheadBwdPlan:
+    """The backward kernel's plan for bh heads of S queries and keys of
+    width d and elem bytes (2 bf16, 4 fp32) on a card of `sms` SMs. With n
+    = BWD_WARP_KEYS[elem] and W = BWD_MAX_WARPS[elem]: slices, the fewest
+    that give each CTA at most W warps of n keys in one pass, doubled while
+    bh * slices stays under one CTA an SM and a CTA keeps 4 warps, never
+    more than tinyhead_bwd_max_slices(d, elem); a wider slice runs in
+    passes. Warps: the fewest that cover a slice's share of a pass. Raises
+    on what the kernel does not take (bh < 1; S < 128 or d > 8; elem not 2
+    or 4)."""
+    if bh <= 0 or sms <= 0 or not tinyhead_supported(s, d) or elem not in BWD_WARP_KEYS:
+        raise ValueError(f"tinyhead_bwd_plan: bh {bh}, S {s}, d {d}, {elem}-byte elements, "
+                         f"{sms} SMs: the kernel takes bh >= 1, S >= {SEQ_MIN}, "
+                         f"d <= {HEAD_DIM_MAX}, bf16 or fp32")
 
     def ceil(a, b):
         return -(-a // b)
 
-    pass_keys = BWD_WARP_KEYS * BWD_MAX_WARPS
-    cap = tinyhead_bwd_max_slices(d)
+    warp_keys = BWD_WARP_KEYS[elem]
+    pass_keys = warp_keys * BWD_MAX_WARPS[elem]
+    cap = tinyhead_bwd_max_slices(d, elem)
     slices = min(cap, ceil(s, pass_keys))
-    most = min(cap, ceil(s, BWD_WARP_KEYS * BWD_MIN_WARPS))
+    most = min(cap, ceil(s, warp_keys * BWD_MIN_WARPS))
     while slices < most and bh * slices < sms:
         slices = min(most, 2 * slices)
     while True:
         passes = ceil(s, slices * pass_keys)
-        warps = max(BWD_MIN_WARPS, ceil(s, slices * passes * BWD_WARP_KEYS))
-        keys = warps * BWD_WARP_KEYS * passes
+        warps = max(BWD_MIN_WARPS, ceil(s, slices * passes * warp_keys))
+        keys = warps * warp_keys * passes
         if (slices - 1) * keys < s:  # no slice empty
             break
         slices -= 1
@@ -241,6 +252,8 @@ def tinyhead_forward(q, k, v, scale: float, with_lse: bool = True):
         )
     build.check(lib, code, "tinyhead_attention")
     tinyhead_attention.launches += 1
+    if q.dtype == torch.float32:
+        tinyhead_attention_fp32.launches += 1
     return out, lse
 
 
@@ -251,32 +264,29 @@ def tinyhead_attention_backward(q, k, v, out, lse, g, scale: float):
     tensors launch the backward kernel, or raise on what it does not take."""
     if q.device.type == "cpu":
         return tinyhead_backward_plain(q, k, v, out, lse, g, scale)
-    plan = None
-    if q.dtype == torch.bfloat16:
-        b, h, s, d = q.shape
-        index = q.device.index if q.device.index is not None else torch.cuda.current_device()
-        plan = tinyhead_bwd_plan(b * h, s, _sm_count(index), d)
+    b, h, s, d = q.shape
+    index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    plan = tinyhead_bwd_plan(b * h, s, _sm_count(index), d, q.element_size())
     return launch_backward(q, k, v, out, lse, g, scale, plan)
 
 
 def launch_backward(q, k, v, out, lse, g, scale: float, plan):
-    """The backward kernel on CUDA tensors: bf16 on `plan` (a
-    TinyheadBwdPlan; the kernel refuses one it does not take, and the
-    wrapper raises), fp32 with plan None. Allocates dq, dk, dv and the plan's
-    workspace. One launch of kernel 4b to the count, the slice sum
-    included."""
+    """The backward kernel on CUDA tensors on `plan` (a TinyheadBwdPlan,
+    bf16 or fp32 alike; the kernel refuses one it does not take, and the
+    wrapper raises). Allocates dq, dk, dv and the plan's workspace. One
+    launch of kernel 4b to the count, the slice sum included."""
     what = "tinyhead_attention_backward"
+    if not isinstance(plan, TinyheadBwdPlan):
+        raise ValueError(f"{what}: the kernel takes a plan (tinyhead_bwd_plan), got {plan!r}")
     _kernel_inputs(what, (q, k, v, out, g), lse)
-    if (plan is None) != (q.dtype != torch.bfloat16):
-        raise ValueError(f"{what}: a bf16 backward takes a plan, an fp32 one none")
     b, h, s, d = q.shape
     lib = build.load_library()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     ws = None
-    if plan is not None and plan.workspace:
+    if plan.workspace:
         ws = torch.empty((plan.slices, b * h, s, HEAD_DIM_MAX), dtype=torch.float32,
                          device=q.device)
-    keys, slices, warps = plan[:3] if plan is not None else (0, 0, 0)
+    keys, slices, warps = plan[:3]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.mdt_tinyhead_attention_bwd(
@@ -287,6 +297,8 @@ def launch_backward(q, k, v, out, lse, g, scale: float, plan):
         )
     build.check(lib, code, what)
     tinyhead_attention_backward.launches += 1
+    if q.dtype == torch.float32:
+        tinyhead_attention_backward_fp32.launches += 1
     return dq, dk, dv
 
 
@@ -322,3 +334,18 @@ def tinyhead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 tinyhead_attention.launches = 0
 #: backward kernel launches since the count was last set to 0
 tinyhead_attention_backward.launches = 0
+
+
+class _InstanceCount:
+    """The launch count of one dtype's kernel among those one wrapper
+    launches; ops/launches.py reads and sets it beside the wrappers'."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
+#: the fp32 (split-TF32) forward kernel's launches, also in tinyhead_attention's
+tinyhead_attention_fp32 = _InstanceCount("tinyhead_attention_fp32")
+#: the fp32 backward kernel's launches, also in tinyhead_attention_backward's
+tinyhead_attention_backward_fp32 = _InstanceCount("tinyhead_attention_backward_fp32")

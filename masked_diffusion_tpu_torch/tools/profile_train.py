@@ -1,11 +1,12 @@
 """One torch.profiler window of a train step on the card.
 
     python -m masked_diffusion_tpu_torch.tools.profile_train [--config flagship]
-        [--steps 5] [--out FILE]
+        [--mixed_precision bf16] [--steps 5] [--out FILE]
     python -m masked_diffusion_tpu_torch.tools.profile_train --compare A.json B.json
 
-Builds a UNet and the port's train step in bf16 (AdamW + cosine at lr 1e-4,
-EMA on, mean_shift with a 1-d_constant shift). --config picks it:
+Builds a UNet and the port's train step (AdamW + cosine at lr 1e-4, EMA on,
+mean_shift with a 1-d_constant shift) at --mixed_precision (bf16, the
+default, or no: fp32, the CLI's default). --config picks it:
 
   flagship   the factory default (113.7M parameters) at 64x64x3, batch 64,
              linear+thresholding (T=1000) and log+indexing (T=4096)
@@ -27,7 +28,8 @@ self CPU time, and per step every kernel's and every host operator's calls
 and the host's launch calls (cudaLaunchKernel, cuLaunchKernelEx, ...) by
 name.
 Prints one JSON object per mode and writes them all to --out (default
-build/profile_train_<config>.json). Needs CUDA.
+build/profile_train_<config>.json, or _<config>_fp32.json at
+--mixed_precision no). Needs CUDA.
 
 --compare reads two such files (say, the parent tree's and a change's,
 both written by this script back to back on one card) and prints, per
@@ -126,7 +128,8 @@ def _timed_wrappers():
     return stats, restore
 
 
-def profile_mode(config: str, sched: str, select: str, t_steps: int, steps: int) -> dict:
+def profile_mode(config: str, sched: str, select: str, t_steps: int, steps: int,
+                 precision: str = "bf16") -> dict:
     import numpy as np
     import torch
 
@@ -142,7 +145,7 @@ def profile_mode(config: str, sched: str, select: str, t_steps: int, steps: int)
         "--method", "mean_shift", "--data_size", str(size), "--ddpm_schedule", sched,
         "--ddpm_num_steps", str(t_steps), "--select_degrade_pixel", select,
         "--mean_option", "degraded_area", "--shift_type", "1-d_constant",
-        "--mixed_precision", "bf16", "--optim", "adamw", "--lr_scheduler", "cosine",
+        "--mixed_precision", precision, "--optim", "adamw", "--lr_scheduler", "cosine",
         "--lr", "1e-4", "--lr_warmup_steps", "0",
     ])
     schedule = build_schedule(sched, t_steps, size, select)
@@ -182,7 +185,8 @@ def profile_mode(config: str, sched: str, select: str, t_steps: int, steps: int)
     own = {k: sum(r[1] for r in rows if any(f in r[0] for f in frags)) / steps
            for k, frags in OWN.items()}
     return {
-        "config": config, "mode": f"{sched}+{select}", "batch": batch, "size": size,
+        "config": config, "mode": f"{sched}+{select}", "precision": precision, "batch": batch,
+        "size": size,
         "steps_profiled": steps,
         "wall_ms_per_step": wall_ms, "profiled_wall_ms_per_step": window_ms,
         "device_busy_ms_per_step": busy,
@@ -247,6 +251,8 @@ def main(argv=None) -> int:
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--config", choices=sorted(CONFIGS), default="flagship")
+    p.add_argument("--mixed_precision", choices=("bf16", "no"), default="bf16",
+                   help="the step's precision: bf16 autocast, or no (fp32)")
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--out", default=None)
     p.add_argument("--compare", nargs=2, metavar=("A", "B"), default=None,
@@ -256,7 +262,8 @@ def main(argv=None) -> int:
         for row in compare(*args.compare):
             print(json.dumps(row), flush=True)
         return 0
-    out = args.out or os.path.join("build", f"profile_train_{args.config}.json")
+    tag = "" if args.mixed_precision == "bf16" else "_fp32"
+    out = args.out or os.path.join("build", f"profile_train_{args.config}{tag}.json")
     if not torch.cuda.is_available():
         print("profile_train: CUDA is not available", file=sys.stderr)
         return 2
@@ -266,7 +273,7 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     results = []
     for sched, select, t_steps in CONFIGS[args.config][4]:
-        r = profile_mode(args.config, sched, select, t_steps, args.steps)
+        r = profile_mode(args.config, sched, select, t_steps, args.steps, args.mixed_precision)
         r["card"] = card
         results.append(r)
         print(json.dumps(r), flush=True)

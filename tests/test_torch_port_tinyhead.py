@@ -15,7 +15,12 @@ the JAX custom VJP's backward and against autograd through the plain
 version. The AttentionBlock routes by shape, as the JAX block does with
 tiny_flash on. The CUDA kernels themselves are held against the plain
 versions on the card (chip_smoke.py phase 11, and the cuda-marked test
-here).
+here). A CPU model of the fp32 kernels' split-TF32 arithmetic (each product
+as three tf32 products, tf32 rounding done on the bits as cvt.rna rounds
+and as the tensor cores truncate,
+dQ summed on the fp32 plan) holds against the JAX fp32 kernel and its
+custom VJP within (1e-5, 1e-4), where a model with one tf32 product does
+not: the limit tells the two apart.
 """
 
 import math
@@ -156,9 +161,15 @@ def test_backward_plain_matches_autograd_through_plain(shape, name):
                                    rtol=GRAD_TOL[name])
 
 
+def _counts():
+    return (tth.tinyhead_attention.launches, tth.tinyhead_attention_backward.launches,
+            tth.tinyhead_attention_fp32.launches, tth.tinyhead_attention_backward_fp32.launches)
+
+
 def test_cpu_backward_runs_the_plain_version():
     """On the CPU the Function's backward is tinyhead_backward_plain, bitwise,
-    and launches no kernel; the backward wrapper takes CPU tensors to it."""
+    and launches no kernel (no count moves, the fp32 instances' neither);
+    the backward wrapper takes CPU tensors to it."""
     shape = (1, 2, 128, 8)
     arrays = _qkv(shape, 24)
     g = torch.from_numpy(np.random.default_rng(25).normal(size=shape).astype(np.float32))
@@ -166,11 +177,11 @@ def test_cpu_backward_runs_the_plain_version():
     qt, kt, vt = _torch(arrays, "float32")
     out, lse = tth.tinyhead_forward_plain(qt, kt, vt, scale)
     want = tth.tinyhead_backward_plain(qt, kt, vt, out, lse, g, scale)
-    before = (tth.tinyhead_attention.launches, tth.tinyhead_attention_backward.launches)
+    before = _counts()
     leaves = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
     got = torch.autograd.grad(tth.tinyhead_attention(*leaves, scale), leaves, g)
     wrapped = tth.tinyhead_attention_backward(qt, kt, vt, out, lse, g, scale)
-    assert (tth.tinyhead_attention.launches, tth.tinyhead_attention_backward.launches) == before
+    assert _counts() == before
     for a, b, w in zip(got, wrapped, want):
         torch.testing.assert_close(a, w, rtol=0, atol=0)
         torch.testing.assert_close(b, w, rtol=0, atol=0)
@@ -192,16 +203,26 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
     q = torch.zeros(1, 2, 128, 8)
     with pytest.raises(ValueError, match="equal"):
         tth.tinyhead_attention(q, q[:, :1], q, 1.0)
+    # the backward kernel takes a plan in fp32 as in bf16, checked before the device
+    lse = torch.zeros(1, 2, 128)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = q.to(dtype)
+        with pytest.raises(ValueError, match="takes a plan"):
+            tth.launch_backward(x, x, x, x, lse, x, 1.0, None)
+        plan = tth.tinyhead_bwd_plan(2, 128, 132, 8, x.element_size())
+        with pytest.raises(RuntimeError, match="no kernel for cpu"):
+            tth.launch_backward(x, x, x, x, lse, x, 1.0, plan)
 
 
 PLAN_S = (128, 200, 256, 384, 1024, 4096)
 PLAN_BH = (2, 64, 512)  # the zoo's batch x heads: 4 x 16 at S=4096, 32 x 16 at S=1024
+PLAN_ELEM = (2, 4)  # bytes of an element: bf16, fp32
 
 
-def _plan_warp_keys(plan, s):
+def _plan_warp_keys(plan, s, elem=2):
     """{(slice, pass, warp): the keys it owns}, as the backward kernel maps
     them (csrc/tinyhead_attention_bwd.cu: key0)."""
-    wk = tth.BWD_WARP_KEYS
+    wk = tth.BWD_WARP_KEYS[elem]
     passes = plan.keys // (wk * plan.warps)
     out = {}
     for sl in range(plan.slices):
@@ -212,63 +233,68 @@ def _plan_warp_keys(plan, s):
     return out
 
 
+@pytest.mark.parametrize("elem", PLAN_ELEM)
 @pytest.mark.parametrize("bh", PLAN_BH)
 @pytest.mark.parametrize("d", [4, 8])
 @pytest.mark.parametrize("s", PLAN_S)
-def test_bwd_plan_covers_every_key_once(s, d, bh):
-    plan = tth.tinyhead_bwd_plan(bh, s, 132, d)
-    assert tth.BWD_MIN_WARPS <= plan.warps <= tth.BWD_MAX_WARPS
-    assert plan.keys % (tth.BWD_WARP_KEYS * plan.warps) == 0
-    assert 1 <= plan.slices <= tth.tinyhead_bwd_max_slices(d)
+def test_bwd_plan_covers_every_key_once(s, d, bh, elem):
+    plan = tth.tinyhead_bwd_plan(bh, s, 132, d, elem)
+    assert tth.BWD_MIN_WARPS <= plan.warps <= tth.BWD_MAX_WARPS[elem]
+    assert plan.keys % (tth.BWD_WARP_KEYS[elem] * plan.warps) == 0
+    assert 1 <= plan.slices <= tth.tinyhead_bwd_max_slices(d, elem)
     assert (plan.slices - 1) * plan.keys < s <= plan.slices * plan.keys  # no slice empty
     seen = np.zeros(s, dtype=int)
-    for keys in _plan_warp_keys(plan, s).values():
+    for keys in _plan_warp_keys(plan, s, elem).values():
         seen[list(keys)] += 1
     assert (seen == 1).all()
 
 
+@pytest.mark.parametrize("elem", PLAN_ELEM)
 @pytest.mark.parametrize("bh", PLAN_BH)
 @pytest.mark.parametrize("d", [4, 8])
 @pytest.mark.parametrize("s", PLAN_S)
-def test_bwd_plan_workspace_within_memory_share(s, d, bh):
-    """The workspace, with the bf16 dq, dk and dv, stays under
-    BWD_MEMORY_SHARE times the bf16 q, k, v, out and dO (phase 11's peak
-    limit); it is there exactly when dQ has parts to sum."""
-    plan = tth.tinyhead_bwd_plan(bh, s, 132, d)
-    inputs = 5 * bh * s * d * 2
-    parts = plan.slices > 1 or plan.keys > tth.BWD_WARP_KEYS * plan.warps
+def test_bwd_plan_workspace_within_memory_share(s, d, bh, elem):
+    """The workspace, with dq, dk and dv, stays under BWD_MEMORY_SHARE
+    times q, k, v, out and dO in the same dtype (phase 11's peak limit); it
+    is there exactly when dQ has parts to sum."""
+    plan = tth.tinyhead_bwd_plan(bh, s, 132, d, elem)
+    inputs = 5 * bh * s * d * elem
+    parts = plan.slices > 1 or plan.keys > tth.BWD_WARP_KEYS[elem] * plan.warps
     assert plan.workspace == (plan.slices * bh * s * tth.HEAD_DIM_MAX * 4 if parts else 0)
-    assert plan.workspace + 3 * bh * s * d * 2 < tth.BWD_MEMORY_SHARE * inputs
+    assert plan.workspace + 3 * bh * s * d * elem < tth.BWD_MEMORY_SHARE * inputs
 
 
-@pytest.mark.parametrize("bh, s, sms, d", [(0, 256, 132, 8), (8, 127, 132, 8), (8, 256, 132, 9),
-                                           (8, 256, 0, 8), (8, 64, 132, 4)])
-def test_bwd_plan_refuses_what_the_kernel_does_not_take(bh, s, sms, d):
+@pytest.mark.parametrize("bh, s, sms, d, elem", [
+    (0, 256, 132, 8, 2), (8, 127, 132, 8, 2), (8, 256, 132, 9, 2), (8, 256, 0, 8, 2),
+    (8, 64, 132, 4, 2), (0, 256, 132, 8, 4), (8, 127, 132, 8, 4), (8, 256, 132, 9, 4),
+    (8, 256, 132, 8, 1), (8, 256, 132, 8, 8)])
+def test_bwd_plan_refuses_what_the_kernel_does_not_take(bh, s, sms, d, elem):
     with pytest.raises(ValueError, match="tinyhead_bwd_plan"):
-        tth.tinyhead_bwd_plan(bh, s, sms, d)
+        tth.tinyhead_bwd_plan(bh, s, sms, d, elem)
 
 
+@pytest.mark.parametrize("elem", PLAN_ELEM)
 @pytest.mark.parametrize("shape", [(1, 2, 384, 8), (1, 2, 1024, 4), (1, 1, 4096, 8),
                                    (1, 1, 4096, 2)])
-def test_dq_summed_by_plan_matches_plain_and_jax(shape):
-    """dQ as the bf16 kernel sums it on its plan, in fp32 (the plain
-    version's dS): each warp's 32 keys, the warps of a pass in order, the
-    passes of a slice in order, then the slices in index order, scaled once;
-    against tinyhead_backward_plain's dq and the JAX custom VJP's _bwd at the
-    fp32 tolerance. The shapes take 2, 4, 8 and 2 slices, the last in 2
-    passes."""
+def test_dq_summed_by_plan_matches_plain_and_jax(shape, elem):
+    """dQ as the kernel sums it on its plan (bf16's, elem 2, or fp32's, 4),
+    in fp32 (the plain version's dS): each warp's keys, the warps of a pass
+    in order, the passes of a slice in order, then the slices in index
+    order, scaled once; against tinyhead_backward_plain's dq and the JAX
+    custom VJP's _bwd at the fp32 tolerance. bf16 takes 2, 4, 8 and 2 slices,
+    the last in 2 passes; fp32 3, 8, 16 and 4."""
     b, h, s, d = shape
     q, k, v = _qkv(shape, 30)
     g = np.random.default_rng(31).normal(size=shape).astype(np.float32)
     scale = 1.0 / math.sqrt(d)
     qt, kt, vt, gt = (torch.from_numpy(t) for t in (q, k, v, g))
     out, lse = tth.tinyhead_forward_plain(qt, kt, vt, scale)
-    plan = tth.tinyhead_bwd_plan(b * h, s, 132, d)
+    plan = tth.tinyhead_bwd_plan(b * h, s, 132, d, elem)
     p = torch.exp2(torch.einsum("bhsd,bhtd->bhst", qt, kt) * (scale * tth.LOG2E)
                    - lse[..., None])
     ds = p * (torch.einsum("bhsd,bhtd->bhst", gt, vt) - (gt * out).sum(-1, keepdim=True))
-    owned = _plan_warp_keys(plan, s)
-    passes = plan.keys // (tth.BWD_WARP_KEYS * plan.warps)
+    owned = _plan_warp_keys(plan, s, elem)
+    passes = plan.keys // (tth.BWD_WARP_KEYS[elem] * plan.warps)
     total = None
     for sl in range(plan.slices):
         for pas in range(passes):
@@ -286,6 +312,131 @@ def test_dq_summed_by_plan_matches_plain_and_jax(shape):
     assert plan.slices > 1
     np.testing.assert_allclose(got, plain, atol=TOL["float32"], rtol=TOL["float32"])
     np.testing.assert_allclose(got, np.asarray(want), atol=TOL["float32"], rtol=TOL["float32"])
+
+
+# the fp32 kernels' arithmetic (csrc/tinyhead_mma.cuh): a split-TF32 product
+# against one tf32 product, at S in {128, 200, 384} and d in {4, 8}
+MODEL_SHAPES = [(1, 2, s, d) for s in (128, 200, 384) for d in (4, 8)]
+MODEL_TOL = (1e-5, 1e-4)  # (atol, rtol): chip_smoke.py's TINYHEAD_FP32_TOL
+
+
+def _tf32(x):
+    """fp32 x rounded to tf32 as cvt.rna.tf32.f32 rounds it: to nearest, ties
+    away from zero, on the bits (add 0x1000, clear the 13 low bits)."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _truncated(x):
+    """fp32 x as a tf32 product reads it: its 13 low bits dropped."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm(a, b, split=True):
+    """a @ b in fp32 as the fp32 kernels' tensor cores form it: split, the
+    three products lo hi + hi lo + hi hi of x = hi + lo (hi = tf32(x), lo = x
+    - hi, which the product truncates to tf32); else one tf32 product.
+    Products exact, sums in float64."""
+    def parts(x):
+        hi = _tf32(x)
+        return hi.astype(np.float64), _truncated(x - hi).astype(np.float64)
+
+    (ah, al), (bh, bl) = parts(a), parts(b)
+    if not split:
+        return (ah @ bh).astype(np.float32)
+    return (al @ bh + ah @ bl + ah @ bh).astype(np.float32)
+
+
+def _model_forward(q, k, v, scale, split=True):
+    """(out, lse) as tinyhead_fwd_tf32_kernel computes them: scores of q c
+    (c = scale log2 e) in base 2, P = 2^(S - max) split into the P V
+    product, the row sum in fp32, out = P V / sum, lse = max + log2 sum."""
+    c = np.float32(scale * tth.LOG2E)
+    sc = _mm(q * c, np.swapaxes(k, -1, -2), split)
+    m = sc.max(-1, keepdims=True)
+    p = np.exp2(sc - m)
+    lsum = p.sum(-1, keepdims=True, dtype=np.float32)
+    return _mm(p, v, split) / lsum, (m + np.log2(lsum))[..., 0]
+
+
+def _model_backward(q, k, v, out, lse, g, scale, split=True):
+    """(dq, dk, dv) as the fp32 one-pass kernel computes them: P = 2^(q k^T
+    c - lse), dP - D with D = rowsum(dO O), dS = P (dP - D), the five
+    products split, dQ summed on the fp32 plan (each warp's keys, the warps
+    of a pass, the passes, the slices in order, in fp32) and scaled once."""
+    b, h, s, d = q.shape
+    c = np.float32(scale * tth.LOG2E)
+    p = np.exp2(_mm(q, np.swapaxes(k, -1, -2), split) * c - lse[..., None])
+    dsum = (g * out).sum(-1, keepdims=True, dtype=np.float32)
+    ds = p * (_mm(g, np.swapaxes(v, -1, -2), split) - dsum)
+    dv = _mm(np.swapaxes(p, -1, -2), g, split)
+    dk = _mm(np.swapaxes(ds, -1, -2), q, split) * np.float32(scale)
+    plan = tth.tinyhead_bwd_plan(b * h, s, 132, d, 4)
+    owned = _plan_warp_keys(plan, s, 4)
+    passes = plan.keys // (tth.BWD_WARP_KEYS[4] * plan.warps)
+    dq = np.zeros_like(q)
+    for sl in range(plan.slices):
+        for pas in range(passes):
+            for w in range(plan.warps):
+                idx = list(owned[(sl, pas, w)])
+                if idx:
+                    dq += _mm(ds[..., idx], k[:, :, idx], split)
+    return dq * np.float32(scale), dk, dv
+
+
+@pytest.fixture(scope="module")
+def jax_fp32():
+    """{shape: (inputs, g, JAX interpret-mode fp32 output, the custom VJP's
+    (dq, dk, dv))} at MODEL_SHAPES."""
+    out = {}
+    for i, shape in enumerate(MODEL_SHAPES):
+        q, k, v = _qkv(shape, 40 + i)
+        g = np.random.default_rng(50 + i).normal(size=shape).astype(np.float32)
+        scale = 1.0 / math.sqrt(shape[-1])
+        jq, jk, jv, jg = (jnp.asarray(t) for t in (q, k, v, g))
+        fwd = np.asarray(jth.tinyhead_attention(jq, jk, jv, scale, 256, True))
+        grads = [np.asarray(x) for x in jth._bwd(scale, 256, True, (jq, jk, jv), jg)]
+        out[shape] = ((q, k, v), g, fwd, grads)
+    return out
+
+
+def _limit_ratio(got, want):
+    """The largest |got - want| over the fp32 limit atol + rtol |want|."""
+    return float((np.abs(got - want) / (MODEL_TOL[0] + MODEL_TOL[1] * np.abs(want))).max())
+
+
+@pytest.mark.parametrize("shape", MODEL_SHAPES)
+def test_split_tf32_model_matches_jax_kernel_and_vjp(jax_fp32, shape):
+    """The fp32 kernels' split-TF32 arithmetic, forward and one-pass backward
+    with the plan's dQ sum, within (1e-5, 1e-4) of the JAX fp32 kernel
+    (interpret mode) and its custom VJP; its lse within 1e-5 of the plain
+    version's."""
+    (q, k, v), g, fwd, grads = jax_fp32[shape]
+    scale = 1.0 / math.sqrt(shape[-1])
+    out, lse = _model_forward(q, k, v, scale)
+    assert out.dtype == np.float32 and lse.dtype == np.float32
+    np.testing.assert_allclose(out, fwd, atol=MODEL_TOL[0], rtol=MODEL_TOL[1])
+    _, plain_lse = tth.tinyhead_forward_plain(*(torch.from_numpy(t) for t in (q, k, v)), scale)
+    np.testing.assert_allclose(lse, plain_lse.numpy(), atol=1e-5, rtol=1e-5)
+    for got, want in zip(_model_backward(q, k, v, out, lse, g, scale), grads):
+        assert got.dtype == np.float32
+        np.testing.assert_allclose(got, want, atol=MODEL_TOL[0], rtol=MODEL_TOL[1])
+
+
+@pytest.mark.parametrize("shape", MODEL_SHAPES)
+def test_one_tf32_product_exceeds_the_limit(jax_fp32, shape):
+    """With one tf32 product where the kernels take three, the forward and
+    the backward leave the same limit (several times over): phase 11's fp32
+    limits tell split TF32 apart from TF32."""
+    (q, k, v), g, fwd, grads = jax_fp32[shape]
+    scale = 1.0 / math.sqrt(shape[-1])
+    out, lse = _model_forward(q, k, v, scale, split=False)
+    assert _limit_ratio(out, fwd) > 4
+    got = _model_backward(q, k, v, out, lse, g, scale, split=False)
+    assert max(_limit_ratio(a, w) for a, w in zip(got, grads)) > 4
+    split = _model_forward(q, k, v, scale)[0]
+    assert _limit_ratio(split, fwd) < 0.25
 
 
 def _block_inputs(c, size, seed):
